@@ -1,0 +1,43 @@
+"""Relational operations (counterpart of heat_tpu/core/relational.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from . import _operations
+from .dndarray import DNDarray
+
+__all__ = ["eq", "ge", "gt", "le", "lt", "ne"]
+
+
+def eq(x, y) -> DNDarray:
+    return _operations._binary_op(torch.eq, x, y)
+
+
+def ne(x, y) -> DNDarray:
+    return _operations._binary_op(torch.ne, x, y)
+
+
+def lt(x, y) -> DNDarray:
+    return _operations._binary_op(torch.lt, x, y)
+
+
+def le(x, y) -> DNDarray:
+    return _operations._binary_op(torch.le, x, y)
+
+
+def gt(x, y) -> DNDarray:
+    return _operations._binary_op(torch.gt, x, y)
+
+
+def ge(x, y) -> DNDarray:
+    return _operations._binary_op(torch.ge, x, y)
+
+
+DNDarray.__eq__ = lambda self, other: eq(self, other)
+DNDarray.__ne__ = lambda self, other: ne(self, other)
+DNDarray.__lt__ = lambda self, other: lt(self, other)
+DNDarray.__le__ = lambda self, other: le(self, other)
+DNDarray.__gt__ = lambda self, other: gt(self, other)
+DNDarray.__ge__ = lambda self, other: ge(self, other)
+DNDarray.__hash__ = object.__hash__

@@ -1,0 +1,46 @@
+"""Collectives over a list of shards, one tensor per mesh position
+(counterpart of heat_tpu/parallel/collectives.py).
+
+Under the single controller every position's tensor is in hand, so a
+collective is a plain operation over the list.  Each returns one result per
+position, as a collective inside ``shard_map`` does.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+__all__ = ["psum", "pmin", "all_gather", "bcast"]
+
+
+def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return t if t.device == like.device else t.to(like.device)
+
+
+def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """All-reduce sum: every position receives the sum of all parts."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + _to(p, total)
+    return [_to(total, p) for p in parts]
+
+
+def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """All-reduce elementwise minimum."""
+    low = parts[0]
+    for p in parts[1:]:
+        low = torch.minimum(low, _to(p, low))
+    return [_to(low, p) for p in parts]
+
+
+def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
+    """Concatenate every position's block along ``dim``, on every position."""
+    whole = torch.cat([_to(p, parts[0]) for p in parts], dim=dim)
+    return [_to(whole, p) for p in parts]
+
+
+def bcast(parts: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """Every position receives the ``root`` position's tensor."""
+    return [_to(parts[root], p) for p in parts]

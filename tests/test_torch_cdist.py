@@ -1,0 +1,175 @@
+"""K1, the fused squared-distance kernel, and ``spatial.cdist``: heat_tpu_torch
+against heat_tpu on the CPU, and the CUDA kernel against its plain version
+on the card.
+
+Tolerance: the kernels sum the cross term and the norms in different orders,
+and the expansion cancels, so squared distances agree to
+|Δd2| ≤ 1e-5·(‖x‖²+‖y‖²) elementwise; distances are compared through their
+squares.  Exact agreement is required of shapes, splits and shard layouts.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu_torch as htt
+from heat_tpu_torch.ops import cdist as k1
+
+
+@pytest.fixture(scope="module")
+def ht():
+    """The JAX package, the reference of the parity tests (the tests that
+    need only the card run without it)."""
+    return pytest.importorskip("heat_tpu", reason="the parity tests need the JAX package")
+
+
+MESHES = (1, 4, 8)
+
+
+def _check_d2(got, want, x, y, sqrt):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if sqrt:
+        got, want = got**2, want**2
+    scale = (x.astype(np.float64) ** 2).sum(1)[:, None] + (y.astype(np.float64) ** 2).sum(1)[None, :]
+    assert np.all(np.abs(got - want) <= 1e-5 * scale + 1e-30), np.max(np.abs(got - want) / (scale + 1e-30))
+
+
+def _data(m, n, d, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(m, d)).astype(dtype), rng.normal(size=(n, d)).astype(dtype)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(37, 8, 5), (1, 1, 3), (64, 1, 64), (200, 100, 17)])
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_reference_against_jax_xla_regime(ht, shape, sqrt):
+    # n < 128: heat_tpu's dispatch takes its jnp expansion, not the kernel
+    x, y = _data(*shape)
+    want = ht.ops.cdist.cdist(x, y, sqrt=sqrt)
+    got = k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=sqrt)
+    assert got.dtype == torch.float32
+    _check_d2(got.numpy(), want, x, y, sqrt)
+
+
+@pytest.mark.parametrize("shape", [(300, 128, 64), (37, 129, 67), (9, 257, 3)])
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_reference_against_pallas_interpret(ht, shape, sqrt):
+    x, y = _data(*shape, seed=1)
+    want = ht.ops.cdist._cdist_pallas(x, y, sqrt=sqrt, interpret=True)
+    got = k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=sqrt)
+    _check_d2(got.numpy(), want, x, y, sqrt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5 * float(np.max(np.abs(want))))
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    x, y = _data(20, 7, 4)
+    before = k1.launches
+    got = k1.cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=False)
+    want = k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert k1.launches == before
+
+
+def test_zero_row_input():
+    x, y = _data(0, 8, 5)
+    out = k1.cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=True)
+    assert tuple(out.shape) == (0, 8) and out.dtype == torch.float32
+
+
+def test_wrapper_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        k1.cdist(torch.zeros(3), torch.zeros(2, 3))
+    with pytest.raises(ValueError):
+        k1.cdist(torch.zeros(3, 4), torch.zeros(2, 3))
+
+
+LAYOUTS = [(0, None), (None, None), (None, 0), (0, 0), (1, None), (0, 1)]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("splits", LAYOUTS)
+def test_spatial_cdist_layouts(ht, n, splits):
+    x, y = _data(13, 6, 5, seed=2)
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.cdist(ht.array(x, split=splits[0], comm=jc), ht.array(y, split=splits[1], comm=jc))
+    b = htt.spatial.cdist(
+        htt.array(x, split=splits[0], comm=tc, device="cpu"),
+        htt.array(y, split=splits[1], comm=tc, device="cpu"),
+    )
+    assert b.shape == a.shape and b.split == a.split and b.dtype is htt.float32
+    _check_d2(b.numpy(), a.numpy(), x, y, sqrt=True)
+    sa, sb = a.lshards(), b.lshards()
+    assert [s.shape for s in sb] == [s.shape for s in sa]
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_spatial_cdist_float64_takes_the_expansion(ht, n):
+    x, y = _data(13, 6, 5, seed=4, dtype=np.float64)
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.cdist(ht.array(x, split=0, comm=jc), ht.array(y, comm=jc))
+    b = htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu"))
+    assert b.dtype is htt.float64 and a.dtype is ht.float64
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12)
+
+
+def test_spatial_cdist_zero_row_shard():
+    x, y = _data(13, 3, 4, seed=5)
+    b = htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(8), device="cpu"), htt.array(y, comm=htt.MeshComm(8), device="cpu"))
+    assert [s.shape for s in b.shards] == [(2, 3)] * 6 + [(1, 3), (0, 3)]
+    _check_d2(b.numpy(), k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y)).numpy(), x, y, True)
+
+
+def test_spatial_cdist_integer_input_promotes_to_float32(ht):
+    x = np.arange(12, dtype=np.int32).reshape(4, 3)
+    a = ht.spatial.cdist(ht.array(x, split=0))
+    b = htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(4), device="cpu"))
+    assert b.dtype is htt.float32
+    np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-3)
+
+
+# ------------------------------------------------------------------ on the card
+CARD_SHAPES = [(1000, 8, 64), (1000, 1, 64), (1003, 257, 67), (5, 3, 1), (0, 8, 64), (130, 9, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_kernel_against_plain_on_card(cuda, shape, sqrt):
+    x, y = _data(*shape, seed=6)
+    xt, yt = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    before = k1.launches
+    got = k1.cdist(xt, yt, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert k1.launches == before + (1 if shape[0] and shape[1] else 0)
+    assert got.is_cuda and got.dtype == torch.float32 and tuple(got.shape) == shape[:2]
+    want = k1.reference_cdist(xt, yt, sqrt=sqrt)
+    _check_d2(got.cpu().numpy(), want.cpu().numpy(), x, y, sqrt)
+
+
+@pytest.mark.gpu
+def test_kernel_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(TypeError):
+        k1.cdist(x.double(), x.double())
+    with pytest.raises(ValueError):
+        k1.cdist(torch.zeros(3, 4, device=cuda).T, x)
+    with pytest.raises(ValueError):
+        k1.cdist(x, x.cpu())
+
+
+@pytest.mark.gpu
+def test_spatial_cdist_on_card_launches_k1(cuda):
+    x, y = _data(13, 6, 5, seed=7)
+    before = k1.launches
+    b = htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(4), device="gpu"), htt.array(y, comm=htt.MeshComm(4), device="gpu"))
+    assert k1.launches == before + 4
+    _check_d2(b.numpy(), k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y)).numpy(), x, y, True)
