@@ -1,16 +1,22 @@
-"""Drive heat_tpu_torch's KMeans path on one CUDA card and check it.
+"""Drive heat_tpu_torch's KMeans, QR and Lasso paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases: (1) identity of the card and toolchain; (2) build every kernel of
-the path from the sources in this checkout; (3) each kernel against its plain
-torch version at the shapes the path gives it; (4) kernel timing beside the
-plain version, one library call and the card's bound; (5) the path end to
-end through the entry points a user calls: KMeans(k=8, kmeans++) fit and
-predict on 2e7 x 64 f32 Gaussian blobs made on the card from ``--seed``,
-with the kernels' launch counts read around it; (6) one JSON line per
-kernel.  The last line is ``{"ok": true, "device": {...}}``.  Any failure
-exits nonzero before that line; so does a machine without a card.
+the paths from the sources in this checkout, all at once; (3) each kernel
+against its plain torch version at the shapes the paths give it; (4) kernel
+timing beside the plain version, one library call where there is one, and
+the card's bound; (5) each path end to end through the entry points a user
+calls, with the kernels' launch counts set to 0 just before it and read just
+after: KMeans(k=8, kmeans++) fit and predict on 2e7 x 64 f32 Gaussian blobs;
+``linalg.qr`` on the repo's three QR shapes (1e6 x 128, 5e5 x 1000, 2048^2,
+benchmarks/cb/config.py:152-158); a Lasso fit on the repo's regression
+recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); each with data
+made on the card from ``--seed``, and a small input of each on the card and
+on the CPU; (6) one JSON line per kernel.  The last line is
+``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
+line; so does a machine without a card.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -31,6 +38,16 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = 1e-5
 # the repo's Lloyd benchmark shape (benchmarks/cb/config.py): 2e7 x 64 f32, k = 8
 ROWS = 20_000_000
+# K4: |ΔR|_F <= TOL_QR |R|_F and the same for R^-1 (sums in other orders)
+TOL_QR = 1e-5
+# K5: max |Δθ| <= TOL_LASSO max |θ| after one sweep
+TOL_LASSO = 1e-5
+# the repo's QR benchmark shapes (benchmarks/cb/config.py:152-153, :158) and
+# the K4 launches each must make: two passes per CholeskyQR2 leaf, and the
+# square splits into two 2048 x 1024 leaves
+QR_SHAPES = [((1_000_000, 128), 2), ((500_000, 1_000), 2), ((2048, 2048), 4)]
+# the repo's Lasso benchmark shape (benchmarks/cb/config.py:178)
+LASSO_M, LASSO_N, LASSO_SWEEPS = 500_000, 1_000, 10
 
 
 class SmokeFailure(RuntimeError):
@@ -103,16 +120,47 @@ def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0
     return x, centres
 
 
-def trace_lloyd(km_mod, blocks, centers, k: int, iters: int = 2) -> None:
-    """Device time per Lloyd iteration by kernel, from torch.profiler, and
-    the device's idle share of the traced window."""
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def qr_panel_bound_ms(m: int, n: int):
+    """Least time for one panel pass over (m, n) f32: the panel read once
+    and R, R^-1 written once, against the Gram's upper triangle (m n (n+1)
+    flops: the kernel exploits symmetry), the Cholesky (n^3/3) and the
+    triangular inverse (n^3/3)."""
+    return bound(4.0 * (m * n + 2 * n * n), m * n * (n + 1) + 2.0 * n**3 / 3)
+
+
+def lasso_sweep_bound_ms(m: int, n: int):
+    """Least time for one sweep over (m, n) f32: X, y, θ read once and θ'
+    written once, against r0 = y - Xθ (2 m n flops) and, per coordinate,
+    r + θ_j x_j, the dot and the residual update (6 m flops)."""
+    return bound(4.0 * (m * n + m + 2 * n), 8.0 * m * n)
+
+
+def compare_qr_panel(k4, x):
+    """Kernel against plain: (max abs err of R and R^-1, relative errors)."""
+    r, rinv = k4.fused_gram_chol(x)
+    rr, rri = k4.reference_fused_gram_chol(x)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(r).all()) and bool(torch.isfinite(rinv).all()), "non-finite qr_panel output")
+    check(torch.equal(torch.tril(r, -1), torch.zeros_like(r)), "R is not upper triangular")
+    abs_err = max(float((r - rr).abs().max()), float((rinv - rri).abs().max()))
+    return abs_err, float((r - rr).norm() / rr.norm()), float((rinv - rri).norm() / rri.norm())
+
+
+def trace(label: str, fn, iters: int) -> None:
+    """Device time per unit by kernel, from torch.profiler, and the device's
+    idle share of the traced window; ``fn`` runs ``iters`` units."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        km_mod._lloyd_loop(blocks, centers, k, iters, -1.0)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # kernels only: an operator's entry repeats its kernels' device time
@@ -125,10 +173,10 @@ def trace_lloyd(km_mod, blocks, centers, k: int, iters: int = 2) -> None:
     if not rows:
         print("[trace] the profiler saw no device time")
         return
-    print(f"[trace] {iters} Lloyd iterations: device busy {busy / 1e3 / iters:.4f} ms/iter of "
-          f"{wall_us / 1e3 / iters:.4f} ms/iter wall under the profiler, idle share {1 - busy / wall_us:.4f}")
+    print(f"[trace] {label} x{iters}: device busy {busy / 1e3 / iters:.4f} ms per unit of "
+          f"{wall_us / 1e3 / iters:.4f} ms wall under the profiler, idle share {1 - busy / wall_us:.4f}")
     for us, count, name in sorted(rows, reverse=True)[:10]:
-        print(f"[trace]   {us / 1e3 / iters:9.4f} ms/iter  x{count // iters:<3d} {name[:100]}")
+        print(f"[trace]   {us / 1e3 / iters:9.4f} ms/unit  x{count / iters:<5g} {name[:100]}")
 
 
 def main() -> int:
@@ -146,6 +194,9 @@ def main() -> int:
     from heat_tpu_torch.cluster import kmeans as km_mod
     from heat_tpu_torch.ops import _build
     from heat_tpu_torch.ops import cdist as k1
+    from heat_tpu_torch.ops import lasso_sweep as k5
+    from heat_tpu_torch.ops import qr_panel as k4
+    from heat_tpu_torch.regression import lasso as lasso_mod
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
     print(f"[identity] {card}")
@@ -158,13 +209,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ------------------------------------------------------------- 2. build
+    # one nvcc per library, all started together
+    libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5}
     t0 = time.perf_counter()
-    k1._kernel()
-    info = _build.BUILD_INFO["heat_cdist"]
-    print(f"[build] heat_cdist: {info['seconds']:.2f} s nvcc ({time.perf_counter() - t0:.2f} s with load)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(mod._kernel) for mod in libs.values()]:
+            fut.result()
+    print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f} s wall (with load)")
+    for name in libs:
+        info = _build.BUILD_INFO[name]
+        print(f"[build] {name}: {info['seconds']:.2f} s nvcc")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build]   {line.strip()}")
 
     # --------------------------------------------------- 3. kernel vs plain
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -186,6 +243,49 @@ def main() -> int:
         max_abs = max(max_abs, abs_err)
     del xr, yr
 
+    # K4 at the QR path's panels: 1e6 x 128, the square's 2048 x 1024
+    # leaves, 5e5 x 1000; a ragged panel and the narrowest one
+    k4_abs = 0.0
+    for m, n in [(1_000_000, 128), (2048, 1024), (500_000, 1_000), (100_003, 67), (1000, 2)]:
+        xq = torch.randn(m, n, generator=gen, device=dev)
+        abs_err, rel_r, rel_ri = compare_qr_panel(k4, xq)
+        print(f"[check] qr_panel ({m},{n}): max_abs_err={abs_err:.3e} |dR|/|R|={rel_r:.3e} |dRinv|/|Rinv|={rel_ri:.3e}")
+        check(rel_r <= TOL_QR and rel_ri <= TOL_QR, f"qr_panel ({m},{n}): relative error above {TOL_QR}")
+        k4_abs = max(k4_abs, abs_err)
+        del xq
+    # a rank-deficient panel (a zero column): both latch NaN in the same places
+    xq = torch.randn(3000, 40, generator=gen, device=dev)
+    xq[:, 7] = 0
+    r, rinv = k4.fused_gram_chol(xq)
+    rr, rri = k4.reference_fused_gram_chol(xq)
+    torch.cuda.synchronize()
+    same_nan = torch.equal(torch.isnan(r), torch.isnan(rr)) and torch.equal(torch.isnan(rinv), torch.isnan(rri))
+    print(f"[check] qr_panel rank-deficient (3000,40): NaN in R {int(torch.isnan(r).sum())}/{r.numel()}, "
+          f"in Rinv {int(torch.isnan(rinv).sum())}/{rinv.numel()}, same places as plain {same_nan}")
+    check(same_nan and bool(torch.isnan(r).any()) and bool(torch.isnan(rinv).all()), "qr_panel NaN latch differs")
+
+    # K5: one sweep at the Lasso path's 5e5 x 1001 from θ = 0 and from a
+    # non-zero θ, and a ragged 9999 x 37 (λ small enough that most
+    # coordinates stay non-zero)
+    k5_abs = 0.0
+    xt_l = torch.randn(LASSO_N + 1, LASSO_M, generator=gen, device=dev)
+    y_l = torch.randn(LASSO_M, generator=gen, device=dev)
+    xt_r = torch.randn(37, 9_999, generator=gen, device=dev)
+    y_r = torch.randn(9_999, generator=gen, device=dev)
+    for name, xt_, y_, nonzero in [("5e5x1001", xt_l, y_l, False), ("5e5x1001", xt_l, y_l, True),
+                                   ("ragged 9999x37", xt_r, y_r, False), ("ragged 9999x37", xt_r, y_r, True)]:
+        th = 0.1 * torch.randn(xt_.shape[0], generator=gen, device=dev) if nonzero else torch.zeros(xt_.shape[0], device=dev)
+        got = k5.sweep(xt_, y_, th, 1e-4)
+        want = k5.reference_sweep(xt_, y_, th, 1e-4)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "non-finite lasso_sweep output")
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"[check] lasso_sweep {name} theta0={'nonzero' if nonzero else 'zero'}: max_abs_err={err:.3e} "
+              f"max|theta|={scale:.3e} nonzero coords {int((want != 0).sum())}/{want.numel()}")
+        check(err <= TOL_LASSO * scale, f"lasso_sweep {name}: error {err:.3e} > {TOL_LASSO} * {scale:.3e}")
+        k5_abs = max(k5_abs, err)
+    del xt_r, y_r
+
     # ----------------------------------------------------------- 4. timing
     y8 = cases[0][2]
     kernel_ms = time_ms(lambda: k1.cdist(x, y8, sqrt=False), reps=20)
@@ -199,6 +299,42 @@ def main() -> int:
         f"on {card}"
     )
     del x, cases
+    torch.cuda.empty_cache()
+
+    xq = torch.randn(1_000_000, 128, generator=gen, device=dev)
+    eye = torch.eye(128, device=dev)
+    k4_ms = time_ms(lambda: k4.fused_gram_chol(xq), reps=10)
+    k4_plain_ms = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=10)
+    # the library chain: cuBLAS Gram, cuSOLVER Cholesky, triangular solve
+    k4_library_ms = time_ms(
+        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(xq.T @ xq)[0], eye, upper=False), reps=10
+    )
+    k4_ms_2 = time_ms(lambda: k4.fused_gram_chol(xq), reps=10)
+    k4_bound_ms, k4_bound_by = qr_panel_bound_ms(1_000_000, 128)
+    print(
+        f"[time] qr_panel (1000000,128): kernel_ms={k4_ms:.4f} (again {k4_ms_2:.4f}) plain_ms={k4_plain_ms:.4f} "
+        f"library_ms={k4_library_ms:.4f} (cholesky_ex(x.T@x) + solve_triangular) "
+        f"bound_ms={k4_bound_ms:.4f} ({k4_bound_by}) on {card}"
+    )
+    del xq
+    for m, n in [(500_000, 1_000), (2048, 1024)]:
+        xq = torch.randn(m, n, generator=gen, device=dev)
+        t_k = time_ms(lambda: k4.fused_gram_chol(xq), reps=3, warmup=1)
+        t_p = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=3, warmup=1)
+        b_ms, b_by = qr_panel_bound_ms(m, n)
+        print(f"[time] qr_panel ({m},{n}): kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}) on {card}")
+        del xq
+    th0 = torch.zeros(LASSO_N + 1, device=dev)
+    k5_ms = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
+    k5_plain_ms = time_ms(lambda: k5.reference_sweep(xt_l, y_l, th0, 0.01), reps=2, warmup=1)
+    k5_ms_2 = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
+    k5_bound_ms, k5_bound_by = lasso_sweep_bound_ms(LASSO_M, LASSO_N + 1)
+    print(
+        f"[time] lasso_sweep ({LASSO_M},{LASSO_N + 1}): kernel_ms={k5_ms:.4f} (again {k5_ms_2:.4f}) "
+        f"plain_ms={k5_plain_ms:.4f} library_ms=null (no library call computes a coordinate-descent sweep) "
+        f"bound_ms={k5_bound_ms:.4f} ({k5_bound_by}) on {card}"
+    )
+    del xt_l, y_l
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 5. end to end
@@ -256,7 +392,7 @@ def main() -> int:
     torch.cuda.synchronize()
     iter_ms = 1e3 * (time.perf_counter() - t0) / iters
     print(f"[e2e] lloyd {iter_ms:.4f} ms/iter, {rows / (iter_ms / 1e3):.4e} samples/s, inertia {model.inertia_:.6e} on {card}")
-    trace_lloyd(km_mod, blocks, start, k)
+    trace("Lloyd iteration", lambda: km_mod._lloyd_loop(blocks, start, k, 2, -1.0), 2)
 
     # small input: the same fit on the card and on the CPU (plain version)
     # (blobs near the origin, started near their centres: no near-ties)
@@ -274,6 +410,120 @@ def main() -> int:
     print(f"[e2e] small input card vs cpu: n_iter {on_card.n_iter_}/{on_cpu.n_iter_}, labels equal {same_labels}, centre max diff {c_err:.3e}")
     check(same_labels and on_card.n_iter_ == on_cpu.n_iter_ and c_err <= 1e-4, "small-input fit differs between card and CPU")
 
+    del data, centres, x_ht, model, labels, pred, fitted, blocks, start, small, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    # QR on the repo's three shapes, split 0 over the card's one position
+    qr_launches = 0
+    for (m, n), want in QR_SHAPES:
+        ht.random.seed(args.seed)
+        a = ht.random.randn(m, n, split=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k4.launches = 0
+        t0 = time.perf_counter()
+        q, r = ht.linalg.qr(a)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        got = k4.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        qm, rm, am = q.larray, r.larray, a.larray
+        rec = float(torch.linalg.matrix_norm(qm @ rm - am) / torch.linalg.matrix_norm(am))
+        orth = float(ht.linalg.orthogonality_defect(q))
+        orth_tol = 1e-4 if m >= 2 * n else 1e-3
+        tri = torch.equal(torch.tril(rm, -1), torch.zeros_like(rm)) and bool((torch.diagonal(rm) > 0).all())
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ht.linalg.qr(a)
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t0) / 3
+        print(f"[e2e] qr ({m},{n}): {call_ms:.4f} ms/call (first call {1e3 * call_s:.1f} ms), peak {peak_gb:.2f} GB, "
+              f"qr_panel launches {got} (expected {want}), |QR-A|/|A| {rec:.3e}, orthogonality defect {orth:.3e} "
+              f"(tolerance {orth_tol:g}) on {card}")
+        check(got == want, f"qr ({m},{n}): qr_panel launches {got} != {want}")
+        check(tuple(qm.shape) == (m, n) and tuple(rm.shape) == (n, n) and q.split == 0, "qr: bad shapes or split")
+        check(rec <= 1e-5, f"qr ({m},{n}): reconstruction {rec:.3e} > 1e-5")
+        check(orth <= orth_tol, f"qr ({m},{n}): orthogonality defect {orth:.3e} > {orth_tol}")
+        check(tri, f"qr ({m},{n}): R is not upper triangular with a positive diagonal")
+        if (m, n) == QR_SHAPES[0][0]:
+            trace(f"qr ({m},{n}) call", lambda: [ht.linalg.qr(a) for _ in range(2)], 2)
+        qr_launches += got
+        del a, q, r, qm, rm, am
+        torch.cuda.empty_cache()
+
+    # Lasso on the repo's regression recipe: unit-RMS features, β = 2 on
+    # every 62nd feature, y = xβ + 0.01 noise, all through the entry points
+    m, n = LASSO_M, LASSO_N
+    ht.random.seed(args.seed)
+    xl = ht.random.randn(m, n, split=0)
+    norm = ht.sqrt(ht.mean(xl * xl, axis=0)) + 1e-12
+    xl = xl / ht.reshape(norm, (1, -1))
+    beta = torch.zeros(n, 1, device=dev)
+    beta[:: max(n // 16, 1)] = 2.0
+    yl = ht.matmul(xl, ht.array(beta)) + 0.01 * ht.random.randn(m, 1, split=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.launches = 0
+    t0 = time.perf_counter()
+    est = ht.regression.Lasso(lam=0.01, max_iter=LASSO_SWEEPS, tol=-1.0).fit(xl, yl)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    lasso_launches = k5.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    theta = est.theta.larray
+    print(f"[e2e] lasso fit ({m},{n}) x{LASSO_SWEEPS} sweeps: {fit_s:.3f} s, peak {peak_gb:.2f} GB, "
+          f"lasso_sweep launches {lasso_launches} (expected {LASSO_SWEEPS}), n_iter {est.n_iter}")
+    check(lasso_launches == LASSO_SWEEPS, f"lasso_sweep launches {lasso_launches} != {LASSO_SWEEPS}")
+    check(est.n_iter == LASSO_SWEEPS, f"n_iter {est.n_iter} != {LASSO_SWEEPS}")
+    check(tuple(theta.shape) == (n + 1, 1) and bool(torch.isfinite(theta).all()), "bad theta")
+    # ms per sweep, timed after the counted run (Xᵀ made once, outside)
+    xt = lasso_mod._augmented_t(xl.larray)
+    yv = yl.larray.reshape(-1).contiguous()
+    th0 = torch.zeros(n + 1, device=dev)
+    lasso_mod._cd_fit(xt, yv, th0, 0.01, 1, -1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lasso_mod._cd_fit(xt, yv, th0, 0.01, LASSO_SWEEPS, -1.0)
+    torch.cuda.synchronize()
+    sweep_ms = 1e3 * (time.perf_counter() - t0) / LASSO_SWEEPS
+    print(f"[e2e] lasso {sweep_ms:.4f} ms/sweep ({m},{n + 1}) on {card}")
+    trace("Lasso sweep", lambda: lasso_mod._cd_fit(xt, yv, th0, 0.01, 2, -1.0), 2)
+    del xt, yv
+    torch.cuda.empty_cache()
+    # at the default tol the fit recovers β's support
+    est2 = ht.regression.Lasso(lam=0.01).fit(xl, yl)
+    coef = est2.coef_.larray.reshape(-1)
+    support = set((coef.abs() > 1e-3).nonzero().flatten().tolist())
+    true_support = set(range(0, n, max(n // 16, 1)))
+    coef_err = float((coef - beta.reshape(-1)).abs().max())
+    rmse = est2.rmse(yl, est2.predict(xl))
+    print(f"[e2e] lasso default tol: n_iter {est2.n_iter}, support {len(support)} features "
+          f"(true {len(true_support)}, equal {support == true_support}), max|coef-beta| {coef_err:.4e}, "
+          f"intercept {float(est2.intercept_):.3e}, rmse {rmse:.6e}")
+    check(support == true_support, "the Lasso fit did not recover beta's support")
+    check(coef_err <= 0.05, f"max|coef - beta| {coef_err} > 0.05")
+    del xl, yl, est, est2
+    torch.cuda.empty_cache()
+
+    # small inputs: QR and Lasso on the card and on the CPU (plain versions)
+    mesh = ht.MeshComm(4)
+    small = torch.randn(4096, 64, generator=gen, device=dev)
+    qa = ht.linalg.qr(ht.array(small, split=0))
+    qb = ht.linalg.qr(ht.array(small.cpu(), split=0, device="cpu"))
+    r_diff = float((qa.R.larray.cpu() - qb.R.larray).abs().max() / qb.R.larray.abs().max())
+    q_diff = float((qa.Q.larray.cpu() - qb.Q.larray).abs().max())
+    print(f"[e2e] small qr (4096,64) card vs cpu: max|dR|/max|R| {r_diff:.3e}, max|dQ| {q_diff:.3e}")
+    check(r_diff <= 1e-5 and q_diff <= 1e-4, "small qr differs between card and CPU")
+    xs = torch.randn(5000, 30, generator=gen, device=dev)
+    ys = xs[:, ::3].sum(1, keepdim=True) + 0.01 * torch.randn(5000, 1, generator=gen, device=dev)
+    la = ht.regression.Lasso(lam=0.01).fit(ht.array(xs, split=0, comm=mesh), ht.array(ys, split=0, comm=mesh))
+    lb = ht.regression.Lasso(lam=0.01).fit(
+        ht.array(xs.cpu(), split=0, comm=mesh, device="cpu"), ht.array(ys.cpu(), split=0, comm=mesh, device="cpu")
+    )
+    t_diff = float((la.theta.larray.cpu() - lb.theta.larray).abs().max())
+    print(f"[e2e] small lasso (5000,30) card vs cpu: n_iter {la.n_iter}/{lb.n_iter}, max|dtheta| {t_diff:.3e}")
+    check(la.n_iter == lb.n_iter and t_diff <= 1e-5, "small Lasso fit differs between card and CPU")
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -288,7 +538,34 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
-        }
+        },
+        {
+            "name": "qr_panel",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/qr_panel.cu",
+            "replaces": "heat_tpu/ops/qr_panel.py:89",
+            "launches": qr_launches,
+            "max_abs_err": k4_abs,
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound_ms,
+            "bound_by": k4_bound_by,
+            "library_ms": k4_library_ms,
+        },
+        {
+            "name": "lasso_sweep",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/lasso_sweep.cu",
+            "replaces": "heat_tpu/ops/lasso_sweep.py:66",
+            "launches": lasso_launches,
+            "max_abs_err": k5_abs,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+            "bound_ms": k5_bound_ms,
+            "bound_by": k5_bound_by,
+            "library_ms": None,
+            "library_note": "no library call computes a coordinate-descent sweep",
+        },
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,8 +8,10 @@ heat_tpu becomes a hand-written CUDA kernel under ``csrc/``, wrapped in
 
 Entry points run on the card (``gpu``, cuda:0) unless the caller asks for
 the CPU (``device="cpu"`` or ``use_device("cpu")``); without a card they
-raise.  This slice carries the KMeans path: factories, the split DNDarray,
-elementwise ops and reductions, ``spatial.cdist`` and ``cluster.KMeans``.
+raise.  The slices ported so far carry the KMeans path (factories, the split
+DNDarray, elementwise ops and reductions, ``spatial.cdist``,
+``cluster.KMeans``), the linear-algebra path (``linalg.matmul`` and its
+basics, ``linalg.qr``) and the Lasso path (``regression.Lasso``).
 """
 
 from .core import *
@@ -18,7 +20,10 @@ from .core import (
     base,
     constants,
     devices,
+    exponential,
     factories,
+    linalg,
+    manipulations,
     random,
     relational,
     sanitation,
@@ -30,5 +35,6 @@ from . import parallel
 from . import ops
 from . import spatial
 from . import cluster
+from . import regression
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """heat_tpu_torch core: runtime, dtype lattice and the op surface of the
-KMeans slice, exported flat as in heat_tpu.core."""
+KMeans, linear-algebra and Lasso slices, exported flat as in heat_tpu.core."""
 
 from . import communication
 from .communication import Communication, MeshComm, get_comm, sanitize_comm, use_comm
@@ -22,4 +22,10 @@ from . import relational
 from .relational import *
 from . import statistics
 from .statistics import *
+from . import exponential
+from .exponential import *
+from . import manipulations
+from .manipulations import *
 from . import random
+from . import linalg
+from .linalg import *

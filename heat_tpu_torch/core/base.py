@@ -1,14 +1,17 @@
 """Estimator base API (counterpart of heat_tpu/core/base.py):
-scikit-learn-style parameter handling and the clustering mixin."""
+scikit-learn-style parameter handling and the clustering and regression
+mixins."""
 
 from __future__ import annotations
 
 import inspect
 from typing import Any, Dict, List
 
+import torch
+
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin"]
 
 
 class BaseEstimator:
@@ -67,3 +70,24 @@ class ClusteringMixin:
         self.fit(x)
         return self.predict(x)
 
+
+class RegressionMixin:
+    """fit/predict/score for regressors (heat_tpu/core/base.py:105)."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+    def score(self, x: DNDarray, y: DNDarray, sample_weight=None) -> float:
+        """R² of the prediction (heat_tpu/core/base.py:118)."""
+        pred = self.predict(x).larray.reshape(-1)
+        yv = y.larray.reshape(-1).to(pred.device)
+        ss_res = torch.sum((yv - pred) ** 2)
+        ss_tot = torch.sum((yv - torch.mean(yv)) ** 2)
+        return float(1.0 - ss_res / ss_tot)

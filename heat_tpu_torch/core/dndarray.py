@@ -206,3 +206,79 @@ class DNDarray:
             self.__shards, self.__gshape, self.__dtype, self.__split, self.__device, self.__comm
         )
         return out.resplit_(axis)
+
+    # ------------------------------------------------------------- indexing
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.__gshape[0]
+
+    def __getitem__(self, key) -> "DNDarray":
+        """Basic indexing by ints, slices, ``None`` and ``...``
+        (heat_tpu/core/dndarray.py:1203).  The split follows the split
+        dimension through the key: dropped dimensions shift it, and an int
+        on the split dimension leaves a replicated result.  A key that keeps
+        the whole split dimension is applied to each shard alone; any other
+        key is applied to the gathered array, which is cut anew.  Advanced
+        (array) indexing is a later slice (ROADMAP item 7)."""
+        key = _basic_key(key, self.__gshape)
+        split = self.__split
+        new_split, in_dim, out_dim, whole = None, 0, 0, True
+        for k in key:
+            if k is None:
+                out_dim += 1
+                continue
+            if in_dim == split:
+                whole = isinstance(k, slice) and k == slice(None)
+                new_split = out_dim if isinstance(k, slice) else None
+            out_dim += isinstance(k, slice)
+            in_dim += 1
+        if split is not None and split >= in_dim:
+            new_split = out_dim + (split - in_dim)
+        if split is not None and whole and new_split is not None and self.__comm.size > 1:
+            shards = [s[key] for s in self.__shards]
+            gshape = list(shards[0].shape)
+            gshape[new_split] = self.__gshape[split]
+            return DNDarray(shards, tuple(gshape), self.__dtype, new_split, self.__device, self.__comm)
+        result = self.larray[key]
+        return _wrap(result, new_split if result.ndim else None, self.__device, self.__comm)
+
+    @property
+    def T(self) -> "DNDarray":
+        """The transpose (all axes reversed)."""
+        from .linalg import basics
+
+        return basics.transpose(self)
+
+
+def _basic_key(key, shape: Tuple[int, ...]) -> tuple:
+    """``key`` as a tuple of ints, slices and ``None`` with ``...``
+    expanded; ints are bounds-checked and made non-negative."""
+    if not isinstance(key, tuple):
+        key = (key,)
+    for k in key:
+        if not (k is None or k is Ellipsis or isinstance(k, (int, np.integer, slice))) or isinstance(k, bool):
+            raise TypeError(
+                f"a DNDarray is indexed by ints, slices, None and ...; advanced indexing is not "
+                f"ported yet (ROADMAP queue 1, item 7), got {type(k)}"
+            )
+    consumed = sum(1 for k in key if k is not None and k is not Ellipsis)
+    if consumed > len(shape):
+        raise IndexError(f"too many indices: array is {len(shape)}-D, got {consumed}")
+    if sum(1 for k in key if k is Ellipsis) > 1:
+        raise IndexError("an index can only have a single ellipsis")
+    if any(k is Ellipsis for k in key):
+        e = next(i for i, k in enumerate(key) if k is Ellipsis)
+        key = key[:e] + (slice(None),) * (len(shape) - consumed) + key[e + 1 :]
+    out, dim = [], 0
+    for k in key:
+        if isinstance(k, (int, np.integer)):
+            n = shape[dim]
+            if not -n <= int(k) < n:
+                raise IndexError(f"index {int(k)} is out of bounds for dimension {dim} with size {n}")
+            k = int(k) % n
+        elif isinstance(k, slice) and k.step is not None and k.step < 0:
+            raise ValueError("negative slice steps are not supported by torch tensors")
+        out.append(k)
+        dim += k is not None
+    return tuple(out)

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-Ported so far: K1, the fused squared-distance kernel (:mod:`.cdist`).
+Ported so far: K1, the fused squared-distance kernel (:mod:`.cdist`); K4,
+the fused CholeskyQR panel pass (:mod:`.qr_panel`); K5, the Lasso
+coordinate-descent sweep (:mod:`.lasso_sweep`).
 """
 
-from . import cdist
+from . import cdist, lasso_sweep, qr_panel
 
-__all__ = ["cdist"]
+__all__ = ["cdist", "lasso_sweep", "qr_panel"]

@@ -41,7 +41,9 @@ NVCC_FLAGS = (
 BUILD_INFO: Dict[str, dict] = {}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+# one lock per library: different libraries build side by side
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -66,8 +68,11 @@ def _digest(sources: Sequence[Path]) -> str:
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """The library ``name`` built from ``csrc/<sources>``; builds it first
-    when no library of these sources exists yet."""
-    with _LOCK:
+    when no library of these sources exists yet.  Threads may build
+    different libraries at once."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         paths = [CSRC / s for s in sources]

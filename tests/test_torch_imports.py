@@ -1,6 +1,7 @@
 """heat_tpu_torch and chip_smoke.py stand alone: they import neither jax nor
 anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
-fit; a scan of every import statement in the port backs it up."""
+KMeans fit, QR and Lasso fit; a scan of every import statement in the port
+backs it up."""
 
 import ast
 import os
@@ -22,6 +23,10 @@ ht.use_device("cpu")
 x = ht.array(np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32), split=0, comm=ht.MeshComm(4))
 km = ht.cluster.KMeans(n_clusters=2, init="kmeans++", max_iter=5, random_state=0).fit(x)
 assert km.predict(x).shape == (40, 1)
+q, r = ht.linalg.qr(x)
+assert q.shape == (40, 3) and r.shape == (3, 3)
+y = ht.matmul(x, ht.array(np.ones((3, 1), np.float32), comm=x.comm))
+assert ht.regression.Lasso(lam=0.01, max_iter=3).fit(x, y).predict(x).shape == (40, 1)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """
