@@ -1,5 +1,5 @@
-"""Drive heat_tpu_torch's KMeans, QR and Lasso paths on one CUDA card and
-check them.
+"""Drive heat_tpu_torch's KMeans, QR, Lasso and sparse Spectral paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,9 +12,13 @@ calls, with the kernels' launch counts set to 0 just before it and read just
 after: KMeans(k=8, kmeans++) fit and predict on 2e7 x 64 f32 Gaussian blobs;
 ``linalg.qr`` on the repo's three QR shapes (1e6 x 128, 5e5 x 1000, 2048^2,
 benchmarks/cb/config.py:152-158); a Lasso fit on the repo's regression
-recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); each with data
-made on the card from ``--seed``, and a small input of each on the card and
-on the CPU; (6) one JSON line per kernel.  The last line is
+recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); ``sparse.matmul``
+on the repo's SpMV cell (131072^2 at density 0.002, k = 1 and 4;
+benchmarks/cb/sparse.py:78-127) and ``Spectral(affinity="knn")`` on its
+two-blob cell (65536 x 16, k = 6, 32 Lanczos steps; sparse.py:130-165,
+config.py:220-223), and a dense ``affinity="rbf"`` fit at 16384 x 16; each
+with data made on the card from ``--seed``, and a small input of each on the
+card and on the CPU; (6) one JSON line per kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
 line; so does a machine without a card.
 """
@@ -22,13 +26,16 @@ line; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -48,6 +55,13 @@ TOL_LASSO = 1e-5
 QR_SHAPES = [((1_000_000, 128), 2), ((500_000, 1_000), 2), ((2048, 2048), 4)]
 # the repo's Lasso benchmark shape (benchmarks/cb/config.py:178)
 LASSO_M, LASSO_N, LASSO_SWEEPS = 500_000, 1_000, 10
+# K6: |Δy| <= TOL_SPMV * Σⱼ|vals·x| per row (sums in other orders)
+TOL_SPMV = 1e-5
+# the repo's sparse cells (benchmarks/cb/config.py:220-223): the SpMV
+# matrix, its right-hand sides, and the k-NN Spectral fit on two blobs
+SPMV_N, SPMV_DENSITY, SPMV_K = 131_072, 0.002, 4
+KNNG_N, KNNG_F, KNNG_K, KNNG_LANCZOS = 65_536, 16, 6, 32
+RBF_N = 16_384
 
 
 class SmokeFailure(RuntimeError):
@@ -140,6 +154,72 @@ def lasso_sweep_bound_ms(m: int, n: int):
     return bound(4.0 * (m * n + m + 2 * n), 8.0 * m * n)
 
 
+def spmv_bound_ms(nnz: int, nrows: int, ncols: int, k: int):
+    """Least time for y = A x over a CSR matrix: each nonzero's value and
+    column read once (8 bytes), x read once and y written once, against
+    2 flops per nonzero and right-hand side."""
+    return bound(8.0 * nnz + 4.0 * ncols * k + 4.0 * nrows * k, 2.0 * nnz * k)
+
+
+def random_csr(nrows: int, ncols: int, density: float, gen, dev):
+    """A CSR triple (values, int32 columns, int64 row pointers) with
+    distinct uniformly random positions and U[0, 1) values, the
+    distribution of ``scipy.sparse.random``, made on the card."""
+    target = int(round(density * nrows * ncols))
+    lin = torch.unique(torch.randint(0, nrows * ncols, (target,), generator=gen, device=dev))
+    indptr = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(lin // ncols, minlength=nrows), 0)
+    return torch.rand(lin.numel(), generator=gen, device=dev), (lin % ncols).to(torch.int32), indptr
+
+
+def to_scipy(vals, cols, indptr, shape):
+    import scipy.sparse
+
+    return scipy.sparse.csr_matrix((vals.cpu().numpy(), cols.cpu().numpy(), indptr.cpu().numpy()), shape=shape)
+
+
+def compare_spmv(k6, vals, cols, x):
+    """Kernel against plain on the same slabs: (kernel's y, max abs err,
+    max err relative to Σⱼ|vals·x|)."""
+    got = k6.spmv_ell(vals, cols, x)
+    want = k6.reference_spmv_ell(vals, cols, x)
+    scale = k6.reference_spmv_ell(vals.abs(), cols, x.abs())
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == tuple(want.shape), f"spmv shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite spmv output")
+    err = (got - want).abs()
+    return got, float(err.max()), float((err / scale.clamp_min(1e-30)).max())
+
+
+def two_blobs(n: int, f: int, gen, dev):
+    """The repo's Spectral recipe (benchmarks/cb/sparse.py:131-135): the
+    first half N(0, 0.3), the second N(3, 0.3), on the card."""
+    x = 0.3 * torch.randn(n, f, generator=gen, device=dev)
+    x[n // 2 :] += 3.0
+    truth = torch.zeros(n, dtype=torch.int64, device=dev)
+    truth[n // 2 :] = 1
+    return x, truth
+
+
+def blob_agreement(labels, truth) -> float:
+    """Share of points whose label matches the generating blob, under the
+    better of the two namings of two clusters."""
+    same = float((labels.reshape(-1).to(truth.device) == truth).float().mean())
+    return max(same, 1.0 - same)
+
+
+def component_agreement(y0, degree, truth) -> float:
+    """The blobs as the embedding's first column shows them.  The graph of
+    two far blobs has two components, so the Laplacian's null space holds
+    D^1/2 1_A and D^1/2 1_B, and the first Ritz vector is a combination of
+    the two: y0 / sqrt(deg) takes one value per component.  Splitting it at
+    its largest gap must give the blobs."""
+    r = y0 / torch.sqrt(degree.clamp_min(1e-30))
+    o = torch.sort(r).values
+    i = int(torch.argmax(o[1:] - o[:-1]))
+    return blob_agreement((r > (o[i] + o[i + 1]) / 2).to(torch.int64), truth)
+
+
 def compare_qr_panel(k4, x):
     """Kernel against plain: (max abs err of R and R^-1, relative errors)."""
     r, rinv = k4.fused_gram_chol(x)
@@ -196,7 +276,11 @@ def main() -> int:
     from heat_tpu_torch.ops import cdist as k1
     from heat_tpu_torch.ops import lasso_sweep as k5
     from heat_tpu_torch.ops import qr_panel as k4
+    from heat_tpu_torch.ops import spmv as k6
     from heat_tpu_torch.regression import lasso as lasso_mod
+    from heat_tpu_torch.sparse import knn as knn_mod
+    # the package's ``matmul`` function shadows its module of that name
+    spmm_mod = importlib.import_module("heat_tpu_torch.sparse.matmul")
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).splitlines()[0]
     print(f"[identity] {card}")
@@ -210,7 +294,7 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     # one nvcc per library, all started together
-    libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5}
+    libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5, "heat_spmv": k6}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(mod._kernel) for mod in libs.values()]:
@@ -286,6 +370,46 @@ def main() -> int:
         k5_abs = max(k5_abs, err)
     del xt_r, y_r
 
+    # K6 at the SpMV cell (k = 1 and 4), the Spectral cell's k-NN
+    # Laplacian, a ragged matrix (empty rows, one row of 1000 entries) and
+    # integer-valued data (bitwise)
+    k6_abs = 0.0
+    sp_vals, sp_cols, sp_ptr = random_csr(SPMV_N, SPMV_N, SPMV_DENSITY, gen, dev)
+    sp_nnz = sp_vals.numel()
+    sp_w = k6.ell_width(int((sp_ptr[1:] - sp_ptr[:-1]).max()))
+    ell_v, ell_c = k6.ell_pack(sp_vals, sp_cols, sp_ptr, sp_w)
+    sp_x = torch.randn(SPMV_N, SPMV_K, generator=gen, device=dev)
+    k6_cases = [("spmv cell k=1", ell_v, ell_c, sp_x[:, 0]), ("spmv cell k=4", ell_v, ell_c, sp_x)]
+    blobs, _ = two_blobs(KNNG_N, KNNG_F, gen, dev)
+    lap = ht.graph.laplacian_sparse(ht.sparse.knn_graph(ht.array(blobs, split=0), KNNG_K, sigma=0.5**0.5))
+    lap_v, lap_c = spmm_mod._ell_slabs(lap)[0]
+    k6_cases.append(("knn laplacian", lap_v, lap_c, torch.sin(torch.arange(1, KNNG_N + 1, dtype=torch.float32, device=dev))))
+    rg_rows = 100_003
+    rg_cnt = torch.randint(0, 17, (rg_rows,), generator=gen, device=dev)
+    rg_cnt[::7] = 0
+    rg_cnt[rg_rows // 2] = 1000
+    rg_ptr = torch.zeros(rg_rows + 1, dtype=torch.int64, device=dev)
+    rg_ptr[1:] = torch.cumsum(rg_cnt, 0)
+    rg_nnz = int(rg_ptr[-1])
+    rg_v, rg_c = k6.ell_pack(torch.randn(rg_nnz, generator=gen, device=dev),
+                             torch.randint(0, 50_000, (rg_nnz,), generator=gen, device=dev, dtype=torch.int32),
+                             rg_ptr, k6.ell_width(1000))
+    k6_cases.append(("ragged", rg_v, rg_c, torch.randn(50_000, 3, generator=gen, device=dev)))
+    for name, v_, c_, x_ in k6_cases:
+        _, abs_err, rel = compare_spmv(k6, v_, c_, x_)
+        print(f"[check] spmv {name} slabs {tuple(v_.shape)} x {tuple(x_.shape)}: max_abs_err={abs_err:.3e} "
+              f"max_rel_err={rel:.3e} (|dy| / sum|vals x|)")
+        check(rel <= TOL_SPMV, f"spmv {name}: relative error {rel:.3e} > {TOL_SPMV}")
+        k6_abs = max(k6_abs, abs_err)
+    int_v = torch.where(ell_c >= 0, torch.randint(1, 8, ell_v.shape, generator=gen, device=dev).float(), ell_v)
+    int_x = torch.randint(-4, 5, (SPMV_N, SPMV_K), generator=gen, device=dev).float()
+    y_int = k6.spmv_ell(int_v, ell_c, int_x)
+    same = torch.equal(y_int, k6.reference_spmv_ell(int_v, ell_c, int_x))
+    print(f"[check] spmv integer-valued spmv cell k={SPMV_K}: bitwise equal to plain {same}")
+    check(same, "spmv on integer-valued data is not bitwise equal to its plain version")
+    del lap, lap_v, lap_c, rg_v, rg_c, int_v, int_x, y_int, k6_cases, blobs
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------- 4. timing
     y8 = cases[0][2]
     kernel_ms = time_ms(lambda: k1.cdist(x, y8, sqrt=False), reps=20)
@@ -319,11 +443,17 @@ def main() -> int:
     del xq
     for m, n in [(500_000, 1_000), (2048, 1024)]:
         xq = torch.randn(m, n, generator=gen, device=dev)
+        eye_n = torch.eye(n, device=dev)
         t_k = time_ms(lambda: k4.fused_gram_chol(xq), reps=3, warmup=1)
         t_p = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=3, warmup=1)
+        t_l = time_ms(
+            lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(xq.T @ xq)[0], eye_n, upper=False),
+            reps=3, warmup=1,
+        )
         b_ms, b_by = qr_panel_bound_ms(m, n)
-        print(f"[time] qr_panel ({m},{n}): kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}) on {card}")
-        del xq
+        print(f"[time] qr_panel ({m},{n}): kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"(cholesky_ex(x.T@x) + solve_triangular) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+        del xq, eye_n
     th0 = torch.zeros(LASSO_N + 1, device=dev)
     k5_ms = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
     k5_plain_ms = time_ms(lambda: k5.reference_sweep(xt_l, y_l, th0, 0.01), reps=2, warmup=1)
@@ -335,6 +465,26 @@ def main() -> int:
         f"bound_ms={k5_bound_ms:.4f} ({k5_bound_by}) on {card}"
     )
     del xt_l, y_l
+    torch.cuda.empty_cache()
+
+    # K6 at the SpMV cell; the library call is cuSPARSE's CSR product
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch marks its sparse CSR tensors as beta
+        sp_torch = torch.sparse_csr_tensor(sp_ptr, sp_cols.to(torch.int64), sp_vals, (SPMV_N, SPMV_N))
+    pad_share = 1.0 - sp_nnz / ell_v.numel()
+    k6_times = {}
+    for k in (1, SPMV_K):
+        xk = sp_x[:, :k].contiguous()
+        t_k = time_ms(lambda: k6.spmv_ell(ell_v, ell_c, xk), reps=50, warmup=5)
+        t_p = time_ms(lambda: k6.reference_spmv_ell(ell_v, ell_c, xk), reps=5)
+        t_l = time_ms(lambda: sp_torch @ xk, reps=50, warmup=5)
+        t_k2 = time_ms(lambda: k6.spmv_ell(ell_v, ell_c, xk), reps=50, warmup=5)
+        b_ms, b_by = spmv_bound_ms(sp_nnz, SPMV_N, SPMV_N, k)
+        k6_times[k] = (t_k, t_p, t_l, b_ms, b_by)
+        print(f"[time] spmv ({SPMV_N}^2, nnz {sp_nnz}, ELL width {sp_w}) k={k}: kernel_ms={t_k:.4f} (again {t_k2:.4f}) "
+              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (torch.sparse_csr_tensor @ x, cuSPARSE) bound_ms={b_ms:.4f} "
+              f"({b_by}; the ELL padding adds {pad_share:.4f} of the slab slots) on {card}")
+    del sp_torch, ell_v, ell_c
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 5. end to end
@@ -523,6 +673,161 @@ def main() -> int:
     t_diff = float((la.theta.larray.cpu() - lb.theta.larray).abs().max())
     print(f"[e2e] small lasso (5000,30) card vs cpu: n_iter {la.n_iter}/{lb.n_iter}, max|dtheta| {t_diff:.3e}")
     check(la.n_iter == lb.n_iter and t_diff <= 1e-5, "small Lasso fit differs between card and CPU")
+    del xs, ys, la, lb, qa, qb, small
+    torch.cuda.empty_cache()
+
+    # ht.sparse.matmul at the SpMV cell: the matrix enters as a scipy CSR,
+    # as a user's would; its ELL slabs are packed on the card at first use
+    t0 = time.perf_counter()
+    a_sp = ht.sparse.sparse_csr_matrix(to_scipy(sp_vals, sp_cols, sp_ptr, (SPMV_N, SPMV_N)), split=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    k6.launches = 0
+    calls = 0
+    spmv_call_ms = {}
+    for k in (1, SPMV_K):
+        xv = ht.array(sp_x[:, 0] if k == 1 else sp_x)
+        y = ht.sparse.matmul(a_sp, xv)
+        torch.cuda.synchronize()
+        calls += 1
+        want = k6.reference_spmv_ell(*spmm_mod._ell_slabs(a_sp)[0], xv.larray)
+        err = float((y.larray - want).abs().max())
+        t0 = time.perf_counter()
+        for _ in range(20):
+            y = ht.sparse.matmul(a_sp, xv)
+        torch.cuda.synchronize()
+        spmv_call_ms[k] = 1e3 * (time.perf_counter() - t0) / 20
+        calls += 20
+        print(f"[e2e] sparse.matmul ({SPMV_N}^2, nnz {a_sp.nnz}) k={k}: {spmv_call_ms[k]:.4f} ms/call, "
+              f"max|y - plain| {err:.3e}, shape {y.shape} split {y.split} on {card}")
+        check(tuple(y.shape) == ((SPMV_N,) if k == 1 else (SPMV_N, k)) and y.split == 0, "sparse.matmul: bad shape or split")
+        check(err <= 1e-4, f"sparse.matmul k={k}: error {err:.3e} against the plain version")
+    matmul_launches = k6.launches
+    print(f"[e2e] sparse.matmul: matrix set-up {setup_s:.3f} s (host canonicalisation and copy), "
+          f"spmv launches {matmul_launches} over {calls} calls")
+    check(matmul_launches == calls, f"spmv launches {matmul_launches} != calls {calls}")
+    del a_sp, y, want, sp_vals, sp_cols, sp_ptr, sp_x
+    torch.cuda.empty_cache()
+
+    # Spectral(affinity="knn") on the repo's two blobs
+    sigma = 0.5**0.5  # gamma = 1
+    data, truth = two_blobs(KNNG_N, KNNG_F, gen, dev)
+    x_ht = ht.array(data, split=0)
+    ht.random.seed(args.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = 0
+    k1.launches = 0
+    t0 = time.perf_counter()
+    spec = ht.cluster.Spectral(n_clusters=2, gamma=1.0, affinity="knn", n_neighbors=KNNG_K, n_lanczos=KNNG_LANCZOS)
+    spec.fit(x_ht)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    spectral_launches, spectral_k1 = k6.launches, k1.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    km_iters = spec._cluster.n_iter_
+    label_share = blob_agreement(spec.labels_.larray, truth)
+    print(f"[e2e] spectral knn fit ({KNNG_N},{KNNG_F}) k={KNNG_K} m={KNNG_LANCZOS}: {fit_s:.3f} s, peak {peak_gb:.3f} GB "
+          f"(a dense affinity would be {4 * KNNG_N**2 / 1e9:.1f} GB), spmv launches {spectral_launches} "
+          f"(expected {KNNG_LANCZOS}), cdist launches {spectral_k1} (kmeans++ 2 + Lloyd {km_iters} + labels 1), "
+          f"labels agree with the blobs on {label_share:.6f} of points on {card}")
+    check(spectral_launches == KNNG_LANCZOS, f"spmv launches {spectral_launches} != {KNNG_LANCZOS}")
+    check(spectral_k1 == 2 + km_iters + 1, f"cdist launches {spectral_k1} != {3 + km_iters}")
+    check(peak_gb <= 4.0, f"spectral fit peak {peak_gb:.3f} GB > 4 GB")
+    check(tuple(spec.labels_.shape) == (KNNG_N, 1), "spectral: bad labels shape")
+    # the fit's stages one by one, each ending in a synchronize
+    stage = {}
+
+    def staged(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage[name] = time.perf_counter() - t
+        return out
+
+    xs_ = data.contiguous()
+    sq = torch.sum(xs_ * xs_, dim=1)
+    staged("distance tiles + top-k", lambda: [knn_mod._knn_tile(xs_[o : o + knn_mod._TILE_ROWS], xs_, sq, o, KNNG_K)
+                                               for o in range(0, KNNG_N, knn_mod._TILE_ROWS)])
+    graph = staged("knn_graph", lambda: ht.sparse.knn_graph(x_ht, KNNG_K, sigma=sigma, bucket_cap=True))
+    lap = staged("laplacian", lambda: ht.graph.laplacian_sparse(graph))
+    v0 = ht.array(torch.sin(torch.arange(1, KNNG_N + 1, dtype=torch.float32, device=dev)))
+    V, T = staged("lanczos", lambda: ht.lanczos(lap, KNNG_LANCZOS, v0=v0))
+    evals, evecs = staged("eigh + embedding", lambda: torch.linalg.eigh(T.larray))
+    emb = V.larray @ evecs
+    staged("kmeans", lambda: ht.cluster.KMeans(n_clusters=2, init="kmeans++").fit(ht.array(emb[:, :2].contiguous(), split=0)))
+    host_s = stage["knn_graph"] - stage["distance tiles + top-k"]
+    print("[e2e] spectral knn stages: " + ", ".join(f"{k} {1e3 * v:.2f} ms" for k, v in stage.items())
+          + f"; of knn_graph, {1e3 * host_s:.2f} ms is the host's scipy assembly and copies, nnz {graph.nnz}")
+    trace(f"Lanczos over the knn Laplacian ({KNNG_N}, nnz {lap.nnz}, {KNNG_LANCZOS} steps)",
+          lambda: ht.lanczos(lap, KNNG_LANCZOS, v0=v0), 1)
+    # Lanczos over K6 against the same recurrence over the plain version
+    from heat_tpu_torch.core.linalg import solver as solver_mod
+
+    slabs = spmm_mod._ell_slabs(lap)
+    vn = v0.larray / torch.linalg.vector_norm(v0.larray)
+    _, pa, pb = solver_mod._lanczos_loop(
+        slabs, vn, KNNG_LANCZOS, lambda ops, v: torch.cat([k6.reference_spmv_ell(a, c, v) for a, c in ops])
+    )
+    t_plain = torch.diag(pa) + torch.diag(pb, 1) + torch.diag(pb, -1)
+    ritz_err = float((torch.linalg.eigvalsh(t_plain)[:4] - evals[:4]).abs().max())
+    degree = torch.zeros(KNNG_N, device=dev)
+    for (d_, i_, p_), (lo, _) in zip(graph._shards, [graph._row_range(r) for r in range(graph.nshards)]):
+        rows_ = torch.repeat_interleave(torch.arange(p_.numel() - 1, device=dev), (p_[1:] - p_[:-1]).long()) + lo
+        degree.index_add_(0, rows_, torch.where(i_.long() == rows_, torch.zeros_like(d_), d_))
+    comp_share = component_agreement(emb[:, 0], degree, truth)
+    print(f"[e2e] spectral knn: smallest Ritz values {evals[:4].tolist()}, against the plain recurrence "
+          f"max|dtheta| {ritz_err:.3e} (tolerance 1e-4); the first embedding column splits the blobs on "
+          f"{comp_share:.6f} of points")
+    check(ritz_err <= 1e-4, f"spectral knn: Ritz values {ritz_err:.3e} from the plain recurrence")
+    check(comp_share >= 0.999, f"spectral knn: the embedding splits the blobs on {comp_share:.6f} < 0.999")
+    check(bool(torch.isfinite(emb).all()), "spectral knn: non-finite embedding")
+    del data, x_ht, spec, graph, lap, V, T, emb, slabs, degree, xs_, sq
+    torch.cuda.empty_cache()
+
+    # dense Spectral(affinity="rbf") on the same recipe at 16384 points
+    data, truth = two_blobs(RBF_N, KNNG_F, gen, dev)
+    x_ht = ht.array(data, split=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    spec = ht.cluster.Spectral(n_clusters=2, gamma=1.0, affinity="rbf", n_lanczos=KNNG_LANCZOS).fit(x_ht)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rbf_k1 = k1.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    km_iters = spec._cluster.n_iter_
+    label_share = blob_agreement(spec.labels_.larray, truth)
+    evals, emb = spec._spectral_embedding(x_ht)
+    aff = ht.spatial.rbf(x_ht, sigma=sigma).larray
+    degree = aff.sum(1) - torch.diagonal(aff)
+    comp_share = component_agreement(emb[:, 0], degree, truth)
+    print(f"[e2e] spectral rbf fit ({RBF_N},{KNNG_F}) m={KNNG_LANCZOS}: {fit_s:.3f} s, peak {peak_gb:.3f} GB, cdist "
+          f"launches {rbf_k1} (rbf 1 + kmeans++ 2 + Lloyd {km_iters} + labels 1), labels agree with the blobs on "
+          f"{label_share:.6f} of points, the first embedding column splits them on {comp_share:.6f} on {card}")
+    check(rbf_k1 == 1 + 2 + km_iters + 1, f"rbf cdist launches {rbf_k1} != {4 + km_iters}")
+    check(comp_share >= 0.999, f"spectral rbf: the embedding splits the blobs on {comp_share:.6f} < 0.999")
+    check(bool(torch.isfinite(emb).all()), "spectral rbf: non-finite embedding")
+    del data, x_ht, spec, emb, aff, degree
+    torch.cuda.empty_cache()
+
+    # small input: a k-NN fit on the card and on the CPU (two blobs whose
+    # graph is connected, 60 Lanczos steps: a well-posed clustering; the
+    # recipe of tests/test_torch_spectral.py::_blobs)
+    rng = np.random.default_rng(args.seed + 3)
+    sx = torch.from_numpy(np.concatenate([rng.normal(0, 1, (200, 4)), rng.normal(3, 1, (200, 4))]).astype(np.float32)).to(dev)
+    mesh = ht.MeshComm(4)
+    kw = dict(n_clusters=2, gamma=1.0, affinity="knn", n_neighbors=6, n_lanczos=60)
+    sa = ht.cluster.Spectral(**kw).fit(ht.array(sx, split=0, comm=mesh))
+    sb = ht.cluster.Spectral(**kw).fit(ht.array(sx.cpu(), split=0, comm=mesh, device="cpu"))
+    la_, lb_ = sa.labels_.larray.reshape(-1).cpu(), sb.labels_.larray.reshape(-1)
+    same_small = bool(torch.equal(la_, lb_) or torch.equal(la_, 1 - lb_))
+    small_share = blob_agreement(la_, torch.arange(400) >= 200)
+    print(f"[e2e] small spectral knn (400,4) card vs cpu: labels equal up to naming {same_small}, "
+          f"blobs recovered on {small_share:.4f} of points")
+    check(same_small, "small spectral fit differs between card and CPU")
 
     # ---------------------------------------------------------- 6. summary
     kernels = [
@@ -565,6 +870,19 @@ def main() -> int:
             "bound_by": k5_bound_by,
             "library_ms": None,
             "library_note": "no library call computes a coordinate-descent sweep",
+        },
+        {
+            "name": "spmv",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/spmv.cu",
+            "replaces": "heat_tpu/ops/spmv.py:117",
+            "launches": matmul_launches + spectral_launches,
+            "max_abs_err": k6_abs,
+            "ms": k6_times[1][0],
+            "plain_ms": k6_times[1][1],
+            "bound_ms": k6_times[1][3],
+            "bound_by": k6_times[1][4],
+            "library_ms": k6_times[1][2],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ the CPU (``device="cpu"`` or ``use_device("cpu")``); without a card they
 raise.  The slices ported so far carry the KMeans path (factories, the split
 DNDarray, elementwise ops and reductions, ``spatial.cdist``,
 ``cluster.KMeans``), the linear-algebra path (``linalg.matmul`` and its
-basics, ``linalg.qr``) and the Lasso path (``regression.Lasso``).
+basics, ``linalg.qr``), the Lasso path (``regression.Lasso``) and the
+sparse Spectral path (``sparse``, ``graph``, ``linalg.lanczos``,
+``cluster.Spectral``).
 """
 
 from .core import *
@@ -34,6 +36,8 @@ from .core import (
 from . import parallel
 from . import ops
 from . import spatial
+from . import sparse
+from . import graph
 from . import cluster
 from . import regression
 

@@ -59,14 +59,19 @@ def _kmeanspp_init(blocks: List[torch.Tensor], us: torch.Tensor, k: int) -> torc
     centers = [c0[0]]
     d = [_k1.cdist(_f32(b), _f32(c0), sqrt=True)[:, 0] for b in blocks]
     for j in range(1, k):
-        total = collectives.psum([di.sum() for di in d])[0]
         # position of us[j] in cumsum(d / total) over the concatenated blocks:
-        # per-block cumsums shifted by the mass of the blocks before them
+        # per-block cumsums shifted by the mass of the blocks before them.
+        # The CDF is summed in float64: in float32 a point's share (~1/n) is
+        # about one ulp of the running sum at n ~ 1e7, so the sum drifts far
+        # from the CDF, and the card's scan, whose order of partial sums
+        # varies between runs, would pick another point on every run.
+        total = collectives.psum([di.sum(dtype=torch.float64) for di in d])[0]
         below = torch.zeros((), dtype=torch.int64, device=us.device)
-        offset = torch.zeros((), dtype=d[0].dtype, device=us.device)
+        offset = torch.zeros((), dtype=torch.float64, device=us.device)
+        u = us[j : j + 1].to(torch.float64)
         for di in d:
-            cum = torch.cumsum(di / total, dim=0) + offset
-            below = below + torch.searchsorted(cum, us[j : j + 1])[0]
+            cum = torch.cumsum(di.to(torch.float64) / total, dim=0) + offset
+            below = below + torch.searchsorted(cum, u)[0]
             if cum.numel():
                 offset = cum[-1]
         nxt = min(int(below), n - 1)

@@ -1,6 +1,7 @@
-"""A fitted KMeans from fitted state given as numpy arrays, e.g. that of a
-heat_tpu KMeans: ``cluster_centers_``, ``n_iter_``, ``inertia_`` and
-``n_clusters``.  The model then predicts as the one it came from."""
+"""Fitted estimators from fitted state given as numpy arrays, e.g. that of
+a heat_tpu estimator.  A KMeans takes ``cluster_centers_``, ``n_iter_``,
+``inertia_`` and ``n_clusters``; a Spectral its parameters and its KMeans's
+``cluster_centers_``.  The model then predicts as the one it came from."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 from ..core import factories
 from .kmeans import KMeans
 
-__all__ = ["kmeans_from_state"]
+__all__ = ["kmeans_from_state", "spectral_from_state"]
 
 
 def kmeans_from_state(
@@ -34,4 +35,22 @@ def kmeans_from_state(
     model._cluster_centers = factories.array(centers, device=device, comm=comm)
     model._n_iter = int(n_iter)
     model._inertia = float(inertia)
+    return model
+
+
+def spectral_from_state(params: dict, cluster_centers, device=None, comm=None):
+    """A fitted :class:`~heat_tpu_torch.cluster.Spectral` built from a fitted
+    heat_tpu Spectral: ``params`` is its ``get_params(deep=False)`` and
+    ``cluster_centers`` its KMeans's ``cluster_centers_`` as numpy (k, k),
+    the centres in the embedding.  ``predict`` then embeds new data and
+    assigns it as the heat_tpu model does; ``labels_`` stays None.  A
+    heat_tpu DCSR matrix crosses to the port as ``A.to_scipy()`` into
+    ``sparse.sparse_csr_matrix``."""
+    from .spectral import Spectral
+
+    centers = np.asarray(cluster_centers)
+    kwargs = {k: v for k, v in params.items() if k in Spectral._parameter_names()}
+    kwargs["n_clusters"] = centers.shape[0]
+    model = Spectral(**kwargs)
+    model._cluster = kmeans_from_state(centers, 0, 0.0, n_clusters=centers.shape[0], device=device, comm=comm)
     return model

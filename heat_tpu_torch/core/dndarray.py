@@ -175,6 +175,17 @@ class DNDarray:
             return self
         return DNDarray(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 
+    def _adopt(self, result: "DNDarray") -> "DNDarray":
+        """Take ``result``'s values, cast to this array's dtype, and its
+        split (``sanitation.sanitize_out`` checks the shape first)."""
+        tt = self.__dtype.torch_type()
+        if result.split is None:
+            self.__shards = [result.shards[0].to(tt)] * self.__comm.size
+        else:
+            self.__shards = [s.to(tt) for s in result.shards]
+        self.__split = result.split
+        return self
+
     def item(self):
         if self.size != 1:
             raise ValueError("only one-element arrays can be converted to Python scalars")

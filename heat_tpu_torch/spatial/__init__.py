@@ -1,6 +1,6 @@
 """Pairwise-distance functions."""
 
 from . import distance
-from .distance import cdist
+from .distance import cdist, rbf
 
-__all__ = ["cdist", "distance"]
+__all__ = ["cdist", "distance", "rbf"]

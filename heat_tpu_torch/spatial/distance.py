@@ -1,5 +1,5 @@
 """Pairwise distance matrices (counterpart of heat_tpu/spatial/distance.py):
-``cdist``.
+``cdist`` and the Gaussian similarity ``rbf``.
 
 Layouts, by the operands' splits:
 
@@ -26,11 +26,12 @@ from typing import Optional
 import torch
 
 from ..core import sanitation, types
+from ..core._operations import _local_op
 from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
 from ..parallel import collectives
 
-__all__ = ["cdist"]
+__all__ = ["cdist", "rbf"]
 
 
 def _check(x: DNDarray, y: Optional[DNDarray]):
@@ -98,3 +99,10 @@ def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool =
         shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype),
         split, x.device, comm,
     )
+
+
+def rbf(x: DNDarray, y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False) -> DNDarray:
+    """Gaussian (RBF) similarity exp(−d²/2σ²) of the rows of x to the rows
+    of y, over the squared distances of :func:`cdist` (K1 for float32, in
+    every layout).  ``quadratic_expansion`` is accepted for parity."""
+    return _local_op(lambda d2: torch.exp(-d2 / (2.0 * sigma * sigma)), cdist(x, y, sqrt=False))

@@ -1,7 +1,7 @@
 """heat_tpu_torch and chip_smoke.py stand alone: they import neither jax nor
 anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
-KMeans fit, QR and Lasso fit; a scan of every import statement in the port
-backs it up."""
+KMeans fit, QR, Lasso fit, sparse product and sparse Spectral fit; a scan of
+every import statement in the port backs it up."""
 
 import ast
 import os
@@ -27,6 +27,10 @@ q, r = ht.linalg.qr(x)
 assert q.shape == (40, 3) and r.shape == (3, 3)
 y = ht.matmul(x, ht.array(np.ones((3, 1), np.float32), comm=x.comm))
 assert ht.regression.Lasso(lam=0.01, max_iter=3).fit(x, y).predict(x).shape == (40, 1)
+a = ht.sparse.sparse_csr_matrix(np.eye(40, dtype=np.float32), split=0, comm=x.comm)
+assert ht.sparse.matmul(a, x).shape == (40, 3)
+s = ht.cluster.Spectral(n_clusters=2, affinity="knn", n_neighbors=4, n_lanczos=8).fit(x)
+assert s.labels_.shape == (40, 1)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """

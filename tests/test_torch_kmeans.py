@@ -130,6 +130,39 @@ def test_seeded_init_is_deterministic_and_mesh_invariant(init):
         np.testing.assert_allclose(found, np.sort(CENTRES[:, 0]), atol=0.3)
 
 
+def _kmeanspp_against_exact_cdf(dev, rows, n):
+    """kmeans++ picks the row where the uniform draw falls in the CDF of the
+    distances to the nearest chosen centre; the picks must be those of the
+    CDF summed in float64 by numpy over the same float32 distances."""
+    from heat_tpu_torch.cluster import _kcluster
+
+    k = 4
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(rows, 2, generator=gen, device=dev)
+    us = torch.tensor([0.1234, 0.8765, 0.4321, 0.5678], device=dev)
+    got = _kcluster._kmeanspp_init(list(torch.tensor_split(x, n)), us, k)
+    chosen = [min(int(0.1234 * rows), rows - 1)]
+    d = k1.cdist(x, x[chosen[0]][None], sqrt=True)[:, 0]
+    for j in range(1, k):
+        d64 = d.cpu().numpy().astype(np.float64)
+        cdf = np.cumsum(d64) / d64.sum()
+        chosen.append(min(int(np.searchsorted(cdf, np.float64(us[j].item()))), rows - 1))
+        d = torch.minimum(d, k1.cdist(x, x[chosen[j]][None], sqrt=True)[:, 0])
+    np.testing.assert_array_equal(got.cpu().numpy(), x[chosen].cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_kmeanspp_draws_from_the_exact_distance_cdf(n):
+    _kmeanspp_against_exact_cdf(torch.device("cpu"), 1_000_000, n)
+
+
+@pytest.mark.gpu
+def test_kmeanspp_on_card_draws_from_the_exact_distance_cdf(cuda):
+    # at 2e7 rows a row's share of the mass is about one float32 ulp of the
+    # running sum, so a float32 CDF on the card drifts by many rows
+    _kmeanspp_against_exact_cdf(cuda, 20_000_000, 1)
+
+
 @pytest.mark.parametrize("n", MESHES)
 def test_jax_fitted_state_carried_across(ht, n):
     x = _blobs(seed=4)
