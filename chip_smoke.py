@@ -1,5 +1,5 @@
-"""Drive heat_tpu_torch's KMeans, QR, Lasso and sparse Spectral paths on one
-CUDA card and check them.
+"""Drive heat_tpu_torch's KMeans, QR, Lasso, sparse Spectral and TransformerLM
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -16,9 +16,13 @@ recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); ``sparse.matmul``
 on the repo's SpMV cell (131072^2 at density 0.002, k = 1 and 4;
 benchmarks/cb/sparse.py:78-127) and ``Spectral(affinity="knn")`` on its
 two-blob cell (65536 x 16, k = 6, 32 Lanczos steps; sparse.py:130-165,
-config.py:220-223), and a dense ``affinity="rbf"`` fit at 16384 x 16; each
-with data made on the card from ``--seed``, and a small input of each on the
-card and on the CPU; (6) one JSON line per kernel.  The last line is
+config.py:220-223), and a dense ``affinity="rbf"`` fit at 16384 x 16; the
+default ``TransformerLM`` (vocab 32000, 4 layers, 8 heads x 64, built from a
+flax-layout tree made from ``--seed``) forward on 8 x 2048 tokens,
+``sequence_parallel_attention`` (ring, Ulysses) over 4 positions and
+``ops.pallas_matmul`` at 8192^2 (benchmarks/cb/config.py:151); each with
+data made on the card from ``--seed``, and a small input of each on the card
+and on the CPU; (6) one JSON line per kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
 line; so does a machine without a card.
 """
@@ -62,6 +66,25 @@ TOL_SPMV = 1e-5
 SPMV_N, SPMV_DENSITY, SPMV_K = 131_072, 0.002, 4
 KNNG_N, KNNG_F, KNNG_K, KNNG_LANCZOS = 65_536, 16, 6, 32
 RBF_N = 16_384
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16/f16 tensor cores
+# K3: |Δo| <= TOL_ATTN (f32; unit-normal inputs, sums in other orders); for
+# bf16/f16 |Δo| <= TOL_ATTN_16 + 2^-7 |o|: the plain version rounds the
+# scores and p to the input's type while the kernel keeps f32, and each
+# output is rounded once (a bf16 half-ulp is 2^-8 |o|)
+TOL_ATTN, TOL_ATTN_16 = 2e-5, 1e-2
+# K2: |Δc| <= TOL_MM * max(|a|·|b|) in f32; in bf16 one rounding of the f32 sum,
+# |Δc| <= 2^-7 |c| + 1e-3
+TOL_MM = 1e-5
+# the model's logits against the same model with the plain attention, and
+# the card against the CPU: |Δ| <= TOL_LM * max|logit|
+TOL_LM = 1e-4
+# TransformerLM's defaults (heat_tpu/models/transformer.py:157-171) at
+# batch 8 x 2048 tokens; the benchmark's attention and GEMM shapes
+# (benchmarks/cb/config.py:174, :151)
+LM = dict(vocab_size=32_000, num_layers=4, num_heads=8, head_dim=64, mlp_ratio=4, max_seq_len=2048)
+LM_BATCH = 8
+ATTN_BH, ATTN_S, ATTN_D = 16, 4096, 128
+MATMUL_N = 8192
 
 
 class SmokeFailure(RuntimeError):
@@ -231,9 +254,10 @@ def compare_qr_panel(k4, x):
     return abs_err, float((r - rr).norm() / rr.norm()), float((rinv - rri).norm() / rri.norm())
 
 
-def trace(label: str, fn, iters: int) -> None:
+def trace(label: str, fn, iters: int) -> list:
     """Device time per unit by kernel, from torch.profiler, and the device's
-    idle share of the traced window; ``fn`` runs ``iters`` units."""
+    idle share of the traced window; ``fn`` runs ``iters`` units.  Returns
+    the CUDA-typed rows (device µs, count, name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,11 +276,317 @@ def trace(label: str, fn, iters: int) -> None:
     busy = sum(r[0] for r in rows)
     if not rows:
         print("[trace] the profiler saw no device time")
-        return
+        return rows
     print(f"[trace] {label} x{iters}: device busy {busy / 1e3 / iters:.4f} ms per unit of "
           f"{wall_us / 1e3 / iters:.4f} ms wall under the profiler, idle share {1 - busy / wall_us:.4f}")
     for us, count, name in sorted(rows, reverse=True)[:10]:
         print(f"[trace]   {us / 1e3 / iters:9.4f} ms/unit  x{count / iters:<5g} {name[:100]}")
+    return rows
+
+
+def attention_bound_ms(bh: int, sq: int, sk: int, d: int, causal: bool, itemsize: int):
+    """Least time for one attention call: q, k, v read once and o written
+    once, against 4 flops per live (query, key) pair and feature (the two
+    products); causal counts only the pairs on or below the diagonal.  f32
+    at the CUDA cores' peak, 16-bit types at the dense tensor-core peak."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    nbytes = itemsize * bh * d * (2 * sq + 2 * sk)
+    peak = F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4.0 * bh * pairs * d / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def matmul_bound_ms(m: int, k: int, n: int, itemsize: int):
+    """Least time for (m,k)x(k,n): each operand read once and c written
+    once, against 2 m n k flops (f32 at the CUDA cores' peak, 16-bit types at
+    the dense tensor-core peak)."""
+    peak = F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    t_bytes, t_ops = itemsize * (m * k + k * n + m * n) / HBM_BYTES_PER_S, 2.0 * m * n * k / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_attention(k3, gen, dev) -> float:
+    """K3 against its plain version at the model's shape, the benchmark's
+    shape in bf16 and f32, a ragged cross attention, and its reruns; returns
+    the largest f32 |Δo|."""
+    worst = 0.0
+    cases = [((64, 2048, 2048, 64), torch.float32, True)]
+    cases += [((ATTN_BH, ATTN_S, ATTN_S, ATTN_D), dt, c) for dt in (torch.bfloat16, torch.float32) for c in (True, False)]
+    cases += [((4, 1000, 1337, 24), torch.float32, c) for c in (True, False)]
+    cases += [((4, 1000, 1337, 24), torch.float16, True), ((2, 77, 77, 256), torch.float32, True)]
+    for (bh, sq, sk, d), dt, causal in cases:
+        q, k, v = (torch.randn(bh, n, d, generator=gen, device=dev).to(dt) for n in (sq, sk, sk))
+        got = k3.flash_attention(q, k, v, causal=causal)
+        again = k3.flash_attention(q, k, v, causal=causal)
+        want = k3.reference_flash_attention(q, k, v, causal=causal)
+        exact = k3.reference_flash_attention(q.float(), k.float(), v.float(), causal=causal)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and tuple(got.shape) == (bh, sq, d), f"attention shape {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got.float()).all()), "non-finite attention output")
+        check(torch.equal(got, again), f"attention ({bh},{sq},{sk},{d}) {dt}: reruns are not bitwise equal")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        err_exact = float((got.float() - exact).abs().max())
+        if dt == torch.float32:
+            ok, tol = err <= TOL_ATTN, f"{TOL_ATTN:g}"
+        else:
+            ok, tol = bool((diff <= TOL_ATTN_16 + 2.0**-7 * want.float().abs()).all()), f"{TOL_ATTN_16:g} + 2^-7 |o|"
+        print(f"[check] attention ({bh},{sq},{d})x({bh},{sk},{d}) {str(dt)[6:]} causal={causal}: max_abs_err={err:.3e} "
+              f"(tolerance {tol}), against f32 plain on the same inputs {err_exact:.3e}, reruns bitwise equal")
+        check(ok, f"attention ({bh},{sq},{sk},{d}) {dt} causal={causal}: error {err:.3e} above {tol}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+        del q, k, v, got, again, want, exact
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_matmul(k2, gen, dev) -> float:
+    """K2 against its plain version at 8192^2 (f32, bf16), a ragged
+    (1000x777)(777x1333) and 1x1; returns the largest f32 |Δc|."""
+    worst = 0.0
+    shapes = [(MATMUL_N, MATMUL_N, MATMUL_N), (1000, 777, 1333), (1, 1, 1)]
+    for (m, k, n) in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+            got = k2.matmul(a, b)
+            want = k2.reference_matmul(a, b).float()
+            torch.cuda.synchronize()
+            check(got.dtype == dt and tuple(got.shape) == (m, n), f"matmul shape {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got.float()).all()), "non-finite matmul output")
+            err = float((got.float() - want).abs().max())
+            if dt == torch.float32:
+                scale = float((a.abs() @ b.abs()).max())
+                ok, tol = err <= TOL_MM * scale, f"{TOL_MM:g} * max(|a||b|) = {TOL_MM * scale:.3e}"
+                worst = max(worst, err)
+            else:
+                ok, tol = bool(((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all()), "2^-7 |c| + 1e-3"
+            print(f"[check] matmul ({m},{k})x({k},{n}) {str(dt)[6:]}: max_abs_err={err:.3e} (tolerance {tol})")
+            check(ok, f"matmul ({m},{k})x({k},{n}) {dt}: error {err:.3e} above tolerance")
+            del a, b, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_attention(k3, gen, dev, card: str) -> dict:
+    """K3 beside its plain version, SDPA (a yardstick only) and its bound:
+    at the model's (64, 2048, 64) f32 causal, and at the benchmark's
+    (16, 4096, 128) in bf16 causal and not, and f32 causal."""
+    import torch.nn.functional as F
+
+    times = {}
+    for bh, s, d, dt, causal in [(64, 2048, 64, torch.float32, True), (ATTN_BH, ATTN_S, ATTN_D, torch.bfloat16, True),
+                                 (ATTN_BH, ATTN_S, ATTN_D, torch.bfloat16, False), (ATTN_BH, ATTN_S, ATTN_D, torch.float32, True)]:
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev).to(dt) for _ in range(3))
+        q4, k4_, v4 = q[None], k[None], v[None]
+        t_k = time_ms(lambda: k3.flash_attention(q, k, v, causal=causal), reps=10)
+        t_p = time_ms(lambda: k3.reference_flash_attention(q, k, v, causal=causal), reps=3)
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(q4, k4_, v4, is_causal=causal), reps=10)
+        t_k2 = time_ms(lambda: k3.flash_attention(q, k, v, causal=causal), reps=10)
+        b_ms, b_by = attention_bound_ms(bh, s, s, d, causal, q.element_size())
+        times[(bh, s, d, str(dt)[6:], causal)] = (t_k, t_p, t_l, b_ms, b_by)
+        print(f"[time] attention ({bh},{s},{d}) {str(dt)[6:]} causal={causal}: kernel_ms={t_k:.4f} (again {t_k2:.4f}) "
+              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (F.scaled_dot_product_attention) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+        del q, k, v, q4, k4_, v4
+    torch.cuda.empty_cache()
+    return times
+
+
+def time_matmul(k2, gen, dev, card: str) -> dict:
+    """K2 at 8192^2 in f32 and bf16 beside its plain version (the f32
+    product, cast), torch.matmul with TF32 off, and the 2n^3 bound."""
+    times = {}
+    n = MATMUL_N
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.randn(n, n, generator=gen, device=dev).to(dt)
+        b = torch.randn(n, n, generator=gen, device=dev).to(dt)
+        t_k = time_ms(lambda: k2.matmul(a, b), reps=5)
+        t_p = time_ms(lambda: k2.reference_matmul(a, b), reps=5)
+        t_l = time_ms(lambda: torch.matmul(a, b), reps=5)
+        t_k2 = time_ms(lambda: k2.matmul(a, b), reps=5)
+        b_ms, b_by = matmul_bound_ms(n, n, n, a.element_size())
+        times[str(dt)[6:]] = (t_k, t_p, t_l, b_ms, b_by)
+        print(f"[time] matmul {n}^2 {str(dt)[6:]}: kernel_ms={t_k:.4f} (again {t_k2:.4f}) plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} (torch.matmul, tf32 off) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+        del a, b
+    torch.cuda.empty_cache()
+    return times
+
+
+def flax_layout_params(seed: int, vocab_size, num_layers, num_heads, head_dim, mlp_ratio, max_seq_len) -> dict:
+    """A TransformerLM parameter tree in flax's layout and names, as numpy
+    arrays drawn from ``seed`` with flax's initialisers: normal embeddings of
+    std 1/sqrt(D), truncated-normal (±2σ) LeCun kernels, unit scales."""
+    rng = np.random.default_rng(seed)
+    dim = num_heads * head_dim
+
+    def lecun(*shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        bad = np.abs(x) > 2
+        while bad.any():
+            x[bad] = rng.standard_normal(int(bad.sum())).astype(np.float32)
+            bad = np.abs(x) > 2
+        return x * np.float32(1.0 / np.sqrt(shape[0]) / 0.87962566103423978)
+
+    def embed(n):
+        return {"embedding": rng.standard_normal((n, dim)).astype(np.float32) / np.float32(np.sqrt(dim))}
+
+    params = {"embed": embed(vocab_size), "pos_embed": embed(max_seq_len), "final_norm": {"scale": np.ones(dim, np.float32)}}
+    for i in range(num_layers):
+        params[f"block_{i}"] = {
+            "LayerNorm_0": {"scale": np.ones(dim, np.float32)},
+            "LayerNorm_1": {"scale": np.ones(dim, np.float32)},
+            "attn": {"qkv": {"kernel": lecun(dim, 3, num_heads, head_dim)}, "out": {"kernel": lecun(dim, dim)}},
+            "mlp_in": {"kernel": lecun(dim, dim * mlp_ratio)},
+            "mlp_out": {"kernel": lecun(dim * mlp_ratio, dim)},
+        }
+    return {"params": params}
+
+
+def forward_shares(rows) -> None:
+    """Print the device time of a traced forward by kind (``rows`` from
+    :func:`trace`): K3, the GEMMs, and everything else (layer norms, GELU,
+    adds, the embedding gather, copies)."""
+    kinds = {"attention (K3)": 0.0, "GEMM": 0.0, "other": 0.0}
+    for us, _, name in rows:
+        kind = "attention (K3)" if "flash_fwd_kernel" in name else "GEMM" if "gemm" in name.lower() else "other"
+        kinds[kind] += us / 1e3
+    busy = sum(kinds.values())
+    if busy:
+        print("[trace] forward by kind: " + ", ".join(f"{k} {v:.4f} ms ({v / busy:.4f})" for k, v in kinds.items()))
+
+
+def transformer_paths(ht, k3, k2, seed: int, dev, card: str) -> dict:
+    """The slice end to end: the default TransformerLM forward at 8 x 2048
+    tokens (K3 launches, logits against the plain attention, causality,
+    time, memory, trace), sequence-parallel attention at the model's width,
+    K3's gradient, a small model on the card and the CPU, and
+    ``ops.pallas_matmul`` at 8192^2.  Returns the launch counts."""
+    tmod = importlib.import_module("heat_tpu_torch.models.transformer")
+    t0 = time.perf_counter()
+    params = flax_layout_params(seed, **LM)
+    model = ht.models.transformer_from_flax(params, device="gpu")
+    model.eval()
+    del params
+    torch.cuda.synchronize()
+    print(f"[e2e] TransformerLM {LM} from a flax-layout tree made from seed {seed}: {time.perf_counter() - t0:.3f} s "
+          f"({sum(p.numel() for p in model.parameters())} parameters)")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]), generator=gen, device=dev)
+    n_tok = tokens.numel()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k3.launches = 0
+        t0 = time.perf_counter()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        forward_launches = k3.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(forward_launches == LM["num_layers"], f"attention launches {forward_launches} != {LM['num_layers']}")
+        check(tuple(logits.shape) == (LM_BATCH, LM["max_seq_len"], LM["vocab_size"]), f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(tokens)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0) / reps
+        print(f"[e2e] forward ({LM_BATCH},{LM['max_seq_len']}): {fwd_ms:.4f} ms per forward ({n_tok / fwd_ms * 1e3:.4e} tokens/s; "
+              f"first call {1e3 * first_s:.1f} ms), peak {peak_gb:.3f} GB, attention launches {forward_launches} "
+              f"(expected {LM['num_layers']}), max|logit| {float(logits.abs().max()):.4f} on {card}")
+        forward_shares(trace("TransformerLM forward", lambda: model(tokens), 1))
+        # the same model with the plain attention in place of K3
+        orig = tmod.flash_attention
+        tmod.flash_attention = k3.reference_flash_attention
+        try:
+            plain = model(tokens)
+        finally:
+            tmod.flash_attention = orig
+        scale = float(plain.abs().max())
+        err = float((logits - plain).abs().max())
+        del plain
+        print(f"[e2e] logits against the plain attention: max_abs_err {err:.3e} (tolerance {TOL_LM:g} * {scale:.4f})")
+        check(err <= TOL_LM * scale, f"logits differ from the plain attention's by {err:.3e}")
+        # causality: a new last token leaves every earlier position unchanged
+        changed = tokens.clone()
+        changed[:, -1] = (changed[:, -1] + 1) % LM["vocab_size"]
+        other = model(changed)
+        before = float((other[:, :-1] - logits[:, :-1]).abs().max())
+        last = float((other[:, -1] - logits[:, -1]).abs().max())
+        print(f"[e2e] causality: changing the last token moves earlier logits by {before:.3e} (tolerance "
+              f"{TOL_LM * 0.01:g} * max|logit|), the last position's by {last:.3e}")
+        check(before <= TOL_LM * 0.01 * scale and last > 0, "a change of the last token reached an earlier position")
+        del logits, other, changed
+
+        # sequence parallelism over 4 positions, one layer at the model's width
+        h, d, s = LM["num_heads"], LM["head_dim"], LM["max_seq_len"]
+        q, k, v = (torch.randn(LM_BATCH, h, s, d, generator=gen, device=dev) for _ in range(3))
+        dense = k3.flash_attention(q, k, v, causal=True)
+        ulysses_launches = 0
+        for strategy in ("ulysses", "ring"):
+            k3.launches = 0
+            t0 = time.perf_counter()
+            got = ht.parallel.sequence.sequence_parallel_attention(q, k, v, ht.MeshComm(4), causal=True, strategy=strategy)
+            torch.cuda.synchronize()
+            call_ms = 1e3 * (time.perf_counter() - t0)
+            want_launches = 4 if strategy == "ulysses" else 0
+            err = float((got - dense).abs().max())
+            print(f"[e2e] sequence_parallel_attention {strategy} ({LM_BATCH},{h},{s},{d}) over MeshComm(4): "
+                  f"{call_ms:.3f} ms, attention launches {k3.launches} (expected {want_launches}), "
+                  f"max|Δ| against dense flash_attention {err:.3e} (tolerance {TOL_ATTN:g})")
+            check(k3.launches == want_launches, f"{strategy}: attention launches {k3.launches} != {want_launches}")
+            check(err <= TOL_ATTN, f"{strategy}: error {err:.3e} against dense flash_attention")
+            if strategy == "ulysses":
+                ulysses_launches = k3.launches
+        del q, k, v, dense, got
+
+    # K3's gradient (backward recomputes the plain version) against autograd
+    q, k, v = (torch.randn(2, 8, 512, 64, generator=gen, device=dev).requires_grad_() for _ in range(3))
+    w = torch.randn(2, 8, 512, 64, generator=gen, device=dev)
+    (k3.flash_attention(q, k, v, causal=True) * w).sum().backward()
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (k3.reference_flash_attention(q, k, v, causal=True) * w).sum().backward()
+    gerr = max(float((a - t.grad).abs().max()) for a, t in zip(grads, (q, k, v)))
+    print(f"[e2e] flash_attention gradient (2,8,512,64) causal against autograd through the plain version: max|Δ| {gerr:.3e} (tolerance 1e-5)")
+    check(gerr <= 1e-5, f"flash_attention gradient differs by {gerr:.3e}")
+    del q, k, v, w, grads
+
+    # a small model on the card and on the CPU
+    small = dict(vocab_size=50, num_layers=2, num_heads=4, head_dim=8, max_seq_len=32)
+    cpu_model = ht.models.TransformerLM(**small, device="cpu", generator=torch.Generator().manual_seed(seed))
+    card_model = ht.models.TransformerLM(**small, device="gpu")
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.randint(0, 50, (2, 32), generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        a_, b_ = card_model(toks.to(dev)).cpu(), cpu_model(toks)
+    serr = float((a_ - b_).abs().max())
+    print(f"[e2e] small TransformerLM {small} card vs cpu: max|Δlogit| {serr:.3e} (tolerance {TOL_LM:g} * {float(b_.abs().max()):.4f})")
+    check(serr <= TOL_LM * float(b_.abs().max()), "small TransformerLM differs between card and CPU")
+
+    # ops.pallas_matmul through the entry point
+    n = MATMUL_N
+    a = torch.randn(n, n, generator=gen, device=dev)
+    b = torch.randn(n, n, generator=gen, device=dev)
+    k2.launches = 0
+    t0 = time.perf_counter()
+    c = ht.ops.pallas_matmul(a, b)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    mm_launches = k2.launches
+    err = float((c - a @ b).abs().max())
+    scale = float((a.abs() @ b.abs()).max())
+    print(f"[e2e] ops.pallas_matmul {n}^2 f32: {call_ms:.3f} ms, matmul launches {mm_launches} (expected 1), "
+          f"max|Δ| against torch.matmul {err:.3e} (tolerance {TOL_MM:g} * {scale:.1f}) on {card}")
+    check(mm_launches == 1, f"matmul launches {mm_launches} != 1")
+    check(err <= TOL_MM * scale, f"pallas_matmul error {err:.3e}")
+    del a, b, c, model
+    torch.cuda.empty_cache()
+    return {"attention": forward_launches + ulysses_launches, "matmul": mm_launches}
 
 
 def main() -> int:
@@ -273,7 +603,9 @@ def main() -> int:
     import heat_tpu_torch as ht
     from heat_tpu_torch.cluster import kmeans as km_mod
     from heat_tpu_torch.ops import _build
+    from heat_tpu_torch.ops import attention as k3
     from heat_tpu_torch.ops import cdist as k1
+    from heat_tpu_torch.ops import matmul as k2
     from heat_tpu_torch.ops import lasso_sweep as k5
     from heat_tpu_torch.ops import qr_panel as k4
     from heat_tpu_torch.ops import spmv as k6
@@ -294,7 +626,8 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     # one nvcc per library, all started together
-    libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5, "heat_spmv": k6}
+    libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5, "heat_spmv": k6,
+            "heat_attention": k3, "heat_matmul": k2}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(mod._kernel) for mod in libs.values()]:
@@ -486,6 +819,12 @@ def main() -> int:
               f"({b_by}; the ELL padding adds {pad_share:.4f} of the slab slots) on {card}")
     del sp_torch, ell_v, ell_c
     torch.cuda.empty_cache()
+
+    # K3 and K2: against their plain versions, then timed
+    k3_abs = check_attention(k3, gen, dev)
+    k2_abs = check_matmul(k2, gen, dev)
+    att_times = time_attention(k3, gen, dev, card)
+    mm_times = time_matmul(k2, gen, dev, card)
 
     # ------------------------------------------------------- 5. end to end
     k, iters = 8, 10
@@ -828,6 +1167,11 @@ def main() -> int:
     print(f"[e2e] small spectral knn (400,4) card vs cpu: labels equal up to naming {same_small}, "
           f"blobs recovered on {small_share:.4f} of points")
     check(same_small, "small spectral fit differs between card and CPU")
+    del sa, sb, sx
+    torch.cuda.empty_cache()
+
+    # the TransformerLM forward, sequence parallelism and ops.pallas_matmul
+    lm = transformer_paths(ht, k3, k2, args.seed, dev, card)
 
     # ---------------------------------------------------------- 6. summary
     kernels = [
@@ -883,6 +1227,34 @@ def main() -> int:
             "bound_ms": k6_times[1][3],
             "bound_by": k6_times[1][4],
             "library_ms": k6_times[1][2],
+        },
+        {
+            "name": "attention",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/attention.cu",
+            "replaces": "heat_tpu/ops/attention.py:37",
+            "launches": lm["attention"],
+            "max_abs_err": k3_abs,
+            "ms": att_times[(64, 2048, 64, "float32", True)][0],
+            "plain_ms": att_times[(64, 2048, 64, "float32", True)][1],
+            "bound_ms": att_times[(64, 2048, 64, "float32", True)][3],
+            "bound_by": att_times[(64, 2048, 64, "float32", True)][4],
+            "library_ms": att_times[(64, 2048, 64, "float32", True)][2],
+            "at": "(64, 2048, 64) f32 causal, the model's shape",
+        },
+        {
+            "name": "matmul",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/matmul.cu",
+            "replaces": "heat_tpu/ops/matmul.py:33",
+            "launches": lm["matmul"],
+            "max_abs_err": k2_abs,
+            "ms": mm_times["float32"][0],
+            "plain_ms": mm_times["float32"][1],
+            "bound_ms": mm_times["float32"][3],
+            "bound_by": mm_times["float32"][4],
+            "library_ms": mm_times["float32"][2],
+            "at": "8192^2 f32",
         },
     ]
     print(json.dumps({"kernels": kernels}))

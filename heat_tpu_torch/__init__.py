@@ -13,7 +13,9 @@ DNDarray, elementwise ops and reductions, ``spatial.cdist``,
 ``cluster.KMeans``), the linear-algebra path (``linalg.matmul`` and its
 basics, ``linalg.qr``), the Lasso path (``regression.Lasso``) and the
 sparse Spectral path (``sparse``, ``graph``, ``linalg.lanczos``,
-``cluster.Spectral``).
+``cluster.Spectral``), the TransformerLM forward (``models``,
+``parallel.sequence``, ``ops.flash_attention``) and the
+``ops.pallas_matmul`` entry point.
 """
 
 from .core import *
@@ -40,5 +42,6 @@ from . import sparse
 from . import graph
 from . import cluster
 from . import regression
+from . import models
 
 __version__ = "0.1.0"

@@ -1,11 +1,15 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-Ported so far: K1, the fused squared-distance kernel (:mod:`.cdist`); K4,
-the fused CholeskyQR panel pass (:mod:`.qr_panel`); K5, the Lasso
+Ported so far: K1, the fused squared-distance kernel (:mod:`.cdist`); K2,
+the blocked GEMM (:mod:`.matmul`, exported as :func:`pallas_matmul`); K3,
+flash attention (:mod:`.attention`, exported as :func:`flash_attention`);
+K4, the fused CholeskyQR panel pass (:mod:`.qr_panel`); K5, the Lasso
 coordinate-descent sweep (:mod:`.lasso_sweep`); K6, the ELL sparse
 matrix-vector product (:mod:`.spmv`).
 """
 
-from . import cdist, lasso_sweep, qr_panel, spmv
+from . import attention, cdist, lasso_sweep, matmul, qr_panel, spmv
+from .attention import flash_attention
+from .matmul import matmul as pallas_matmul
 
-__all__ = ["cdist", "lasso_sweep", "qr_panel", "spmv"]
+__all__ = ["attention", "cdist", "flash_attention", "lasso_sweep", "matmul", "pallas_matmul", "qr_panel", "spmv"]

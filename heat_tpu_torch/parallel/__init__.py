@@ -1,6 +1,6 @@
-"""Mesh context and collectives over shard lists."""
+"""Mesh context, collectives over shard lists, and sequence parallelism."""
 
-from . import collectives, mesh
+from . import collectives, mesh, sequence
 from .mesh import Communication, MeshComm, get_comm, sanitize_comm, use_comm, world
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "collectives",
     "get_comm",
     "mesh",
+    "sequence",
     "sanitize_comm",
     "use_comm",
     "world",

@@ -12,7 +12,7 @@ from typing import List, Sequence
 
 import torch
 
-__all__ = ["psum", "pmin", "all_gather", "bcast"]
+__all__ = ["psum", "pmin", "all_gather", "all_to_all", "ring_shift", "bcast"]
 
 
 def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -39,6 +39,27 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor
     """Concatenate every position's block along ``dim``, on every position."""
     whole = torch.cat([_to(p, parts[0]) for p in parts], dim=dim)
     return [_to(whole, p) for p in parts]
+
+
+def all_to_all(parts: Sequence[torch.Tensor], split_axis: int, concat_axis: int) -> List[torch.Tensor]:
+    """Tiled all-to-all (heat_tpu/parallel/collectives.py:124): each
+    position cuts its block into N equal pieces along ``split_axis`` and
+    sends piece j to position j; position i concatenates the pieces it
+    receives along ``concat_axis``, in the order of their sources."""
+    n = len(parts)
+    for p in parts:
+        if p.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dimension {split_axis} of size {p.shape[split_axis]} does not divide over {n} positions")
+    pieces = [p.split(p.shape[split_axis] // n, dim=split_axis) for p in parts]
+    return [torch.cat([_to(pieces[j][i], parts[i]) for j in range(n)], dim=concat_axis) for i in range(n)]
+
+
+def ring_shift(parts: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:
+    """Pass each position's block ``shift`` positions up the ring
+    (heat_tpu/parallel/collectives.py:132): position (i + shift) mod N
+    receives position i's block."""
+    n = len(parts)
+    return [_to(parts[(j - shift) % n], parts[j]) for j in range(n)]
 
 
 def bcast(parts: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:

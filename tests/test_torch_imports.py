@@ -1,7 +1,8 @@
 """heat_tpu_torch and chip_smoke.py stand alone: they import neither jax nor
 anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
-KMeans fit, QR, Lasso fit, sparse product and sparse Spectral fit; a scan of
-every import statement in the port backs it up."""
+KMeans fit, QR, Lasso fit, sparse product, sparse Spectral fit, the
+TransformerLM forward (dense and sequence-parallel) and ``pallas_matmul``;
+a scan of every import statement in the port backs it up."""
 
 import ast
 import os
@@ -31,6 +32,15 @@ a = ht.sparse.sparse_csr_matrix(np.eye(40, dtype=np.float32), split=0, comm=x.co
 assert ht.sparse.matmul(a, x).shape == (40, 3)
 s = ht.cluster.Spectral(n_clusters=2, affinity="knn", n_neighbors=4, n_lanczos=8).fit(x)
 assert s.labels_.shape == (40, 1)
+import torch
+lm = ht.models.TransformerLM(vocab_size=20, num_layers=1, num_heads=2, head_dim=4, max_seq_len=8, device="cpu")
+tok = torch.randint(0, 20, (2, 8))
+assert lm(tok).shape == (2, 8, 20)
+sp = ht.models.TransformerLM(vocab_size=20, num_layers=1, num_heads=2, head_dim=4, max_seq_len=8,
+                             attention="ulysses", sp_mesh=ht.MeshComm(2), device="cpu")
+sp.load_state_dict(lm.state_dict())
+assert torch.allclose(sp(tok), lm(tok), atol=1e-5)
+assert ht.ops.pallas_matmul(torch.ones(3, 4), torch.ones(4, 2)).shape == (3, 2)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """
