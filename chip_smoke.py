@@ -1,5 +1,6 @@
-"""Drive heat_tpu_torch's KMeans, QR, Lasso, sparse Spectral and TransformerLM
-paths on one CUDA card and check them.
+"""Drive heat_tpu_torch's KMeans, QR, Lasso, sparse Spectral, TransformerLM
+and transport (reshape, resplit, advanced getitem) paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -20,7 +21,12 @@ config.py:220-223), and a dense ``affinity="rbf"`` fit at 16384 x 16; the
 default ``TransformerLM`` (vocab 32000, 4 layers, 8 heads x 64, built from a
 flax-layout tree made from ``--seed``) forward on 8 x 2048 tokens,
 ``sequence_parallel_attention`` (ring, Ulysses) over 4 positions and
-``ops.pallas_matmul`` at 8192^2 (benchmarks/cb/config.py:151); each with
+``ops.pallas_matmul`` at 8192^2 (benchmarks/cb/config.py:151); and over
+``MeshComm(4)`` positions of the card the transport engine: split-crossing
+``reshape`` at the benchmark's (999999, 20) -> (1999998, 10) and at 2.4 GB,
+a shift-carrying and a split-1 reshape, ``resplit`` at (4e6, 128), a mask
+getitem and an int-array take over 1e7 rows (benchmarks/cb/kernels.py:57-85,
+manipulations.py:16-30, :138-148); each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
@@ -85,6 +91,20 @@ LM = dict(vocab_size=32_000, num_layers=4, num_heads=8, head_dim=64, mlp_ratio=4
 LM_BATCH = 8
 ATTN_BH, ATTN_S, ATTN_D = 16, 4096, 128
 MATMUL_N = 8192
+# K7 and the transport engine over 4 positions of the one card: the
+# benchmark's reshape_repack (benchmarks/cb/config.py:186-188,
+# benchmarks/cb/kernels.py:57-85) and a 30x larger one past 2^31 bytes; a
+# shift-carrying reshape whose source position 3 is empty; the
+# split-crossing chain of benchmarks/cb/manipulations.py:16-30 at its
+# largest size (config.py:169); resplit_at_scale (manipulations.py:138-148,
+# config.py:173); a mask getitem and an int-array take over 1e7 rows
+TRANSPORT_MESH = 4
+REPACK_IN, REPACK_OUT = (999_999, 20), (1_999_998, 10)
+REPACK_BIG_IN, REPACK_BIG_OUT = (29_999_999, 20), (59_999_998, 10)
+SHIFT_IN, SHIFT_OUT = (6, 4_000_000), (2_400_000, 10)
+CHAIN_IN, CHAIN_OUT = (1000, 40_000), (4_000_000, 10)
+RESPLIT_N = 4_000_000
+SELECT_ROWS, TAKE_ROWS = 10_000_000, 2_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -589,10 +609,312 @@ def transformer_paths(ht, k3, k2, seed: int, dev, card: str) -> dict:
     return {"attention": forward_launches + ulysses_launches, "matmul": mm_launches}
 
 
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of ``t``, row-major: bitwise comparison for every dtype."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def repack_bound_ms(nbytes: int):
+    """Least time to move ``nbytes``: each byte read once and written once
+    over the card's memory rate; a copy does no operations."""
+    return 1e3 * 2.0 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def random_of(total: int, dtype, gen, dev) -> torch.Tensor:
+    if dtype == torch.bool:
+        return torch.rand(total, generator=gen, device=dev) < 0.5
+    if dtype.is_floating_point:
+        return torch.randn(total, generator=gen, device=dev, dtype=dtype)
+    return torch.randint(-100, 100, (total,), generator=gen, device=dev, dtype=dtype)
+
+
+def check_repack(k7, gen, dev) -> int:
+    """K7 against its plain version on the raw bytes: the benchmark's
+    (19999980,) -> (1999998, 10) f32, the 2.4 GB (599999980,) ->
+    (59999998, 10) past 2^31 bytes, five other dtypes at a ragged shape,
+    three int8 segments at odd byte offsets, zero rows, and two reruns.
+    Returns what it measured: whether every case was bitwise equal to its
+    plain version, and the largest |kernel - plain| over the float cases."""
+    all_equal, max_abs = True, 0.0
+    cases = [((REPACK_OUT[0] * REPACK_OUT[1],), REPACK_OUT, torch.float32),
+             ((REPACK_BIG_OUT[0] * REPACK_BIG_OUT[1],), REPACK_BIG_OUT, torch.float32)]
+    cases += [((1_234_567 * 7,), (1_234_567, 7), dt) for dt in (torch.bfloat16, torch.int8, torch.bool, torch.float64, torch.int64)]
+    for (total,), shape, dt in cases:
+        flat = random_of(total, dt, gen, dev)
+        got = k7.repack(flat, shape)
+        want = k7.reference_repack(flat, shape)
+        torch.cuda.synchronize()
+        same = tuple(got.shape) == shape and got.dtype == dt and torch.equal(raw(got), raw(want))
+        if dt.is_floating_point:
+            max_abs = max(max_abs, float((got - want).abs().max()))
+        all_equal = all_equal and same
+        print(f"[check] repack ({total},) -> {shape} {str(dt)[6:]} ({total * flat.element_size() / 1e9:.3f} GB): "
+              f"bitwise equal to plain {same}")
+        check(same, f"repack {shape} {dt}: not bitwise equal to its plain version")
+        if shape == REPACK_OUT:
+            reruns = [k7.repack(flat, shape) for _ in range(2)]
+            torch.cuda.synchronize()
+            again = all(torch.equal(raw(r), raw(got)) for r in reruns)
+            all_equal = all_equal and again
+            print(f"[check] repack {shape} f32: two reruns bitwise equal {again}")
+            check(again, "repack reruns differ")
+        del flat, got, want
+        torch.cuda.empty_cache()
+    a, b, c = (random_of(n, torch.int8, gen, dev) for n in (1_000_003, 777_777, 33))
+    segs = [(a, 1, 500_001), (c, 5, 27), (b, 3, 700_000), (a, 600_001, 15)]
+    total = sum(n for _, _, n in segs)
+    got = k7.repack_segments(segs, (total,))
+    want = k7.reference_repack_segments(segs, (total,))
+    lib = torch.cat([t[o : o + n] for t, o, n in segs])
+    torch.cuda.synchronize()
+    same = torch.equal(raw(got), raw(want)) and torch.equal(raw(got), raw(lib))
+    all_equal = all_equal and same
+    print(f"[check] repack_segments int8, 4 segments at byte offsets 1, 5, 3, 600001: bitwise equal to plain and torch.cat {same}")
+    check(same, "repack_segments at odd offsets differs")
+    n0 = k7.launches
+    empty = k7.repack_segments([(a, 7, 0)], (0, 10))
+    check(tuple(empty.shape) == (0, 10) and k7.launches == n0, "zero rows launched or misshaped")
+    print("[check] repack zero rows: (0, 10), no launch")
+    return all_equal, max_abs
+
+
+def time_repack(k7, gen, dev, card: str) -> dict:
+    """K7 beside its plain version, the library copy (``flat.clone()`` for
+    one segment, ``torch.cat`` for three) and its bytes bound."""
+    times = {}
+    for shape, reps in ((REPACK_OUT, 50), (REPACK_BIG_OUT, 10)):
+        total = shape[0] * shape[1]
+        buf = torch.randn(total + 1, generator=gen, device=dev)
+        flat = buf[:total]
+        t_k = time_ms(lambda: k7.repack(flat, shape), reps=reps)
+        t_p = time_ms(lambda: k7.reference_repack(flat, shape), reps=reps)
+        t_l = time_ms(lambda: flat.clone(), reps=reps)
+        t_k2 = time_ms(lambda: k7.repack(flat, shape), reps=reps)
+        b_ms, b_by = repack_bound_ms(4 * total)
+        times[shape] = (t_k, t_p, t_l, b_ms, b_by)
+        print(f"[time] repack ({total},) -> {shape} f32: kernel_ms={t_k:.4f} (again {t_k2:.4f}) plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} (flat.clone()) bound_ms={b_ms:.4f} ({b_by}), {2 * 4 * total / t_k / 1e6:.1f} GB/s on {card}")
+        # a source one element off 16-byte alignment: the kernel copies 4-byte words
+        t_m = time_ms(lambda: k7.repack_segments([(buf, 1, total)], shape), reps=reps)
+        t_ml = time_ms(lambda: buf[1:].clone(), reps=reps)
+        times[(shape, "misaligned")] = (t_m, t_ml)
+        print(f"[time] repack ({total},) -> {shape} f32 from element offset 1 (4-byte common alignment): "
+              f"kernel_ms={t_m:.4f} library_ms={t_ml:.4f} (buf[1:].clone()) on {card}")
+        del flat, buf
+        torch.cuda.empty_cache()
+    third = REPACK_OUT[0] * REPACK_OUT[1] // 3
+    parts = [torch.randn(third + 5, generator=gen, device=dev) for _ in range(3)]
+    segs = [(p, o, third) for p, o in zip(parts, (0, 1, 5))]
+    shape = (3 * third,)
+    t_k = time_ms(lambda: k7.repack_segments(segs, shape), reps=50)
+    t_p = time_ms(lambda: k7.reference_repack_segments(segs, shape), reps=50)
+    t_l = time_ms(lambda: torch.cat([p[o : o + n] for p, o, n in segs]), reps=50)
+    b_ms, b_by = repack_bound_ms(4 * 3 * third)
+    times["segments"] = (t_k, t_p, t_l, b_ms, b_by)
+    print(f"[time] repack_segments 3 x {third} f32 at element offsets 0, 1, 5: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} (torch.cat) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+    del parts, segs
+    torch.cuda.empty_cache()
+    return times
+
+
+def same_shards(got, want_global: torch.Tensor, mesh) -> bool:
+    """``got``'s shards against the chunk rule's cut of ``want_global``,
+    bitwise."""
+    for r, s in enumerate(got.shards):
+        sl = mesh.chunk(tuple(want_global.shape), got.split, rank=r)[2]
+        if tuple(s.shape) != tuple(want_global[sl].shape) or not torch.equal(raw(s), raw(want_global[sl])):
+            return False
+    return True
+
+
+def card_vs_cpu(ht, dev, mesh, x: np.ndarray, split, op) -> bool:
+    """``op`` on a small array on the card and on the CPU: equal shards,
+    split and shape, bitwise."""
+    a = op(ht.array(torch.from_numpy(x).to(dev), split=split, comm=mesh))
+    b = op(ht.array(x, split=split, comm=mesh, device="cpu"))
+    torch.cuda.synchronize()
+    return a.shape == b.shape and a.split == b.split and all(
+        torch.equal(raw(u.cpu()), raw(v)) for u, v in zip(a.shards, b.shards)
+    )
+
+
+def k7_destinations(gout, mesh) -> int:
+    """Destination positions with rows in the rechunk's split-0 layout:
+    K7's launches per split-crossing reshape."""
+    return sum(1 for r in range(mesh.size) if mesh.chunk(gout, 0, rank=r)[1][0] > 0)
+
+
+def transport_paths(ht, k7, seed: int, dev, card: str) -> dict:
+    """The slice end to end over ``MeshComm(4)`` on the card: split-crossing
+    reshapes (the benchmark's, 2.4 GB, shift-carrying, the split-1 chain),
+    ``resplit`` and ``resplit_`` at (4e6, 128), a mask getitem and an
+    int-array take over 1e7 rows; launches, bitwise checks, ms/call, GB/s,
+    peak memory, a trace, and each at a small size against the CPU.
+    Returns the K7 launches of the path's first calls."""
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.default_rng(seed + 7)
+    total_launches = 0
+    out = {}
+    for name, gin, si, gout, so, reps in [
+        ("reshape_repack", REPACK_IN, 0, REPACK_OUT, 0, 20),
+        ("reshape 2.4 GB", REPACK_BIG_IN, 0, REPACK_BIG_OUT, 0, 5),
+        ("shift-carrying reshape", SHIFT_IN, 0, SHIFT_OUT, 0, 20),
+        ("split-1 reshape chain", CHAIN_IN, 1, CHAIN_OUT, 1, 10),
+    ]:
+        src = torch.randn(gin, generator=gen, device=dev)
+        a = ht.array(src, split=si, comm=mesh, copy=False)
+        plan = ht.parallel.transport.rechunk_plan(gin[0], src.numel() // gin[0], gout[0], src.numel() // gout[0], mesh.size)
+        expect = k7_destinations(gout, mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k7.launches = 0
+        t0 = time.perf_counter()
+        b = ht.reshape(a, gout, new_split=so)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches = k7.launches
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        total_launches += launches
+        exact = b.shape == gout and b.split == so and same_shards(b, src.reshape(gout), mesh)
+        del b
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ht.reshape(a, gout, new_split=so)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        nbytes = 4 * src.numel()
+        src_rows = [int(m[si]) for m in mesh.lshape_map(gin, si)]
+        print(f"[e2e] {name} {gin} split {si} -> {gout} split {so} over MeshComm({mesh.size}): {ms:.4f} ms/call "
+              f"({2 * nbytes / ms / 1e6:.1f} GB/s of 2 x {nbytes / 1e9:.3f} GB; first call {first_ms:.3f} ms), "
+              f"peak {peak_gb:.3f} GB above the input, repack launches {launches} (expected {expect}), "
+              f"plan shifts {[e[0] for e in plan]}, source extents {src_rows}, bitwise equal to torch's reshape {exact} on {card}")
+        check(launches == expect, f"{name}: repack launches {launches} != {expect}")
+        check(exact, f"{name}: shards differ from torch's reshape")
+        out[name] = (ms, launches, peak_gb)
+        if name == "reshape 2.4 GB":
+            trace(f"ht.reshape {gin} -> {gout} over MeshComm({mesh.size})", lambda: ht.reshape(a, gout, new_split=so), 1)
+        if name == "shift-carrying reshape":
+            check([e[0] for e in plan] == [0, 1] and src_rows[-1] == 0, f"{name}: plan {plan}")
+        del a, src
+        torch.cuda.empty_cache()
+
+    # resplit 0 -> 1 at (4e6, 128) f32, out of place and in place
+    src = torch.randn(RESPLIT_N, 128, generator=gen, device=dev)
+    a = ht.array(src, split=0, comm=mesh, copy=False)
+    k7.launches = 0
+    b = ht.resplit(a, 1)
+    torch.cuda.synchronize()
+    exact = b.split == 1 and same_shards(b, src, mesh) and same_shards(a, src, mesh)
+    del b
+    ms = time_ms(lambda: ht.resplit(a, 1), reps=10)
+    c = ht.array(src.clone(), split=0, comm=mesh, copy=False)
+    c.resplit_(1)
+    c.resplit_(0)
+    torch.cuda.synchronize()
+    round_trip = c.split == 0 and same_shards(c, src, mesh)
+    nbytes = 4 * src.numel()
+    print(f"[e2e] resplit ({RESPLIT_N},128) 0 -> 1 over MeshComm({mesh.size}): {ms:.4f} ms/call "
+          f"({2 * nbytes / ms / 1e6:.1f} GB/s), repack launches {k7.launches} (expected 0), bitwise equal {exact}, "
+          f"resplit_ 0 -> 1 -> 0 round trip bitwise equal {round_trip} on {card}")
+    check(exact and round_trip and k7.launches == 0, "resplit differs or launched repack")
+    out["resplit"] = (ms, 0, None)
+    del a, c, src
+    torch.cuda.empty_cache()
+
+    # a mask getitem and an int-array take over 1e7 rows
+    src = torch.randn(SELECT_ROWS, 4, generator=gen, device=dev)
+    a = ht.array(src, split=0, comm=mesh, copy=False)
+    mask = src[:, 0] > 0
+    rows = torch.randint(0, SELECT_ROWS, (TAKE_ROWS,), generator=gen, device=dev)
+    for name, key, want in [("mask getitem", mask, src[mask]), ("int-array take", rows, src[rows])]:
+        got = a[key]
+        torch.cuda.synchronize()
+        exact = got.split == 0 and same_shards(got, want, mesh)
+        del got
+        t0 = time.perf_counter()
+        for _ in range(5):
+            a[key]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        print(f"[e2e] {name} ({SELECT_ROWS},4) split 0 over MeshComm({mesh.size}) -> {tuple(want.shape)}: {ms:.4f} ms/call, "
+              f"bitwise equal to torch's indexing {exact} on {card}")
+        check(exact, f"{name} differs from torch's indexing")
+        out[name] = (ms, 0, None)
+    del a, src, mask, rows
+    torch.cuda.empty_cache()
+
+    # each at a small size, card against CPU
+    small = [
+        ("reshape_repack", rng.standard_normal((999, 20)).astype(np.float32), 0, lambda x: ht.reshape(x, (1998, 10))),
+        ("shift-carrying reshape", rng.standard_normal((6, 40)).astype(np.float32), 0, lambda x: ht.reshape(x, (24, 10))),
+        ("split-1 chain", rng.standard_normal((10, 400)).astype(np.float32), 1, lambda x: ht.reshape(x, (400, 10), new_split=1)),
+        ("int8 reshape", rng.integers(-9, 9, (37, 15)).astype(np.int8), 0, lambda x: ht.reshape(x, (555,))),
+        ("resplit", rng.standard_normal((4001, 12)).astype(np.float32), 0, lambda x: ht.resplit(x, 1)),
+        ("mask getitem", rng.standard_normal((10_007, 4)).astype(np.float32), 0, lambda x: x[x.larray[:, 0] > 0]),
+        ("int-array take", rng.standard_normal((10_007, 4)).astype(np.float32), 0,
+         lambda x: x[(torch.arange(3000, device=x.shards[0].device) * 7919) % 10_007]),
+    ]
+    for name, x, split, op in small:
+        same = card_vs_cpu(ht, dev, mesh, x, split, op)
+        print(f"[e2e] small {name} {x.shape} {x.dtype} split {split}: card vs cpu bitwise equal {same}")
+        check(same, f"small {name} differs between card and CPU")
+    out["launches"] = total_launches
+    return out
+
+
+def manipulation_paths(ht, seed: int, dev, card: str) -> None:
+    """Sort, top-k and unique along the split axis over ``MeshComm(4)`` at
+    1e7 elements (the merge-split network of parallel/sort.py) against
+    torch's on the whole array, bitwise; then each manipulation at a small
+    size on the card against the CPU."""
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    src = torch.randint(0, 1000, (SELECT_ROWS,), generator=gen, device=dev).float()
+    a = ht.array(src, split=0, comm=mesh, copy=False)
+    want = torch.sort(src, stable=True)
+    t0 = time.perf_counter()
+    v, i = ht.sort(a)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    exact = same_shards(v, want.values, mesh) and same_shards(i, want.indices.to(torch.int32), mesh)
+    tv, ti = ht.topk(a, 10)
+    tw = torch.sort(src, descending=True, stable=True)
+    top_ok = torch.equal(tv.larray, tw.values[:10]) and torch.equal(ti.larray, tw.indices[:10])
+    u = ht.unique(a)
+    uniq_ok = torch.equal(u.larray, torch.unique(src))
+    print(f"[e2e] sort ({SELECT_ROWS},) f32 with ties over MeshComm({mesh.size}): {ms:.3f} ms (first call), bitwise equal "
+          f"to torch.sort(stable=True) {exact}; topk 10 equal {top_ok}; unique ({u.shape[0]}) equal {uniq_ok} on {card}")
+    check(exact and top_ok and uniq_ok, "sort, topk or unique differs from torch's")
+    del a, src, want, v, i, tw
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 9)
+    x = rng.standard_normal((37, 6)).astype(np.float32)
+    ops = [
+        ("flatten", lambda d: ht.flatten(d)), ("expand_dims", lambda d: ht.expand_dims(d, 1)),
+        ("swapaxes", lambda d: ht.swapaxes(d, 0, 1)), ("moveaxis", lambda d: ht.moveaxis(d, 0, 1)),
+        ("flip", lambda d: ht.flip(d, 0)), ("roll", lambda d: ht.roll(d, 5, 0)), ("rot90", lambda d: ht.rot90(d)),
+        ("pad", lambda d: ht.pad(d, ((2, 1), (0, 3)))), ("repeat", lambda d: ht.repeat(d, 2, axis=1)),
+        ("tile", lambda d: ht.tile(d, (2, 1))), ("broadcast_to", lambda d: ht.broadcast_to(d, (3, 37, 6))),
+        ("stack", lambda d: ht.stack([d, d], axis=1)), ("vstack", lambda d: ht.vstack([d, d])),
+        ("split", lambda d: ht.split(d, 3, axis=1)[1]), ("diagonal", lambda d: ht.diagonal(d)),
+        ("sort", lambda d: ht.sort(d, axis=0, descending=True)[1]), ("topk", lambda d: ht.topk(d, 3, dim=0)[1]),
+        ("unique", lambda d: ht.unique(ht.flatten(d))), ("nonzero", lambda d: ht.nonzero(d > 0)),
+        ("where", lambda d: ht.where(d > 0, d, 0.0)),
+    ]
+    bad = [name for name, op in ops if not card_vs_cpu(ht, dev, mesh, x, 0, op)]
+    print(f"[e2e] {len(ops)} manipulations at (37, 6) split 0 over MeshComm({mesh.size}): card vs cpu bitwise equal "
+          f"for all but {bad}")
+    check(not bad, f"manipulations differ between card and CPU: {bad}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     # ---------------------------------------------------------- 1. identity
     if not torch.cuda.is_available():
@@ -608,6 +930,7 @@ def main() -> int:
     from heat_tpu_torch.ops import matmul as k2
     from heat_tpu_torch.ops import lasso_sweep as k5
     from heat_tpu_torch.ops import qr_panel as k4
+    from heat_tpu_torch.ops import repack as k7
     from heat_tpu_torch.ops import spmv as k6
     from heat_tpu_torch.regression import lasso as lasso_mod
     from heat_tpu_torch.sparse import knn as knn_mod
@@ -627,7 +950,7 @@ def main() -> int:
     # ------------------------------------------------------------- 2. build
     # one nvcc per library, all started together
     libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5, "heat_spmv": k6,
-            "heat_attention": k3, "heat_matmul": k2}
+            "heat_attention": k3, "heat_matmul": k2, "heat_repack": k7}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(mod._kernel) for mod in libs.values()]:
@@ -825,6 +1148,10 @@ def main() -> int:
     k2_abs = check_matmul(k2, gen, dev)
     att_times = time_attention(k3, gen, dev, card)
     mm_times = time_matmul(k2, gen, dev, card)
+
+    # K7: against its plain version bitwise, then timed
+    k7_equal, k7_abs = check_repack(k7, gen, dev)
+    k7_times = time_repack(k7, gen, dev, card)
 
     # ------------------------------------------------------- 5. end to end
     k, iters = 8, 10
@@ -1173,6 +1500,10 @@ def main() -> int:
     # the TransformerLM forward, sequence parallelism and ops.pallas_matmul
     lm = transformer_paths(ht, k3, k2, args.seed, dev, card)
 
+    # the transport engine: reshape, resplit and advanced getitem
+    tr = transport_paths(ht, k7, args.seed, dev, card)
+    manipulation_paths(ht, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -1256,7 +1587,28 @@ def main() -> int:
             "library_ms": mm_times["float32"][2],
             "at": "8192^2 f32",
         },
+        {
+            "name": "repack",
+            "route": "cuda",
+            "source": "heat_tpu_torch/csrc/repack.cu",
+            "replaces": "heat_tpu/ops/repack.py:75",
+            "launches": tr["launches"],
+            "max_abs_err": k7_abs,
+            "bitwise_equal": k7_equal,
+            "ms": k7_times[REPACK_OUT][0],
+            "plain_ms": k7_times[REPACK_OUT][1],
+            "bound_ms": k7_times[REPACK_OUT][3],
+            "bound_by": k7_times[REPACK_OUT][4],
+            "library_ms": k7_times[REPACK_OUT][2],
+            "library_call": "flat.clone()",
+            "at": f"({REPACK_OUT[0] * REPACK_OUT[1]},) f32 -> {REPACK_OUT}, 80 MB",
+            "ms_2p4GB": k7_times[REPACK_BIG_OUT][0],
+            "plain_ms_2p4GB": k7_times[REPACK_BIG_OUT][1],
+            "bound_ms_2p4GB": k7_times[REPACK_BIG_OUT][3],
+            "library_ms_2p4GB": k7_times[REPACK_BIG_OUT][2],
+        },
     ]
+    print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

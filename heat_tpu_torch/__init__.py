@@ -14,8 +14,11 @@ DNDarray, elementwise ops and reductions, ``spatial.cdist``,
 basics, ``linalg.qr``), the Lasso path (``regression.Lasso``) and the
 sparse Spectral path (``sparse``, ``graph``, ``linalg.lanczos``,
 ``cluster.Spectral``), the TransformerLM forward (``models``,
-``parallel.sequence``, ``ops.flash_attention``) and the
-``ops.pallas_matmul`` entry point.
+``parallel.sequence``, ``ops.flash_attention``), the
+``ops.pallas_matmul`` entry point, and the transport engine under every
+layout change (``reshape`` across the split, ``resplit``, advanced
+indexing, the other manipulations and ``sort``; ``parallel.transport``,
+``parallel.select``, ``parallel.sort``, ``ops.repack``).
 """
 
 from .core import *

@@ -26,6 +26,8 @@ from . import exponential
 from .exponential import *
 from . import manipulations
 from .manipulations import *
+from . import indexing
+from .indexing import *
 from . import random
 from . import linalg
 from .linalg import *

@@ -5,11 +5,12 @@ the blocked GEMM (:mod:`.matmul`, exported as :func:`pallas_matmul`); K3,
 flash attention (:mod:`.attention`, exported as :func:`flash_attention`);
 K4, the fused CholeskyQR panel pass (:mod:`.qr_panel`); K5, the Lasso
 coordinate-descent sweep (:mod:`.lasso_sweep`); K6, the ELL sparse
-matrix-vector product (:mod:`.spmv`).
+matrix-vector product (:mod:`.spmv`); K7, the rechunk repack of the
+transport engine (:mod:`.repack`).
 """
 
-from . import attention, cdist, lasso_sweep, matmul, qr_panel, spmv
+from . import attention, cdist, lasso_sweep, matmul, qr_panel, repack, spmv
 from .attention import flash_attention
 from .matmul import matmul as pallas_matmul
 
-__all__ = ["attention", "cdist", "flash_attention", "lasso_sweep", "matmul", "pallas_matmul", "qr_panel", "spmv"]
+__all__ = ["attention", "cdist", "flash_attention", "lasso_sweep", "matmul", "pallas_matmul", "qr_panel", "repack", "spmv"]

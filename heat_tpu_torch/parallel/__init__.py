@@ -1,6 +1,7 @@
-"""Mesh context, collectives over shard lists, and sequence parallelism."""
+"""Mesh context, collectives over shard lists, the transport engine,
+distributed selection, and sequence parallelism."""
 
-from . import collectives, mesh, sequence
+from . import collectives, mesh, select, sequence, transport
 from .mesh import Communication, MeshComm, get_comm, sanitize_comm, use_comm, world
 
 __all__ = [
@@ -9,8 +10,10 @@ __all__ = [
     "collectives",
     "get_comm",
     "mesh",
+    "select",
     "sequence",
     "sanitize_comm",
     "use_comm",
+    "transport",
     "world",
 ]

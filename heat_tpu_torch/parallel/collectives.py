@@ -8,11 +8,11 @@ position, as a collective inside ``shard_map`` does.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["psum", "pmin", "all_gather", "all_to_all", "ring_shift", "bcast"]
+__all__ = ["psum", "pmin", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan"]
 
 
 def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -54,12 +54,39 @@ def all_to_all(parts: Sequence[torch.Tensor], split_axis: int, concat_axis: int)
     return [torch.cat([_to(pieces[j][i], parts[i]) for j in range(n)], dim=concat_axis) for i in range(n)]
 
 
+def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """General permutation over the positions (``lax.ppermute``, under
+    heat_tpu/parallel/collectives.py:132): for each ``(src, dst)`` pair
+    position ``dst`` receives position ``src``'s block; a position that no
+    pair names receives zeros.  No position may receive twice."""
+    n = len(parts)
+    out: List[Optional[torch.Tensor]] = [None] * n
+    for src, dst in perm:
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"ppermute: pair ({src}, {dst}) is outside {n} positions")
+        if out[dst] is not None:
+            raise ValueError(f"ppermute: position {dst} receives twice")
+        out[dst] = _to(parts[src], parts[dst])
+    return [torch.zeros_like(parts[j]) if o is None else o for j, o in enumerate(out)]
+
+
 def ring_shift(parts: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tensor]:
     """Pass each position's block ``shift`` positions up the ring
     (heat_tpu/parallel/collectives.py:132): position (i + shift) mod N
     receives position i's block."""
     n = len(parts)
-    return [_to(parts[(j - shift) % n], parts[j]) for j in range(n)]
+    return ppermute(parts, [(i, (i + shift) % n) for i in range(n)])
+
+
+def exscan(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Exclusive prefix sum over the positions
+    (heat_tpu/parallel/collectives.py:155): position r receives the sum of
+    the blocks of positions 0 .. r-1, position 0 zeros."""
+    out, run = [], torch.zeros_like(parts[0])
+    for p in parts:
+        out.append(_to(run, p))
+        run = run + _to(p, run)
+    return out
 
 
 def bcast(parts: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:

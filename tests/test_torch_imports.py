@@ -1,8 +1,10 @@
 """heat_tpu_torch and chip_smoke.py stand alone: they import neither jax nor
 anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
 KMeans fit, QR, Lasso fit, sparse product, sparse Spectral fit, the
-TransformerLM forward (dense and sequence-parallel) and ``pallas_matmul``;
-a scan of every import statement in the port backs it up."""
+TransformerLM forward (dense and sequence-parallel), ``pallas_matmul`` and
+the transport engine (a split-crossing reshape, resplit, a mask getitem and
+an int-array take); a scan of every import statement in the port backs it
+up."""
 
 import ast
 import os
@@ -41,6 +43,12 @@ sp = ht.models.TransformerLM(vocab_size=20, num_layers=1, num_heads=2, head_dim=
 sp.load_state_dict(lm.state_dict())
 assert torch.allclose(sp(tok), lm(tok), atol=1e-5)
 assert ht.ops.pallas_matmul(torch.ones(3, 4), torch.ones(4, 2)).shape == (3, 2)
+z = ht.reshape(x, (20, 6), new_split=1)
+assert z.split == 1 and np.array_equal(z.numpy(), x.numpy().reshape(20, 6))
+assert ht.resplit(x, 1).split == 1 and x.split == 0
+assert np.array_equal(x[x.larray[:, 0] > 0].numpy(), x.numpy()[x.numpy()[:, 0] > 0])
+assert np.array_equal(x[np.array([39, 0, 7])].numpy(), x.numpy()[[39, 0, 7]])
+assert ht.ops.repack.calls > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """

@@ -213,5 +213,5 @@ def test_basic_getitem(ht, n, split):
     _same(jt[0], tt[0])
     with pytest.raises(IndexError):
         tx[13]
-    with pytest.raises(TypeError):
-        tx[np.array([0, 1])]
+    # advanced keys are ported now: an index array gives heat_tpu's result
+    _same(jx[np.array([0, 1])], tx[np.array([0, 1])])
