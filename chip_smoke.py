@@ -6,7 +6,9 @@ and check them.
 
 Phases: (1) identity of the card and toolchain; (2) build every kernel of
 the paths from the sources in this checkout, all at once; (3) each kernel
-against its plain torch version at the shapes the paths give it; (4) kernel
+against its plain torch version at the shapes the paths give it, with a
+trace showing that a bf16 call of K3 and of K2 runs only its tensor-core
+kernel; (4) kernel
 timing beside the plain version, one library call where there is one, and
 the card's bound; (5) each path end to end through the entry points a user
 calls, with the kernels' launch counts set to 0 just before it and read just
@@ -74,9 +76,10 @@ KNNG_N, KNNG_F, KNNG_K, KNNG_LANCZOS = 65_536, 16, 6, 32
 RBF_N = 16_384
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16/f16 tensor cores
 # K3: |Δo| <= TOL_ATTN (f32; unit-normal inputs, sums in other orders); for
-# bf16/f16 |Δo| <= TOL_ATTN_16 + 2^-7 |o|: the plain version rounds the
-# scores and p to the input's type while the kernel keeps f32, and each
-# output is rounded once (a bf16 half-ulp is 2^-8 |o|)
+# bf16/f16 |Δo| <= TOL_ATTN_16 + 2^-7 |o|: both round p to the input's type
+# (at other points: the kernel its running, unnormalised p), the plain
+# version also rounds the scores, and each output is rounded once (a bf16
+# half-ulp is 2^-8 |o|)
 TOL_ATTN, TOL_ATTN_16 = 2e-5, 1e-2
 # K2: |Δc| <= TOL_MM * max(|a|·|b|) in f32; in bf16 one rounding of the f32 sum,
 # |Δc| <= 2^-7 |c| + 1e-3
@@ -325,15 +328,19 @@ def matmul_bound_ms(m: int, k: int, n: int, itemsize: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_attention(k3, gen, dev) -> float:
+def check_attention(k3, gen, dev):
     """K3 against its plain version at the model's shape, the benchmark's
-    shape in bf16 and f32, a ragged cross attention, and its reruns; returns
-    the largest f32 |Δo|."""
-    worst = 0.0
+    shape in bf16 and f32, a ragged cross attention, the tensor-core
+    kernel's head dims 64 and 256 and a row of 40 bytes (d = 20, which TMA
+    cannot describe), and its reruns; returns the largest f32 and 16-bit
+    |Δo|."""
+    worst, worst_16 = 0.0, 0.0
     cases = [((64, 2048, 2048, 64), torch.float32, True)]
     cases += [((ATTN_BH, ATTN_S, ATTN_S, ATTN_D), dt, c) for dt in (torch.bfloat16, torch.float32) for c in (True, False)]
     cases += [((4, 1000, 1337, 24), torch.float32, c) for c in (True, False)]
     cases += [((4, 1000, 1337, 24), torch.float16, True), ((2, 77, 77, 256), torch.float32, True)]
+    cases += [((ATTN_BH, 2048, 2048, 64), torch.bfloat16, True), ((4, 1024, 1024, 256), torch.bfloat16, False)]
+    cases += [((4, 1000, 1337, 20), torch.bfloat16, c) for c in (True, False)]
     for (bh, sq, sk, d), dt, causal in cases:
         q, k, v = (torch.randn(bh, n, d, generator=gen, device=dev).to(dt) for n in (sq, sk, sk))
         got = k3.flash_attention(q, k, v, causal=causal)
@@ -356,37 +363,88 @@ def check_attention(k3, gen, dev) -> float:
         check(ok, f"attention ({bh},{sq},{sk},{d}) {dt} causal={causal}: error {err:.3e} above {tol}")
         if dt == torch.float32:
             worst = max(worst, err)
+        else:
+            worst_16 = max(worst_16, err)
         del q, k, v, got, again, want, exact
     torch.cuda.empty_cache()
-    return worst
+    return worst, worst_16
 
 
-def check_matmul(k2, gen, dev) -> float:
+def offset_randn(shape, dtype, gen, dev) -> torch.Tensor:
+    """A contiguous normal matrix whose base lies 2 bytes past a 16-byte
+    boundary (a view one element into its buffer)."""
+    n = shape[0] * shape[1]
+    return torch.randn(n + 1, generator=gen, device=dev).to(dtype)[1:].view(shape)
+
+
+def check_matmul(k2, gen, dev):
     """K2 against its plain version at 8192^2 (f32, bf16), a ragged
-    (1000x777)(777x1333) and 1x1; returns the largest f32 |Δc|."""
-    worst = 0.0
-    shapes = [(MATMUL_N, MATMUL_N, MATMUL_N), (1000, 777, 1333), (1, 1, 1)]
-    for (m, k, n) in shapes:
-        for dt in (torch.float32, torch.bfloat16):
+    (1000x777)(777x1333) in f32, bf16 and f16 (rows of 1554 and 2666 bytes,
+    which TMA cannot describe), 1x1, bf16 operands off 16-byte alignment,
+    and bf16 at k = 8200 (not a multiple of the 64-deep tile); every case
+    reruns bitwise equal.  Returns the largest f32 and 16-bit |Δc|."""
+    worst, worst_16 = 0.0, 0.0
+    cases = [((m, k, n), dt, False) for (m, k, n) in [(MATMUL_N, MATMUL_N, MATMUL_N), (1000, 777, 1333), (1, 1, 1)]
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((1000, 777, 1333), torch.float16, False), ((2048, 2048, 2048), torch.bfloat16, True),
+              ((1000, 777, 1333), torch.bfloat16, True), ((MATMUL_N, MATMUL_N + 8, MATMUL_N), torch.bfloat16, False)]
+    for (m, k, n), dt, offset in cases:
+        if offset:
+            a, b = offset_randn((m, k), dt, gen, dev), offset_randn((k, n), dt, gen, dev)
+            check(a.data_ptr() % 16 != 0 and b.data_ptr() % 16 != 0, "offset operands are aligned")
+        else:
             a = torch.randn(m, k, generator=gen, device=dev).to(dt)
             b = torch.randn(k, n, generator=gen, device=dev).to(dt)
-            got = k2.matmul(a, b)
-            want = k2.reference_matmul(a, b).float()
-            torch.cuda.synchronize()
-            check(got.dtype == dt and tuple(got.shape) == (m, n), f"matmul shape {tuple(got.shape)} {got.dtype}")
-            check(bool(torch.isfinite(got.float()).all()), "non-finite matmul output")
-            err = float((got.float() - want).abs().max())
-            if dt == torch.float32:
-                scale = float((a.abs() @ b.abs()).max())
-                ok, tol = err <= TOL_MM * scale, f"{TOL_MM:g} * max(|a||b|) = {TOL_MM * scale:.3e}"
-                worst = max(worst, err)
-            else:
-                ok, tol = bool(((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all()), "2^-7 |c| + 1e-3"
-            print(f"[check] matmul ({m},{k})x({k},{n}) {str(dt)[6:]}: max_abs_err={err:.3e} (tolerance {tol})")
-            check(ok, f"matmul ({m},{k})x({k},{n}) {dt}: error {err:.3e} above tolerance")
-            del a, b, got, want
+        got = k2.matmul(a, b)
+        again = k2.matmul(a, b)
+        want = k2.reference_matmul(a, b).float()
+        torch.cuda.synchronize()
+        check(got.dtype == dt and tuple(got.shape) == (m, n), f"matmul shape {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got.float()).all()), "non-finite matmul output")
+        check(torch.equal(got, again), f"matmul ({m},{k})x({k},{n}) {dt}: reruns are not bitwise equal")
+        err = float((got.float() - want).abs().max())
+        if dt == torch.float32:
+            scale = float((a.abs() @ b.abs()).max())
+            ok, tol = err <= TOL_MM * scale, f"{TOL_MM:g} * max(|a||b|) = {TOL_MM * scale:.3e}"
+            worst = max(worst, err)
+        else:
+            ok, tol = bool(((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all()), "2^-7 |c| + 1e-3"
+            worst_16 = max(worst_16, err)
+        where = ", bases off 16-byte alignment" if offset else ""
+        print(f"[check] matmul ({m},{k})x({k},{n}) {str(dt)[6:]}{where}: max_abs_err={err:.3e} (tolerance {tol}), "
+              f"reruns bitwise equal")
+        check(ok, f"matmul ({m},{k})x({k},{n}) {dt}: error {err:.3e} above tolerance")
+        del a, b, got, again, want
     torch.cuda.empty_cache()
-    return worst
+    return worst, worst_16
+
+
+def tensor_core_trace(k3, k2, gen, dev) -> None:
+    """One bf16 call of each of K3 and K2 under torch.profiler: each runs
+    its tensor-core kernel and no other kernel (no SDPA, no cuBLAS, no
+    CUDA-core K2/K3)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (torch.randn(ATTN_BH, ATTN_S, ATTN_D, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    a, b = (torch.randn(MATMUL_N, MATMUL_N, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    for name, fn, want in [("flash_attention", lambda: k3.flash_attention(q, k, v), "flash_fwd_kernel_tc"),
+                           ("pallas_matmul", lambda: k2.matmul(a, b), "mm_tc_kernel")]:
+        fn()
+        # a trace that recorded no device event at all is taken again: it
+        # says nothing about which kernels ran
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        print(f"[trace] one bf16 {name} call runs: {names}")
+        check(len(names) == 1 and want in names[0], f"bf16 {name} ran {names}, not {want} alone")
+    del q, k, v, a, b
+    torch.cuda.empty_cache()
 
 
 def time_attention(k3, gen, dev, card: str) -> dict:
@@ -1144,8 +1202,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # K3 and K2: against their plain versions, then timed
-    k3_abs = check_attention(k3, gen, dev)
-    k2_abs = check_matmul(k2, gen, dev)
+    k3_abs, k3_abs_16 = check_attention(k3, gen, dev)
+    k2_abs, k2_abs_16 = check_matmul(k2, gen, dev)
+    tensor_core_trace(k3, k2, gen, dev)
     att_times = time_attention(k3, gen, dev, card)
     mm_times = time_matmul(k2, gen, dev, card)
 
@@ -1572,6 +1631,11 @@ def main() -> int:
             "bound_by": att_times[(64, 2048, 64, "float32", True)][4],
             "library_ms": att_times[(64, 2048, 64, "float32", True)][2],
             "at": "(64, 2048, 64) f32 causal, the model's shape",
+            "max_abs_err_16": k3_abs_16,
+            **{f"{key}_bf16{tag}": att_times[(ATTN_BH, ATTN_S, ATTN_D, "bfloat16", causal)][i]
+               for causal, tag in ((False, ""), (True, "_causal"))
+               for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+            "at_bf16": f"({ATTN_BH}, {ATTN_S}, {ATTN_D}) bf16, tensor cores",
         },
         {
             "name": "matmul",
@@ -1586,6 +1650,9 @@ def main() -> int:
             "bound_by": mm_times["float32"][4],
             "library_ms": mm_times["float32"][2],
             "at": "8192^2 f32",
+            "max_abs_err_16": k2_abs_16,
+            **{f"{key}_bf16": mm_times["bfloat16"][i] for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+            "at_bf16": "8192^2 bf16, tensor cores",
         },
         {
             "name": "repack",

@@ -172,7 +172,8 @@ def _gshape(shape, axes, keepdims: bool):
 
 def _argmin_across(x: DNDarray, live, axis: int, keepdims: bool) -> torch.Tensor:
     """Argmin over the split axis: each shard's minimum and its global index,
-    merged so that the first minimum along the axis wins."""
+    merged so that the first minimum along the axis wins; a NaN is the
+    minimum, and the first NaN wins (``torch.argmin``, ``jnp.argmin``)."""
     best_v = best_i = None
     for r in live:
         s = x.shards[r]
@@ -182,7 +183,8 @@ def _argmin_across(x: DNDarray, live, axis: int, keepdims: bool) -> torch.Tensor
         if best_v is None:
             best_v, best_i = v, i
         else:
-            take = v.to(best_v.device) < best_v
-            best_v = torch.where(take, v.to(best_v.device), best_v)
+            v = v.to(best_v.device)
+            take = (v < best_v) | (torch.isnan(v) & ~torch.isnan(best_v))
+            best_v = torch.where(take, v, best_v)
             best_i = torch.where(take, i.to(best_i.device), best_i)
     return best_i

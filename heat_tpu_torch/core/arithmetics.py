@@ -21,9 +21,16 @@ def add(t1, t2) -> DNDarray:
     return _operations._binary_op(torch.add, t1, t2)
 
 
+def _subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # torch refuses ``-`` on a bool tensor; jnp subtracts in the promoted type
+    t = torch.promote_types(a.dtype, b.dtype)
+    return torch.sub(a.to(t), b.to(t))
+
+
 def sub(t1, t2) -> DNDarray:
-    """Elementwise subtraction."""
-    return _operations._binary_op(torch.sub, t1, t2)
+    """Elementwise subtraction in the promoted type (two bool operands
+    raise, as in ``heat_tpu``)."""
+    return _operations._binary_op(_subtract, t1, t2)
 
 
 def mul(t1, t2) -> DNDarray:
@@ -48,6 +55,8 @@ divide = div
 
 def _power(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     t = torch.promote_types(a.dtype, b.dtype)
+    if t == torch.bool:  # jnp.power of two bools is int32
+        t = torch.int32
     return torch.pow(a.to(t), b.to(t))
 
 

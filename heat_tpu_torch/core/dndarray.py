@@ -254,31 +254,57 @@ class DNDarray:
         if routed is not None:
             return routed
         if not _is_basic(key):
-            tkey, new_split = _advanced_key(key, self.__gshape, self.__split, self.__shards[0].device)
-            result = self.larray[tkey]
+            tkey, new_split, flips = _advanced_key(key, self.__gshape, self.__split, self.__shards[0].device)
+            result = (self.larray.flip(flips) if flips else self.larray)[tkey]
             if result.ndim == 0 or (new_split is not None and new_split >= result.ndim):
                 new_split = None
             return _wrap(result, new_split, self.__device, self.__comm)
         key = _basic_key(key, self.__gshape)
         split = self.__split
         new_split, in_dim, out_dim, whole = None, 0, 0, True
-        for k in key:
+        flips, split_at, pos_key = [], None, []
+        for pos, k in enumerate(key):
+            pos_key.append(k)
             if k is None:
                 out_dim += 1
                 continue
             if in_dim == split:
                 whole = isinstance(k, slice) and k == slice(None)
                 new_split = out_dim if isinstance(k, slice) else None
+                split_at = pos
+            if isinstance(k, slice) and k.step is not None and k.step < 0:
+                flips.append(out_dim)
+                pos_key[-1] = _positive_step(k, self.__gshape[in_dim])
             out_dim += isinstance(k, slice)
             in_dim += 1
         if split is not None and split >= in_dim:
             new_split = out_dim + (split - in_dim)
-        if split is not None and whole and new_split is not None and self.__comm.size > 1:
-            shards = [s[key] for s in self.__shards]
+        distributed = split is not None and self.__comm.size > 1
+        if distributed and split_at is not None and new_split in flips:
+            # the split axis is reversed: take its rows in the key's order
+            # through the transport engine, which cuts the result by the
+            # chunk rule, then apply the rest of the key per shard
+            start, stop, step = key[split_at].indices(self.__gshape[split])
+            count = len(range(start, stop, step))
+            rows = start + step * torch.arange(count, dtype=torch.int64, device=self.__shards[0].device)
+            gshape = list(self.__gshape)
+            gshape[split] = int(rows.numel())
+            taken = transport.tiled_take(self.__shards, rows, self.__gshape[split], split, self.__comm)
+            rest = key[:split_at] + (slice(None),) + key[split_at + 1 :]
+            return DNDarray(taken, tuple(gshape), self.__dtype, split, self.__device, self.__comm)[rest]
+        # a negative step indexes its positive-step range, then flips it
+        # (heat_tpu/core/dndarray.py:1237-1241)
+        key = tuple(pos_key)
+
+        def index(t: torch.Tensor) -> torch.Tensor:
+            return t[key].flip(flips) if flips else t[key]
+
+        if distributed and whole and new_split is not None:
+            shards = [index(s) for s in self.__shards]
             gshape = list(shards[0].shape)
             gshape[new_split] = self.__gshape[split]
             return DNDarray(shards, tuple(gshape), self.__dtype, new_split, self.__device, self.__comm)
-        result = self.larray[key]
+        result = index(self.larray)
         return _wrap(result, new_split if result.ndim else None, self.__device, self.__comm)
 
     def __mask_select_route(self, key) -> Optional["DNDarray"]:
@@ -470,11 +496,19 @@ def _basic_key(key, shape: Tuple[int, ...]) -> tuple:
             if not -n <= int(k) < n:
                 raise IndexError(f"index {int(k)} is out of bounds for dimension {dim} with size {n}")
             k = int(k) % n
-        elif isinstance(k, slice) and k.step is not None and k.step < 0:
-            raise ValueError("negative slice steps are not supported by torch tensors")
         out.append(k)
         dim += k is not None
     return tuple(out)
+
+
+def _positive_step(k: slice, n: int) -> slice:
+    """The positive-step slice over the elements that ``k``, of negative
+    step, selects from an extent ``n``: reversed, they are ``k``'s."""
+    start, stop, step = k.indices(n)
+    count = len(range(start, stop, step))
+    if count == 0:
+        return slice(0, 0, 1)
+    return slice(start + (count - 1) * step, start + 1, -step)
 
 
 def _is_array(k) -> bool:
@@ -640,11 +674,12 @@ def _advanced_split(key: tuple, split: int) -> Optional[int]:
     return out_pos + (split - in_cursor)
 
 
-def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) -> Tuple[tuple, Optional[int]]:
-    """A key that is not basic as a torch key for the gathered tensor, and
-    the result's split (heat_tpu/core/dndarray.py:688).  Host integer keys
-    are bounds-checked; device integer keys are clamped; masks become their
-    nonzero index arrays."""
+def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) -> Tuple[tuple, Optional[int], List[int]]:
+    """A key that is not basic as a torch key for the gathered tensor, the
+    result's split (heat_tpu/core/dndarray.py:688), and the dimensions to
+    flip before the key applies (those of its negative-step slices).  Host
+    integer keys are bounds-checked; device integer keys are clamped; masks
+    become their nonzero index arrays."""
     ndim = len(gshape)
     if isinstance(key, DNDarray):
         key = key.larray
@@ -688,7 +723,7 @@ def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) ->
             in_dim += 1
         if split >= in_dim:
             new_split = out_dim + (split - in_dim)
-    out, dim = [], 0
+    out, dim, flips = [], 0, []
     for k in key:
         if k is None or _is_scalar_bool_key(k):
             out.append(bool(k) if k is not None else None)
@@ -696,7 +731,11 @@ def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) ->
         n = gshape[dim] if dim < ndim else 0
         if isinstance(k, slice):
             if k.step is not None and k.step < 0:
-                raise ValueError("negative slice steps are not supported by torch tensors")
+                # flip the dimension first: the same elements then lie at
+                # a positive step, in the key's order
+                flips.append(dim)
+                p = _positive_step(k, n)
+                k = slice(n - p.stop, n - p.start, p.step)
             out.append(k)
         elif isinstance(k, torch.Tensor) and _is_int_dtype(k.dtype):
             out.append(_clamp_index(k.to(device), n) if k.ndim else int(k))
@@ -706,4 +745,4 @@ def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) ->
         else:
             raise TypeError(f"a DNDarray cannot be indexed by {type(k)}")
         dim += 1
-    return tuple(out), new_split
+    return tuple(out), new_split, flips

@@ -2,10 +2,10 @@
 
 Each library is compiled by ``nvcc`` from the sources under
 ``heat_tpu_torch/csrc/`` at first use, into ``heat_tpu_torch/_build/``, under
-a name keyed on a hash of the sources and the flags: a change to either
-builds anew, and an unchanged checkout reuses what it built.  The library
-has a plain C interface and is loaded with ``ctypes``.  A failed build
-raises with the compiler's output.
+a name keyed on a hash of the sources, the headers they include and the
+flags: a change to any of them builds anew, and an unchanged checkout
+reuses what it built.  The library has a plain C interface and is loaded
+with ``ctypes``.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -58,9 +59,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(sources: Sequence[Path]) -> list:
+    """``sources`` and every header under ``CSRC`` that they include with
+    ``#include "..."``, directly or through another header."""
+    seen, todo = [], list(sources)
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / name.decode()
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
 def _digest(sources: Sequence[Path]) -> str:
+    """A hash of the flags, the sources and the headers they include, so
+    that an edit to a shared header builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in _with_headers(sources):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -100,3 +122,4 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(target))
         _LOADED[name] = lib
         return lib
+

@@ -4,9 +4,10 @@ whose Pallas kernel ``_flash_kernel`` this replaces).
 :func:`flash_attention` takes the ``(..., seq, head_dim)`` layout and
 flattens the leading dimensions (batch, heads) into one, as the JAX
 function does.  Its forward launches the hand-written CUDA kernel in
-``csrc/attention.cu`` for tensors on the card; for tensors on the CPU it
-computes :func:`reference_flash_attention`, the plain version (the JAX
-package's ``_attention_ref``).  There is no fallback between the two: a CUDA
+``csrc/attention.cu`` for tensors on the card (f32 on the CUDA cores,
+bf16 and f16 on the tensor cores); for tensors on the CPU it computes
+:func:`reference_flash_attention`, the plain version (the JAX package's
+``_attention_ref``).  There is no fallback between the two: a CUDA
 tensor the kernel does not take raises.
 
 The backward is not a kernel, in either package: ``_flash_bwd``
@@ -62,7 +63,7 @@ def _kernel():
         from ._build import load
 
         fn = load("heat_attention", _SOURCES).heat_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -85,13 +86,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sc
     if bh >= 2**31 or max(sq, sk) >= 2**31 or -(-sq // BLOCK_Q) > 65535:
         raise ValueError(f"attention of shape ({bh},{sq},{d})x({bh},{sk},{d}) exceeds the kernel's grid")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
     if bh == 0 or sq == 0:
         return out
+    ld = d
+    if q.dtype != torch.float32:
+        from .matmul import tma_rows
+
+        (q, ld), (k, _), (v, _) = (tma_rows(t) for t in (q, k, v))  # one ld: it depends on d alone
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk, d, scale, int(causal), _DTYPES[q.dtype], stream
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk, d, ld, scale, int(causal),
+            _DTYPES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed with cudaError_t {err}")
@@ -127,8 +134,10 @@ def flash_attention(
     The leading dimensions (batch, heads) are flattened into one; q may have
     another sequence length than k and v.  ``scale`` defaults to
     1/sqrt(head_dim).  The causal mask is top-left aligned on absolute
-    indices (query i sees keys j <= i).  The output has q's dtype; all
-    arithmetic is f32."""
+    indices (query i sees keys j <= i).  The output has q's dtype; the
+    softmax and the accumulation are f32.  On the card f32 runs on the CUDA
+    cores; bf16 and f16 run on the tensor cores, with p rounded to the
+    input's type before its product with v, as in the plain version."""
     if q.shape[:-2] != k.shape[:-2] or k.shape != v.shape or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"incompatible attention shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     lead = q.shape[:-2]

@@ -8,9 +8,15 @@ Tolerances, on unit-normal inputs: f32 |Δ| ≤ 1e-5 (the two sum in other
 orders); bf16 |Δ| ≤ 2e-2, since the plain version (like heat_tpu's
 ``_attention_ref``) rounds the scores and p to bf16 while the kernel keeps
 f32 throughout, and a bf16 ulp at |o| ~ 1 is 7.8e-3.  On the card the
-kernel is held to the f32 plain version on the same inputs: f32 |Δ| ≤ 1e-5,
-16-bit |Δ| ≤ 1e-3 + 2⁻⁷·|o| (one rounding of the output).  Gradients: both
-packages recompute through the plain version, |Δ| ≤ 1e-5.
+kernel is held to the f32 plain version on the same inputs: f32 |Δ| ≤ 1e-5;
+16-bit |Δ| ≤ 1e-3 + 2⁻⁷·|o| (one rounding of the output), and in bf16 also
++ 2⁻⁸·(softmax(s)·|v|): the tensor-core kernel rounds p to bf16 before its
+product with v (the sum l stays f32), which moves o by at most half a bf16
+ulp of each p·|v| term.  The same rounding in f16 (2⁻¹¹) stays inside the
+1e-3.  The tensor-core geometries (head dims 64 and 256, a row of 40 bytes,
+an operand off 16-byte alignment) are held to the same bounds, run only the
+tensor-core kernel, and count one launch a call.  Gradients: both packages recompute through the plain
+version, |Δ| ≤ 1e-5.
 """
 
 import numpy as np
@@ -22,6 +28,8 @@ from heat_tpu_torch.ops import flash_attention
 
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
+# the kernel in 16 bits against the f32 plain version on the card
+CARD_TOL_16 = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -181,8 +189,96 @@ def test_kernel_against_plain_on_card(cuda, dtype, bh, sq, sk, d, causal):
     diff = (got.float() - want).abs()
     if dtype == torch.float32:
         assert float(diff.max()) <= F32_TOL
-    else:  # the kernel rounds each output once: half an ulp is 2^-8 |o|
-        assert bool((diff <= 1e-3 + 2.0**-7 * want.abs()).all())
+    else:
+        assert bool((diff <= _bound_16(q, k, v, causal, want)).all())
+
+
+def _bound_16(q, k, v, causal, want):
+    """|Δo| allowed to the 16-bit kernel against the f32 plain version
+    ``want``: 1e-3 + 2^-7 |o| covers the one rounding of each output (half an
+    ulp is 2^-8 |o|); in bf16 the rounding of p before P·V adds up to 2^-8 of
+    softmax(s)·|v|, taken from the f32 plain version with |v|."""
+    bound = CARD_TOL_16 + 2.0**-7 * want.abs()
+    if q.dtype == torch.bfloat16:
+        pv = k3.reference_flash_attention(q.float(), k.float(), v.float().abs(), causal=causal)
+        bound = bound + 2.0**-8 * pv
+    return bound
+
+
+def _tensor_core_kernels(fn):
+    """The names of the CUDA kernels ``fn`` runs, from torch.profiler.  A
+    trace that recorded no device event at all is taken again (up to three
+    times): it says nothing about which kernels ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def _offset(shape, dtype, g, device):
+    """A contiguous tensor whose base lies 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=g, device=device).to(dtype)
+    return flat[1:].view(shape)
+
+
+TC_CASES = [
+    # (bh, sq, sk, d, dtype, causal, offset base)
+    (8, 1024, 1024, 64, torch.bfloat16, True, False),
+    (8, 1024, 1024, 64, torch.bfloat16, False, False),
+    (4, 700, 900, 256, torch.bfloat16, True, False),
+    (4, 700, 900, 256, torch.bfloat16, False, False),
+    (4, 1000, 1337, 20, torch.bfloat16, False, False),
+    (4, 1000, 1337, 20, torch.bfloat16, True, False),
+    (4, 1000, 1337, 24, torch.float16, True, False),
+    (2, 333, 517, 128, torch.bfloat16, True, True),
+    (2, 333, 517, 72, torch.float16, False, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,offset", TC_CASES)
+def test_tensor_core_geometries_on_card(cuda, bh, sq, sk, d, dtype, causal, offset):
+    g = torch.Generator(device=cuda).manual_seed(bh + sq + d)
+    if offset:
+        q, k, v = (_offset((bh, n, d), dtype, g, cuda) for n in (sq, sk, sk))
+        assert q.data_ptr() % 16 != 0
+    else:
+        q, k, v = (torch.randn(bh, n, d, generator=g, device=cuda).to(dtype) for n in (sq, sk, sk))
+    before = k3.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert k3.launches == before + 1
+    again = flash_attention(q, k, v, causal=causal)
+    want = k3.reference_flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (bh, sq, d)
+    assert torch.equal(got, again), "reruns are not bitwise equal"
+    assert bool(((got.float() - want).abs() <= _bound_16(q, k, v, causal, want)).all())
+    names = _tensor_core_kernels(lambda: flash_attention(q, k, v, causal=causal))
+    ours = [n for n in names if "flash_fwd_kernel" in n]
+    assert len(ours) == 1 and "flash_fwd_kernel_tc" in ours[0], names
+    # besides the kernel only the wrapper's copies into aligned buffers run:
+    # no library attention, no GEMM, no CUDA-core K3
+    assert not any(w in n.lower() for n in names for w in ("sdpa", "fmha", "gemm", "flash_fwd_kernel<float")), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [False, True])
+def test_tensor_core_trace_shows_only_the_new_kernel(cuda, dtype, causal):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(16, 4096, 128, generator=g, device=cuda).to(dtype) for _ in range(3))
+    flash_attention(q, k, v, causal=causal)
+    names = _tensor_core_kernels(lambda: flash_attention(q, k, v, causal=causal))
+    assert len(names) == 1 and "flash_fwd_kernel_tc" in names[0], names
 
 
 @pytest.mark.gpu

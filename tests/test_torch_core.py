@@ -116,6 +116,68 @@ def test_argmin_first_minimum_across_positions(ht, n):
 
 
 @pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("at", [2, 6])
+def test_argmin_nan_in_a_later_shard(ht, n, at):
+    # a NaN is the minimum and the first NaN along the axis wins, at every
+    # mesh size; heat_tpu's min drops NaN over several positions (ROADMAP,
+    # reference fault (d)), so min is held to numpy's value
+    x = np.array([3, 1, 0, 2, 0.5, 4, 5, 6], dtype=np.float32)
+    x[at] = np.nan
+    jc, tc = _pair(ht, n)
+    a, b = ht.array(x, split=0, comm=jc), htt.array(x, split=0, comm=tc, device="cpu")
+    _same(ht.argmin(a, axis=0), htt.argmin(b, axis=0))
+    assert int(htt.argmin(b, axis=0).item()) == np.argmin(x) == at
+    assert np.isnan(htt.min(b, axis=0).item())
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("split", [0, 1])
+def test_argmin_nan_2d_along_the_split(ht, n, split):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((13, 9) if split == 0 else (9, 13)).astype(np.float32)
+    # NaNs late along the split axis, some lines with two
+    for i, j in [(12, 0), (7, 1), (9, 1), (1, 2), (8, 8), (5, 8), (11, 5)]:
+        x[(i, j) if split == 0 else (j, i)] = np.nan
+    jc, tc = _pair(ht, n)
+    a, b = ht.array(x, split=split, comm=jc), htt.array(x, split=split, comm=tc, device="cpu")
+    for keepdims in (False, True):
+        _same(ht.argmin(a, axis=split, keepdims=keepdims), htt.argmin(b, axis=split, keepdims=keepdims))
+        np.testing.assert_array_equal(htt.argmin(b, axis=split).numpy(), np.argmin(x, axis=split))
+        np.testing.assert_array_equal(htt.min(b, axis=split, keepdims=keepdims).numpy(),
+                                      np.min(x, axis=split, keepdims=keepdims))
+
+
+BOOL_PARTNERS = [np.uint8, np.int8, np.int16, np.int32, np.int64, np.float32, np.float64]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("op", ["sub", "pow"])
+@pytest.mark.parametrize("other", BOOL_PARTNERS)
+@pytest.mark.parametrize("bool_first", [True, False])
+def test_sub_pow_bool_operands(ht, n, op, other, bool_first):
+    # both operands are cast to the promoted type before the torch op
+    rng = np.random.default_rng(5)
+    m = rng.random((13, 3)) < 0.5
+    o = rng.integers(0, 6, (13, 3)).astype(other)
+    x, y = (m, o) if bool_first else (o, m)
+    jc, tc = _pair(ht, n)
+    a = getattr(ht, op)(ht.array(x, split=0, comm=jc), ht.array(y, split=0, comm=jc))
+    b = getattr(htt, op)(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, split=0, comm=tc, device="cpu"))
+    _same(a, b, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_pow_of_two_bools_is_int32(ht, n):
+    rng = np.random.default_rng(6)
+    x, y = rng.random(13) < 0.5, rng.random(13) < 0.5
+    jc, tc = _pair(ht, n)
+    a = ht.pow(ht.array(x, split=0, comm=jc), ht.array(y, split=0, comm=jc))
+    b = htt.pow(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, split=0, comm=tc, device="cpu"))
+    _same(a, b)
+    assert b.dtype.__name__ == "int32"
+
+
+@pytest.mark.parametrize("n", MESHES)
 def test_resplit_roundtrip(ht, n):
     jc, tc = _pair(ht, n)
     x = np.arange(13 * 5, dtype=np.float32).reshape(13, 5)

@@ -7,7 +7,9 @@ tests/test_ops.py:28-40 does.  Both accumulate in f32 and round once to
 a's dtype.  Tolerances: f32 |Δ| ≤ 1e-4 on the CPU, and on the card
 |Δ| ≤ 1e-5·max(|a|·|b|) (the sums run up to 2048 deep there); bf16 within one bf16 rounding of the f32 result,
 |Δ| ≤ 2⁻⁷·|c| + 1e-3 (the two round f32 sums that differ in their last
-bits).
+bits).  The tensor-core geometries (rows that TMA cannot describe, bases
+off 16-byte alignment, k = 8200) are held to the same bound, rerun
+bitwise equal, run only the tensor-core kernel and count one launch a call.
 """
 
 import numpy as np
@@ -30,6 +32,23 @@ def ht():
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setenv("HEAT_TPU_PALLAS", "interpret")
+
+
+@pytest.mark.parametrize("shape,offset", [((6, 16), 0), ((6, 16), 1), ((3, 5, 20), 0), ((4, 777), 1), ((2, 0), 0)])
+def test_tma_rows_keeps_what_qualifies_and_pads_the_rest(shape, offset):
+    # TMA needs a 16-byte aligned base and 16-bit rows a multiple of 8
+    n = 1
+    for s in shape:
+        n *= s
+    t = torch.arange(n + offset, dtype=torch.float32).to(torch.bfloat16)[offset:].view(shape)
+    got, ld = k2.tma_rows(t)
+    cols = shape[-1]
+    assert ld == -(-cols // 8) * 8
+    if cols % 8 == 0 and t.data_ptr() % 16 == 0:
+        assert got is t
+    else:
+        assert got.data_ptr() % 16 == 0 and got.shape == shape[:-1] + (ld,)
+    assert torch.equal(got[..., :cols], t)
 
 
 def _ab(m, k, n, seed):
@@ -139,6 +158,75 @@ def test_kernel_against_plain_on_card(cuda, dtype, m, k, n):
         assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1.0)
     else:
         assert bool(((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all())
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels ``fn`` runs, from torch.profiler.  A
+    trace that recorded no device event at all is taken again (up to three
+    times): it says nothing about which kernels ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def _operand(shape, dtype, g, device, offset):
+    """A contiguous matrix, its base 2 bytes past a 16-byte boundary when
+    ``offset``."""
+    n = shape[0] * shape[1]
+    flat = torch.randn(n + int(offset), generator=g, device=device).to(dtype)
+    return flat[int(offset):].view(shape)
+
+
+TC_SHAPES = [
+    # (m, k, n, dtype, offset a, offset b)
+    (1000, 777, 1333, torch.float16, False, False),
+    (1000, 777, 1333, torch.bfloat16, True, False),
+    (512, 1024, 768, torch.bfloat16, True, True),
+    (8192, 8200, 8192, torch.bfloat16, False, False),
+    (300, 4104, 520, torch.float16, False, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dtype,off_a,off_b", TC_SHAPES)
+def test_tensor_core_geometries_on_card(cuda, m, k, n, dtype, off_a, off_b):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = _operand((m, k), dtype, g, cuda, off_a)
+    b = _operand((k, n), dtype, g, cuda, off_b)
+    assert (a.data_ptr() % 16 != 0) == off_a and (b.data_ptr() % 16 != 0) == off_b
+    before = k2.launches
+    got = htt.ops.pallas_matmul(a, b)
+    assert k2.launches == before + 1
+    again = htt.ops.pallas_matmul(a, b)
+    want = k2.reference_matmul(a, b).float()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    assert torch.equal(got, again), "reruns are not bitwise equal"
+    assert bool(((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all())
+    names = _kernel_names(lambda: htt.ops.pallas_matmul(a, b))
+    ours = [x for x in names if "mm_tc_kernel" in x]
+    assert len(ours) == 1, names
+    # besides the kernel only the wrapper's copies into aligned buffers run
+    assert not any(w in x.lower() for x in names for w in ("gemm", "cutlass", "mm_kernel<float")), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_trace_shows_only_the_new_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a, b = (torch.randn(4096, 4096, generator=g, device=cuda).to(dtype) for _ in range(2))
+    htt.ops.pallas_matmul(a, b)
+    names = _kernel_names(lambda: htt.ops.pallas_matmul(a, b))
+    assert len(names) == 1 and "mm_tc_kernel" in names[0], names
 
 
 @pytest.mark.gpu

@@ -199,3 +199,52 @@ def test_route_keeps_the_input_whole():
     b[np.array([3, 1, 12])]
     for s, t in zip(b.shards, before):
         assert torch.equal(s, t)
+
+
+def _with_nan(x):
+    x = x.copy()
+    x[[0, 6, 12], [1, 4, 0]] = np.nan
+    return x
+
+
+NEGATIVE_STEP_KEYS = [
+    slice(None, None, -2),
+    slice(None, None, -1),
+    slice(7, 1, -3),
+    (slice(None), slice(None, None, -2)),
+    (slice(None, None, -1), slice(1, 4)),
+    (3, slice(None, None, -1)),
+    (slice(None, None, -3), slice(4, 0, -2)),
+    (None, slice(5, None, -1)),
+]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("data", ["f32", "f32 nan", "int32"])
+def test_negative_slice_steps(ht, n, split, data):
+    # a negative step indexes the positive-step range and flips it; a
+    # reversed split axis is cut anew by the chunk rule
+    x = {"f32": _x((13, 5)), "f32 nan": _with_nan(_x((13, 5))), "int32": _x((13, 5), np.int32)}[data]
+    a, b = _arrays(ht, n, x, split)
+    for key in NEGATIVE_STEP_KEYS:
+        _same(a[key], b[key])
+        np.testing.assert_array_equal(b[key].numpy(), x[key])
+    # an empty range: heat_tpu's replicated or split result, cut anew
+    empty, want = b[2:9:-1], a[2:9:-1]
+    assert empty.shape == want.shape == (0, 5) and empty.split == want.split
+    assert [tuple(s.shape) for s in empty.shards] == [tuple(m) for m in empty.lshape_map]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("key", [
+    (np.array([0, 2, 5, 12]), slice(None, None, -1)),
+    (slice(None, None, -2), np.array([1, 3])),
+    (slice(11, 2, -4), np.array([4, 0, 4])),
+])
+def test_negative_slice_steps_with_advanced_keys(ht, n, split, key):
+    x = _x((13, 5), seed=3)
+    a, b = _arrays(ht, n, x, split)
+    _same(a[key], b[key])
+    np.testing.assert_array_equal(b[key].numpy(), x[key])
