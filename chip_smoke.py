@@ -1042,25 +1042,42 @@ def main() -> int:
     del xr, yr
 
     # K4 at the QR path's panels: 1e6 x 128, the square's 2048 x 1024
-    # leaves, 5e5 x 1000; a ragged panel and the narrowest one
+    # leaves, 5e5 x 1000; a ragged panel and the narrowest one; the wide
+    # path's geometry: one block past the small path (166), ragged last
+    # blocks (191, 1000 = 15 * 64 + 40), whole blocks (192), and a row pitch
+    # off 16 bytes (1025: the Gram's 4-byte copies)
     k4_abs = 0.0
-    for m, n in [(1_000_000, 128), (2048, 1024), (500_000, 1_000), (100_003, 67), (1000, 2)]:
+    for m, n in [(1_000_000, 128), (2048, 1024), (500_000, 1_000), (100_003, 67), (1000, 2),
+                 (4096, 166), (4096, 191), (4096, 192), (20_000, 1000), (3000, 1025)]:
         xq = torch.randn(m, n, generator=gen, device=dev)
         abs_err, rel_r, rel_ri = compare_qr_panel(k4, xq)
         print(f"[check] qr_panel ({m},{n}): max_abs_err={abs_err:.3e} |dR|/|R|={rel_r:.3e} |dRinv|/|Rinv|={rel_ri:.3e}")
         check(rel_r <= TOL_QR and rel_ri <= TOL_QR, f"qr_panel ({m},{n}): relative error above {TOL_QR}")
         k4_abs = max(k4_abs, abs_err)
         del xq
-    # a rank-deficient panel (a zero column): both latch NaN in the same places
-    xq = torch.randn(3000, 40, generator=gen, device=dev)
-    xq[:, 7] = 0
-    r, rinv = k4.fused_gram_chol(xq)
-    rr, rri = k4.reference_fused_gram_chol(xq)
+    # reruns are bitwise equal (fixed-order sums, no float atomics)
+    xq = torch.randn(2048, 1024, generator=gen, device=dev)
+    r1, ri1 = k4.fused_gram_chol(xq)
+    r2, ri2 = k4.fused_gram_chol(xq)
     torch.cuda.synchronize()
-    same_nan = torch.equal(torch.isnan(r), torch.isnan(rr)) and torch.equal(torch.isnan(rinv), torch.isnan(rri))
-    print(f"[check] qr_panel rank-deficient (3000,40): NaN in R {int(torch.isnan(r).sum())}/{r.numel()}, "
-          f"in Rinv {int(torch.isnan(rinv).sum())}/{rinv.numel()}, same places as plain {same_nan}")
-    check(same_nan and bool(torch.isnan(r).any()) and bool(torch.isnan(rinv).all()), "qr_panel NaN latch differs")
+    same = torch.equal(r1, r2) and torch.equal(ri1, ri2)
+    print(f"[check] qr_panel (2048,1024) rerun: bitwise equal {same}")
+    check(same, "qr_panel reruns differ")
+    # a rank-deficient panel (a zero column): both latch NaN in the same
+    # places, on the small path and in the first and a late 64-column block
+    # of the wide one
+    for m, n, col in [(3000, 40, 7), (5000, 1000, 0), (5000, 1000, 700)]:
+        xq = torch.randn(m, n, generator=gen, device=dev)
+        xq[:, col] = 0
+        r, rinv = k4.fused_gram_chol(xq)
+        rr, rri = k4.reference_fused_gram_chol(xq)
+        torch.cuda.synchronize()
+        same_nan = torch.equal(torch.isnan(r), torch.isnan(rr)) and torch.equal(torch.isnan(rinv), torch.isnan(rri))
+        print(f"[check] qr_panel rank-deficient ({m},{n}), column {col} zero: NaN in R {int(torch.isnan(r).sum())}/"
+              f"{r.numel()}, in Rinv {int(torch.isnan(rinv).sum())}/{rinv.numel()}, same places as plain {same_nan}")
+        check(same_nan and bool(torch.isnan(r).any()) and bool(torch.isnan(rinv).all())
+              and torch.equal(torch.nan_to_num(r), torch.nan_to_num(rr)), "qr_panel NaN latch differs")
+    del xq, r1, r2, ri1, ri2
 
     # K5: one sweep at the Lasso path's 5e5 x 1001 from θ = 0 and from a
     # non-zero θ, and a ragged 9999 x 37 (λ small enough that most
@@ -1139,35 +1156,29 @@ def main() -> int:
     del x, cases
     torch.cuda.empty_cache()
 
-    xq = torch.randn(1_000_000, 128, generator=gen, device=dev)
-    eye = torch.eye(128, device=dev)
-    k4_ms = time_ms(lambda: k4.fused_gram_chol(xq), reps=10)
-    k4_plain_ms = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=10)
-    # the library chain: cuBLAS Gram, cuSOLVER Cholesky, triangular solve
-    k4_library_ms = time_ms(
-        lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(xq.T @ xq)[0], eye, upper=False), reps=10
-    )
-    k4_ms_2 = time_ms(lambda: k4.fused_gram_chol(xq), reps=10)
-    k4_bound_ms, k4_bound_by = qr_panel_bound_ms(1_000_000, 128)
-    print(
-        f"[time] qr_panel (1000000,128): kernel_ms={k4_ms:.4f} (again {k4_ms_2:.4f}) plain_ms={k4_plain_ms:.4f} "
-        f"library_ms={k4_library_ms:.4f} (cholesky_ex(x.T@x) + solve_triangular) "
-        f"bound_ms={k4_bound_ms:.4f} ({k4_bound_by}) on {card}"
-    )
-    del xq
-    for m, n in [(500_000, 1_000), (2048, 1024)]:
+    # K4 at the three QR panels, each with its device time by kernel (Gram,
+    # reduce, factorisation) from one traced pass
+    k4_times = {}
+    for m, n in [(1_000_000, 128), (500_000, 1_000), (2048, 1024)]:
         xq = torch.randn(m, n, generator=gen, device=dev)
         eye_n = torch.eye(n, device=dev)
-        t_k = time_ms(lambda: k4.fused_gram_chol(xq), reps=3, warmup=1)
-        t_p = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=3, warmup=1)
+        reps = 3 if n == 1_000 else 10
+        t_k = time_ms(lambda: k4.fused_gram_chol(xq), reps=reps, warmup=1)
+        t_p = time_ms(lambda: k4.reference_fused_gram_chol(xq), reps=reps, warmup=1)
+        # the library chain: cuBLAS Gram, cuSOLVER Cholesky, triangular solve
         t_l = time_ms(
             lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(xq.T @ xq)[0], eye_n, upper=False),
-            reps=3, warmup=1,
+            reps=reps, warmup=1,
         )
+        t_k2 = time_ms(lambda: k4.fused_gram_chol(xq), reps=reps, warmup=1)
         b_ms, b_by = qr_panel_bound_ms(m, n)
-        print(f"[time] qr_panel ({m},{n}): kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"(cholesky_ex(x.T@x) + solve_triangular) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+        k4_times[(m, n)] = (t_k, t_p, t_l, b_ms, b_by)
+        print(f"[time] qr_panel ({m},{n}): kernel_ms={t_k:.4f} (again {t_k2:.4f}) plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f} (cholesky_ex(x.T@x) + solve_triangular) bound_ms={b_ms:.4f} ({b_by}) "
+              f"kernel/library={t_k / t_l:.3f} on {card}")
+        trace(f"qr_panel ({m},{n}) one pass, by kernel", lambda: k4.fused_gram_chol(xq), 1)
         del xq, eye_n
+    k4_ms, k4_plain_ms, k4_library_ms, k4_bound_ms, k4_bound_by = k4_times[(1_000_000, 128)]
     th0 = torch.zeros(LASSO_N + 1, device=dev)
     k5_ms = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
     k5_plain_ms = time_ms(lambda: k5.reference_sweep(xt_l, y_l, th0, 0.01), reps=2, warmup=1)
@@ -1590,6 +1601,9 @@ def main() -> int:
             "bound_ms": k4_bound_ms,
             "bound_by": k4_bound_by,
             "library_ms": k4_library_ms,
+            "at": "(1000000, 128)",
+            **{f"{key}_{m}x{n}": val for (m, n), t in k4_times.items() if n != 128
+               for key, val in zip(("ms", "plain_ms", "library_ms", "bound_ms"), t[:4])},
         },
         {
             "name": "lasso_sweep",

@@ -227,7 +227,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4096, 128), (100_003, 67), (2048, 1024), (64, 2), (3000, 200)])
+@pytest.mark.parametrize(
+    "shape",
+    [(4096, 128), (100_003, 67), (2048, 1024), (64, 2), (3000, 200),
+     (4096, 166), (4096, 191), (4096, 192), (20_000, 1000), (3000, 1025)],
+)
 def test_kernel_matches_plain_on_card(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(*shape, generator=g, device=cuda)
@@ -254,6 +258,27 @@ def test_kernel_nan_latch_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_kernel_reruns_bitwise_on_card(cuda):
+    x = torch.randn(2048, 1024, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    r, rinv = k4.fused_gram_chol(x)
+    r2, rinv2 = k4.fused_gram_chol(x)
+    torch.cuda.synchronize()
+    assert torch.equal(r, r2) and torch.equal(rinv, rinv2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("col", [0, 700])
+def test_kernel_nan_latch_on_the_wide_path(cuda, col):
+    x = torch.randn(5000, 1000, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    x[:, col] = 0
+    r, rinv = k4.fused_gram_chol(x)
+    torch.cuda.synchronize()
+    rr, rri = k4.reference_fused_gram_chol(x)
+    assert torch.equal(torch.isnan(r), torch.isnan(rr)) and torch.equal(torch.isnan(rinv), torch.isnan(rri))
+    assert torch.isnan(rinv).all() and torch.equal(torch.nan_to_num(r), torch.nan_to_num(rr))
+
+
+@pytest.mark.gpu
 def test_qr_launches_on_card(cuda):
     x = torch.randn(384, 256, device=cuda)
     before = k4.launches
@@ -266,3 +291,93 @@ def test_qr_launches_on_card(cuda):
     assert float((qn @ rn - x.double()).norm() / x.double().norm()) <= 1e-5
     q_cpu, r_cpu = htt.linalg.qr(htt.array(x.cpu(), split=0, device="cpu"))
     assert float((r.larray.cpu() - r_cpu.larray).abs().max()) <= 1e-3 * float(r_cpu.larray.abs().max())
+
+
+# --- the blocked factorisation of K4's wide path (csrc/qr_panel.cu,
+# chol_inv_blocked_kernel), emulated tile by tile in the kernel's order ---
+B = 64
+
+
+def _factor_diag(a, j0, bs):
+    """factor_diag: symmetric elimination of [G | I] on the padded 64 x 64
+    diagonal block; (L, L^-1) or None at a pivot that is not positive."""
+    m = torch.eye(B)
+    m[:bs, :bs] = a[j0 : j0 + bs, j0 : j0 + bs]
+    e = torch.eye(B)
+    idx = torch.arange(B)
+    piv = torch.empty(B)
+    for k in range(B):
+        d = m[k, k]
+        if not bool(d > 0):
+            return None
+        piv[k] = d
+        # row i > k loses G[k][i] / G[k][k] times row k, in G's upper
+        # triangle and in E
+        mult = torch.where(idx > k, m[k] / d, torch.zeros(()))
+        upper = (idx[:, None] > k) & (idx[None, :] >= idx[:, None])
+        m = torch.where(upper, m - torch.outer(mult, m[k]), m)
+        e = e - torch.outer(mult, e[k])
+    s = torch.sqrt(piv)
+    lt = torch.triu(m) / s[:, None]
+    lt[idx, idx] = s
+    return lt.T, torch.tril(e) / s[:, None]
+
+
+def _blocked_chol_inv(g):
+    """(r, rinv) from the Gram g as the wide path computes them: per block
+    column j, phase 1 (diagonal factor, panel tiles, X's block row j), then
+    phase 2 (trailing update, block forward substitution); NaN-latched.
+    The kernel applies column j's update to column j + 1 inside phase 1 of
+    j + 1 and the rest in the same interval: the same products, in the
+    same order."""
+    n = g.shape[0]
+    nb = -(-n // B)
+    a, y = g.clone(), torch.zeros(n, n)
+    r = torch.zeros(n, n)
+    t = lambda i: slice(i * B, min(n, (i + 1) * B))  # noqa: E731
+    for j in range(nb):
+        j0, bs = j * B, min(B, n - j * B)
+        f = _factor_diag(a, j0, bs)
+        if f is None:
+            nan = torch.full((n, n), float("nan"))
+            return torch.triu(nan), nan
+        l, linv = f[0][:bs, :bs], f[1][:bs, :bs]
+        r[t(j), t(j)] = l.T
+        for i in range(nb):
+            if i > j:
+                a[t(i), t(j)] = a[t(i), t(j)] @ linv.T
+            elif i < j:
+                y[t(j), t(i)] = linv @ y[t(j), t(i)]
+            else:
+                y[t(j), t(j)] = linv
+        for i in range(j + 1, nb):
+            for k in range(j + 1, i + 1):
+                a[t(i), t(k)] -= a[t(i), t(j)] @ a[t(k), t(j)].T
+            for mm in range(j + 1):
+                y[t(i), t(mm)] -= a[t(i), t(j)] @ y[t(j), t(mm)]
+    blk = torch.arange(n) // B
+    below = blk[:, None] > blk[None, :]  # the panel tiles; L_jj went to r
+    r = r + torch.where(below, a, torch.zeros(())).T
+    return r, torch.tril(y).T
+
+
+@pytest.mark.parametrize("n", [166, 200, 1000])
+def test_blocked_factorisation_against_jax_chain(ht, n):
+    x = _rand(2 * n + 7, n, seed=10)
+    r_j, rinv_j = _jax_panel(x)
+    xt = torch.from_numpy(x)
+    r, rinv = _blocked_chol_inv(xt.T @ xt)
+    np.testing.assert_allclose(r.numpy(), r_j, rtol=0.0, atol=1e-4 * np.abs(r_j).max())
+    np.testing.assert_allclose(rinv.numpy(), rinv_j, rtol=0.0, atol=1e-4 * np.abs(rinv_j).max())
+    assert torch.equal(torch.tril(r, -1), torch.zeros_like(r))
+
+
+def test_blocked_factorisation_nan_latch_in_a_late_block():
+    # a zero column in block 3 of 4: the plain version's NaN pattern
+    x = _rand(600, 230, seed=11)
+    x[:, 200] = 0
+    xt = torch.from_numpy(x)
+    r, rinv = _blocked_chol_inv(xt.T @ xt)
+    rr, rri = k4.reference_fused_gram_chol(xt)
+    assert torch.equal(torch.isnan(r), torch.isnan(rr)) and torch.equal(torch.isnan(rinv), torch.isnan(rri))
+    assert torch.isnan(rinv).all() and torch.equal(torch.nan_to_num(r), torch.nan_to_num(rr))
