@@ -12,16 +12,30 @@
 // benchmark's 8192^2 the product is 2 * 8192^3 = 1.1e12 flops against
 // 3 * 8192^2 values moved: at 67 TFLOP/s the flops take ~16 ms, the bytes
 // ~0.24 ms.  So it is bound by operations, and the design is a
-// register-tiled GEMM that keeps the FMA units fed from shared memory:
-//   * one block of 256 threads per 128 x 128 tile of c; the k loop runs
-//     inside the block over 8-deep slices of a and b staged in shared
-//     memory (a stored transposed, rows padded to 132 floats so that its
-//     stores do not conflict on banks and its rows stay 16-byte aligned);
-//   * each thread keeps an 8 x 8 block of c in registers, rows
-//     {4 ty .. 4 ty + 3, 64 + 4 ty ..} and likewise in columns, and reads
-//     its operands as float4 from shared memory: 64 FMAs per 4 loads.
-// Ragged edges in m, n and k are masked in the kernel (loads past an edge
-// read 0, stores past it are skipped).
+// register-tiled GEMM that keeps the FMA units fed from shared memory and
+// never waits for device memory:
+//   * one block of 256 threads per 128 x 128 tile of c, two blocks an SM
+//     (at most 128 registers a thread); each thread keeps an 8 x 8 block of
+//     c in registers, rows {4 ty .. 4 ty + 3, 64 + 4 ty ..} and likewise in
+//     columns;
+//   * the k loop runs over 32-deep stages in a ring of 3 in shared memory
+//     (102 KB a block), filled by cp.async two stages ahead, so the next
+//     stages' reads are in flight while a stage's FMAs run; one block
+//     barrier a stage;
+//   * b (k, n) row-major arrives in the layout the outer product wants and
+//     is copied straight into its stage; a (m, k) row-major is copied by
+//     cp.async into a row-major stage whose rows are padded to 36 floats,
+//     and read as float4 along k: 8 rows x 4 k of a and 4 k x 8 columns of
+//     b, 16 float4 reads for 256 FMAs, with no bank conflict (a warp reads
+//     two rows of a, 16 banks apart), and no registers spent on a transpose;
+//   * the copies are 16 bytes wide where an operand's base is 16-byte
+//     aligned and its row (k of a, n of b) a multiple of 4 floats, else 4
+//     bytes wide: a template flag per operand, one kernel;
+//   * blocks walk the tiles in groups of 16 row tiles, so that the
+//     resident blocks share a's and b's tiles in L2.
+// Ragged edges in m, n and k are masked in the kernel: copies past an edge
+// fill zeros and read nothing, stores past it are skipped.  Each output is
+// one chain of FMAs in k order, so reruns are bitwise equal.
 //
 // bf16 / f16: mm_tc_kernel, on the tensor cores.  At 8192^2 the flops take
 // 1.11 ms at the 989 TFLOP/s dense peak and the bytes 0.12 ms: operations
@@ -62,26 +76,87 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, LD = BM + 4, NT = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-mm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c, int m, int n, int k) {
-  __shared__ __align__(16) float as[BK][LD];  // a's slice, transposed
-  __shared__ __align__(16) float bs[BK][LD];  // b's slice
+// ------------------------------------------------------- f32: CUDA cores
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const long long n0 = static_cast<long long>(blockIdx.x) * BN;
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, NT = 256, GROUP_M = 16;
+constexpr int LDA = BK + 4;  // a's stage rows: 16-byte aligned, float4 reads free of bank conflicts
+constexpr int A_STAGE = BM * LDA, B_STAGE = BK * BN, STAGE = A_STAGE + B_STAGE;  // floats
+constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;
+
+// cp.async of kBytes (16 or 4) from global to shared; a copy that is not
+// `valid` fills zeros and reads nothing
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem, bool valid) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  const int src = valid ? kBytes : 0;
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// kVecA, kVecB: 16-byte copies of a, of b (base 16-byte aligned, row a
+// multiple of 4 floats); else 4-byte copies.  vec_c: c's rows take float4
+// stores.
+template <bool kVecA, bool kVecB>
+__global__ void __launch_bounds__(NT, 2)
+mm_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c, int m, int n, int k,
+          bool vec_c) {
+  extern __shared__ float4 ring4[];
+  float* ring = reinterpret_cast<float*>(ring4);  // [stage][a: BM x LDA, b: BK x BN]
+  // grouped raster: GROUP_M row tiles walk the column tiles together
+  const int tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const int per_group = GROUP_M * tiles_n;
+  const int first_m = (blockIdx.x / per_group) * GROUP_M;
+  const int group_m = min(tiles_m - first_m, GROUP_M);
+  const int m0 = (first_m + (blockIdx.x % per_group) % group_m) * BM;
+  const int n0 = ((blockIdx.x % per_group) / group_m) * BN;
+  const int steps = (k + BK - 1) / BK;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  // This thread's copies: of a, (kVecA ? 4 : 1) floats at column ac of rows
+  // ar + A_PASS u; of b, (kVecB ? 4 : 1) floats at column bc of rows
+  // br + B_PASS u.  The pointers step one stage at a time.
+  constexpr int A_PER_ROW = kVecA ? BK / 4 : BK, A_PASS = NT / A_PER_ROW, A_PASSES = BM / A_PASS;
+  constexpr int B_PER_ROW = kVecB ? BN / 4 : BN, B_PASS = NT / B_PER_ROW, B_PASSES = BK / B_PASS;
+  const int ar = tid / A_PER_ROW, ac = (tid % A_PER_ROW) * (kVecA ? 4 : 1);
+  const int br = tid / B_PER_ROW, bc = (tid % B_PER_ROW) * (kVecB ? 4 : 1);
+  const long long a_pass = static_cast<long long>(A_PASS) * k, b_pass = static_cast<long long>(B_PASS) * n;
+  const float* pa = a + static_cast<long long>(m0 + ar) * k + ac;
+  const float* pb = b + static_cast<long long>(br) * n + n0 + bc;
+  const bool b_in = n0 + bc < n;
+  const int a_rows = m - m0 - ar;  // copies of rows ar + A_PASS u < a_rows are in a
+  float* const sa = ring + ar * LDA + ac;
+  float* const sb = ring + A_STAGE + br * BN + bc;
+  int kc = 0;  // k of the next stage to copy
+  auto load = [&](int buf) {
+    const bool a_in = kc + ac < k;
+#pragma unroll
+    for (int u = 0; u < A_PASSES; ++u) {
+      const bool ok = a_in && A_PASS * u < a_rows;
+      cp_async<kVecA ? 16 : 4>(sa + buf * STAGE + A_PASS * u * LDA, ok ? pa + u * a_pass : a, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < B_PASSES; ++u) {
+      const bool ok = b_in && kc + br + B_PASS * u < k;
+      cp_async<kVecB ? 16 : 4>(sb + buf * STAGE + B_PASS * u * BN, ok ? pb + u * b_pass : b, ok);
+    }
+    pa += BK;
+    pb += static_cast<long long>(BK) * n;
+    kc += BK;
+  };
 
   float acc[8][8];
 #pragma unroll
@@ -89,57 +164,84 @@ mm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c, i
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
 #pragma unroll
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int r = e / BK, cc = e % BK;
-      const long long row = m0 + r;
-      const int col = k0 + cc;
-      as[cc][r] = (row < m && col < k) ? to_f32(a[row * k + col]) : 0.f;
-    }
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();  // stage s has landed, for this thread's copies
+    __syncthreads();              // ... and everyone's; stage s - 1 is free
+    if (s + STAGES - 1 < steps) load((s + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const float* as = ring + (s % STAGES) * STAGE + 4 * ty * LDA;
+    const float* bs = ring + (s % STAGES) * STAGE + A_STAGE + 4 * tx;
 #pragma unroll
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int r = e / BN, cc = e % BN;
-      const int row = k0 + r;
-      const long long col = n0 + cc;
-      bs[r][cc] = (row < k && col < n) ? to_f32(b[static_cast<long long>(row) * n + col]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kq = 0; kq < BK; kq += 4) {
+      float av[8][4];  // rows i of a at k = kq .. kq + 3
 #pragma unroll
       for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(av[i]) = *reinterpret_cast<const float4*>(as + (i < 4 ? i : 60 + i) * LDA + kq);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + (kq + kk) * BN);
+        const float4 b1 = *reinterpret_cast<const float4*>(bs + (kq + kk) * BN + 64);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i][kk], bv[j], acc[i][j]);
+      }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long row = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    const int row = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
     if (row >= m) continue;
+    float* out = c + static_cast<long long>(row) * n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long col = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (col < n) c[row * n + col] = from_f32<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 64 * h + 4 * tx;
+      const float* v = acc[i] + 4 * h;
+      if (vec_c && col < n) {  // n % 4 == 0: all four are in
+        *reinterpret_cast<float4*>(out + col) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < n) out[col + j] = v[j];
+      }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  mm_kernel<T><<<grid, NT, 0, stream>>>(static_cast<const T*>(a), static_cast<const T*>(b),
-                                       static_cast<T*>(c), m, n, k);
+template <bool kVecA, bool kVecB>
+cudaError_t launch_f32(const float* a, const float* b, float* c, int m, int n, int k, cudaStream_t stream) {
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(mm_kernel<kVecA, kVecB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(SMEM));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const long long blocks = static_cast<long long>((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  const bool vec_c = n % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  mm_kernel<kVecA, kVecB><<<static_cast<unsigned>(blocks), NT, SMEM, stream>>>(a, b, c, m, n, k, vec_c);
   return cudaGetLastError();
+}
+
+cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t stream) {
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* fc = static_cast<float*>(c);
+  const bool va = k % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool vb = n % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (va && vb) return launch_f32<true, true>(fa, fb, fc, m, n, k, stream);
+  if (va) return launch_f32<true, false>(fa, fb, fc, m, n, k, stream);
+  if (vb) return launch_f32<false, true>(fa, fb, fc, m, n, k, stream);
+  return launch_f32<false, false>(fa, fb, fc, m, n, k, stream);
 }
 
 // ------------------------------------------------ bf16 / f16: tensor cores
@@ -295,7 +397,7 @@ cudaError_t launch_tc(const void* a, const void* b, void* c, int m, int n, int k
 // Plain C entry point, loaded with ctypes.  a (m, k) and b (k, n) are
 // row-major with row strides lda >= k and ldb >= n elements, c (m, n)
 // contiguous; one dtype (0 f32, 1 bf16, 2 f16), on the current device;
-// m, n >= 1, k >= 0.  f32 takes lda = k, ldb = n and ceil(m/128) <= 65535;
+// m, n >= 1, k >= 0.  f32 takes lda = k and ldb = n;
 // bf16 and f16 take 16-byte aligned a and b, and lda, ldb multiples of 8.  Returns the launch's cudaError_t (0 on success).
 extern "C" int heat_matmul(const void* a, const void* b, void* c, int m, int n, int k, int lda, int ldb, int dtype,
                            void* stream) {
@@ -304,7 +406,7 @@ extern "C" int heat_matmul(const void* a, const void* b, void* c, int m, int n, 
   switch (dtype) {
     case 0:
       if (lda != k || ldb != n) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch<float>(a, b, c, m, n, k, s));
+      return static_cast<int>(launch(a, b, c, m, n, k, s));
     case 1: return static_cast<int>(launch_tc<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, s));
     case 2: return static_cast<int>(launch_tc<__half>(a, b, c, m, n, k, lda, ldb, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

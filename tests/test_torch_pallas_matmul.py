@@ -10,6 +10,9 @@ a's dtype.  Tolerances: f32 |Δ| ≤ 1e-4 on the CPU, and on the card
 bits).  The tensor-core geometries (rows that TMA cannot describe, bases
 off 16-byte alignment, k = 8200) are held to the same bound, rerun
 bitwise equal, run only the tensor-core kernel and count one launch a call.
+The f32 kernel's geometries (rows off 16 bytes, which take its 4-byte
+copies; bases one element past a 16-byte boundary; ragged tiles and a long
+k) are held to the f32 bound, rerun bitwise equal and run only ``mm_kernel``.
 """
 
 import numpy as np
@@ -216,7 +219,48 @@ def test_tensor_core_geometries_on_card(cuda, m, k, n, dtype, off_a, off_b):
     ours = [x for x in names if "mm_tc_kernel" in x]
     assert len(ours) == 1, names
     # besides the kernel only the wrapper's copies into aligned buffers run
-    assert not any(w in x.lower() for x in names for w in ("gemm", "cutlass", "mm_kernel<float")), names
+    assert not any(w in x.lower() for x in names for w in ("gemm", "cutlass", "mm_kernel<")), names
+
+
+F32_SHAPES = [
+    # (m, k, n, offset a, offset b): rows of a and b off 16 bytes (the 4-byte
+    # copies), ragged tiles and long k, bases one element past 16 bytes
+    (1000, 777, 1333, False, False),
+    (513, 1024, 260, False, False),
+    (130, 4100, 96, False, False),
+    (2048, 2048, 2048, False, False),
+    (513, 1024, 260, True, True),
+    (512, 1024, 768, True, False),
+    (300, 4104, 520, False, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,off_a,off_b", F32_SHAPES)
+def test_f32_geometries_on_card(cuda, m, k, n, off_a, off_b):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + off_a)
+    a = _operand((m, k), torch.float32, g, cuda, off_a)
+    b = _operand((k, n), torch.float32, g, cuda, off_b)
+    assert (a.data_ptr() % 16 != 0) == off_a and (b.data_ptr() % 16 != 0) == off_b
+    before = k2.launches
+    got = htt.ops.pallas_matmul(a, b)
+    assert k2.launches == before + 1
+    again = htt.ops.pallas_matmul(a, b)
+    want = k2.reference_matmul(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, again), "reruns are not bitwise equal"
+    assert float((got - want).abs().max()) <= 1e-5 * float((a.abs() @ b.abs()).max())
+    names = _kernel_names(lambda: htt.ops.pallas_matmul(a, b))
+    assert len(names) == 1 and "mm_kernel<" in names[0], names
+
+
+@pytest.mark.gpu
+def test_f32_reruns_bitwise_equal_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2048)
+    a, b = (torch.randn(2048, 2048, generator=g, device=cuda) for _ in range(2))
+    first = htt.ops.pallas_matmul(a, b)
+    assert all(torch.equal(first, htt.ops.pallas_matmul(a, b)) for _ in range(3))
 
 
 @pytest.mark.gpu
