@@ -19,17 +19,31 @@
 //
 // f32: flash_fwd_kernel, IEEE FMAs on the CUDA cores (no TF32).  At the
 // benchmark's (16, 4096, 128) causal call the flops take ~1 ms at 67 TFLOP/s
-// and the bytes ~0.04 ms, so it is bound by operations:
-//   * one block of 256 threads per (batch*head, 64-row query tile), looping
-//     over 64-key tiles; the Q tile stays in shared memory for the whole
-//     loop, K (stored transposed) and then V pass through one shared buffer;
-//   * each thread holds a 4 x 4 block of the score tile in registers (rows
-//     ty + 16 i, columns tx + 16 j), so a row's 64 scores sit in one
-//     half-warp and its max and sum are butterfly shuffles;
-//   * each thread accumulates its 4 rows x DMAX/16 columns of the output in
-//     registers; P passes through shared memory between the two products;
-//   * the row strides are padded so that neither product's shared-memory
-//     reads conflict on banks; ragged edges are masked in the kernel.
+// and the bytes ~0.04 ms, so it is bound by operations, and the design keeps
+// the FMA units fed from shared memory with register tiles that reuse each
+// shared load 8 to 16 times:
+//   * one block of 128 threads per (batch*head, 64-row query tile), looping
+//     over 64-key tiles; thread (ty, tx) = (tid / 16, tid % 16) holds the
+//     scores of rows {4 ty .. 4 ty + 3, 32 + 4 ty ..} and keys
+//     {tx, tx + 16, tx + 32, tx + 48} (an 8 x 4 tile), and the outputs of
+//     those rows in DMAX / 16 columns {64 g + 4 tx ..} (2 tx .. at DMAX = 32);
+//   * Q stays in shared memory row-major for the whole loop; K and V tiles
+//     come row-major through a ring of two buffers, K then V then the next
+//     K, each copy one tile ahead of its use: V_t is in flight during
+//     S = Q K_t^T and the softmax, K_{t+1} during O += P V_t.  Two block
+//     barriers a key tile.  The copies are cp.async, 16 bytes wide where
+//     d % 4 == 0 and q, k, v are 16-byte aligned, else 4 bytes wide (a
+//     template flag, one kernel); they zero-fill rows past sq or sk and
+//     features past d;
+//   * S: per 4 features a thread reads 8 float4 of Q (its rows; a
+//     half-warp reads one address) and 4 float4 of K (its keys; K's rows
+//     are padded to DMAX + 4 floats, so 8 keys fall in 8 bank groups):
+//     12 reads for 128 FMAs.  P goes to shared memory row-major; O += P V
+//     reads 8 float4 of P (rows) per 4 keys and V's row in float4: 12
+//     reads for 128 FMAs at d = 64, 16 for 256 at d = 128;
+//   * a row's 64 scores live in the 16 lanes of a half-warp: its max and
+//     sum are butterfly shuffles; the causal and key-padding masks are
+//     applied only in tiles that cross the diagonal or the end of k.
 // expf, not __expf.
 //
 // bf16 / f16: flash_fwd_kernel_tc, on the tensor cores.  A non-causal
@@ -78,9 +92,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // 16 x 16 threads
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
+constexpr int NT = 128;  // 8 x 16 threads
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -88,27 +100,65 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
 
 template <int DMAX>
-struct Smem {
-  static constexpr int QLD = DMAX + 1;  // Q rows
-  static constexpr int KLD = BK + 1;    // K^T rows (one per feature)
+struct Tile {
+  static constexpr int QLD = DMAX;      // Q rows (a half-warp reads one address)
+  static constexpr int KLD = DMAX + 4;  // K rows: 8 consecutive keys fall in 8 bank groups
   static constexpr int VLD = DMAX;      // V rows
-  static constexpr int PLD = BK + 1;    // P rows
-  static constexpr int Q = BQ * QLD;
-  static constexpr int KV = (DMAX * KLD > BK * VLD) ? DMAX * KLD : BK * VLD;
-  static constexpr int P = BQ * PLD;
-  static constexpr size_t bytes = sizeof(float) * (Q + KV + P);
+  static constexpr int PLD = BK;        // P rows
+  static constexpr int Q = BQ * QLD, K = BK * KLD, V = BK * VLD, P = BQ * PLD;
+  static constexpr size_t bytes = sizeof(float) * (Q + K + V + P);
+  static constexpr int OC = DMAX / 16;            // output columns per thread
+  static constexpr int VW = OC < 4 ? OC : 4;      // of them contiguous: one read of V
+  static constexpr int MIN_BLOCKS = DMAX <= 32 ? 4 : DMAX == 64 ? 3 : DMAX == 128 ? 2 : 1;
 };
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, int d, float scale, int causal) {
-  using S = Smem<DMAX>;
-  constexpr int DC = DMAX / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* kv = qs + S::Q;
-  float* ps = kv + S::KV;
+// cp.async of kBytes (16 or 4) from global to shared; a copy that is not
+// `valid` fills zeros and reads nothing
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem, bool valid) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  const int src = valid ? kBytes : 0;
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Starts the copy of rows r0 .. r0 + 63 of a (rows, d) row-major matrix into a
+// 64 x DMAX tile of row pitch LD; rows at or past `rows` and features at or
+// past d are zero-filled.  kVec: 16-byte copies (d % 4 == 0, an aligned base).
+template <int DMAX, bool kVec, int LD>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int r0, int rows, int d) {
+  constexpr int W = kVec ? 4 : 1;
+  constexpr int PER_ROW = DMAX / W;
+  static_assert((64 * PER_ROW) % NT == 0, "whole passes");
+#pragma unroll
+  for (int u = 0; u < 64 * PER_ROW / NT; ++u) {
+    const int e = static_cast<int>(threadIdx.x) + NT * u;
+    const int r = e / PER_ROW, c = (e % PER_ROW) * W;
+    const bool ok = r0 + r < rows && c < d;
+    cp_async<4 * W>(dst + r * LD + c, ok ? src + static_cast<long long>(r0 + r) * d + c : src, ok);
+  }
+}
+
+// the thread's i-th row in its query tile
+__device__ __forceinline__ int tile_row(int ty, int i) { return 4 * ty + (i < 4 ? i : 28 + i); }
+
+template <int DMAX, bool kVec>
+__global__ void __launch_bounds__(NT, Tile<DMAX>::MIN_BLOCKS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, int sq, int sk, int d, float scale, int causal, bool vec_o) {
+  using S = Tile<DMAX>;
+  constexpr int OC = S::OC, VW = S::VW;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + S::Q;
+  float* vs = ks + S::K;
+  float* ps = vs + S::V;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -116,65 +166,73 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const long long bh = blockIdx.x;
   // the heaviest causal tiles (the last rows) are dispatched first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
-  T* ob = o + bh * sq * d;
-
-  for (int e = tid; e < BQ * DMAX; e += NT) {
-    const int r = e / DMAX, c = e % DMAX;
-    qs[r * S::QLD + c] = (q0 + r < sq && c < d) ? to_f32(qb[static_cast<long long>(q0 + r) * d + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
   int ntiles = (sk + BK - 1) / BK;
   if (causal) ntiles = min(ntiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
 
+  copy_tile<DMAX, kVec, S::QLD>(qs, q + bh * sq * d, q0, sq, d);
+  if (ntiles > 0) copy_tile<DMAX, kVec, S::KLD>(ks, kb, 0, sk, d);
+  cp_async_commit();
+
+  float m[8], l[8], acc[8][OC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  }
+  const float* qrow = qs + 4 * ty * S::QLD;
+  const float* krow = ks + tx * S::KLD;
+  const float* prow = ps + 4 * ty * S::PLD;
+  const float* vcol = vs + tx * VW;
+
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's P.V is done with kv and ps; Q is loaded
-    for (int e = tid; e < BK * DMAX; e += NT) {
-      const int r = e / DMAX, c = e % DMAX;
-      kv[c * S::KLD + r] = (k0 + r < sk && c < d) ? to_f32(kb[static_cast<long long>(k0 + r) * d + c]) : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait_all();  // K_t (and Q) has landed, for this thread's copies
+    __syncthreads();      // ... and everyone's; P and V's buffer are free again
+    copy_tile<DMAX, kVec, S::VLD>(vs, vb, k0, sk, d);
+    cp_async_commit();
 
-    float s[4][4];
+    // S = Q K_t^T over DMAX features, 4 at a time (past d both are 0)
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float a[4], b[4];
+    for (int c = 0; c < DMAX; c += 4) {
+      float qa[8][4], ka[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * S::QLD + c];
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(qa[i]) = *reinterpret_cast<const float4*>(qrow + (i < 4 ? i : 28 + i) * S::QLD + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kv[c * S::KLD + tx + 16 * j];
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(ka[j]) = *reinterpret_cast<const float4*>(krow + 16 * j * S::KLD + c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i][cc], ka[j][cc], s[i][j]);
     }
 
+    // the masks only where the tile crosses the end of k or the diagonal
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q0 + tile_row(ty, i);
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool live = kj < sk && (!causal || qi >= kj);
-        s[i][j] = live ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        float x = s[i][j] * scale;
+        if (edge) {
+          const int kj = k0 + tx + 16 * j;
+          if (kj >= sk || (causal && kj > qi)) x = kNegInf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
       // the row's 64 scores live in the 16 lanes of this half-warp
 #pragma unroll
@@ -192,71 +250,107 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < OC; ++c) acc[i][c] *= corr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * S::PLD + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j) ps[tile_row(ty, i) * S::PLD + tx + 16 * j] = s[i][j];
     }
-    __syncthreads();  // every thread is done reading K^T
 
-    for (int e = tid; e < BK * DMAX; e += NT) {
-      const int r = e / DMAX, c = e % DMAX;
-      kv[r * S::VLD + c] = (k0 + r < sk && c < d) ? to_f32(vb[static_cast<long long>(k0 + r) * d + c]) : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait_all();  // V_t has landed, for this thread's copies
+    __syncthreads();      // ... and everyone's, with all of P; K's buffer is free
+    if (t + 1 < ntiles) copy_tile<DMAX, kVec, S::KLD>(ks, kb, k0 + BK, sk, d);
+    cp_async_commit();
 
+    // O += P V_t, 4 keys at a time
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float p[4];
+    for (int j = 0; j < BK; j += 4) {
+      float pa[8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * S::PLD + j];
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(pa[i]) = *reinterpret_cast<const float4*>(prow + (i < 4 ? i : 28 + i) * S::PLD + j);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = kv[j * S::VLD + tx + 16 * c];
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[OC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+        for (int g = 0; g < OC / VW; ++g) {
+          const float* src = vcol + (j + jj) * S::VLD + 64 * g;
+          if constexpr (VW == 4)
+            *reinterpret_cast<float4*>(vv + 4 * g) = *reinterpret_cast<const float4*>(src);
+          else
+            *reinterpret_cast<float2*>(vv + 2 * g) = *reinterpret_cast<const float2*>(src);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(pa[i][jj], vv[c], acc[i][c]);
       }
     }
   }
+  cp_async_wait_all();
 
+  float* ob = o + bh * sq * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tile_row(ty, i);
     if (row >= sq) continue;
     const float denom = (l[i] == 0.f) ? 1.f : l[i];  // a row with no live key outputs 0
+    float* out = ob + static_cast<long long>(row) * d;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) ob[static_cast<long long>(row) * d + col] = from_f32<T>(acc[i][c] / denom);
+    for (int g = 0; g < OC / VW; ++g) {
+      const int col = 64 * g + VW * tx;
+      float r[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) r[e] = acc[i][VW * g + e] / denom;
+      if (vec_o && col < d) {  // d % 4 == 0: all VW are in
+        if constexpr (VW == 4)
+          *reinterpret_cast<float4*>(out + col) = make_float4(r[0], r[1], r[2], r[3]);
+        else
+          *reinterpret_cast<float2*>(out + col) = make_float2(r[0], r[1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          if (col + e < d) out[col + e] = r[e];
+      }
     }
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
-                   int d, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<DMAX>::bytes;
+template <int DMAX, bool kVec>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, int bh, int sq, int sk, int d,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t bytes = Tile<DMAX>::bytes;
   static bool configured = false;  // once per instantiation
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DMAX>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(bytes));
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DMAX, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err == cudaSuccess)  // all of the SM's shared memory: two blocks of 113 KB at DMAX = 128
+      err = cudaFuncSetAttribute(flash_fwd_kernel<DMAX, kVec>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DMAX><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      sq, sk, d, scale, causal);
+  const bool vec_o = d % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  flash_fwd_kernel<DMAX, kVec><<<grid, NT, bytes, stream>>>(q, k, v, o, sq, sk, d, scale, causal, vec_o);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int DMAX>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
+                     float scale, int causal, cudaStream_t s) {
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k), *fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(o);
+  const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  if (vec) return launch<DMAX, true>(fq, fk, fv, fo, bh, sq, sk, d, scale, causal, s);
+  return launch<DMAX, false>(fq, fk, fv, fo, bh, sq, sk, d, scale, causal, s);
+}
+
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk, int d,
                      float scale, int causal, cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
-  return launch<T, 256>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+  if (d <= 32) return launch_d<32>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+  if (d <= 64) return launch_d<64>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+  if (d <= 128) return launch_d<128>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+  return launch_d<256>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
 }
 
 // ------------------------------------------------ bf16 / f16: tensor cores
@@ -517,7 +611,7 @@ extern "C" int heat_flash_attention(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       if (ld != d) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(dispatch<float>(q, k, v, o, bh, sq, sk, d, scale, causal, s));
+      return static_cast<int>(dispatch(q, k, v, o, bh, sq, sk, d, scale, causal, s));
     case 1: return static_cast<int>(dispatch_tc<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, ld, scale, causal, s));
     case 2: return static_cast<int>(dispatch_tc<__half>(q, k, v, o, bh, sq, sk, d, ld, scale, causal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

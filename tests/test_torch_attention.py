@@ -267,7 +267,7 @@ def test_tensor_core_geometries_on_card(cuda, bh, sq, sk, d, dtype, causal, offs
     assert len(ours) == 1 and "flash_fwd_kernel_tc" in ours[0], names
     # besides the kernel only the wrapper's copies into aligned buffers run:
     # no library attention, no GEMM, no CUDA-core K3
-    assert not any(w in n.lower() for n in names for w in ("sdpa", "fmha", "gemm", "flash_fwd_kernel<float")), names
+    assert not any(w in n.lower() for n in names for w in ("sdpa", "fmha", "gemm", "flash_fwd_kernel<")), names
 
 
 @pytest.mark.gpu
