@@ -8,7 +8,7 @@ Phases: (1) identity of the card and toolchain; (2) build every kernel of
 the paths from the sources in this checkout, all at once; (3) each kernel
 against its plain torch version at the shapes the paths give it, with a
 trace showing that a bf16 call of K3 and of K2 runs only its tensor-core
-kernel; (4) kernel
+kernel and an f32 call only its CUDA-core kernel; (4) kernel
 timing beside the plain version, one library call where there is one, and
 the card's bound; (5) each path end to end through the entry points a user
 calls, with the kernels' launch counts set to 0 just before it and read just
@@ -332,8 +332,9 @@ def check_attention(k3, gen, dev):
     """K3 against its plain version at the model's shape, the benchmark's
     shape in bf16 and f32, a ragged cross attention, the tensor-core
     kernel's head dims 64 and 256 and a row of 40 bytes (d = 20, which TMA
-    cannot describe), and its reruns; returns the largest f32 and 16-bit
-    |Δo|."""
+    cannot describe), the f32 kernel at d = 20 (its 4-byte copies) and
+    d = 256 with sq != sk, and its reruns; returns the largest f32 and
+    16-bit |Δo|."""
     worst, worst_16 = 0.0, 0.0
     cases = [((64, 2048, 2048, 64), torch.float32, True)]
     cases += [((ATTN_BH, ATTN_S, ATTN_S, ATTN_D), dt, c) for dt in (torch.bfloat16, torch.float32) for c in (True, False)]
@@ -341,6 +342,8 @@ def check_attention(k3, gen, dev):
     cases += [((4, 1000, 1337, 24), torch.float16, True), ((2, 77, 77, 256), torch.float32, True)]
     cases += [((ATTN_BH, 2048, 2048, 64), torch.bfloat16, True), ((4, 1024, 1024, 256), torch.bfloat16, False)]
     cases += [((4, 1000, 1337, 20), torch.bfloat16, c) for c in (True, False)]
+    cases += [((4, 1000, 1337, 20), torch.float32, c) for c in (True, False)]
+    cases += [((4, 700, 900, 256), torch.float32, c) for c in (True, False)]
     for (bh, sq, sk, d), dt, causal in cases:
         q, k, v = (torch.randn(bh, n, d, generator=gen, device=dev).to(dt) for n in (sq, sk, sk))
         got = k3.flash_attention(q, k, v, causal=causal)
@@ -381,13 +384,16 @@ def check_matmul(k2, gen, dev):
     """K2 against its plain version at 8192^2 (f32, bf16), a ragged
     (1000x777)(777x1333) in f32, bf16 and f16 (rows of 1554 and 2666 bytes,
     which TMA cannot describe), 1x1, bf16 operands off 16-byte alignment,
-    and bf16 at k = 8200 (not a multiple of the 64-deep tile); every case
-    reruns bitwise equal.  Returns the largest f32 and 16-bit |Δc|."""
+    and bf16 at k = 8200 (not a multiple of the 64-deep tile); in f32 also
+    (1000x777)(777x1333) on bases off 16 bytes and (513x1024)(1024x260),
+    ragged tiles on the 16-byte copies; every case reruns bitwise equal.
+    Returns the largest f32 and 16-bit |Δc|."""
     worst, worst_16 = 0.0, 0.0
     cases = [((m, k, n), dt, False) for (m, k, n) in [(MATMUL_N, MATMUL_N, MATMUL_N), (1000, 777, 1333), (1, 1, 1)]
              for dt in (torch.float32, torch.bfloat16)]
     cases += [((1000, 777, 1333), torch.float16, False), ((2048, 2048, 2048), torch.bfloat16, True),
               ((1000, 777, 1333), torch.bfloat16, True), ((MATMUL_N, MATMUL_N + 8, MATMUL_N), torch.bfloat16, False)]
+    cases += [((1000, 777, 1333), torch.float32, True), ((513, 1024, 260), torch.float32, False)]
     for (m, k, n), dt, offset in cases:
         if offset:
             a, b = offset_randn((m, k), dt, gen, dev), offset_randn((k, n), dt, gen, dev)
@@ -419,31 +425,33 @@ def check_matmul(k2, gen, dev):
     return worst, worst_16
 
 
-def tensor_core_trace(k3, k2, gen, dev) -> None:
-    """One bf16 call of each of K3 and K2 under torch.profiler: each runs
-    its tensor-core kernel and no other kernel (no SDPA, no cuBLAS, no
-    CUDA-core K2/K3)."""
+def kernel_trace(k3, k2, gen, dev) -> None:
+    """One call of each of K3 and K2 in bf16 and in f32 under torch.profiler:
+    each runs its own kernel and no other (no SDPA, no cuBLAS; bf16 the
+    tensor-core kernels, f32 the CUDA-core ones)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v = (torch.randn(ATTN_BH, ATTN_S, ATTN_D, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
-    a, b = (torch.randn(MATMUL_N, MATMUL_N, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-    for name, fn, want in [("flash_attention", lambda: k3.flash_attention(q, k, v), "flash_fwd_kernel_tc"),
-                           ("pallas_matmul", lambda: k2.matmul(a, b), "mm_tc_kernel")]:
-        fn()
-        # a trace that recorded no device event at all is taken again: it
-        # says nothing about which kernels ran
-        for _ in range(3):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
+    for dt, want_k3, want_k2 in [(torch.bfloat16, "flash_fwd_kernel_tc", "mm_tc_kernel"),
+                                 (torch.float32, "flash_fwd_kernel<", "mm_kernel<")]:
+        q, k, v = (torch.randn(ATTN_BH, ATTN_S, ATTN_D, generator=gen, device=dev).to(dt) for _ in range(3))
+        a, b = (torch.randn(MATMUL_N, MATMUL_N, generator=gen, device=dev).to(dt) for _ in range(2))
+        for name, fn, want in [("flash_attention", lambda: k3.flash_attention(q, k, v), want_k3),
+                               ("pallas_matmul", lambda: k2.matmul(a, b), want_k2)]:
+            fn()
+            # a trace that recorded no device event at all is taken again: it
+            # says nothing about which kernels ran
+            for _ in range(3):
                 torch.cuda.synchronize()
-            names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            if names:
-                break
-        print(f"[trace] one bf16 {name} call runs: {names}")
-        check(len(names) == 1 and want in names[0], f"bf16 {name} ran {names}, not {want} alone")
-    del q, k, v, a, b
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                if names:
+                    break
+            print(f"[trace] one {str(dt)[6:]} {name} call runs: {names}")
+            check(len(names) == 1 and want in names[0], f"{dt} {name} ran {names}, not {want} alone")
+        del q, k, v, a, b
     torch.cuda.empty_cache()
 
 
@@ -1215,7 +1223,7 @@ def main() -> int:
     # K3 and K2: against their plain versions, then timed
     k3_abs, k3_abs_16 = check_attention(k3, gen, dev)
     k2_abs, k2_abs_16 = check_matmul(k2, gen, dev)
-    tensor_core_trace(k3, k2, gen, dev)
+    kernel_trace(k3, k2, gen, dev)
     att_times = time_attention(k3, gen, dev, card)
     mm_times = time_matmul(k2, gen, dev, card)
 
@@ -1650,6 +1658,9 @@ def main() -> int:
                for causal, tag in ((False, ""), (True, "_causal"))
                for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
             "at_bf16": f"({ATTN_BH}, {ATTN_S}, {ATTN_D}) bf16, tensor cores",
+            **{f"{key}_f32_causal": att_times[(ATTN_BH, ATTN_S, ATTN_D, "float32", True)][i]
+               for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+            "at_f32_causal": f"({ATTN_BH}, {ATTN_S}, {ATTN_D}) f32 causal",
         },
         {
             "name": "matmul",

@@ -15,7 +15,11 @@ product with v (the sum l stays f32), which moves o by at most half a bf16
 ulp of each p·|v| term.  The same rounding in f16 (2⁻¹¹) stays inside the
 1e-3.  The tensor-core geometries (head dims 64 and 256, a row of 40 bytes,
 an operand off 16-byte alignment) are held to the same bounds, run only the
-tensor-core kernel, and count one launch a call.  Gradients: both packages recompute through the plain
+tensor-core kernel, and count one launch a call.  The f32 kernel's
+geometries (head dims 1 to 256 with sq != sk, causal with sq < sk and
+sq > sk, sequences shorter than a tile, bases off 16 bytes) are held to
+1e-5, rerun bitwise equal and run only ``flash_fwd_kernel``; on the CPU a
+torch emulation of its tile walk is held to heat_tpu's kernel at 1e-5.  Gradients: both packages recompute through the plain
 version, |Δ| ≤ 1e-5.
 """
 
@@ -71,6 +75,61 @@ def test_matches_jax_f32(ht, interpret, name, qshape, kshape, causal):
     want = _jax_flash(ht, q, k, v, causal)
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal)
     assert got.dtype == torch.float32 and tuple(got.shape) == qshape
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=0)
+
+
+def _tile_walk(q, k, v, causal, scale, bq=64, bk=64):
+    """The f32 kernel's order of work (``flash_fwd_kernel``,
+    csrc/attention.cu) in plain torch, on (bh, s, d) tensors: 64-row query
+    tiles in reverse (the heaviest causal tiles first), 64-key tiles
+    zero-padded past sk, the key tiles wholly above the causal diagonal
+    skipped, the masks (-1e30) applied only in tiles that cross the
+    diagonal or the end of k, and the running max m, sum l and output
+    rescaled once per key tile; a row whose l stays 0 outputs 0."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    out = torch.empty_like(q)
+    tiles_q = -(-sq // bq)
+    tiles_k = -(-sk // bk)
+    kp = torch.zeros(bh, tiles_k * bk, d)
+    vp = torch.zeros(bh, tiles_k * bk, d)
+    kp[:, :sk], vp[:, :sk] = k, v
+    for y in range(tiles_q):
+        q0 = (tiles_q - 1 - y) * bq
+        qt = q[:, q0 : q0 + bq]
+        rows = torch.arange(q0, q0 + qt.shape[1])[:, None]
+        m = torch.full((bh, qt.shape[1]), -1e30)
+        l = torch.zeros(bh, qt.shape[1])
+        acc = torch.zeros(bh, qt.shape[1], d)
+        ntiles = min(tiles_k, (q0 + bq - 1) // bk + 1) if causal else tiles_k
+        for t in range(ntiles):
+            k0 = t * bk
+            s = (qt @ kp[:, k0 : k0 + bk].transpose(1, 2)) * scale
+            if k0 + bk > sk or (causal and k0 + bk - 1 > q0):
+                keys = torch.arange(k0, k0 + bk)[None, :]
+                live = (keys < sk) & ((rows >= keys) if causal else True)
+                s = torch.where(live, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vp[:, k0 : k0 + bk]
+            m = m_new
+        out[:, q0 : q0 + bq] = acc / torch.where(l == 0, torch.tensor(1.0), l)[..., None]
+    return out
+
+
+# CASES plus several query and key tiles, ragged at both ends, causal
+WALK_CASES = CASES + [("causal (3,300,64)x(3,131,64)", (3, 300, 64), (3, 131, 64), True)]
+
+
+@pytest.mark.parametrize("name,qshape,kshape,causal", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+def test_f32_kernel_tile_walk_matches_jax(ht, interpret, name, qshape, kshape, causal):
+    q, k, v = _normal(qshape, 21), _normal(kshape, 22), _normal(kshape, 23)
+    want = _jax_flash(ht, q, k, v, causal)
+    d = qshape[-1]
+    flat = [torch.from_numpy(a).reshape(-1, a.shape[-2], d) for a in (q, k, v)]
+    got = _tile_walk(*flat, causal, 1.0 / d**0.5).reshape(qshape)
     np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=0)
 
 
@@ -191,6 +250,53 @@ def test_kernel_against_plain_on_card(cuda, dtype, bh, sq, sk, d, causal):
         assert float(diff.max()) <= F32_TOL
     else:
         assert bool((diff <= _bound_16(q, k, v, causal, want)).all())
+
+
+F32_CASES = [
+    # (bh, sq, sk, d, causal, offset base): every head-dim template and
+    # head dims between them, with sq != sk
+    *[(2, 300, 517, d, c, False) for d in (1, 20, 24, 100, 200, 256) for c in (True, False)],
+    # causal with sq < sk and sq > sk, across several tiles and within one
+    (2, 517, 300, 128, True, False),
+    (3, 37, 50, 64, True, False),
+    (3, 50, 37, 64, True, False),
+    # shorter than one tile of queries and of keys
+    (4, 20, 13, 64, False, False),
+    (4, 20, 13, 64, True, False),
+    # d % 4 == 0 on bases off 16 bytes: the 4-byte copies
+    (2, 333, 517, 128, True, True),
+    (2, 333, 517, 64, False, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,sk,d,causal,offset", F32_CASES)
+def test_f32_geometries_on_card(cuda, bh, sq, sk, d, causal, offset):
+    g = torch.Generator(device=cuda).manual_seed(bh + sq + sk + d)
+    if offset:
+        q, k, v = (_offset((bh, n, d), torch.float32, g, cuda) for n in (sq, sk, sk))
+        assert q.data_ptr() % 16 != 0
+    else:
+        q, k, v = (torch.randn(bh, n, d, generator=g, device=cuda) for n in (sq, sk, sk))
+    before = k3.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert k3.launches == before + 1
+    again = flash_attention(q, k, v, causal=causal)
+    want = k3.reference_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and tuple(got.shape) == (bh, sq, d)
+    assert torch.equal(got, again), "reruns are not bitwise equal"
+    assert float((got - want).abs().max()) <= F32_TOL
+    names = _tensor_core_kernels(lambda: flash_attention(q, k, v, causal=causal))
+    assert len(names) == 1 and "flash_fwd_kernel<" in names[0], names
+
+
+@pytest.mark.gpu
+def test_f32_reruns_bitwise_equal_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1024)
+    q, k, v = (torch.randn(16, 1024, 128, generator=g, device=cuda) for _ in range(3))
+    first = flash_attention(q, k, v, causal=True)
+    assert all(torch.equal(first, flash_attention(q, k, v, causal=True)) for _ in range(3))
 
 
 def _bound_16(q, k, v, causal, want):
