@@ -77,7 +77,6 @@
 namespace {
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
 

@@ -256,14 +256,6 @@ def test_f32_geometries_on_card(cuda, m, k, n, off_a, off_b):
 
 
 @pytest.mark.gpu
-def test_f32_reruns_bitwise_equal_on_card(cuda):
-    g = torch.Generator(device=cuda).manual_seed(2048)
-    a, b = (torch.randn(2048, 2048, generator=g, device=cuda) for _ in range(2))
-    first = htt.ops.pallas_matmul(a, b)
-    assert all(torch.equal(first, htt.ops.pallas_matmul(a, b)) for _ in range(3))
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_tensor_core_trace_shows_only_the_new_kernel(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
