@@ -193,11 +193,13 @@ def qr_panel_bound_ms(m: int, n: int):
     return bound(4.0 * (m * n + 2 * n * n), m * n * (n + 1) + 2.0 * n**3 / 3)
 
 
-def lasso_sweep_bound_ms(m: int, n: int):
-    """Least time for one sweep over (m, n) f32: X, y, θ read once and θ'
-    written once, against r0 = y - Xθ (2 m n flops) and, per coordinate,
-    r + θ_j x_j, the dot and the residual update (6 m flops)."""
-    return bound(4.0 * (m * n + m + 2 * n), 8.0 * m * n)
+def lasso_sweep_bound_ms(m: int, n: int, reads_of_x: int = 2):
+    """Least time for one sweep over (m, n) f32 as ``sweep`` computes it: X
+    read twice (once by the r0 = y - Xθ GEMV, once by the sweep), y and θ
+    read once and θ' written once, against r0 (2 m n flops) and, per
+    coordinate, r + θ_j x_j, the dot and the residual update (6 m flops).
+    ``reads_of_x=1`` is the sweep's alone, r0 given."""
+    return bound(4.0 * (reads_of_x * m * n + m + 2 * n), 8.0 * m * n)
 
 
 def spmv_bound_ms(nnz: int, nrows: int, ncols: int, k: int):
@@ -697,8 +699,10 @@ def random_of(total: int, dtype, gen, dev) -> torch.Tensor:
 def check_repack(k7, gen, dev) -> int:
     """K7 against its plain version on the raw bytes: the benchmark's
     (19999980,) -> (1999998, 10) f32, the 2.4 GB (599999980,) ->
-    (59999998, 10) past 2^31 bytes, five other dtypes at a ragged shape,
-    three int8 segments at odd byte offsets, zero rows, and two reruns.
+    (59999998, 10) past 2^31 bytes and the same bytes one f32 element off
+    16-byte alignment, five other dtypes at a ragged shape, int8 segments
+    at odd byte offsets and at every (source, destination) alignment pair
+    mod 16, zero rows, and two reruns.
     Returns what it measured: whether every case was bitwise equal to its
     plain version, and the largest |kernel - plain| over the float cases."""
     all_equal, max_abs = True, 0.0
@@ -717,6 +721,19 @@ def check_repack(k7, gen, dev) -> int:
         print(f"[check] repack ({total},) -> {shape} {str(dt)[6:]} ({total * flat.element_size() / 1e9:.3f} GB): "
               f"bitwise equal to plain {same}")
         check(same, f"repack {shape} {dt}: not bitwise equal to its plain version")
+        if shape == REPACK_BIG_OUT:
+            # the same bytes one f32 element off 16-byte alignment
+            del got, want
+            torch.cuda.empty_cache()
+            segs = [(flat, 1, total - 1)]
+            got = k7.repack_segments(segs, (total - 1,))
+            want = k7.reference_repack_segments(segs, (total - 1,))
+            torch.cuda.synchronize()
+            same = torch.equal(raw(got), raw(want))
+            all_equal = all_equal and same
+            print(f"[check] repack ({total - 1},) f32 from element offset 1 ({4 * (total - 1) / 1e9:.3f} GB): "
+                  f"bitwise equal to plain {same}")
+            check(same, "repack from a misaligned source: not bitwise equal to its plain version")
         if shape == REPACK_OUT:
             reruns = [k7.repack(flat, shape) for _ in range(2)]
             torch.cuda.synchronize()
@@ -737,6 +754,17 @@ def check_repack(k7, gen, dev) -> int:
     all_equal = all_equal and same
     print(f"[check] repack_segments int8, 4 segments at byte offsets 1, 5, 3, 600001: bitwise equal to plain and torch.cat {same}")
     check(same, "repack_segments at odd offsets differs")
+    # every (source mod 16, destination mod 16) pair, int8: a first segment
+    # of `do` bytes puts the second one's destination there
+    pairs = 0
+    for so in range(16):
+        for do in range(16):
+            segs = ([(a, 200, do)] if do else []) + [(a, so, 70_001)]
+            total = sum(n for _, _, n in segs)
+            pairs += torch.equal(raw(k7.repack_segments(segs, (total,))), raw(k7.reference_repack_segments(segs, (total,))))
+    all_equal = all_equal and pairs == 256
+    print(f"[check] repack_segments int8 at every (source, destination) alignment pair mod 16: {pairs}/256 bitwise equal to plain")
+    check(pairs == 256, "repack_segments differs at some alignment pair")
     n0 = k7.launches
     empty = k7.repack_segments([(a, 7, 0)], (0, 10))
     check(tuple(empty.shape) == (0, 10) and k7.launches == n0, "zero rows launched or misshaped")
@@ -746,27 +774,37 @@ def check_repack(k7, gen, dev) -> int:
 
 def time_repack(k7, gen, dev, card: str) -> dict:
     """K7 beside its plain version, the library copy (``flat.clone()`` for
-    one segment, ``torch.cat`` for three) and its bytes bound."""
+    one segment, ``torch.cat`` for three) and its bytes bound.  Kernel and
+    library are timed in turns (library, kernel, kernel, library), aligned
+    and from a source one f32 element off 16-byte alignment; each keeps the
+    smaller of its two times."""
     times = {}
     for shape, reps in ((REPACK_OUT, 50), (REPACK_BIG_OUT, 10)):
         total = shape[0] * shape[1]
         buf = torch.randn(total + 1, generator=gen, device=dev)
         flat = buf[:total]
-        t_k = time_ms(lambda: k7.repack(flat, shape), reps=reps)
         t_p = time_ms(lambda: k7.reference_repack(flat, shape), reps=reps)
-        t_l = time_ms(lambda: flat.clone(), reps=reps)
-        t_k2 = time_ms(lambda: k7.repack(flat, shape), reps=reps)
         b_ms, b_by = repack_bound_ms(4 * total)
-        times[shape] = (t_k, t_p, t_l, b_ms, b_by)
-        print(f"[time] repack ({total},) -> {shape} f32: kernel_ms={t_k:.4f} (again {t_k2:.4f}) plain_ms={t_p:.4f} "
-              f"library_ms={t_l:.4f} (flat.clone()) bound_ms={b_ms:.4f} ({b_by}), {2 * 4 * total / t_k / 1e6:.1f} GB/s on {card}")
-        # a source one element off 16-byte alignment: the kernel copies 4-byte words
-        t_m = time_ms(lambda: k7.repack_segments([(buf, 1, total)], shape), reps=reps)
-        t_ml = time_ms(lambda: buf[1:].clone(), reps=reps)
-        times[(shape, "misaligned")] = (t_m, t_ml)
-        print(f"[time] repack ({total},) -> {shape} f32 from element offset 1 (4-byte common alignment): "
-              f"kernel_ms={t_m:.4f} library_ms={t_ml:.4f} (buf[1:].clone()) on {card}")
-        del flat, buf
+        for off in (0, 1):
+            src = buf[off : off + total]
+            t_l1 = time_ms(lambda: src.clone(), reps=reps)
+            t_k1 = time_ms(lambda: k7.repack_segments([(buf, off, total)], shape), reps=reps)
+            t_k2 = time_ms(lambda: k7.repack_segments([(buf, off, total)], shape), reps=reps)
+            t_l2 = time_ms(lambda: src.clone(), reps=reps)
+            t_k, t_l = min(t_k1, t_k2), min(t_l1, t_l2)
+            if off == 0:
+                times[shape] = (t_k, t_p, t_l, b_ms, b_by)
+                print(f"[time] repack ({total},) -> {shape} f32: kernel_ms={t_k:.4f} ({t_k1:.4f} {t_k2:.4f}) "
+                      f"plain_ms={t_p:.4f} library_ms={t_l:.4f} ({t_l1:.4f} {t_l2:.4f}, flat.clone()) "
+                      f"bound_ms={b_ms:.4f} ({b_by}), {2 * 4 * total / t_k / 1e6:.1f} GB/s, "
+                      f"kernel/library={t_k / t_l:.3f} on {card}")
+            else:
+                # the kernel realigns 16-byte source words to 16-byte stores
+                times[(shape, "misaligned")] = (t_k, t_l)
+                print(f"[time] repack ({total},) -> {shape} f32 from element offset 1 (source 4 bytes off 16-byte "
+                      f"alignment): kernel_ms={t_k:.4f} ({t_k1:.4f} {t_k2:.4f}) library_ms={t_l:.4f} "
+                      f"({t_l1:.4f} {t_l2:.4f}, buf[1:].clone()) kernel/library={t_k / t_l:.3f} on {card}")
+        del flat, buf, src
         torch.cuda.empty_cache()
     third = REPACK_OUT[0] * REPACK_OUT[1] // 3
     parts = [torch.randn(third + 5, generator=gen, device=dev) for _ in range(3)]
@@ -1090,7 +1128,7 @@ def main() -> int:
     # K5: one sweep at the Lasso path's 5e5 x 1001 from θ = 0 and from a
     # non-zero θ, and a ragged 9999 x 37 (λ small enough that most
     # coordinates stay non-zero)
-    k5_abs = 0.0
+    k5_abs, k5_rerun = 0.0, True
     xt_l = torch.randn(LASSO_N + 1, LASSO_M, generator=gen, device=dev)
     y_l = torch.randn(LASSO_M, generator=gen, device=dev)
     xt_r = torch.randn(37, 9_999, generator=gen, device=dev)
@@ -1099,13 +1137,17 @@ def main() -> int:
                                    ("ragged 9999x37", xt_r, y_r, False), ("ragged 9999x37", xt_r, y_r, True)]:
         th = 0.1 * torch.randn(xt_.shape[0], generator=gen, device=dev) if nonzero else torch.zeros(xt_.shape[0], device=dev)
         got = k5.sweep(xt_, y_, th, 1e-4)
+        again = k5.sweep(xt_, y_, th, 1e-4)
         want = k5.reference_sweep(xt_, y_, th, 1e-4)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "non-finite lasso_sweep output")
         err, scale = float((got - want).abs().max()), float(want.abs().max())
+        rerun = torch.equal(got, again)
+        k5_rerun = k5_rerun and rerun
         print(f"[check] lasso_sweep {name} theta0={'nonzero' if nonzero else 'zero'}: max_abs_err={err:.3e} "
-              f"max|theta|={scale:.3e} nonzero coords {int((want != 0).sum())}/{want.numel()}")
+              f"max|theta|={scale:.3e} nonzero coords {int((want != 0).sum())}/{want.numel()}, rerun bitwise equal {rerun}")
         check(err <= TOL_LASSO * scale, f"lasso_sweep {name}: error {err:.3e} > {TOL_LASSO} * {scale:.3e}")
+        check(rerun, f"lasso_sweep {name}: reruns differ")
         k5_abs = max(k5_abs, err)
     del xt_r, y_r
 
@@ -1188,14 +1230,20 @@ def main() -> int:
         del xq, eye_n
     k4_ms, k4_plain_ms, k4_library_ms, k4_bound_ms, k4_bound_by = k4_times[(1_000_000, 128)]
     th0 = torch.zeros(LASSO_N + 1, device=dev)
+    th1 = 0.1 * torch.randn(LASSO_N + 1, generator=gen, device=dev)
     k5_ms = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
+    k5_ms_nonzero = time_ms(lambda: k5.sweep(xt_l, y_l, th1, 0.01), reps=10)
     k5_plain_ms = time_ms(lambda: k5.reference_sweep(xt_l, y_l, th0, 0.01), reps=2, warmup=1)
     k5_ms_2 = time_ms(lambda: k5.sweep(xt_l, y_l, th0, 0.01), reps=10)
+    k5_ms_nonzero_2 = time_ms(lambda: k5.sweep(xt_l, y_l, th1, 0.01), reps=10)
     k5_bound_ms, k5_bound_by = lasso_sweep_bound_ms(LASSO_M, LASSO_N + 1)
+    k5_bound_sweep_ms, _ = lasso_sweep_bound_ms(LASSO_M, LASSO_N + 1, reads_of_x=1)
     print(
-        f"[time] lasso_sweep ({LASSO_M},{LASSO_N + 1}): kernel_ms={k5_ms:.4f} (again {k5_ms_2:.4f}) "
+        f"[time] lasso_sweep ({LASSO_M},{LASSO_N + 1}): kernel_ms={k5_ms:.4f} (again {k5_ms_2:.4f}) from theta = 0, "
+        f"{k5_ms_nonzero:.4f} (again {k5_ms_nonzero_2:.4f}) from a non-zero theta, the r0 GEMV included; "
         f"plain_ms={k5_plain_ms:.4f} library_ms=null (no library call computes a coordinate-descent sweep) "
-        f"bound_ms={k5_bound_ms:.4f} ({k5_bound_by}) on {card}"
+        f"bound_ms={k5_bound_ms:.4f} ({k5_bound_by}; X read twice, by the r0 GEMV and the sweep; the sweep's "
+        f"alone, one read: {k5_bound_sweep_ms:.4f}) on {card}"
     )
     del xt_l, y_l
     torch.cuda.empty_cache()
@@ -1626,6 +1674,9 @@ def main() -> int:
             "bound_by": k5_bound_by,
             "library_ms": None,
             "library_note": "no library call computes a coordinate-descent sweep",
+            "ms_nonzero_theta": k5_ms_nonzero,
+            "bound_ms_sweep_alone": k5_bound_sweep_ms,
+            "bitwise_rerun": k5_rerun,
         },
         {
             "name": "spmv",
@@ -1698,6 +1749,11 @@ def main() -> int:
             "plain_ms_2p4GB": k7_times[REPACK_BIG_OUT][1],
             "bound_ms_2p4GB": k7_times[REPACK_BIG_OUT][3],
             "library_ms_2p4GB": k7_times[REPACK_BIG_OUT][2],
+            "ms_misaligned": k7_times[(REPACK_OUT, "misaligned")][0],
+            "library_ms_misaligned": k7_times[(REPACK_OUT, "misaligned")][1],
+            "ms_misaligned_2p4GB": k7_times[(REPACK_BIG_OUT, "misaligned")][0],
+            "library_ms_misaligned_2p4GB": k7_times[(REPACK_BIG_OUT, "misaligned")][1],
+            "misaligned_call": "source one f32 element off 16-byte alignment; library buf[1:].clone()",
         },
     ]
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")

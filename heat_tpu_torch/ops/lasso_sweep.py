@@ -27,6 +27,10 @@ launches = 0
 
 _SOURCES = ("lasso_sweep.cu",)
 _MAX_BLOCKS = 1024
+# the kernel's scratch: 2 slots of b + b(b-1)/2 partial sums per CTA, for
+# coordinate blocks of b <= 16 (the kernel's b is 8; scripts/probe_k7_k5.py
+# builds variants up to 16, and one that keeps a set of sums after them)
+_WORK_FLOATS = 2 * (16 + 16 * 15 // 2) * (_MAX_BLOCKS + 1)
 _fn = None
 
 
@@ -57,7 +61,8 @@ def _kernel():
         from ._build import load
 
         fn = load("heat_lasso_sweep", _SOURCES).heat_lasso_sweep_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -86,13 +91,13 @@ def sweep(xt: torch.Tensor, y: torch.Tensor, theta: torch.Tensor, lam: float) ->
         raise ValueError(f"the lasso_sweep kernel takes m, n >= 1, got ({m}, {n})")
     r = _residual(xt, y, theta).contiguous()
     out = torch.empty_like(theta)
-    partial = torch.empty(2 * _MAX_BLOCKS, dtype=torch.float32, device=xt.device)
+    work = torch.empty(_WORK_FLOATS, dtype=torch.float32, device=xt.device)
     arrived = torch.zeros(1, dtype=torch.int32, device=xt.device)
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream(xt.device).cuda_stream
         err = _kernel()(
-            xt.data_ptr(), r.data_ptr(), theta.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            arrived.data_ptr(), m, n, float(lam), stream,
+            xt.data_ptr(), r.data_ptr(), theta.data_ptr(), out.data_ptr(), work.data_ptr(),
+            arrived.data_ptr(), _WORK_FLOATS, m, n, float(lam), stream,
         )
     if err != 0:
         raise RuntimeError(f"lasso_sweep kernel launch failed with cudaError_t {err}")

@@ -11,6 +11,9 @@ same number of sweeps on these inputs, whose last change lies far from
 ``tol``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -147,6 +150,83 @@ def test_plain_sweep_against_jax_cd_sweep(ht, nonzero):
     np.testing.assert_array_equal(again.numpy(), got.numpy())
 
 
+# ------------------------------------------------ K5's blocked order, emulated
+# The kernel (csrc/lasso_sweep.cu) takes the coordinates in blocks of b and
+# meets once per block: one cooperative launch of min(ceil(m / threads),
+# SMs) CTAs, each owning rows_per_block = ceil(m / CTAs) contiguous rows.
+# Each CTA sums c'_j = x_j . (r_B + theta_j x_j) (theta_j x_j added element
+# by element) and the strictly lower Gram G_ji = x_j . x_i over its rows;
+# every CTA adds the CTAs' partials in CTA order and solves the block in
+# order, rho_j m = c'_j + sum_{i<j} G_ji d_i; then r += sum_i d_i x_i in
+# coordinate order before the next block.
+
+_K5_SRC = (Path(__file__).resolve().parent.parent / "heat_tpu_torch" / "csrc" / "lasso_sweep.cu").read_text()
+K5_B = int(re.search(r"constexpr int kB = (\d+);", _K5_SRC).group(1))
+K5_THREADS = int(re.search(r"constexpr int kThreads = (\d+);", _K5_SRC).group(1))
+H100_SMS = 132
+
+
+def _blocked_sweep(xt, y, theta, lam, b, threads, sms=H100_SMS):
+    """One sweep in K5's blocked order, in float32 torch."""
+    n, m = xt.shape
+    ctas = min(-(-m // threads), sms)
+    rows = -(-m // ctas)
+    cuts = [(c * rows, min(m, (c + 1) * rows)) for c in range(ctas) if c * rows < m]
+    r = y - torch.matmul(theta, xt)
+    th = theta.clone()
+    d_prev = None
+    for j0 in range(0, n, b):
+        nb = min(b, n - j0)
+        if d_prev is not None:
+            for k in range(b):
+                r = r + d_prev[k] * xt[j0 - b + k]
+        xb, thb = xt[j0 : j0 + nb], th[j0 : j0 + nb].clone()
+        c = torch.zeros(nb, dtype=xt.dtype)
+        g = torch.zeros(nb, nb, dtype=xt.dtype)
+        for lo, hi in cuts:  # the CTAs' partials, added in CTA order
+            xs = xb[:, lo:hi]
+            c = c + (xs * (r[lo:hi] + thb[:, None] * xs)).sum(1)
+            g = g + torch.tril(xs @ xs.T, diagonal=-1)
+        d = torch.zeros(b, dtype=xt.dtype)
+        for j in range(nb):
+            s = c[j]
+            for i in range(j):
+                s = s + g[j, i] * d[i]
+            rho = s / m
+            new = rho if j0 + j == 0 else torch.sign(rho) * torch.clamp(torch.abs(rho) - lam, min=0.0)
+            d[j] = thb[j] - new
+            th[j0 + j] = new
+        d_prev = d
+    return th
+
+
+def _augmented(m, features, seed):
+    x, y = _data(m=m, n=features, seed=seed)
+    return np.concatenate([np.ones((m, 1), np.float32), x], axis=1), y[:, 0]
+
+
+@pytest.mark.parametrize("b", sorted({4, K5_B, 16}))
+@pytest.mark.parametrize("n_of_b", ["b-1", "b", "b+1", "2b+1"])
+@pytest.mark.parametrize("nonzero", [False, True])
+def test_blocked_sweep_emulation_against_jax_cd_sweep(ht, b, n_of_b, nonzero):
+    import importlib
+
+    import jax.numpy as jnp
+
+    cd_sweep = importlib.import_module("heat_tpu.regression.lasso")._cd_sweep
+    n = {"b-1": b - 1, "b": b, "b+1": b + 1, "2b+1": 2 * b + 1}[n_of_b]
+    # the intercept, coordinate 0, lies inside the first block; the
+    # geometries: the kernel's (2 CTAs at 600 rows), 132 CTAs of 5 rows, and
+    # fewer rows (90) than the card's 132 CTAs, one row a CTA
+    for m, threads in ((600, K5_THREADS), (600, 4), (90, 1)):
+        xa, y = _augmented(m, n - 1, seed=n + m)
+        theta = (np.random.default_rng(n).normal(size=n) * 0.3 if nonzero else np.zeros(n)).astype(np.float32)
+        want = np.asarray(cd_sweep(jnp.asarray(xa), jnp.asarray(y), jnp.asarray(theta), 0.01))
+        xt = torch.from_numpy(np.ascontiguousarray(xa.T))
+        got = _blocked_sweep(xt, torch.from_numpy(y), torch.from_numpy(theta), 0.01, b, threads)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0.0, atol=1e-5)
+
+
 def test_sweep_wrapper_checks_shapes():
     with pytest.raises(ValueError):
         k5.sweep(torch.zeros(3, 10), torch.zeros(9), torch.zeros(3), 0.1)
@@ -167,6 +247,26 @@ def test_kernel_matches_plain_on_card(cuda, shape, nonzero):
     assert k5.launches == before + 1
     want = k5.reference_sweep(xt, y, theta, 0.01)
     assert float((got - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_of_b", ["1", "b-1", "b", "b+1", "2b+1", "3b"])
+@pytest.mark.parametrize("nonzero", [False, True])
+def test_kernel_blocks_of_coordinates_on_card(cuda, n_of_b, nonzero):
+    # n around the kernel's block width b, at one CTA a SM (2e5 rows) and
+    # at X_B kept in shared memory; reruns are bitwise equal
+    b = K5_B
+    n = {"1": 1, "b-1": b - 1, "b": b, "b+1": b + 1, "2b+1": 2 * b + 1, "3b": 3 * b}[n_of_b]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for m in (200_000, 77):
+        xt = torch.randn(n, m, generator=g, device=cuda)
+        y = torch.randn(m, generator=g, device=cuda)
+        theta = 0.1 * torch.randn(n, generator=g, device=cuda) if nonzero else torch.zeros(n, device=cuda)
+        got, again = k5.sweep(xt, y, theta, 1e-3), k5.sweep(xt, y, theta, 1e-3)
+        torch.cuda.synchronize()
+        want = k5.reference_sweep(xt, y, theta, 1e-3)
+        assert torch.equal(got, again)
+        assert float((got - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-3)
 
 
 @pytest.mark.gpu
