@@ -6,13 +6,18 @@ and check them.
 
 Phases: (1) identity of the card and toolchain; (2) build every kernel of
 the paths from the sources in this checkout, all at once; (3) each kernel
-against its plain torch version at the shapes the paths give it, with a
+against its plain torch version at the shapes the paths give it (K1 also
+in bf16 and f16 at the north star's shapes), with a
 trace showing that a bf16 call of K3 and of K2 runs only its tensor-core
 kernel and an f32 call only its CUDA-core kernel; (4) kernel
 timing beside the plain version, one library call where there is one, and
 the card's bound; (5) each path end to end through the entry points a user
 calls, with the kernels' launch counts set to 0 just before it and read just
 after: KMeans(k=8, kmeans++) fit and predict on 2e7 x 64 f32 Gaussian blobs;
+BASELINE.md's north star, ``KMeans(k=8, init="random", tol=-1).fit`` of
+``cluster.randn_packed(1e8, 64)`` bf16 (benchmarks/cb/cluster.py:65-95;
+ms/iter as the chain delta of max_iter 12 and 2, and the peak allocation
+above the input), and the same fit on bf16 blobs made chunk by chunk;
 ``linalg.qr`` on the repo's three QR shapes (1e6 x 128, 5e5 x 1000, 2048^2,
 benchmarks/cb/config.py:152-158); a Lasso fit on the repo's regression
 recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); ``sparse.matmul``
@@ -57,6 +62,16 @@ F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = 1e-5
 # the repo's Lloyd benchmark shape (benchmarks/cb/config.py): 2e7 x 64 f32, k = 8
 ROWS = 20_000_000
+# BASELINE.md's north star (benchmarks/cb/config.py:166-168,
+# benchmarks/cb/cluster.py::_northstar_slope): 1e8 x 64 bf16 KMeans, k = 8;
+# ms/iter is the chain delta between max_iter = NS_ITERS and 2
+NS_ROWS, NS_F, NS_K, NS_ITERS = 100_000_000, 64, 8, 12
+# the gate on the north star's peak allocation above its input: one f32
+# copy of the 12.8 GB payload would be 25.6 GB
+NS_PEAK_GATE = 12.8e9
+# rows a plain-version comparison widens at a time (the plain version of a
+# 16-bit operand makes its f32 copy; 1e8 x 64 at once would be 25.6 GB)
+PLAIN_ROWS = 1 << 24
 # K4: |ΔR|_F <= TOL_QR |R|_F and the same for R^-1 (sums in other orders)
 TOL_QR = 1e-5
 # K5: max |Δθ| <= TOL_LASSO max |θ| after one sweep
@@ -140,10 +155,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cdist_bound_ms(m: int, n: int, d: int):
-    """Least time for (m,d)x(n,d)->(m,n) f32: each input read once and the
-    output written once, against the cross term's and norms' FMAs."""
-    nbytes = 4.0 * (m * d + n * d + m * n)
+def cdist_bound_ms(m: int, n: int, d: int, x_bytes: int = 4, y_bytes: int = 4):
+    """Least time for (m,d)x(n,d)->(m,n) f32: each input read once (x and y
+    of ``x_bytes``/``y_bytes`` an element) and the output written once,
+    against the cross term's and norms' FMAs."""
+    nbytes = x_bytes * m * d + y_bytes * n * d + 4.0 * m * n
     flops = 2.0 * m * n * d + 2.0 * (m + n) * d + 3.0 * m * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -164,6 +180,258 @@ def compare_cdist(k1, x, y, sqrt: bool):
     scale = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
     rel = float(((g2 - w2).abs() / scale.clamp_min(1e-30)).max())
     return abs_err, rel
+
+
+def compare_cdist_rows(k1, x, y, sqrt: bool):
+    """``compare_cdist`` for a large 16-bit x: the kernel runs once on the
+    whole of x, its plain version on PLAIN_ROWS rows at a time (rows are
+    independent); also whether a rerun of the kernel is bitwise equal."""
+    got = k1.cdist(x, y, sqrt=sqrt)
+    same = torch.equal(got, k1.cdist(x, y, sqrt=sqrt))
+    check(tuple(got.shape) == (x.shape[0], y.shape[0]), f"shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    yf = y.float()
+    abs_err = rel = 0.0
+    for lo in range(0, x.shape[0], PLAIN_ROWS):
+        xs, gs = x[lo : lo + PLAIN_ROWS], got[lo : lo + PLAIN_ROWS]
+        want = k1.reference_cdist(xs, y, sqrt=sqrt)
+        abs_err = max(abs_err, float((gs - want).abs().max()))
+        g2, w2 = (gs * gs, want * want) if sqrt else (gs, want)
+        scale = (xs.float() ** 2).sum(1)[:, None] + (yf * yf).sum(1)[None, :]
+        rel = max(rel, float(((g2 - w2).abs() / scale.clamp_min(1e-30)).max()))
+        del want, g2, w2, scale
+    torch.cuda.synchronize()
+    return abs_err, rel, same
+
+
+def randn_rows(rows: int, dim: int, dtype, gen, dev) -> torch.Tensor:
+    """Standard-normal rows of a 16-bit type, drawn in f32 chunks into the
+    16-bit buffer (no full-size f32 intermediate)."""
+    out = torch.empty(rows, dim, dtype=dtype, device=dev)
+    for lo in range(0, rows, PLAIN_ROWS):
+        out[lo : lo + PLAIN_ROWS] = torch.randn(min(PLAIN_ROWS, rows - lo), dim, generator=gen, device=dev)
+    return out
+
+
+def check_cdist16(k1, gen, dev) -> float:
+    """K1's 16-bit variants against the plain version at the shapes the
+    north star and the 16-bit paths give it: bf16 x bf16, bf16 x f32 and
+    f16 x f16 at (1e8, 64) x (8, 64), the kmeans++ column (n = 1), n = 300,
+    d = 20 (4-byte loads) and a base 2 bytes off (2-byte loads); reruns
+    bitwise equal.  Returns the largest absolute error."""
+    max_abs = 0.0
+    x = randn_rows(NS_ROWS, NS_F, torch.bfloat16, gen, dev)
+    y32 = torch.randn(NS_K, NS_F, generator=gen, device=dev)
+    cases = [
+        ("north star bf16 x bf16", lambda: (x, y32.to(torch.bfloat16)), False),
+        ("north star bf16 x f32", lambda: (x, y32), False),
+        ("kmeans++ column bf16", lambda: (x, y32[:1].to(torch.bfloat16)), True),
+        ("n = 300 bf16", lambda: (x[:1_000_000], torch.randn(300, NS_F, generator=gen, device=dev).bfloat16()), False),
+        ("d = 20 bf16", lambda: (randn_rows(10_000_000, 20, torch.bfloat16, gen, dev),
+                                 torch.randn(NS_K, 20, generator=gen, device=dev).bfloat16()), False),
+        ("base 2 bytes off bf16", lambda: (torch.cat([x.new_zeros(1), x[:10_000_000].reshape(-1)])[1:].view(-1, NS_F),
+                                           y32.to(torch.bfloat16)), False),
+    ]
+    for name, make, sqrt in cases:
+        a, b = make()
+        abs_err, rel, same = compare_cdist_rows(k1, a, b, sqrt)
+        print(f"[check] cdist16 {name} {tuple(a.shape)} {str(a.dtype)[6:]} x {tuple(b.shape)} {str(b.dtype)[6:]} "
+              f"sqrt={sqrt} base%16={a.data_ptr() % 16}: max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
+              f"rerun bitwise equal {same}")
+        check(rel <= TOL, f"cdist16 {name}: relative error {rel:.3e} > {TOL}")
+        check(same, f"cdist16 {name}: reruns differ")
+        max_abs = max(max_abs, abs_err)
+        del a, b
+    del x
+    torch.cuda.empty_cache()
+    xh = randn_rows(NS_ROWS, NS_F, torch.float16, gen, dev)
+    abs_err, rel, same = compare_cdist_rows(k1, xh, y32.to(torch.float16), False)
+    print(f"[check] cdist16 north star f16 x f16 {tuple(xh.shape)}: max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
+          f"rerun bitwise equal {same}")
+    check(rel <= TOL and same, "cdist16 f16: error above tolerance or reruns differ")
+    del xh
+    torch.cuda.empty_cache()
+    return max(max_abs, abs_err)
+
+
+def time_cdist16(k1, gen, dev, card: str) -> dict:
+    """K1 bf16 at the north star's (1e8, 64) x (8, 64), beside its plain
+    version (on PLAIN_ROWS rows at a time: at once it would hold ~64 GB of
+    f32 copies), ``torch.cdist`` on the same bf16 tensors and the bound."""
+    x = randn_rows(NS_ROWS, NS_F, torch.bfloat16, gen, dev)
+    y = torch.randn(NS_K, NS_F, generator=gen, device=dev).bfloat16()
+
+    def plain():
+        for lo in range(0, NS_ROWS, PLAIN_ROWS):
+            k1.reference_cdist(x[lo : lo + PLAIN_ROWS], y, sqrt=False)
+
+    t_k = time_ms(lambda: k1.cdist(x, y, sqrt=False), reps=20)
+    t_p = time_ms(plain, reps=2, warmup=1)
+    t_l = time_ms(lambda: torch.cdist(x, y).square(), reps=5, warmup=1)
+    t_k2 = time_ms(lambda: k1.cdist(x, y, sqrt=False), reps=20)
+    b_ms, b_by = cdist_bound_ms(NS_ROWS, NS_K, NS_F, x_bytes=2, y_bytes=2)
+    print(f"[time] cdist16 bf16 ({NS_ROWS},{NS_F})x({NS_K},{NS_F}): kernel_ms={t_k:.4f} (again {t_k2:.4f}) "
+          f"plain_ms={t_p:.4f} (in {PLAIN_ROWS}-row blocks) library_ms={t_l:.4f} (torch.cdist(x,y).square() on the "
+          f"bf16 tensors, bf16 out) bound_ms={b_ms:.4f} ({b_by}) kernel/bound={t_k / b_ms:.3f} on {card}")
+    del x, y
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def make_blobs16(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0):
+    """``make_blobs`` in bf16, made chunk by chunk (no f32 copy of the
+    data), with the generating labels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centres = scale * torch.randn(k, dim, generator=gen, device=dev)
+    labels = torch.randint(0, k, (rows,), generator=gen, device=dev)
+    x = torch.empty(rows, dim, dtype=torch.bfloat16, device=dev)
+    for lo in range(0, rows, PLAIN_ROWS):
+        part = labels[lo : lo + PLAIN_ROWS]
+        x[lo : lo + PLAIN_ROWS] = torch.randn(part.numel(), dim, generator=gen, device=dev) + centres[part]
+    return x, centres, labels
+
+
+def northstar_paths(ht, k1, km_mod, seed: int, dev, card: str) -> dict:
+    """BASELINE.md's north star through the entry points, as
+    ``_northstar_slope`` runs it: ``KMeans(k=8, init="random", tol=-1)``
+    on ``cluster.randn_packed(1e8, 64)``; then the same fit (kmeans++
+    seeding, which finds the blobs) on bf16 blobs, and small bf16 inputs on
+    the card and the CPU."""
+    out = {}
+    ht.random.seed(seed)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    xs = ht.cluster.randn_packed(NS_ROWS, NS_F)
+    torch.cuda.synchronize()
+    input_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    check(xs.dtype is ht.bfloat16 and xs.shape == (NS_ROWS, NS_F) and xs.x2.shape == (NS_ROWS // 2, 2 * NS_F),
+          f"randn_packed gave {xs}")
+
+    def fit(iters: int):
+        model = ht.cluster.KMeans(n_clusters=NS_K, init="random", max_iter=iters, tol=-1.0, random_state=seed)
+        model.fit(xs)
+        torch.cuda.synchronize()
+        return model
+
+    fit(1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    model = fit(NS_ITERS)
+    fit_s = time.perf_counter() - t0
+    launches = k1.launches
+    peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"[e2e] north star KMeans(k={NS_K}, random, tol=-1, max_iter={NS_ITERS}).fit(randn_packed({NS_ROWS}, "
+          f"{NS_F})): fit {fit_s:.3f} s, input {input_gb:.4f} GB, peak above the input {peak_above:.4f} GB "
+          f"(gate {NS_PEAK_GATE / 1e9:.1f}), cdist launches {launches} (expected {NS_ITERS + 1}) on {card}")
+    check(launches == NS_ITERS + 1, f"north star cdist launches {launches} != {NS_ITERS + 1}")
+    check(peak_above * 1e9 < NS_PEAK_GATE, f"north star peak above the input {peak_above:.3f} GB >= 12.8 GB")
+    check(model.n_iter_ == NS_ITERS, f"north star n_iter_ {model.n_iter_}")
+    fitted = model.cluster_centers_.larray
+    check(fitted.dtype == torch.bfloat16 and tuple(fitted.shape) == (NS_K, NS_F)
+          and bool(torch.isfinite(fitted.float()).all()), "north star centres")
+    check(model.labels_.shape == (NS_ROWS,) and model.labels_.dtype is ht.int32
+          and 0 <= int(model.labels_.larray.min()) and int(model.labels_.larray.max()) < NS_K, "north star labels")
+    check(model.inertia_ > 0 and model.inertia_ == model.inertia_, f"north star inertia {model.inertia_}")
+    # the Lloyd step's f32 one-hot sums over the 1e8 bf16 rows, against
+    # the same sums in f64
+    xs_rows = xs.sample_blocks()[0]
+    onehot = (model.labels_.larray[:, None] == torch.arange(NS_K, device=dev)[None, :]).bfloat16()
+    got = km_mod._onehot_sums(onehot, xs_rows).double()
+    want = torch.zeros_like(got)
+    for lo in range(0, NS_ROWS, PLAIN_ROWS):
+        want += onehot[lo : lo + PLAIN_ROWS].T.double() @ xs_rows[lo : lo + PLAIN_ROWS].double()
+    sums_rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[e2e] north star one-hot sums (f32 out of bf16) vs f64: max error {sums_rel:.3e} of max|sum| (tolerance 1e-5)")
+    check(sums_rel <= 1e-5, f"one-hot sums off by {sums_rel:.3e}")
+    del model, onehot, got, want, xs_rows
+    # ms/iter: the chain delta between max_iter = NS_ITERS and 2, twice
+    deltas = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fit(2)
+        t2 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fit(NS_ITERS)
+        tk = time.perf_counter() - t0
+        deltas.append(1e3 * (tk - t2) / (NS_ITERS - 2))
+    iter_ms = min(deltas)
+    read_ms = 1e3 * 2.0 * NS_ROWS * NS_F / HBM_BYTES_PER_S
+    print(f"[e2e] north star lloyd {iter_ms:.4f} ms/iter (chain deltas {', '.join(f'{d:.4f}' for d in deltas)}), "
+          f"{NS_ROWS / (iter_ms / 1e3):.4e} samples/s, one read of the payload {read_ms:.4f} ms = "
+          f"{read_ms / iter_ms:.4f} of an iteration, on {card}")
+    blocks = xs.sample_blocks()
+    start = blocks[0][:: NS_ROWS // NS_K][:NS_K].clone()
+    trace("north-star Lloyd iteration (1e8 x 64 bf16, k = 8)",
+          lambda: km_mod._lloyd_loop(blocks, start, NS_K, 2, -1.0, with_inertia=False), 2)
+    out.update(iter_ms=iter_ms, peak_above_gb=peak_above, launches=launches, fit_s=fit_s)
+    del xs, blocks, start
+    torch.cuda.empty_cache()
+
+    # the same fit on bf16 blobs (kmeans++ seeding on the 2^18-sample
+    # prefix finds all eight; a stratified random start would not)
+    data, centres, truth = make_blobs16(NS_ROWS, NS_F, NS_K, seed + 3, dev)
+    packed = ht.cluster.pack(ht.array(data, split=0, copy=False))
+    check(packed.x2.larray.data_ptr() == data.data_ptr(), "pack copied the payload")
+    model = ht.cluster.KMeans(n_clusters=NS_K, init="kmeans++", max_iter=10, tol=-1.0, random_state=seed).fit(packed)
+    fitted = model.cluster_centers_.larray.float()
+    dist = torch.cdist(fitted, centres)
+    match = dist.argmin(dim=1)
+    check(sorted(match.tolist()) == list(range(NS_K)), "bf16 blob centres are not a permutation of the generating ones")
+    # each coordinate within half a bf16 ulp of its generating value (the
+    # update rounds the f32 mean to bf16) plus 0.05 (the mean of ~1.25e7
+    # samples sits within ~1e-3 of its centre)
+    true = centres[match]
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(true.abs(), fitted.abs()).clamp_min(2.0**-14))) - 7)
+    off = (fitted - true).abs() - 0.5 * ulp
+    worst = int(torch.argmax(off))
+    excess = float(off.max()) - 0.05
+    print(f"[e2e] bf16 blobs {tuple(data.shape)}: centre error {float(dist.min(dim=1).values.max()):.4e}, "
+          f"worst coordinate {excess:+.4e} past half a bf16 ulp + 0.05 (fitted {float(fitted.view(-1)[worst]):.6g}, "
+          f"generating {float(true.view(-1)[worst]):.6g}, ulp {float(ulp.view(-1)[worst]):.6g}), matched {match.tolist()}")
+    check(excess <= 0, "bf16 blob centres are off their generating ones")
+    # labels against the plain version where the top-two margin is clear
+    pred = model.labels_.larray
+    disagree = clear_rows = 0
+    for lo in range(0, NS_ROWS, PLAIN_ROWS):
+        xs_ = data[lo : lo + PLAIN_ROWS]
+        d2 = k1.reference_cdist(xs_, model.cluster_centers_.larray, sqrt=False)
+        top2 = d2.topk(2, dim=1, largest=False)
+        margin = top2.values[:, 1] - top2.values[:, 0]
+        scale = (xs_.float() ** 2).sum(1) + (fitted * fitted).sum(1).max()
+        clear = margin > 2 * TOL * scale
+        disagree += int(((pred[lo : lo + PLAIN_ROWS] != top2.indices[:, 0]) & clear).sum())
+        clear_rows += int(clear.sum())
+        del d2, top2, margin, scale, clear
+    agree_truth = float((match[pred.long()] == truth).float().mean())
+    print(f"[e2e] bf16 blobs labels vs plain: {disagree} disagreements over {clear_rows} rows with a clear margin; "
+          f"generating blob recovered on {agree_truth:.6f}")
+    check(disagree == 0, f"{disagree} bf16 labels disagree with the plain version")
+    check(agree_truth > 0.9999, "bf16 blob labels do not recover the blobs")
+    del data, centres, truth, packed, model, pred, fitted
+    torch.cuda.empty_cache()
+
+    # small bf16 inputs: the same fits on the card and on the CPU, dense
+    # and packed (explicit starts near the blob centres: no near-ties)
+    small, small_centres = make_blobs(5000, 16, 4, seed + 2, dev, scale=3.0)
+    small = small.bfloat16()
+    init = (small_centres + 0.1).bfloat16()
+    mesh = ht.MeshComm(4)
+    for label, wrap in (("dense", lambda d: d), ("packed", ht.cluster.pack)):
+        card_fit = ht.cluster.KMeans(n_clusters=4, init=ht.array(init), max_iter=20).fit(
+            wrap(ht.array(small, split=0, comm=mesh)))
+        cpu_fit = ht.cluster.KMeans(n_clusters=4, init=ht.array(init.cpu(), device="cpu"), max_iter=20).fit(
+            wrap(ht.array(small.cpu(), split=0, comm=mesh, device="cpu")))
+        same_labels = bool((card_fit.labels_.larray.cpu() == cpu_fit.labels_.larray).all())
+        c_err = float((card_fit.cluster_centers_.larray.float().cpu() - cpu_fit.cluster_centers_.larray.float()).abs().max())
+        print(f"[e2e] small bf16 {label} input card vs cpu: n_iter {card_fit.n_iter_}/{cpu_fit.n_iter_}, labels equal "
+              f"{same_labels}, centre max diff {c_err:.3e}, inertia {card_fit.inertia_:.6e}/{cpu_fit.inertia_:.6e}")
+        check(same_labels and card_fit.n_iter_ == cpu_fit.n_iter_ and c_err <= 2.0**-6
+              and abs(card_fit.inertia_ - cpu_fit.inertia_) <= 1e-4 * cpu_fit.inertia_,
+              f"small bf16 {label} fit differs between card and CPU")
+    return out
 
 
 def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0):
@@ -1086,6 +1354,7 @@ def main() -> int:
         check(rel <= TOL, f"cdist {name} sqrt={sqrt}: relative error {rel:.3e} > {TOL}")
         max_abs = max(max_abs, abs_err)
     del xr, yr
+    k1_abs_16 = check_cdist16(k1, gen, dev)
 
     # K4 at the QR path's panels: 1e6 x 128, the square's 2048 x 1024
     # leaves, 5e5 x 1000; a ragged panel and the narrowest one; the wide
@@ -1205,6 +1474,7 @@ def main() -> int:
     )
     del x, cases
     torch.cuda.empty_cache()
+    k1_16 = time_cdist16(k1, gen, dev, card)
 
     # K4 at the three QR panels, each with its device time by kernel (Gram,
     # reduce, factorisation) from one traced pass
@@ -1354,6 +1624,9 @@ def main() -> int:
 
     del data, centres, x_ht, model, labels, pred, fitted, blocks, start, small, on_card, on_cpu
     torch.cuda.empty_cache()
+
+    # the bf16 north star, its blob gates and small bf16 fits
+    ns = northstar_paths(ht, k1, km_mod, args.seed, dev, card)
 
     # QR on the repo's three shapes, split 0 over the card's one position
     qr_launches = 0
@@ -1637,13 +1910,19 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches,
+            "launches": launches + ns["launches"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library_ms,
+            "at": f"({ROWS}, 64) x (8, 64) f32",
+            "launches_f32_kmeans": launches,
+            "launches_northstar": ns["launches"],
+            "max_abs_err_16": k1_abs_16,
+            **{f"{key}_bf16": k1_16[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "at_bf16": f"({NS_ROWS}, {NS_F}) x ({NS_K}, {NS_F}) bf16; library torch.cdist(x,y).square() on bf16, bf16 out",
         },
         {
             "name": "qr_panel",

@@ -1,7 +1,19 @@
 """Clustering estimators."""
 
+from . import packing
 from .convert import kmeans_from_state, spectral_from_state
 from .kmeans import KMeans
+from .packing import PackedSamples, pack, rand_packed, randn_packed
 from .spectral import Spectral
 
-__all__ = ["KMeans", "Spectral", "kmeans_from_state", "spectral_from_state"]
+__all__ = [
+    "KMeans",
+    "PackedSamples",
+    "Spectral",
+    "kmeans_from_state",
+    "pack",
+    "packing",
+    "rand_packed",
+    "randn_packed",
+    "spectral_from_state",
+]

@@ -41,9 +41,11 @@ def _rows(blocks: List[torch.Tensor], idx: List[int]) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    """K1 takes float32 (the JAX kernel upcasts every dtype to f32 too)."""
-    return t if t.dtype == torch.float32 else t.to(torch.float32)
+def _k1_input(t: torch.Tensor) -> torch.Tensor:
+    """A block as K1 takes it: f32 and 16-bit floats as they are (K1 widens
+    16-bit tiles itself, so no f32 copy of them exists), float64 as f32
+    (the TPU kernel computes in f32 whatever its input)."""
+    return t.to(torch.float32) if t.dtype == torch.float64 else t
 
 
 def _kmeanspp_init(blocks: List[torch.Tensor], us: torch.Tensor, k: int) -> torch.Tensor:
@@ -57,7 +59,7 @@ def _kmeanspp_init(blocks: List[torch.Tensor], us: torch.Tensor, k: int) -> torc
     first = min(int((us[0] * n).to(torch.int64)), n - 1)
     c0 = _rows(blocks, [first])
     centers = [c0[0]]
-    d = [_k1.cdist(_f32(b), _f32(c0), sqrt=True)[:, 0] for b in blocks]
+    d = [_k1.cdist(_k1_input(b), _k1_input(c0), sqrt=True)[:, 0] for b in blocks]
     for j in range(1, k):
         # position of us[j] in cumsum(d / total) over the concatenated blocks:
         # per-block cumsums shifted by the mass of the blocks before them.
@@ -77,7 +79,7 @@ def _kmeanspp_init(blocks: List[torch.Tensor], us: torch.Tensor, k: int) -> torc
         nxt = min(int(below), n - 1)
         cj = _rows(blocks, [nxt])
         centers.append(cj[0])
-        d = [torch.minimum(di, _k1.cdist(_f32(b), _f32(cj), sqrt=True)[:, 0]) for di, b in zip(d, blocks)]
+        d = [torch.minimum(di, _k1.cdist(_k1_input(b), _k1_input(cj), sqrt=True)[:, 0]) for di, b in zip(d, blocks)]
     return torch.stack(centers)
 
 
@@ -122,37 +124,41 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     def n_iter_(self) -> int:
         return self._n_iter
 
-    def _initialize_cluster_centers(self, x: DNDarray) -> None:
-        """Pick initial centroids (heat_tpu/cluster/_kcluster.py:168)."""
+    def _initial_centroids(self, blocks: List[torch.Tensor], n: int, f: int, device, comm,
+                           seed_blocks: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """Initial centroids (heat_tpu/cluster/_kcluster.py:168) of the n rows
+        of width f held in ``blocks``: explicit ones as given, "random" one
+        row per stratum [i*n/k, (i+1)*n/k), kmeans++ over ``seed_blocks``
+        (default: all the rows)."""
         if self.random_state is not None:
             ht_random.seed(self.random_state)
         k = self.n_clusters
-        n = x.shape[0]
         if n < k:
             raise ValueError(f"n_samples={n} should be >= n_clusters={k}")
-
         if isinstance(self.init, DNDarray):
             if self.init.ndim != 2:
                 raise ValueError("passed centroids need to be two-dimensional")
-            if self.init.shape[0] != k or self.init.shape[1] != x.shape[1]:
+            if self.init.shape[0] != k or self.init.shape[1] != f:
                 raise ValueError("passed centroids do not match cluster count or data shape")
-            centroids = self.init.resplit(None).larray.to(x.shards[0].device)
-        elif isinstance(self.init, str) and self.init in ("random", "probability_based", "kmeans++"):
-            blocks = _row_blocks(x)
-            # uniforms stay float32 whatever the data dtype
-            us = ht_random.rand(k, device=x.device, comm=x.comm).larray
-            if self.init == "random":
-                # one sample per stratum [i*n/k, (i+1)*n/k)
-                lo = torch.arange(k, device=us.device) * (n // k)
-                idx = torch.clamp(lo + (us * max(n // k, 1)).to(torch.int64), max=n - 1)
-                centroids = _rows(blocks, idx.tolist())
-            else:
-                centroids = _kmeanspp_init(blocks, us, k)
-        else:
+            return self.init.resplit(None).larray.to(blocks[0].device)
+        if not (isinstance(self.init, str) and self.init in ("random", "probability_based", "kmeans++")):
             raise ValueError(
                 f'init needs to be "random", "kmeans++"/"probability_based" or a '
                 f"DNDarray, but was {self.init!r}"
             )
+        # uniforms stay float32 whatever the data dtype
+        us = ht_random.rand(k, device=device, comm=comm).larray
+        if self.init == "random":
+            lo = torch.arange(k, device=us.device) * (n // k)
+            idx = torch.clamp(lo + (us * max(n // k, 1)).to(torch.int64), max=n - 1)
+            return _rows(blocks, idx.tolist())
+        return _kmeanspp_init(blocks if seed_blocks is None else seed_blocks, us, k)
+
+    def _initialize_cluster_centers(self, x: DNDarray) -> None:
+        """Initial centroids of the rows of ``x``, replicated."""
+        # explicit centroids need only the rows' device: no resplit for them
+        blocks = x.shards[:1] if isinstance(self.init, DNDarray) else _row_blocks(x)
+        centroids = self._initial_centroids(blocks, x.shape[0], x.shape[1], x.device, x.comm)
         self._cluster_centers = DNDarray(
             [centroids] * x.comm.size, tuple(centroids.shape),
             types.canonical_heat_type(centroids.dtype), None, x.device, x.comm,

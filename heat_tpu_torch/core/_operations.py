@@ -177,6 +177,8 @@ def _argmin_across(x: DNDarray, live, axis: int, keepdims: bool) -> torch.Tensor
     best_v = best_i = None
     for r in live:
         s = x.shards[r]
+        if s.dtype == torch.bool:
+            s = s.to(torch.uint8)
         off = x.comm.chunk(x.shape, x.split, rank=r)[0]
         v = torch.amin(s, dim=axis, keepdim=keepdims)
         i = torch.argmin(s, dim=axis, keepdim=keepdims) + off

@@ -25,6 +25,20 @@ from ..parallel.mesh import MeshComm
 __all__ = ["DNDarray"]
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array.  numpy has no bfloat16 of its own:
+    bfloat16 comes back as an ``ml_dtypes.bfloat16`` array of the same
+    bits, and ``ml_dtypes`` is imported only here, when one is asked for."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError as err:
+        raise ImportError("the numpy form of a bfloat16 array needs the ml_dtypes package") from err
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 def _shard(tensor: torch.Tensor, split: Optional[int], comm: MeshComm) -> List[torch.Tensor]:
     """Cut a global tensor into one shard per position (views, no copy)."""
     if split is None or tensor.ndim == 0:
@@ -152,12 +166,13 @@ class DNDarray:
         (heat_tpu/core/dndarray.py:333); a replicated array gives one."""
         if self.__split is None:
             return [self.numpy()]
-        return [s.detach().cpu().numpy() for s in self.__shards]
+        return [_host(s) for s in self.__shards]
 
     # ------------------------------------------------------------ conversion
     def numpy(self) -> np.ndarray:
-        """Gather to a host numpy array."""
-        return self.larray.detach().cpu().numpy()
+        """Gather to a host numpy array; bfloat16 comes back as an
+        ``ml_dtypes.bfloat16`` array of the same bits, as heat_tpu's does."""
+        return _host(self.larray)
 
     def __array__(self, dtype=None, copy=None):
         arr = self.numpy()

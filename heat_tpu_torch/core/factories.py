@@ -46,7 +46,13 @@ def array(
         tensor = obj.detach().to(device=device.torch_device, dtype=tt, copy=copy).contiguous()
     else:
         # host data is copied once, into torch's own buffer
-        tensor = torch.tensor(np.asarray(obj)).to(device=device.torch_device, dtype=tt)
+        host = np.asarray(obj)
+        if host.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16, which torch does not read: take its bits
+            tensor = torch.tensor(host.view(np.int16)).view(torch.bfloat16)
+        else:
+            tensor = torch.tensor(host)
+        tensor = tensor.to(device=device.torch_device, dtype=tt)
     if tensor.ndim < ndmin:
         tensor = tensor.reshape((1,) * (ndmin - tensor.ndim) + tuple(tensor.shape))
     return _wrap(tensor, split, device, comm)

@@ -22,7 +22,14 @@ import torch
 
 from . import sanitation, stride_tricks, types
 from ..parallel import transport
-from ..parallel.sort import distributed_sort, distributed_topk, topk_order, unique_compact_sorted
+from ..parallel.sort import (
+    distributed_sort,
+    distributed_topk,
+    searchsorted_left,
+    stable_sort,
+    topk_order,
+    unique_compact_sorted,
+)
 from .dndarray import DNDarray, _wrap
 
 __all__ = [
@@ -600,7 +607,8 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     :mod:`parallel.sort` runs over the shards (int32 indices, as in the JAX
     package); along another axis each position sorts its own block, and a
     replicated array sorts once (int64 indices).  Both are stable, with NaN
-    last ascending and first descending."""
+    last ascending and first descending, and complex values in NumPy's
+    lexicographic order."""
     sanitation.sanitize_in(a)
     axis = stride_tricks.sanitize_axis(a.shape, axis)
     if a.split == axis and a.is_distributed():
@@ -608,12 +616,12 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
         v = DNDarray(values, a.shape, a.dtype, a.split, a.device, a.comm)
         i = DNDarray(indices, a.shape, types.int32, a.split, a.device, a.comm)
     elif a.split == axis:
-        s = torch.sort(a.larray, dim=axis, descending=descending, stable=True)
-        v = _gathered(a, s.values, a.split)
-        i = _gathered(a, s.indices, a.split)
+        values, indices = stable_sort(a.larray, axis, descending)
+        v = _gathered(a, values, a.split)
+        i = _gathered(a, indices, a.split)
     else:
-        v = _like(a, lambda t: torch.sort(t, dim=axis, descending=descending, stable=True).values, a.shape, a.split)
-        i = _like(a, lambda t: torch.sort(t, dim=axis, descending=descending, stable=True).indices, a.shape, a.split)
+        v = _like(a, lambda t: stable_sort(t, axis, descending)[0], a.shape, a.split)
+        i = _like(a, lambda t: stable_sort(t, axis, descending)[1], a.shape, a.split)
     if out is not None:
         return out._adopt(v), i
     return v, i
@@ -657,7 +665,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
 def _unique_sorted(flat: torch.Tensor):
     """Sorted uniques of a 1-D tensor with NaNs collapsed, and each
     element's position among them."""
-    s, order = torch.sort(flat, stable=True)
+    s, order = stable_sort(flat, 0)
     keep = torch.ones_like(s, dtype=torch.bool)
     if s.numel() > 1:
         same = s[1:] == s[:-1]
@@ -688,7 +696,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
             nan_slot = vals.numel() - 1
 
         def inv(s):
-            pos = torch.searchsorted(vals, s).to(torch.int32)
+            pos = searchsorted_left(vals, s).to(torch.int32)
             if nan_slot is not None:
                 pos = torch.where(torch.isnan(s), torch.full_like(pos, nan_slot), pos)
             return pos

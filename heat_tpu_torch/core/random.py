@@ -4,12 +4,17 @@
 The module keeps the JAX package's stateful ``(seed, counter)`` facade.  Each
 draw seeds a fresh ``torch.Generator`` on the target device from that pair,
 generates the whole array at its global shape and then cuts it into shards,
-so one seed gives the same global numbers at every mesh size.  The numbers
-differ from ``jax.random``'s Threefry streams: bit parity is ROADMAP item 9.
+so one seed gives the same global numbers at every mesh size.  A 16-bit
+array whose float32 draw would exceed ``_CHUNK_F32_BYTES`` is drawn in
+chunks of that size into its own buffer (the JAX package's chunked block
+sampler, heat_tpu/core/random.py:128), so no full-size f32 intermediate
+exists.  The numbers differ from ``jax.random``'s Threefry streams: bit
+parity is ROADMAP item 9.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -21,6 +26,10 @@ from ..parallel.mesh import sanitize_comm
 from .stride_tricks import sanitize_shape
 
 __all__ = ["rand", "randn", "seed"]
+
+#: the largest float32 draw a 16-bit array is made from at once (2 GiB, as
+#: in the JAX package)
+_CHUNK_F32_BYTES = 2 << 30
 
 
 class _State:
@@ -62,7 +71,14 @@ def _sample(kind: str, d, dtype, split, device, comm) -> DNDarray:
     draw = torch.rand if kind == "uniform" else torch.randn
     # 16-bit types sample in float32 and round: a direct half-precision
     # normal transform is biased
-    tensor = draw(shape, generator=gen, dtype=torch.float32, device=tdev).to(tt)
+    count = math.prod(shape)
+    if tt.itemsize < 4 and 4 * count > _CHUNK_F32_BYTES:
+        tensor = torch.empty(shape, dtype=tt, device=tdev)
+        flat, step = tensor.view(-1), _CHUNK_F32_BYTES // 4
+        for lo in range(0, count, step):
+            flat[lo : lo + step] = draw(min(step, count - lo), generator=gen, dtype=torch.float32, device=tdev)
+    else:
+        tensor = draw(shape, generator=gen, dtype=torch.float32, device=tdev).to(tt)
     return _wrap(tensor, split if shape else None, device, comm)
 
 

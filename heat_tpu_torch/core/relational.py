@@ -6,6 +6,7 @@ import torch
 
 from . import _operations
 from .dndarray import DNDarray
+from ..parallel.sort import ordered_less
 
 __all__ = ["eq", "ge", "gt", "le", "lt", "ne"]
 
@@ -18,20 +19,22 @@ def ne(x, y) -> DNDarray:
     return _operations._binary_op(torch.ne, x, y)
 
 
+# complex values compare in NumPy's lexicographic order (real parts, then
+# imaginary parts), as heat_tpu's do; torch has no complex ordering
 def lt(x, y) -> DNDarray:
-    return _operations._binary_op(torch.lt, x, y)
+    return _operations._binary_op(ordered_less, x, y)
 
 
 def le(x, y) -> DNDarray:
-    return _operations._binary_op(torch.le, x, y)
+    return _operations._binary_op(lambda a, b: ordered_less(a, b, or_equal=True), x, y)
 
 
 def gt(x, y) -> DNDarray:
-    return _operations._binary_op(torch.gt, x, y)
+    return _operations._binary_op(lambda a, b: ordered_less(b, a), x, y)
 
 
 def ge(x, y) -> DNDarray:
-    return _operations._binary_op(torch.ge, x, y)
+    return _operations._binary_op(lambda a, b: ordered_less(b, a, or_equal=True), x, y)
 
 
 DNDarray.__eq__ = lambda self, other: eq(self, other)

@@ -40,20 +40,35 @@ DNDarray.mean = lambda self, axis=None, keepdims=False: mean(self, axis=axis, ke
 
 
 def _amin(t, dim, keepdim):
-    return torch.amin(t, dim=dim, keepdim=keepdim)
+    if not t.is_complex():
+        return torch.amin(t, dim=dim, keepdim=keepdim)
+    # NumPy's lexicographic order: the least real part, then the least
+    # imaginary part among the elements that have it
+    dims = sorted(d % t.ndim for d in ((dim,) if isinstance(dim, int) else dim))
+    kept = [d for d in range(t.ndim) if d not in dims]
+    flat = t.permute(*kept, *dims).reshape(*(t.shape[d] for d in kept), math.prod(t.shape[d] for d in dims))
+    re = torch.amin(flat.real, dim=-1, keepdim=True)
+    im = torch.where(flat.real == re, flat.imag, torch.full_like(flat.imag, float("inf")))
+    out = torch.complex(re[..., 0], torch.amin(im, dim=-1))
+    if keepdim:
+        for d in dims:
+            out = out.unsqueeze(d)
+    return out
 
 
 def _argmin(t, dim, keepdim):
-    return torch.argmin(t, dim=dim, keepdim=keepdim)
+    # torch.argmin takes no bool: as uint8 the first False is the first 0
+    return torch.argmin(t.to(torch.uint8) if t.dtype == torch.bool else t, dim=dim, keepdim=keepdim)
 
 
 def min(x, axis=None, keepdims: bool = False) -> DNDarray:
-    """Minimum."""
+    """Minimum; complex values in NumPy's lexicographic order."""
     return _operations._reduce_op(_amin, x, axis=axis, keepdims=keepdims, combine="min")
 
 
 def argmin(x, axis=None, keepdims: bool = False) -> DNDarray:
-    """Index of the (first) minimum; ``axis=None`` indexes the flattened array."""
+    """Index of the (first) minimum; ``axis=None`` indexes the flattened
+    array.  For bool, the first False."""
     if axis is not None and not isinstance(axis, int):
         raise TypeError(f"argmin takes one axis or None, got {axis!r}")
     return _operations._reduce_op(_argmin, x, axis=axis, keepdims=keepdims, combine="argmin")

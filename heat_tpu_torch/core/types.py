@@ -268,6 +268,8 @@ def canonical_heat_type(a_type: Any) -> Type[datatype]:
         raise TypeError(f"data type {a_type!r} not understood")
     if np_dtype in _NP_TO_HEAT:
         return _NP_TO_HEAT[np_dtype]
+    if np_dtype.name == "bfloat16":  # ml_dtypes' bfloat16
+        return bfloat16
     raise TypeError(f"data type {a_type!r} not understood")
 
 

@@ -12,6 +12,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .sort import ordered_less
+
 __all__ = ["psum", "pmin", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan"]
 
 
@@ -28,10 +30,12 @@ def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """All-reduce elementwise minimum."""
+    """All-reduce elementwise minimum (complex values in NumPy's
+    lexicographic order)."""
     low = parts[0]
     for p in parts[1:]:
-        low = torch.minimum(low, _to(p, low))
+        p = _to(p, low)
+        low = torch.where(ordered_less(p, low), p, low) if low.is_complex() else torch.minimum(low, p)
     return [_to(low, p) for p in parts]
 
 

@@ -19,16 +19,67 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["distributed_sort", "distributed_topk", "topk_order", "unique_compact_sorted"]
+__all__ = [
+    "distributed_sort",
+    "distributed_topk",
+    "ordered_less",
+    "searchsorted_left",
+    "stable_sort",
+    "topk_order",
+    "unique_compact_sorted",
+]
+
+
+def _parts(t: torch.Tensor):
+    if t.is_complex():
+        return t.real, t.imag
+    return t, torch.zeros_like(t)
+
+
+def ordered_less(a: torch.Tensor, b: torch.Tensor, or_equal: bool = False) -> torch.Tensor:
+    """``a < b`` (``a <= b`` with ``or_equal``), complex values in NumPy's
+    lexicographic order: real parts first, then imaginary parts."""
+    if not (a.is_complex() or b.is_complex()):
+        return torch.le(a, b) if or_equal else torch.lt(a, b)
+    (ar, ai), (br, bi) = _parts(a), _parts(b)
+    tie = torch.le(ai, bi) if or_equal else torch.lt(ai, bi)
+    return torch.lt(ar, br) | (torch.eq(ar, br) & tie)
+
+
+def stable_sort(t: torch.Tensor, dim: int, descending: bool = False):
+    """``torch.sort(..., stable=True)`` as (values, indices), complex values
+    in NumPy's lexicographic order (a stable sort by the imaginary parts,
+    then one by the real parts)."""
+    if not t.is_complex():
+        s = torch.sort(t, dim=dim, descending=descending, stable=True)
+        return s.values, s.indices
+    perm = torch.sort(t.imag, dim=dim, descending=descending, stable=True).indices
+    perm = perm.gather(dim, torch.sort(t.real.gather(dim, perm), dim=dim, descending=descending, stable=True).indices)
+    return t.gather(dim, perm), perm
+
+
+def searchsorted_left(sorted_1d: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``torch.searchsorted(sorted_1d, values)`` (the left side), complex
+    values in NumPy's order: each value's count of smaller elements, from
+    one stable sort of the values placed before the sorted elements."""
+    if not sorted_1d.is_complex():
+        return torch.searchsorted(sorted_1d, values)
+    flat = values.reshape(-1)
+    _, perm = stable_sort(torch.cat([flat, sorted_1d.to(flat.dtype)]), 0)
+    is_sorted = (perm >= flat.numel()).to(torch.int64)
+    before = torch.cumsum(is_sorted, 0) - is_sorted
+    pos = torch.empty_like(before)
+    pos[perm] = before
+    return pos[: flat.numel()].reshape(values.shape)
 
 
 def _order(keys: torch.Tensor, idx: torch.Tensor, payloads: Sequence[torch.Tensor], descending: bool):
     """Reorder along dim 0 by (key, index): ascending or descending keys,
-    ties by ascending index (two stable sorts)."""
+    ties by ascending index (stable sorts)."""
     perm = torch.argsort(idx, dim=0, stable=True)
     keys, idx = keys.gather(0, perm), idx.gather(0, perm)
     payloads = [p.gather(0, perm) for p in payloads]
-    perm = torch.sort(keys, dim=0, descending=descending, stable=True).indices
+    _, perm = stable_sort(keys, 0, descending)
     return keys.gather(0, perm), idx.gather(0, perm), [p.gather(0, perm) for p in payloads]
 
 

@@ -13,10 +13,13 @@ Layouts, by the operands' splits:
   (``_build_ring_cdist``); the values are the same, and the ring is a later
   slice.  A feature-split operand is gathered first.
 
-Dispatch mirrors ``_pallas_eligible``: when the promoted dtype is float32
-each block goes through K1 (:mod:`heat_tpu_torch.ops.cdist`), which on the
-card launches the CUDA kernel.  Other dtypes take the torch expansion below,
-as the JAX package leaves them to XLA.
+Dispatch: when the promoted dtype is float32 each block goes through K1
+(:mod:`heat_tpu_torch.ops.cdist`), which on the card launches the CUDA
+kernel, as ``_pallas_eligible`` sends it in the JAX package.  16-bit blocks
+go through K1 too, as they are (K1 widens its tiles itself), followed by
+the noise floor of the JAX package's ``_sq_euclidean``: no f32 copy of a
+16-bit operand is made (at 1e8 x 64 bf16 it would be 25.6 GB).  float64
+takes the torch expansion below, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -50,11 +53,9 @@ def _check(x: DNDarray, y: Optional[DNDarray]):
 
 
 def _sq_euclidean(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
-    """Quadratic expansion |a|² + |b|² − 2a·b for non-f32 dtypes (the JAX
-    package's ``_sq_euclidean``): 16-bit input accumulates in f32, f64 keeps
-    f64.  Values within rounding noise of 0 are set to exactly 0."""
-    if xa.element_size() < 4:
-        xa, ya = xa.to(torch.float32), ya.to(torch.float32)
+    """Quadratic expansion |a|² + |b|² − 2a·b in float64 (the JAX package's
+    ``_sq_euclidean``).  Values within rounding noise of 0 are set to
+    exactly 0."""
     x2 = torch.sum(xa * xa, dim=1)[:, None]
     y2 = torch.sum(ya * ya, dim=1)[None, :]
     d2 = x2 + y2 - 2.0 * (xa @ ya.T)
@@ -63,14 +64,45 @@ def _sq_euclidean(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
+# rows of x widened at a time for the noise floor's norms (64 MB of f32 at
+# d = 64): the floor reads x a second time, never as a whole f32 copy
+_FLOOR_ROWS = 1 << 18
+
+
+def _row_norms(t: torch.Tensor) -> torch.Tensor:
+    """|row|² of a 16-bit block in f32, widening _FLOOR_ROWS rows at a time."""
+    return torch.cat([
+        torch.sum(torch.square(t[lo : lo + _FLOOR_ROWS].to(torch.float32)), dim=1)
+        for lo in range(0, max(t.shape[0], 1), _FLOOR_ROWS)
+    ])
+
+
+def _noise_floor_(d2: torch.Tensor, xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_sq_euclidean`` floor on K1's f32 squared
+    distances of 16-bit rows, in place: d2 <= 4·eps·(|a|² + |b|²) → 0
+    (for a ≈ b the expansion cancels to rounding noise of that size)."""
+    eps4 = 4.0 * torch.finfo(torch.float32).eps
+    x2, y2 = _row_norms(xa)[:, None], _row_norms(ya)[None, :]
+    for lo in range(0, xa.shape[0], _FLOOR_ROWS):
+        part = d2[lo : lo + _FLOOR_ROWS]
+        part.masked_fill_(part <= eps4 * (x2[lo : lo + _FLOOR_ROWS] + y2), 0.0)
+    return d2
+
+
 def _block(xa: torch.Tensor, ya: torch.Tensor, promoted, sqrt: bool) -> torch.Tensor:
     """Distances of one block of rows of x to one block of rows of y."""
+    if promoted is types.float64:
+        d2 = _sq_euclidean(xa.to(torch.float64), ya.to(torch.float64))
+        return torch.sqrt(d2) if sqrt else d2
+    if promoted is types.float32:
+        # a 16-bit x stays as it is against f32 y: K1 widens its tiles
+        if xa.dtype not in (torch.bfloat16, torch.float16):
+            xa = xa.to(torch.float32)
+        return _k1.cdist(xa.contiguous(), ya.to(torch.float32).contiguous(), sqrt=sqrt)
     tt = promoted.torch_type()
     xa, ya = xa.to(tt).contiguous(), ya.to(tt).contiguous()
-    if promoted is types.float32:
-        return _k1.cdist(xa, ya, sqrt=sqrt)
-    d2 = _sq_euclidean(xa, ya)
-    return torch.sqrt(d2) if sqrt else d2
+    d2 = _noise_floor_(_k1.cdist(xa, ya, sqrt=False), xa, ya)
+    return d2.sqrt_() if sqrt else d2
 
 
 def _whole(a: DNDarray) -> torch.Tensor:

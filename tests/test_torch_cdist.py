@@ -5,7 +5,10 @@ on the card.
 Tolerance: the kernels sum the cross term and the norms in different orders,
 and the expansion cancels, so squared distances agree to
 |Δd2| ≤ 1e-5·(‖x‖²+‖y‖²) elementwise; distances are compared through their
-squares.  Exact agreement is required of shapes, splits and shard layouts.
+squares.  The same holds for bf16/f16 input: every version widens it to f32
+first, and a product of two 16-bit values is exact in f32, so again only
+the order of the sums differs.  Exact agreement is required of shapes,
+splits and shard layouts, and of the noise floor's zeros.
 """
 
 import numpy as np
@@ -40,6 +43,27 @@ def _data(m, n, d, seed=0, dtype=np.float32):
     return rng.normal(size=(m, d)).astype(dtype), rng.normal(size=(n, d)).astype(dtype)
 
 
+def _data16(m, n, d, x_type, y_type, seed=0):
+    """Blob-like rows as torch tensors of the given types: made in f32 by
+    numpy, rounded by torch (the card tests run without ml_dtypes)."""
+    x, y = _data(m, n, d, seed=seed)
+    return torch.from_numpy(3 * x).to(getattr(torch, x_type)), torch.from_numpy(3 * y).to(getattr(torch, y_type))
+
+
+def _np16(t):
+    """A 16-bit CPU tensor as numpy (bf16 as ml_dtypes', for the JAX package)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(pytest.importorskip("ml_dtypes").bfloat16)
+    return t.numpy()
+
+
+def _f32(t):
+    return t.float().cpu().numpy()
+
+
+PAIRS16 = [("bfloat16", "bfloat16"), ("bfloat16", "float32"), ("float16", "float16"), ("float16", "float32")]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -68,6 +92,28 @@ def test_reference_against_pallas_interpret(ht, shape, sqrt):
     got = k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y), sqrt=sqrt)
     _check_d2(got.numpy(), want, x, y, sqrt)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5 * float(np.max(np.abs(want))))
+
+
+@pytest.mark.parametrize("x_type", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(300, 128, 64), (37, 129, 20), (9, 257, 3)])
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_reference_against_pallas_interpret_16bit(ht, x_type, shape, sqrt):
+    # the TPU kernel widens each 16-bit tile to f32 (heat_tpu/ops/cdist.py:41-42)
+    x, y = _data16(*shape, x_type, x_type, seed=3)
+    want = ht.ops.cdist._cdist_pallas(_np16(x), _np16(y), sqrt=sqrt, interpret=True)
+    got = k1.reference_cdist(x, y, sqrt=sqrt)
+    assert got.dtype == torch.float32
+    _check_d2(got.numpy(), want, _f32(x), _f32(y), sqrt)
+
+
+@pytest.mark.parametrize("pair", PAIRS16)
+def test_wrapper_on_cpu_takes_16bit_as_the_plain_version(pair):
+    x, y = _data16(20, 7, 4, *pair)
+    before = k1.launches
+    got = k1.cdist(x, y, sqrt=False)
+    want = k1.reference_cdist(x.float(), y.float(), sqrt=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert k1.launches == before
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
@@ -121,6 +167,55 @@ def test_spatial_cdist_float64_takes_the_expansion(ht, n):
     np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("splits", [(0, None), (None, None), (None, 0), (0, 0)])
+@pytest.mark.parametrize("x_type", ["bfloat16", "float16"])
+def test_spatial_cdist_16bit_through_k1_with_the_noise_floor(ht, n, splits, x_type):
+    # y holds copies of x's rows: the JAX package's floor sets their
+    # distances to exactly 0, and so must the port's
+    x, y = _data16(13, 6, 5, x_type, x_type, seed=8)
+    y[:3] = x[[0, 5, 12]]
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.cdist(ht.array(_np16(x), split=splits[0], comm=jc), ht.array(_np16(y), split=splits[1], comm=jc))
+    b = htt.spatial.cdist(
+        htt.array(_np16(x), split=splits[0], comm=tc, device="cpu"),
+        htt.array(_np16(y), split=splits[1], comm=tc, device="cpu"),
+    )
+    assert b.shape == a.shape and b.split == a.split
+    assert b.dtype is htt.float32 and a.dtype.__name__ == "float32"
+    _check_d2(b.numpy(), a.numpy(), _f32(x), _f32(y), sqrt=True)
+    zeros = a.numpy() == 0
+    assert zeros[[0, 5, 12], [0, 1, 2]].all()
+    np.testing.assert_array_equal(b.numpy() == 0, zeros)
+    assert [s.shape for s in b.lshards()] == [s.shape for s in a.lshards()]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("x_type", ["bfloat16", "float16"])
+def test_spatial_rbf_16bit(ht, n, x_type):
+    x, _ = _data16(13, 1, 5, x_type, x_type, seed=9)
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.rbf(ht.array(_np16(x), split=0, comm=jc), sigma=4.0)
+    b = htt.spatial.rbf(htt.array(x, split=0, comm=tc, device="cpu"), sigma=4.0)
+    assert b.dtype is htt.float32 and b.split == a.split
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.diag(b.numpy()), 1.0)
+
+
+def test_spatial_cdist_16bit_makes_no_f32_copy(monkeypatch):
+    # K1 gets the 16-bit blocks themselves; the floor widens 2^18 rows at most
+    from heat_tpu_torch.spatial import distance
+
+    seen = []
+    real = k1.cdist
+    monkeypatch.setattr(distance._k1, "cdist", lambda a, b, sqrt: seen.append((a.dtype, b.dtype)) or real(a, b, sqrt))
+    x, y = _data16(40, 3, 4, "bfloat16", "float32", seed=10)
+    tc = htt.MeshComm(4)
+    htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu"))
+    htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"))
+    assert seen == [(torch.bfloat16, torch.float32)] * 4 + [(torch.bfloat16, torch.bfloat16)] * 4
+
+
 def test_spatial_cdist_zero_row_shard():
     x, y = _data(13, 3, 4, seed=5)
     b = htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(8), device="cpu"), htt.array(y, comm=htt.MeshComm(8), device="cpu"))
@@ -155,11 +250,63 @@ def test_kernel_against_plain_on_card(cuda, shape, sqrt):
     _check_d2(got.cpu().numpy(), want.cpu().numpy(), x, y, sqrt)
 
 
+# the 16-bit kernel's geometry: the tall tile (n <= 8: Lloyd, kmeans++'s
+# column), the general tile, ragged m, n and d, d odd or off a multiple of 8
+# (4- and 2-byte loads), and bases off 16 bytes (below)
+CARD_SHAPES_16 = [(1000, 8, 64), (1000, 1, 64), (1003, 257, 67), (130, 9, 16), (777, 8, 3),
+                  (777, 300, 20), (1001, 8, 65), (5, 3, 1), (0, 8, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", PAIRS16)
+@pytest.mark.parametrize("shape", CARD_SHAPES_16)
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_kernel16_against_plain_on_card(cuda, pair, shape, sqrt):
+    x, y = _data16(*shape, *pair, seed=11)
+    xt, yt = x.to(cuda), y.to(cuda)
+    before = k1.launches
+    got = k1.cdist(xt, yt, sqrt=sqrt)
+    again = k1.cdist(xt, yt, sqrt=sqrt)
+    torch.cuda.synchronize()
+    assert k1.launches == before + (2 if shape[0] and shape[1] else 0)
+    assert got.is_cuda and got.dtype == torch.float32 and tuple(got.shape) == shape[:2]
+    assert torch.equal(got, again)
+    want = k1.reference_cdist(xt, yt, sqrt=sqrt)
+    _check_d2(got.cpu().numpy(), want.cpu().numpy(), _f32(x), _f32(y), sqrt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", PAIRS16)
+@pytest.mark.parametrize("d", [64, 20, 3])
+@pytest.mark.parametrize("offset", [1, 3, "row"])
+def test_kernel16_at_misaligned_bases_on_card(cuda, pair, d, offset):
+    # x starts 2 or 6 bytes past an aligned buffer, or one row in (a
+    # row-offset view, 2·d bytes: off 16 unless d is a multiple of 8)
+    m, n = 1031, (8 if d != 3 else 13)
+    x, y = _data16(m + 1, n, d, *pair, seed=12)
+    xt, yt = x.to(cuda), y.to(cuda)
+    if offset == "row":
+        xv = xt[1:]
+    else:
+        buf = torch.empty(m * d + offset, dtype=xt.dtype, device=cuda)
+        xv = buf[offset:].view(m, d)
+        xv.copy_(xt[1:])
+    assert xv.is_contiguous()
+    got = k1.cdist(xv, yt, sqrt=False)
+    want = k1.reference_cdist(xv, yt, sqrt=False)
+    torch.cuda.synchronize()
+    _check_d2(got.cpu().numpy(), want.cpu().numpy(), _f32(x[1:]), _f32(y), False)
+
+
 @pytest.mark.gpu
 def test_kernel_raises_on_what_it_does_not_take(cuda):
     x = torch.zeros(4, 3, device=cuda)
     with pytest.raises(TypeError):
         k1.cdist(x.double(), x.double())
+    with pytest.raises(TypeError):
+        k1.cdist(x, x.bfloat16())
+    with pytest.raises(TypeError):
+        k1.cdist(x.bfloat16(), x.half())
     with pytest.raises(ValueError):
         k1.cdist(torch.zeros(3, 4, device=cuda).T, x)
     with pytest.raises(ValueError):

@@ -187,10 +187,17 @@ def test_update_centroids_matches_jax(ht):
     np.testing.assert_allclose(ub.numpy(), ua.numpy(), rtol=1e-5)
 
 
-def test_half_precision_input_is_not_implemented():
-    x = htt.array(_blobs(), dtype=htt.bfloat16, split=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        htt.cluster.KMeans(n_clusters=3).fit(x)
+def test_half_precision_fit_goes_through_k1(monkeypatch):
+    # every distance of the fit (kmeans++, Lloyd, labels) is K1 on the bf16
+    # blocks and bf16 centres themselves: no f32 copy of the data
+    seen = []
+    real = k1.cdist
+    monkeypatch.setattr(k1, "cdist", lambda a, b, sqrt=True: seen.append((a.dtype, b.dtype)) or real(a, b, sqrt))
+    k, iters, n = 3, 4, 4
+    x = htt.array(_blobs(), dtype=htt.bfloat16, split=0, comm=htt.MeshComm(n), device="cpu")
+    km = htt.cluster.KMeans(n_clusters=k, init="kmeans++", max_iter=iters, tol=-1.0, random_state=0).fit(x)
+    assert km.n_iter_ == iters and km.cluster_centers_.dtype is htt.bfloat16
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * (n * (k + iters + 1))
 
 
 def test_default_device_without_card_raises(monkeypatch):
