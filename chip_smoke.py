@@ -7,11 +7,13 @@ and check them.
 Phases: (1) identity of the card and toolchain; (2) build every kernel of
 the paths from the sources in this checkout, all at once; (3) each kernel
 against its plain torch version at the shapes the paths give it (K1 also
-in bf16 and f16 at the north star's shapes), with a
+in bf16 and f16 at the north star's shapes, K6 also at its panels' edges
+and rerun bitwise at the SpMV cell), with a
 trace showing that a bf16 call of K3 and of K2 runs only its tensor-core
 kernel and an f32 call only its CUDA-core kernel; (4) kernel
 timing beside the plain version, one library call where there is one, and
-the card's bound; (5) each path end to end through the entry points a user
+the card's bound (K6 also at the k-NN Laplacian, with the profiler's device
+time and the bytes a model of its loads and copies gives); (5) each path end to end through the entry points a user
 calls, with the kernels' launch counts set to 0 just before it and read just
 after: KMeans(k=8, kmeans++) fit and predict on 2e7 x 64 f32 Gaussian blobs;
 BASELINE.md's north star, ``KMeans(k=8, init="random", tol=-1).fit`` of
@@ -153,6 +155,22 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time a call of ``fn`` from torch.profiler: its CUDA-typed
+    events over ``reps`` calls.  For a call shorter than its host work,
+    which CUDA events then measure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def cdist_bound_ms(m: int, n: int, d: int, x_bytes: int = 4, y_bytes: int = 4):
@@ -494,17 +512,87 @@ def to_scipy(vals, cols, indptr, shape):
     return scipy.sparse.csr_matrix((vals.cpu().numpy(), cols.cpu().numpy(), indptr.cpu().numpy()), shape=shape)
 
 
-def compare_spmv(k6, vals, cols, x):
-    """Kernel against plain on the same slabs: (kernel's y, max abs err,
-    max err relative to Σⱼ|vals·x|)."""
-    got = k6.spmv_ell(vals, cols, x)
-    want = k6.reference_spmv_ell(vals, cols, x)
-    scale = k6.reference_spmv_ell(vals.abs(), cols, x.abs())
+def compare_spmv(k6, panels, x):
+    """Kernel against plain on the same repacking: (kernel's y, max abs
+    err, max err relative to Σⱼ|vals·x|)."""
+    got = k6.spmv(panels, x)
+    want = k6.reference_spmv(panels, x)
+    scale = k6.reference_spmv(panels._replace(vals=panels.vals.abs()), x.abs())
     torch.cuda.synchronize()
     check(tuple(got.shape) == tuple(want.shape), f"spmv shape {tuple(got.shape)}")
     check(bool(torch.isfinite(got).all()), "non-finite spmv output")
     err = (got - want).abs()
     return got, float(err.max()), float((err / scale.clamp_min(1e-30)).max())
+
+
+def spmv_traffic(k6, panels, k: int, ell_width: int) -> str:
+    """What a model of one K6 call moves, from its repacking and launch
+    plan (no counter reads it: ``ncu`` does not run on the card's
+    machine): the entries' bytes (the bound's), the bytes its 16-byte quad
+    loads request (whole quads of each run; a quad at a run's end is
+    requested by both runs it touches), the run bounds, and x: the panels
+    the CTAs copy from L2 (tiles x passes x ncols x KC x 4) when staged,
+    else a 32-byte sector a gather.  Beside it the pad share the JAX
+    package's ELL slabs of ``ell_width`` would hold (none stored or read)."""
+    staged = panels.staged
+    geo = k6.plan(panels.rows, panels.ncols, panels.nnz, k,
+                  torch.cuda.get_device_properties(panels.off.device).multi_processor_count, staged)
+    off = panels.off.to(torch.int64)
+    a, b = off[:-1], off[1:]
+    quads = int(torch.where(b > a, (b + 3) // 4 - a // 4, torch.zeros_like(a)).sum())
+    x_bytes = geo.tiles * geo.passes * panels.ncols * geo.kc * 4 if staged else 32 * panels.nnz * geo.passes
+    return (f"ELL pad share {1.0 - panels.nnz / max(1, panels.rows * ell_width):.4f} (none stored or read); "
+            f"modelled from the repacking: quad loads {32 * quads * geo.passes / 1e6:.2f} MB (entries "
+            f"{8 * panels.nnz * geo.passes / 1e6:.2f}), run bounds {4 * off.numel() * geo.passes / 1e6:.2f} MB, x "
+            + (f"panels {x_bytes / 1e6:.2f} MB copied from L2" if staged else f"gathers {x_bytes / 1e6:.2f} MB of sectors")
+            + f" ({'staged' if staged else 'from memory, one run a row'}; {geo.tiles} tiles x {geo.panels} panels, "
+            f"{geo.tpr} threads a row); the repacking holds "
+            f"{(panels.vals.numel() + panels.cols.numel() + off.numel()) * 4 / 1e6:.2f} MB")
+
+
+def check_spmv_geometries(k6, gen, dev) -> int:
+    """K6 at its panels' edges against the plain version: x over 3 (k = 1)
+    or 10 (k = 4) panels at k = 1, 2, 4, 5, also x and the CSR arrays one
+    element off 16 bytes; every row's entries inside one panel, a third of
+    the rows empty; one row over all of 70001 columns; ~12 entries a row
+    of 60001 columns (one run a row, x gathered from memory); row counts
+    off the tile.
+    Each within TOL_SPMV, each rerun bitwise.  Returns the cases."""
+    cases = 0
+
+    def one(what, sv, sc, sp, ncols, k, x_off=0):
+        nonlocal cases
+        if x_off:  # the CSR arrays one element off too: the kernel reads their repacking
+            sv, sc = (torch.cat([a.new_zeros(1), a])[1:] for a in (sv, sc))
+        t = k6.csr_panels(sv, sc, sp, ncols)
+        shape = (ncols,) if k is None else (ncols, k)
+        x = torch.randn(ncols * (k or 1) + x_off, generator=gen, device=dev)[x_off:].view(shape)
+        got, err, rel = compare_spmv(k6, t, x)
+        again = k6.spmv(t, x)
+        torch.cuda.synchronize()
+        check(rel <= TOL_SPMV, f"spmv {what} k={k}: relative error {rel:.3e} > {TOL_SPMV}")
+        check(torch.equal(got, again), f"spmv {what} k={k}: a rerun differs")
+        cases += 1
+
+    for k in (None, 1, 2, 4, 5):
+        sv, sc, sp = random_csr(3001, 60_001, 0.01, gen, dev)
+        one("3001 x 60001", sv, sc, sp, 60_001, k)
+        one("3001 x 60001, x and the CSR one element off 16 bytes", sv, sc, sp, 60_001, k, x_off=1)
+        sv, sc, sp = random_csr(2050, 6144, 0.02, gen, dev)
+        row_of = torch.repeat_interleave(torch.arange(2050, device=dev), sp[1:] - sp[:-1])
+        keep = row_of % 3 != 0
+        sp2 = torch.zeros_like(sp)
+        sp2[1:] = torch.cumsum(torch.bincount(row_of[keep], minlength=2050), 0)
+        one("2050 rows in one panel, a third empty", sv[keep], sc[keep] + 30_720, sp2, 50_000, k)
+        cnt = torch.tensor([0, 3, 70_001, 1, 0, 2, 5], device=dev)
+        sp = torch.zeros(8, dtype=torch.int64, device=dev)
+        sp[1:] = torch.cumsum(cnt, 0)
+        sc = torch.cat([torch.sort(torch.randperm(70_001, generator=gen, device=dev)[: int(n)]).values for n in cnt])
+        one("a row over all 70001 columns", torch.randn(int(sp[-1]), generator=gen, device=dev), sc.to(torch.int32),
+            sp, 70_001, k)
+        sv, sc, sp = random_csr(20_000, 60_001, 0.0002, gen, dev)
+        one("20000 sparse rows, one run a row", sv, sc, sp, 60_001, k)
+    return cases
 
 
 def two_blobs(n: int, f: int, gen, dev):
@@ -1421,19 +1509,24 @@ def main() -> int:
     del xt_r, y_r
 
     # K6 at the SpMV cell (k = 1 and 4), the Spectral cell's k-NN
-    # Laplacian, a ragged matrix (empty rows, one row of 1000 entries) and
-    # integer-valued data (bitwise)
+    # Laplacian, a ragged matrix (empty rows, one row of 1000 entries,
+    # columns out of order), integer-valued data (bitwise, also against the
+    # JAX package's ELL product), bitwise reruns at the cell, and the
+    # panels' edges
     k6_abs = 0.0
     sp_vals, sp_cols, sp_ptr = random_csr(SPMV_N, SPMV_N, SPMV_DENSITY, gen, dev)
     sp_nnz = sp_vals.numel()
     sp_w = k6.ell_width(int((sp_ptr[1:] - sp_ptr[:-1]).max()))
-    ell_v, ell_c = k6.ell_pack(sp_vals, sp_cols, sp_ptr, sp_w)
+    sp_t = k6.csr_panels(sp_vals, sp_cols, sp_ptr, SPMV_N)
     sp_x = torch.randn(SPMV_N, SPMV_K, generator=gen, device=dev)
-    k6_cases = [("spmv cell k=1", ell_v, ell_c, sp_x[:, 0]), ("spmv cell k=4", ell_v, ell_c, sp_x)]
+    k6_cases = [("spmv cell k=1", sp_t, sp_x[:, 0]), ("spmv cell k=4", sp_t, sp_x)]
     blobs, _ = two_blobs(KNNG_N, KNNG_F, gen, dev)
     lap = ht.graph.laplacian_sparse(ht.sparse.knn_graph(ht.array(blobs, split=0), KNNG_K, sigma=0.5**0.5))
-    lap_v, lap_c = spmm_mod._ell_slabs(lap)[0]
-    k6_cases.append(("knn laplacian", lap_v, lap_c, torch.sin(torch.arange(1, KNNG_N + 1, dtype=torch.float32, device=dev))))
+    lap_t = spmm_mod._panels(lap)[0]
+    lap_p = lap._shards[0][2]
+    lap_w = k6.ell_width(int((lap_p[1:] - lap_p[:-1]).max()))
+    lap_x = torch.sin(torch.arange(1, KNNG_N + 1, dtype=torch.float32, device=dev))
+    k6_cases.append(("knn laplacian", lap_t, lap_x))
     rg_rows = 100_003
     rg_cnt = torch.randint(0, 17, (rg_rows,), generator=gen, device=dev)
     rg_cnt[::7] = 0
@@ -1441,23 +1534,30 @@ def main() -> int:
     rg_ptr = torch.zeros(rg_rows + 1, dtype=torch.int64, device=dev)
     rg_ptr[1:] = torch.cumsum(rg_cnt, 0)
     rg_nnz = int(rg_ptr[-1])
-    rg_v, rg_c = k6.ell_pack(torch.randn(rg_nnz, generator=gen, device=dev),
-                             torch.randint(0, 50_000, (rg_nnz,), generator=gen, device=dev, dtype=torch.int32),
-                             rg_ptr, k6.ell_width(1000))
-    k6_cases.append(("ragged", rg_v, rg_c, torch.randn(50_000, 3, generator=gen, device=dev)))
-    for name, v_, c_, x_ in k6_cases:
-        _, abs_err, rel = compare_spmv(k6, v_, c_, x_)
-        print(f"[check] spmv {name} slabs {tuple(v_.shape)} x {tuple(x_.shape)}: max_abs_err={abs_err:.3e} "
+    rg_t = k6.csr_panels(torch.randn(rg_nnz, generator=gen, device=dev),
+                         torch.randint(0, 50_000, (rg_nnz,), generator=gen, device=dev, dtype=torch.int32), rg_ptr, 50_000)
+    k6_cases.append(("ragged", rg_t, torch.randn(50_000, 3, generator=gen, device=dev)))
+    for name, t_, x_ in k6_cases:
+        got, abs_err, rel = compare_spmv(k6, t_, x_)
+        print(f"[check] spmv {name} ({t_.rows} rows, nnz {t_.nnz}) x {tuple(x_.shape)}: max_abs_err={abs_err:.3e} "
               f"max_rel_err={rel:.3e} (|dy| / sum|vals x|)")
         check(rel <= TOL_SPMV, f"spmv {name}: relative error {rel:.3e} > {TOL_SPMV}")
         k6_abs = max(k6_abs, abs_err)
-    int_v = torch.where(ell_c >= 0, torch.randint(1, 8, ell_v.shape, generator=gen, device=dev).float(), ell_v)
+        if name.startswith("spmv cell") or name == "knn laplacian":
+            same = torch.equal(got, k6.spmv(t_, x_))
+            print(f"[check] spmv {name}: a rerun is bitwise equal {same}")
+            check(same, f"spmv {name}: a rerun differs")
+    int_d = torch.randint(1, 8, (sp_nnz,), generator=gen, device=dev).float()
     int_x = torch.randint(-4, 5, (SPMV_N, SPMV_K), generator=gen, device=dev).float()
-    y_int = k6.spmv_ell(int_v, ell_c, int_x)
-    same = torch.equal(y_int, k6.reference_spmv_ell(int_v, ell_c, int_x))
-    print(f"[check] spmv integer-valued spmv cell k={SPMV_K}: bitwise equal to plain {same}")
+    y_int = k6.spmv(k6.csr_panels(int_d, sp_cols, sp_ptr, SPMV_N), int_x)
+    same = torch.equal(y_int, k6.reference_spmv_ell(*k6.ell_pack(int_d, sp_cols, sp_ptr, sp_w), int_x))
+    print(f"[check] spmv integer-valued spmv cell k={SPMV_K}: bitwise equal to the plain ELL product {same}")
     check(same, "spmv on integer-valued data is not bitwise equal to its plain version")
-    del lap, lap_v, lap_c, rg_v, rg_c, int_v, int_x, y_int, k6_cases, blobs
+    n_geo = check_spmv_geometries(k6, gen, dev)
+    print(f"[check] spmv panel edges: {n_geo} geometries within {TOL_SPMV:g} of plain, reruns bitwise "
+          f"(x over 3/10 panels at k = 1, 2, 4, 5, x and the CSR one element off 16 bytes; rows in one panel, empty rows; "
+          f"a row over all 70001 columns; sparse rows, one run a row, x from memory)")
+    del rg_t, int_d, int_x, y_int, k6_cases, blobs
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. timing
@@ -1518,24 +1618,32 @@ def main() -> int:
     del xt_l, y_l
     torch.cuda.empty_cache()
 
-    # K6 at the SpMV cell; the library call is cuSPARSE's CSR product
+    # K6 at the SpMV cell and at the k-NN Laplacian; the library call is
+    # cuSPARSE's CSR product.  The Laplacian's call is shorter than its
+    # host work, so its device time (profiler) stands beside its event time
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # torch marks its sparse CSR tensors as beta
         sp_torch = torch.sparse_csr_tensor(sp_ptr, sp_cols.to(torch.int64), sp_vals, (SPMV_N, SPMV_N))
-    pad_share = 1.0 - sp_nnz / ell_v.numel()
+        ld_, li_, lp_ = lap._shards[0]
+        lap_torch = torch.sparse_csr_tensor(lp_.to(torch.int64), li_.to(torch.int64), ld_.to(torch.float32),
+                                            (KNNG_N, KNNG_N))
     k6_times = {}
-    for k in (1, SPMV_K):
-        xk = sp_x[:, :k].contiguous()
-        t_k = time_ms(lambda: k6.spmv_ell(ell_v, ell_c, xk), reps=50, warmup=5)
-        t_p = time_ms(lambda: k6.reference_spmv_ell(ell_v, ell_c, xk), reps=5)
-        t_l = time_ms(lambda: sp_torch @ xk, reps=50, warmup=5)
-        t_k2 = time_ms(lambda: k6.spmv_ell(ell_v, ell_c, xk), reps=50, warmup=5)
-        b_ms, b_by = spmv_bound_ms(sp_nnz, SPMV_N, SPMV_N, k)
-        k6_times[k] = (t_k, t_p, t_l, b_ms, b_by)
-        print(f"[time] spmv ({SPMV_N}^2, nnz {sp_nnz}, ELL width {sp_w}) k={k}: kernel_ms={t_k:.4f} (again {t_k2:.4f}) "
-              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (torch.sparse_csr_tensor @ x, cuSPARSE) bound_ms={b_ms:.4f} "
-              f"({b_by}; the ELL padding adds {pad_share:.4f} of the slab slots) on {card}")
-    del sp_torch, ell_v, ell_c
+    timed = [(k, sp_t, sp_x[:, :k].contiguous(), sp_torch, sp_w) for k in (1, SPMV_K)]
+    timed.append(("laplacian", lap_t, lap_x[:, None], lap_torch, lap_w))
+    for key, t_, xk, csr, w_ in timed:
+        k, n_, nnz = xk.shape[1], t_.rows, t_.nnz
+        t_k = time_ms(lambda: k6.spmv(t_, xk), reps=50, warmup=5)
+        t_p = time_ms(lambda: k6.reference_spmv(t_, xk), reps=5)
+        t_l = time_ms(lambda: csr @ xk, reps=50, warmup=5)
+        t_k2 = time_ms(lambda: k6.spmv(t_, xk), reps=50, warmup=5)
+        d_k = device_ms(lambda: k6.spmv(t_, xk), reps=20)
+        d_l = device_ms(lambda: csr @ xk, reps=20)
+        b_ms, b_by = spmv_bound_ms(nnz, n_, n_, k)
+        k6_times[key] = (t_k, t_p, t_l, b_ms, b_by, d_k, d_l)
+        print(f"[time] spmv ({n_}^2, nnz {nnz}) k={k}: kernel_ms={t_k:.4f} (again {t_k2:.4f}; "
+              f"device {d_k:.4f}) plain_ms={t_p:.4f} library_ms={t_l:.4f} (device {d_l:.4f}; torch.sparse_csr_tensor @ x, "
+              f"cuSPARSE) bound_ms={b_ms:.4f} ({b_by}); {spmv_traffic(k6, t_, k, w_)} on {card}")
+    del sp_torch, lap_torch, sp_t, lap, lap_t, timed
     torch.cuda.empty_cache()
 
     # K3 and K2: against their plain versions, then timed
@@ -1742,7 +1850,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ht.sparse.matmul at the SpMV cell: the matrix enters as a scipy CSR,
-    # as a user's would; its ELL slabs are packed on the card at first use
+    # as a user's would; K6's repacking is built on the card at first use
     t0 = time.perf_counter()
     a_sp = ht.sparse.sparse_csr_matrix(to_scipy(sp_vals, sp_cols, sp_ptr, (SPMV_N, SPMV_N)), split=0)
     torch.cuda.synchronize()
@@ -1755,7 +1863,7 @@ def main() -> int:
         y = ht.sparse.matmul(a_sp, xv)
         torch.cuda.synchronize()
         calls += 1
-        want = k6.reference_spmv_ell(*spmm_mod._ell_slabs(a_sp)[0], xv.larray)
+        want = k6.reference_spmv(spmm_mod._panels(a_sp)[0], xv.larray)
         err = float((y.larray - want).abs().max())
         t0 = time.perf_counter()
         for _ in range(20):
@@ -1830,10 +1938,9 @@ def main() -> int:
     # Lanczos over K6 against the same recurrence over the plain version
     from heat_tpu_torch.core.linalg import solver as solver_mod
 
-    slabs = spmm_mod._ell_slabs(lap)
     vn = v0.larray / torch.linalg.vector_norm(v0.larray)
     _, pa, pb = solver_mod._lanczos_loop(
-        slabs, vn, KNNG_LANCZOS, lambda ops, v: torch.cat([k6.reference_spmv_ell(a, c, v) for a, c in ops])
+        spmm_mod._panels(lap), vn, KNNG_LANCZOS, lambda ops, v: torch.cat([k6.reference_spmv(t, v) for t in ops])
     )
     t_plain = torch.diag(pa) + torch.diag(pb, 1) + torch.diag(pb, -1)
     ritz_err = float((torch.linalg.eigvalsh(t_plain)[:4] - evals[:4]).abs().max())
@@ -1848,7 +1955,7 @@ def main() -> int:
     check(ritz_err <= 1e-4, f"spectral knn: Ritz values {ritz_err:.3e} from the plain recurrence")
     check(comp_share >= 0.999, f"spectral knn: the embedding splits the blobs on {comp_share:.6f} < 0.999")
     check(bool(torch.isfinite(emb).all()), "spectral knn: non-finite embedding")
-    del data, x_ht, spec, graph, lap, V, T, emb, slabs, degree, xs_, sq
+    del data, x_ht, spec, graph, lap, V, T, emb, degree, xs_, sq
     torch.cuda.empty_cache()
 
     # dense Spectral(affinity="rbf") on the same recipe at 16384 points
@@ -1969,6 +2076,13 @@ def main() -> int:
             "bound_ms": k6_times[1][3],
             "bound_by": k6_times[1][4],
             "library_ms": k6_times[1][2],
+            "at": f"({SPMV_N}^2, density {SPMV_DENSITY}) k=1",
+            **{f"{key}_k{SPMV_K}": k6_times[SPMV_K][i]
+               for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms"))},
+            **{f"{key}_laplacian": k6_times["laplacian"][i]
+               for i, key in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+                                        "device_library_ms"))},
+            "at_laplacian": f"the knn Laplacian ({KNNG_N} rows, k={KNNG_K}), k=1",
         },
         {
             "name": "attention",

@@ -1,13 +1,14 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (csrc/attention.cu, csrc/matmul.cu), as inline PTX: no CUTLASS or CuTe
-// headers, so that each library builds in seconds.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (csrc/attention.cu, csrc/matmul.cu, csrc/spmv.cu), as inline PTX: no
+// CUTLASS or CuTe headers, so that each library builds in seconds.
 //
 //   * TMA descriptors.  cuTensorMapEncodeTiled is a driver-API symbol and the
 //     libraries do not link -lcuda: make_tensor_map fetches it once through
 //     the runtime's cudaGetDriverEntryPoint.  Every map here is of 16-bit
 //     elements with the 128-byte swizzle; its box is 64 elements (128 bytes)
 //     wide, and out-of-bounds elements of a box are filled with zeros.
-//   * cp.async.bulk.tensor loads that complete on an mbarrier; mbarrier
+//   * cp.async.bulk.tensor loads, and plain cp.async.bulk copies of
+//     contiguous bytes, that complete on an mbarrier; mbarrier
 //     init / arrive / arrive.expect_tx / wait on a phase parity.  A wait that
 //     spins for about 2^26 tries traps, so a fault shows as a launch error
 //     instead of a hung card.
@@ -140,6 +141,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
       "[%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// bulk copy (no tensor map): `bytes` contiguous bytes from global `src` into
+// shared memory at `dst`, completing `bar`'s transactions.  bytes is a
+// positive multiple of 16, and src and dst are 16-byte aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

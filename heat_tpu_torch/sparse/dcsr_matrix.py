@@ -77,8 +77,8 @@ class DCSR_matrix:
             raise ValueError(f"expected {self.nshards} CSR triples, got {len(self.__shards)}")
         if int(gnnz) != self.nnz:
             raise ValueError(f"gnnz {gnnz} does not match the triples' counts {self.nnz}")
-        # derived on first use: the ELL slabs of the SpMV kernel
-        self._spmv_ell_cache = None
+        # derived on first use: the SpMV kernel's repacking of each triple
+        self._spmv_panels = None
 
     @classmethod
     def _from_shards(cls, shards: Sequence[Triple], gshape, dtype, split, device, comm) -> "DCSR_matrix":
@@ -196,7 +196,7 @@ class DCSR_matrix:
         if not copy:
             self.__shards = shards
             self.__dtype = dtype
-            self._spmv_ell_cache = None  # the ELL slabs hold the old values
+            self._spmv_panels = None  # the repacking holds the old values
             return self
         return DCSR_matrix._from_shards(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 

@@ -7,21 +7,22 @@ computation's dtype, as the JAX package's static dispatch declines its
 kernel:
 
 * float32 values and a float32 computation go through K6
-  (:mod:`heat_tpu_torch.ops.spmv`) over each position's ELL slabs: on the
-  card one launch per position and call, with all k right-hand sides in
-  that launch; on the CPU its plain version;
+  (:mod:`heat_tpu_torch.ops.spmv`) over each position's repacking by
+  column panel: on the card one launch per position and call, with all k
+  right-hand sides in that launch; on the CPU its plain version;
 * any other dtype takes the CSR gather: per-entry products
   ``data[e]·x[indices[e]]`` summed into their rows (the JAX package's
   ``gather`` arm, ``_gather_block``).
 
-The ELL slabs are packed on the matrix's device at first use and cached on
-the matrix.  The JAX package's autotune (dense/gather/kernel arms, the
+Each position's repacking (``ops.spmv.csr_panels``) is built from its CSR
+triple on the matrix's device at first use and cached on the matrix.
+The JAX package's autotune (dense/gather/kernel arms, the
 ``HEAT_TPU_SPMV`` override) is not ported: the kernel is the one f32 path.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -35,16 +36,12 @@ from .dcsr_matrix import DCSR_matrix
 __all__ = ["matmul", "matvec_program"]
 
 
-def _ell_slabs(A: DCSR_matrix) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Each position's ELL slabs ``(vals, cols)``, its width set by its own
-    densest row; packed at first use and cached on the matrix."""
-    if A._spmv_ell_cache is None:
-        slabs = []
-        for d, i, p in A._shards:
-            max_row = int((p[1:] - p[:-1]).max()) if p.numel() > 1 else 0
-            slabs.append(_k6.ell_pack(d, i, p, _k6.ell_width(max_row)))
-        A._spmv_ell_cache = slabs
-    return A._spmv_ell_cache
+def _panels(A: DCSR_matrix) -> List[_k6.Panels]:
+    """Each position's repacking for K6; built at first use and cached on
+    the matrix."""
+    if A._spmv_panels is None:
+        A._spmv_panels = [_k6.csr_panels(d, i, p, A.shape[1]) for d, i, p in A._shards]
+    return A._spmv_panels
 
 
 def _gather_block(data: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -84,7 +81,7 @@ def matmul(A: DCSR_matrix, x, out: Optional[DNDarray] = None) -> DNDarray:
     vec = xv.ndim == 1
     x2 = (xv[:, None] if vec else xv).to(cdt.torch_type())
     if _uses_kernel(A, cdt):
-        blocks = [_k6.spmv_ell(vals, cols, x2) for vals, cols in _ell_slabs(A)]
+        blocks = [_k6.spmv(panels, x2) for panels in _panels(A)]
     else:
         blocks = [_gather_block(d, i, p, x2) for d, i, p in A._shards]
     if vec:
@@ -98,8 +95,8 @@ def matmul(A: DCSR_matrix, x, out: Optional[DNDarray] = None) -> DNDarray:
     return result
 
 
-def _apply_ell(operands, v: torch.Tensor) -> torch.Tensor:
-    return torch.cat([_k6.spmv_ell(vals, cols, v) for vals, cols in operands])
+def _apply_panels(operands, v: torch.Tensor) -> torch.Tensor:
+    return torch.cat([_k6.spmv(panels, v) for panels in operands])
 
 
 def _apply_gather(operands, v: torch.Tensor) -> torch.Tensor:
@@ -109,7 +106,7 @@ def _apply_gather(operands, v: torch.Tensor) -> torch.Tensor:
 def matvec_program(A: DCSR_matrix):
     """``(apply_fn, operands)`` with ``apply_fn(operands, v) = A @ v`` for a
     vector ``v`` of the whole column space, for the Lanczos loop: K6 over the
-    ELL slabs for a float32 matrix, the CSR gather otherwise.  Never dense."""
+    repacking for a float32 matrix, the CSR gather otherwise.  Never dense."""
     if A.dtype is types.float32:
-        return _apply_ell, _ell_slabs(A)
+        return _apply_panels, _panels(A)
     return _apply_gather, A._shards
