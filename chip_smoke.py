@@ -1,6 +1,6 @@
-"""Drive heat_tpu_torch's KMeans, QR, Lasso, sparse Spectral, TransformerLM
-and transport (reshape, resplit, advanced getitem) paths on one CUDA card
-and check them.
+"""Drive heat_tpu_torch's KMeans, KMedians/KMedoids (the repo's cluster
+benchmark), QR, Lasso, sparse Spectral, TransformerLM and transport
+(reshape, resplit, advanced getitem) paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -20,6 +20,15 @@ BASELINE.md's north star, ``KMeans(k=8, init="random", tol=-1).fit`` of
 ``cluster.randn_packed(1e8, 64)`` bf16 (benchmarks/cb/cluster.py:65-95;
 ms/iter as the chain delta of max_iter 12 and 2, and the peak allocation
 above the input), and the same fit on bf16 blobs made chunk by chunk;
+the repo's cluster benchmark (benchmarks/cb/cluster.py:97-107):
+``KMeans("kmeans++")``, ``KMedians("kmedians++")`` and
+``KMedoids("kmedoids++")`` at k = 4 on
+``utils.data.spherical.create_spherical_dataset(250000)`` (1e6 x 3 f32),
+a warm-up and a timed fit each, K1 also at its d = 3; KMedians and
+KMedoids (k = 8, kmedians++/kmedoids++, 8 iterations) on the 2e7 x 64 f32
+blobs, ms/iter, the peak above the input and an iteration's trace by kind;
+small KMedians/KMedoids fits and one call of each op of the elementwise and
+statistics surface on the card and on the CPU;
 ``linalg.qr`` on the repo's three QR shapes (1e6 x 128, 5e5 x 1000, 2048^2,
 benchmarks/cb/config.py:152-158); a Lasso fit on the repo's regression
 recipe at 5e5 x 1000 (benchmarks/cb/regression.py:17-24); ``sparse.matmul``
@@ -451,6 +460,306 @@ def northstar_paths(ht, k1, km_mod, seed: int, dev, card: str) -> dict:
               f"small bf16 {label} fit differs between card and CPU")
     return out
 
+
+# the repo's cluster benchmark (benchmarks/cb/cluster.py:97-107): four
+# spherical clusters of CLUSTER_N samples each (config.py:159) at
+# ±4·(1,1,1) and ±8·(1,1,1), fitted by KMeans, KMedians and KMedoids at k = 4
+CLUSTER_N, CLUSTER_K = 250_000, 4
+CLUSTER_TRUTH = [(4.0,) * 3, (8.0,) * 3, (-4.0,) * 3, (-8.0,) * 3]
+# KMedians/KMedoids at the Lloyd shape (2e7 x 64 f32, k = 8, config.py:163):
+# iterations a fit; the gate on the peak above the input is one (n, k, f)
+# f32 buffer, which the eager broadcast |x - c| would allocate
+MED_ITERS = 8
+MED_PEAK_GATE = 4.0 * ROWS * 8 * 64
+# kinds of a median-loop iteration's kernels, by name (first match wins)
+ITER_KINDS = [
+    ("K1", ("cdist",)),
+    ("argmin", ("ArgMin", "argmin")),
+    ("sort or select", ("Sort", "sort", "Radix", "radix", "KthValue", "kthvalue", "index", "Index", "gather")),
+    ("L1", ("abs", "Abs", "sub", "add", "Add", "sum", "Sum", "reduce")),
+]
+
+
+def by_kind(rows) -> dict:
+    """A trace's device time (ms) by ITER_KINDS, the rest as "other"."""
+    out = {}
+    for us, _, name in rows:
+        kind = next((k for k, keys in ITER_KINDS if any(key in name for key in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + us / 1e3
+    return out
+
+
+def fixed_point_medoid_gate(x, medoids, labels, k: int) -> float:
+    """For each medoid of a converged KMedoids fit: its exact (f64) squared
+    distance to its cluster's median (the plain order statistics of the
+    fit's labels, averaged in f32) minus the least over the rows, against
+    K1's bound 2·TOL·(max|x|² + |m|²).  Returns the largest excess over the
+    bound (<= 0 passes)."""
+    worst = -float("inf")
+    x64 = x.double()
+    for j in range(k):
+        rows = x[labels == j]
+        s = torch.sort(rows, dim=0).values
+        c = rows.shape[0]
+        med = (s[(c - 1) // 2] + s[c // 2]) * 0.5
+        d2 = ((x64 - med.double()) ** 2).sum(1)
+        got = float(((medoids[j].double() - med.double()) ** 2).sum())
+        bound_ = 2 * TOL * (float((x64 * x64).sum(1).max()) + float((med.double() ** 2).sum()))
+        worst = max(worst, got - float(d2.min()) - bound_)
+    return worst
+
+
+def l1_label_disagreements(x, centres, labels, margin: float):
+    """Labels against an f64 L1 argmin where the top-two margin exceeds
+    ``margin``: (disagreements, rows with a clear margin)."""
+    d = torch.cdist(x.double(), centres.double(), p=1)
+    top2 = d.topk(2, dim=1, largest=False)
+    clear = (top2.values[:, 1] - top2.values[:, 0]) > margin
+    return int(((labels != top2.indices[:, 0]) & clear).sum()), int(clear.sum())
+
+
+def card_vs_cpu_ops(ht, dev) -> int:
+    """One call of each op of the elementwise and statistics surface on the
+    card and on the CPU, on the same small inputs: transcendental results
+    within 4 ulps of f32 (relative, and as much absolute), sums taken in
+    other orders within 1e-5, the rest bitwise.  Returns the count of calls
+    compared."""
+    gen = torch.Generator().manual_seed(5)
+    xf = (torch.rand(64, 6, generator=gen) * 4 - 2).float()
+    pos = xf.abs() + 0.5
+    unit = xf / 2.5
+    xi = (xf * 5).round().to(torch.int32)
+    yi = torch.where(xi == 0, 3, xi).abs()
+    mask = xf > 0
+    xc = torch.complex(xf, unit)
+    ulp4 = 4 * 2.0**-23
+    unary = {
+        "sin": xf, "cos": xf, "tan": unit, "arcsin": unit, "arccos": unit, "arctan": xf, "sinh": xf, "cosh": xf,
+        "tanh": xf, "arcsinh": xf, "arccosh": pos + 1, "arctanh": unit, "deg2rad": xf, "rad2deg": xf, "sinc": xf,
+        "exp": xf, "expm1": xf, "exp2": xf, "log": pos, "log2": pos, "log10": pos, "log1p": pos, "cbrt": xf,
+        "sqrt": pos, "angle": xc,
+    }
+    exact_unary = {
+        "ceil": xf, "floor": xf, "trunc": xf, "fabs": xf, "round": xf * 3, "abs": xi, "sign": xf, "square": xi,
+        "pos": xf, "neg": xi, "bitwise_not": xi, "logical_not": xf, "isfinite": xf, "isinf": xf, "isnan": xf,
+        "isneginf": xf, "isposinf": xf, "signbit": xf, "conj": xc, "real": xc, "imag": xc,
+    }
+    binary = {
+        "arctan2": (xf, unit, ulp4), "logaddexp": (xf, unit, ulp4), "logaddexp2": (xf, unit, ulp4),
+        "hypot": (xf, unit, ulp4), "copysign": (xf, unit, 0), "floordiv": (xi, yi, 0), "mod": (xi, yi, 0),
+        "fmod": (xi, yi, 0), "bitwise_and": (xi, yi, 0), "bitwise_or": (xi, yi, 0), "bitwise_xor": (xi, yi, 0),
+        "left_shift": (xi, yi % 4, 0), "right_shift": (xi, yi % 4, 0), "logical_and": (mask, xf, 0),
+        "logical_or": (mask, xf, 0), "logical_xor": (mask, xf, 0), "isclose": (xf, xf + 1e-6, 0),
+        "maximum": (xf, unit, 0), "minimum": (xf, unit, 0), "greater": (xf, unit, 0), "less_equal": (xf, unit, 0),
+        "not_equal": (xi, yi, 0),
+    }
+    reductions = [
+        ("cumsum", lambda m, a: m.cumsum(a, 0), pos, 1e-5), ("cumprod", lambda m, a: m.cumprod(a, 1), unit, 1e-5),
+        ("prod", lambda m, a: m.prod(a, axis=0), pos, 1e-5), ("nansum", lambda m, a: m.nansum(a, axis=0), xf, 1e-5),
+        ("nanprod", lambda m, a: m.nanprod(a), unit, 1e-5), ("all", lambda m, a: m.all(a, axis=0), mask, 0),
+        ("any", lambda m, a: m.any(a, axis=1), mask, 0), ("diff", lambda m, a: m.diff(a, axis=0), xf, 0),
+        ("max", lambda m, a: m.max(a, axis=0), xf, 0), ("argmax", lambda m, a: m.argmax(a, axis=0), xf, 0),
+        ("var", lambda m, a: m.var(a, axis=0, ddof=1), xf, 1e-5), ("std", lambda m, a: m.std(a), xf, 1e-5),
+        ("median", lambda m, a: m.median(a, axis=0), xf, 0),
+        ("percentile", lambda m, a: m.percentile(a, [10, 50, 90], axis=0, interpolation="nearest"), xf, 0),
+        ("percentile linear", lambda m, a: m.percentile(a, 30, axis=0), xf, 1e-5),
+        ("average", lambda m, a: m.average(a, axis=0, weights=m.abs(a)), xf, 1e-5),
+        ("cov", lambda m, a: m.cov(a), xf, 1e-5), ("bincount", lambda m, a: m.bincount(a), xi.abs().reshape(-1), 0),
+        ("histc", lambda m, a: m.histc(a, bins=4, min=-2.0, max=2.0), xf.round() + 0.5, 0),
+        ("histogram", lambda m, a: m.histogram(a, bins=4, range=(-2.0, 2.0))[0], xf.round() + 0.5, 0),
+        ("kurtosis", lambda m, a: m.kurtosis(a, axis=0), xf, 1e-4), ("skew", lambda m, a: m.skew(a, axis=0), xf, 1e-4),
+        ("digitize", lambda m, a: m.digitize(a, [-1.0, 0.0, 1.0]), xf, 0),
+        ("bucketize", lambda m, a: m.bucketize(a, [-1.0, 0.0, 1.0]), xf, 0),
+        ("clip", lambda m, a: m.clip(a, -1.0, 1.0), xf, 0),
+    ]
+    mesh = ht.MeshComm(4)
+    cases = [(name, lambda m, a, name=name: getattr(m, name)(a), (t,), ulp4) for name, t in unary.items()]
+    cases += [(name, lambda m, a, name=name: getattr(m, name)(a), (t,), 0) for name, t in exact_unary.items()]
+    cases += [(name, lambda m, a, b, name=name: getattr(m, name)(a, b), (a_, b_), tol)
+              for name, (a_, b_, tol) in binary.items()]
+    cases += [(name, fn, (t,), tol) for name, fn, t, tol in reductions]
+    for name, fn, tensors, tol in cases:
+        outs = []
+        for device in ("gpu", "cpu"):
+            arrays = [ht.array(t.to(dev) if device == "gpu" else t, split=0, comm=mesh, device=device) for t in tensors]
+            outs.append(fn(ht, *arrays).larray.cpu())
+        card, cpu = outs
+        check(card.dtype == cpu.dtype and card.shape == cpu.shape, f"card vs cpu {name}: {card.dtype} vs {cpu.dtype}")
+        if tol:
+            wide = torch.complex128 if card.is_complex() else torch.float64
+            ok = bool(torch.isclose(card.to(wide), cpu.to(wide), rtol=tol, atol=tol, equal_nan=True).all())
+        else:
+            same = card == cpu
+            if card.is_floating_point():
+                same |= torch.isnan(card) & torch.isnan(cpu)
+            ok = bool(same.all())
+        check(ok, f"card vs cpu {name}: differs beyond {tol:g}")
+    a = ht.array(xf.to(dev), split=0, comm=mesh)
+    check(ht.equal(a, a) and ht.allclose(a, a * (1 + 1e-6)) and not ht.equal(a, a + 1), "card equal/allclose")
+    return len(cases) + 1
+
+
+def cluster_benchmark_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """The repo's cluster benchmark through the entry points: (a)
+    ``benchmarks/cb/cluster.py::run()``'s three fits at its own size, one
+    warm-up and one timed fit each, as ``_timed_fit`` runs them; (b)
+    KMedians and KMedoids at the Lloyd shape on phase 5's blobs, ms per
+    iteration, the peak above the input and one iteration's trace by kind;
+    (c) small inputs of both and one call of each op of the elementwise and
+    statistics surface on the card and on the CPU.  Returns K1's launches
+    on the paths and its times at the benchmark's d = 3."""
+    from heat_tpu_torch.cluster import _kcluster
+
+    out = {"launches": 0}
+    # ------------------------------------------------- (a) the benchmark
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = ht.utils.data.spherical.create_spherical_dataset(
+        CLUSTER_N, radius=1.0, offset=4.0, dtype=ht.float32, random_state=seed
+    )
+    torch.cuda.synchronize()
+    x = data.larray
+    truth = torch.tensor(CLUSTER_TRUTH, device=dev)
+    positions = sum(1 for s in data.shards if s.shape[0])
+    print(f"[e2e] cluster benchmark data {data.shape} {data.dtype.__name__} split {data.split}: "
+          f"made in {time.perf_counter() - t0:.3f} s over {data.comm.size} position(s)")
+    check(data.shape == (4 * CLUSTER_N, 3) and data.split == 0 and bool(torch.isfinite(x).all()), "bad spherical data")
+    for name, cls, init in (("KMeans", ht.cluster.KMeans, "kmeans++"), ("KMedians", ht.cluster.KMedians, "kmedians++"),
+                            ("KMedoids", ht.cluster.KMedoids, "kmedoids++")):
+        cls(n_clusters=CLUSTER_K, init=init).fit(data)  # warm-up, as _timed_fit
+        torch.cuda.synchronize()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        est = cls(n_clusters=CLUSTER_K, init=init).fit(data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = k1.launches
+        out["launches"] += got
+        # seeding: k rounds; KMeans: a step an iteration and labels_;
+        # KMedoids: a snap an iteration; per position with rows
+        per = {"KMeans": CLUSTER_K + est.n_iter_ + 1, "KMedians": CLUSTER_K, "KMedoids": CLUSTER_K + est.n_iter_}[name]
+        centres = est.cluster_centers_.larray.float()
+        dist = torch.cdist(centres, truth)
+        match = dist.argmin(dim=1)
+        err = float(dist.min(dim=1).values.max())
+        labels = est.labels_.larray.reshape(-1)
+        print(f"[e2e] cluster benchmark {name}({init}) on {tuple(data.shape)}: fit {fit_s:.4f} s, n_iter {est.n_iter_}, "
+              f"inertia {est.inertia_:.6e}, cdist launches {got} (expected {per * positions}), centre error {err:.4e} "
+              f"(tolerance 0.05), matched {match.tolist()} on {card}")
+        check(got == per * positions, f"{name}: cdist launches {got} != {per * positions}")
+        check(sorted(match.tolist()) == list(range(CLUSTER_K)) and err <= 0.05,
+              f"{name}: fitted centres are not the four generating ones")
+        if name == "KMeans":
+            d2 = k1.reference_cdist(x, centres, sqrt=False)
+            top2 = d2.topk(2, dim=1, largest=False)
+            clear = (top2.values[:, 1] - top2.values[:, 0]) > 2 * TOL * ((x * x).sum(1) + (centres**2).sum(1).max())
+            bad, n_clear = int(((labels != top2.indices[:, 0]) & clear).sum()), int(clear.sum())
+        else:
+            # f32 L1 sums of three terms of ~12 are within ~1e-5 of exact
+            bad, n_clear = l1_label_disagreements(x, centres, labels, margin=1e-4)
+        print(f"[e2e] cluster benchmark {name}: labels vs f64 argmin: {bad} disagreements over {n_clear} rows "
+              f"with a clear margin")
+        check(bad == 0, f"{name}: labels disagree with the exact argmin")
+        if name == "KMedoids":
+            rows = bool(all(bool((x == m).all(dim=1).any()) for m in centres))
+            excess = fixed_point_medoid_gate(x, centres, labels, CLUSTER_K)
+            print(f"[e2e] cluster benchmark KMedoids: every medoid a row of x {rows}; exact d2 to its median minus "
+                  f"the least over the rows, past K1's bound: {excess:+.4e} (converged: n_iter {est.n_iter_} < "
+                  f"max_iter {est.max_iter})")
+            check(rows, "a medoid is not a row of x")
+            check(est.n_iter_ < est.max_iter and excess <= 0, "a medoid is not the nearest sample to its median")
+        del est
+    # K1 at the benchmark's geometry, d = 3
+    y4 = truth + 0.5
+    for sqrt in (False, True):
+        abs_err, rel = compare_cdist(k1, x, y4, sqrt)
+        print(f"[check] cdist d=3 {tuple(x.shape)}x{tuple(y4.shape)} sqrt={sqrt}: max_abs_err={abs_err:.3e} "
+              f"max_rel_err={rel:.3e}")
+        check(rel <= TOL, f"cdist d=3: relative error {rel:.3e} > {TOL}")
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), abs_err)
+    xc = x.contiguous()
+    t_k = time_ms(lambda: k1.cdist(xc, y4, sqrt=False), reps=50)
+    t_p = time_ms(lambda: k1.reference_cdist(xc, y4, sqrt=False), reps=20)
+    t_l = time_ms(lambda: torch.cdist(xc, y4).square(), reps=20)
+    t_k2 = time_ms(lambda: k1.cdist(xc, y4, sqrt=False), reps=50)
+    b_ms, b_by = cdist_bound_ms(x.shape[0], CLUSTER_K, 3)
+    print(f"[time] cdist d=3 ({x.shape[0]},3)x({CLUSTER_K},3): kernel_ms={t_k:.4f} (again {t_k2:.4f}) plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} (torch.cdist(x,y).square()) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+    out.update(ms_d3=t_k, plain_ms_d3=t_p, library_ms_d3=t_l, bound_ms_d3=b_ms, bound_by_d3=b_by)
+    del data, x, xc
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ (b) at the Lloyd shape, 2e7 x 64
+    k = 8
+    blobs, _ = make_blobs(ROWS, 64, k, seed, dev)
+    x_ht = ht.array(blobs, split=0, copy=False)
+    blocks = [s.contiguous() for s in x_ht.shards]
+    for name, est, snap in (
+        ("KMedians", ht.cluster.KMedians(n_clusters=k, init="kmedians++", tol=-1.0, max_iter=MED_ITERS, random_state=seed), False),
+        ("KMedoids", ht.cluster.KMedoids(n_clusters=k, init="kmedoids++", max_iter=MED_ITERS, random_state=seed), True),
+    ):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        est.fit(x_ht)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = k1.launches
+        out["launches"] += got
+        peak = torch.cuda.max_memory_allocated() - before
+        want = k + (est.n_iter_ if snap else 0)
+        centres = est.cluster_centers_.larray
+        check(bool(torch.isfinite(centres).all()) and tuple(centres.shape) == (k, 64), f"{name}: bad centres")
+        # ms per iteration: the loop alone from the fitted centres, tol = -1
+        start = centres.clone()
+        _kcluster._median_loop(blocks, start, k, 1, -1.0, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _kcluster._median_loop(blocks, start, k, MED_ITERS, -1.0, snap)
+        torch.cuda.synchronize()
+        iter_ms = 1e3 * (time.perf_counter() - t0) / MED_ITERS
+        print(f"[e2e] {name}({k}, ++) on ({ROWS}, 64) f32: fit {fit_s:.3f} s, n_iter {est.n_iter_}, inertia "
+              f"{est.inertia_:.6e}, cdist launches {got} (expected {want}), {iter_ms:.4f} ms/iter ({MED_ITERS} "
+              f"iterations), peak {peak / 1e9:.3f} GB above the {blobs.numel() * 4 / 1e9:.2f} GB input (gate "
+              f"{MED_PEAK_GATE / 1e9:.2f} GB, one (n, k, f) f32 buffer) on {card}")
+        check(got == want, f"{name}: cdist launches {got} != {want}")
+        check(peak < MED_PEAK_GATE, f"{name}: peak {peak / 1e9:.3f} GB above the input")
+        rows = trace(f"{name} iteration at ({ROWS}, 64), k={k}",
+                     lambda: _kcluster._median_loop(blocks, start, k, 1, -1.0, snap), 1)
+        kinds = by_kind(rows)
+        print(f"[trace] {name} iteration by kind: " + ", ".join(f"{kk} {v:.4f} ms" for kk, v in
+                                                               sorted(kinds.items(), key=lambda kv: -kv[1])))
+        out[f"{name.lower()}_ms_per_iter"] = iter_ms
+        del est, start
+    del blobs, x_ht, blocks
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (c) the card and the CPU
+    rng = np.random.default_rng(seed + 4)
+    base = np.array([[-6.0, -6.0, 0.0], [6.0, -5.0, 2.0], [0.0, 6.0, -3.0]])
+    small = torch.from_numpy(np.round(np.concatenate([rng.normal(c, 1.0, (400, 3)) for c in base]) * 2)).float()
+    init = small[[0, 400, 800]] + 0.5
+    mesh = ht.MeshComm(4)
+    for name in ("KMedians", "KMedoids"):
+        fits = [
+            getattr(ht.cluster, name)(n_clusters=3, init=ht.array(init.to(dev) if d == "gpu" else init, device=d),
+                                      max_iter=30).fit(ht.array(small.to(dev) if d == "gpu" else small, split=0,
+                                                                comm=mesh, device=d))
+            for d in ("gpu", "cpu")
+        ]
+        a, b = fits
+        same = torch.equal(a.labels_.larray.cpu(), b.labels_.larray) and torch.equal(
+            a.cluster_centers_.larray.cpu(), b.cluster_centers_.larray)
+        print(f"[e2e] small {name} (1200,3) card vs cpu: n_iter {a.n_iter_}/{b.n_iter_}, labels and centres equal "
+              f"{same}, inertia {a.inertia_:.6e}/{b.inertia_:.6e}")
+        check(same and a.n_iter_ == b.n_iter_ and abs(a.inertia_ - b.inertia_) <= 1e-5 * b.inertia_,
+              f"small {name} fit differs between card and CPU")
+    n_ops = card_vs_cpu_ops(ht, dev)
+    print(f"[e2e] card vs cpu: {n_ops} calls of the elementwise and statistics surface agree (transcendentals "
+          f"within 4 f32 ulps, sums within 1e-5, the rest bitwise)")
+    return out
 
 def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0):
     """Gaussian blobs (sigma 1) around k centres drawn at ``scale`` (at 300
@@ -1736,6 +2045,11 @@ def main() -> int:
     # the bf16 north star, its blob gates and small bf16 fits
     ns = northstar_paths(ht, k1, km_mod, args.seed, dev, card)
 
+    # the repo's cluster benchmark (KMeans, KMedians, KMedoids on spherical
+    # data), KMedians/KMedoids at the Lloyd shape, and the op surface on the
+    # card against the CPU
+    cb = cluster_benchmark_paths(ht, k1, args.seed, dev, card)
+
     # QR on the repo's three shapes, split 0 over the card's one position
     qr_launches = 0
     for (m, n), want in QR_SHAPES:
@@ -2017,7 +2331,7 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"],
+            "launches": launches + ns["launches"] + cb["launches"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -2027,6 +2341,10 @@ def main() -> int:
             "at": f"({ROWS}, 64) x (8, 64) f32",
             "launches_f32_kmeans": launches,
             "launches_northstar": ns["launches"],
+            "launches_cluster_benchmark": cb["launches"],
+            "max_abs_err_d3": cb["max_abs_err"],
+            **{key: cb[key] for key in ("ms_d3", "plain_ms_d3", "library_ms_d3", "bound_ms_d3", "bound_by_d3")},
+            "at_d3": f"({4 * CLUSTER_N}, 3) x ({CLUSTER_K}, 3) f32, the cluster benchmark's spherical data",
             "max_abs_err_16": k1_abs_16,
             **{f"{key}_bf16": k1_16[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "at_bf16": f"({NS_ROWS}, {NS_F}) x ({NS_K}, {NS_F}) bf16; library torch.cdist(x,y).square() on bf16, bf16 out",

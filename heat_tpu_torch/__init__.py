@@ -25,17 +25,21 @@ from .core import *
 from .core import (
     arithmetics,
     base,
+    complex_math,
     constants,
     devices,
     exponential,
     factories,
     linalg,
+    logical,
     manipulations,
     random,
     relational,
+    rounding,
     sanitation,
     statistics,
     stride_tricks,
+    trigonometrics,
     types,
 )
 from . import parallel
@@ -46,5 +50,6 @@ from . import graph
 from . import cluster
 from . import regression
 from . import models
+from . import utils
 
 __version__ = "0.1.0"

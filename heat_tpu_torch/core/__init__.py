@@ -1,5 +1,7 @@
-"""heat_tpu_torch core: runtime, dtype lattice and the op surface of the
-KMeans, linear-algebra and Lasso slices, exported flat as in heat_tpu.core."""
+"""heat_tpu_torch core: runtime, dtype lattice and the op surface
+(arithmetic, exponential, trigonometric, rounding, logical, complex,
+relational, statistics, manipulations, linalg), exported flat as in
+heat_tpu.core."""
 
 from . import communication
 from .communication import Communication, MeshComm, get_comm, sanitize_comm, use_comm
@@ -24,6 +26,14 @@ from . import statistics
 from .statistics import *
 from . import exponential
 from .exponential import *
+from . import trigonometrics
+from .trigonometrics import *
+from . import rounding
+from .rounding import *
+from . import logical
+from .logical import *
+from . import complex_math
+from .complex_math import *
 from . import manipulations
 from .manipulations import *
 from . import indexing

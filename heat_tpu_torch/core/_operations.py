@@ -8,6 +8,13 @@
 * :func:`_reduce_op` — a reduction that keeps the split axis runs on each
   shard alone; one over the split axis reduces each shard and then combines
   the partial results across positions.
+* :func:`_cum_op` — a scan along an axis; along the split axis each shard
+  scans alone and then takes the exclusive scan of the totals of the
+  shards before it.
+
+``out=`` (every op) and ``where=`` (binary ops) follow the JAX package:
+``out`` takes the result's values cast to its dtype and the result's split;
+where ``where`` is false, the result holds ``out``'s values, or 0.
 """
 
 from __future__ import annotations
@@ -18,11 +25,11 @@ import numpy as np
 import torch
 
 from . import sanitation, types
-from .dndarray import DNDarray
-from .stride_tricks import broadcast_shape, sanitize_axes_for_reduction
+from .dndarray import DNDarray, _wrap
+from .stride_tricks import broadcast_shape, sanitize_axes_for_reduction, sanitize_axis
 from ..parallel import collectives
 
-__all__ = ["_binary_op", "_local_op", "_reduce_op"]
+__all__ = ["_binary_op", "_cum_op", "_local_op", "_reduce_op"]
 
 
 def _as_operand(x, ref: DNDarray):
@@ -35,6 +42,41 @@ def _as_operand(x, ref: DNDarray):
     if np.isscalar(x):
         return torch.tensor(x, dtype=types.result_type(ref.dtype, x).torch_type(), device=tdev)
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x, device=tdev)
+
+
+def _inexact_type(dtype: torch.dtype) -> torch.dtype:
+    """``jnp``'s inexact promotion (x64 on): integers and bools to float32,
+    int64 to float64, floats and complex as they are."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return dtype
+    return torch.float64 if dtype == torch.int64 else torch.float32
+
+
+def _promoted(fn: Callable, inexact: bool = False) -> Callable:
+    """``fn`` of two tensors cast to their common type (its inexact form
+    with ``inexact``), as ``jnp``'s binary operations promote."""
+
+    def op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        t = torch.promote_types(a.dtype, b.dtype)
+        if inexact:
+            t = _inexact_type(t)
+        return fn(a.to(t), b.to(t))
+
+    return op
+
+
+def _weak_type(dtype: torch.dtype, value) -> torch.dtype:
+    """The type of ``dtype`` meeting the Python scalar ``value`` under jax's
+    weak typing (x64 on): a float scalar keeps a float or complex array's
+    type and lifts integers and bools to float64; an int scalar keeps an
+    integer array's type and lifts bools to int64; a bool keeps any."""
+    if isinstance(value, (bool, np.bool_)):
+        return dtype
+    if isinstance(value, (float, np.floating)):
+        return dtype if (dtype.is_floating_point or dtype.is_complex) else torch.float64
+    if isinstance(value, (complex, np.complexfloating)):
+        return dtype if dtype.is_complex else torch.complex128
+    return torch.int64 if dtype == torch.bool else dtype
 
 
 def _result_split(s1, s2, nd_out: int, nd1: int, nd2: int) -> Optional[int]:
@@ -61,7 +103,21 @@ def _block(operand, out_shape, split: int, comm, r: int) -> torch.Tensor:
     return whole.narrow(d, off, lshape[split])
 
 
-def _binary_op(operation: Callable, t1, t2) -> DNDarray:
+def _finish(result: DNDarray, out: Optional[DNDarray]) -> DNDarray:
+    return result if out is None else sanitation.sanitize_out(out, result)
+
+
+def _masked(result: DNDarray, where, out: Optional[DNDarray]) -> DNDarray:
+    """``result`` where ``where`` holds, else ``out``'s values or 0
+    (``jnp.where(where, result, out or zeros)``), with ``result``'s split."""
+    w = where.larray if isinstance(where, DNDarray) else torch.as_tensor(np.asarray(where))
+    r = result.larray
+    base = out.larray.to(r.dtype) if out is not None else torch.zeros((), dtype=r.dtype)
+    masked = torch.where(w.to(r.device), r, base.to(r.device))
+    return _wrap(masked, result.split, result.device, result.comm)
+
+
+def _binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, where=None) -> DNDarray:
     """Generic distributed binary operation with broadcasting."""
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)}, {type(t2)}")
@@ -86,14 +142,15 @@ def _binary_op(operation: Callable, t1, t2) -> DNDarray:
             for r in range(comm.size)
         ]
         result = shards[0]
-    return DNDarray(
-        shards, out_shape, types.canonical_heat_type(result.dtype), split, device, comm
-    )
+    wrapped = DNDarray(shards, out_shape, types.canonical_heat_type(result.dtype), split, device, comm)
+    if where is not None:
+        wrapped = _masked(wrapped, where, out)
+    return _finish(wrapped, out)
 
 
-def _local_op(operation: Callable, x: DNDarray, no_cast: bool = False) -> DNDarray:
-    """Elementwise operation; integer input is cast to float32 first unless
-    ``no_cast``."""
+def _local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = False) -> DNDarray:
+    """Elementwise operation; integer and bool input is cast to float32
+    first unless ``no_cast``."""
     sanitation.sanitize_in(x)
 
     def apply(t):
@@ -105,8 +162,8 @@ def _local_op(operation: Callable, x: DNDarray, no_cast: bool = False) -> DNDarr
         shards = [apply(x.shards[0])] * x.comm.size
     else:
         shards = [apply(s) for s in x.shards]
-    return DNDarray(
-        shards, x.shape, types.canonical_heat_type(shards[0].dtype), x.split, x.device, x.comm
+    return _finish(
+        DNDarray(shards, x.shape, types.canonical_heat_type(shards[0].dtype), x.split, x.device, x.comm), out
     )
 
 
@@ -128,10 +185,35 @@ def _apply_reduction(fn: Callable, t: torch.Tensor, axes, keepdims: bool) -> tor
     return fn(t, axes if len(axes) > 1 else axes[0], keepdims)
 
 
-def _reduce_op(fn: Callable, x: DNDarray, axis=None, keepdims: bool = False, combine: str = "sum") -> DNDarray:
+def _merge(parts, combine: str) -> torch.Tensor:
+    """The partial results of the positions merged into one."""
+    if combine == "sum":
+        return collectives.psum(parts)[0]
+    if combine == "min":
+        return collectives.pmin(parts)[0]
+    if combine == "max":
+        return collectives.pmax(parts)[0]
+    out = parts[0]
+    for p in parts[1:]:
+        p = p.to(out.device)
+        if combine == "prod":
+            out = out * p
+        elif combine == "all":
+            out = out & p
+        elif combine == "any":
+            out = out | p
+        else:
+            raise ValueError(f"unknown combine {combine!r}")
+    return out
+
+
+def _reduce_op(
+    fn: Callable, x: DNDarray, axis=None, keepdims: bool = False, combine: str = "sum", out: Optional[DNDarray] = None
+) -> DNDarray:
     """Generic reduction.  ``fn(t, dim, keepdim)`` reduces one tensor;
-    ``combine`` (``"sum"``, ``"min"`` or ``"argmin"``) says how partial
-    results over the split axis merge across positions."""
+    ``combine`` (``"sum"``, ``"prod"``, ``"min"``, ``"max"``, ``"all"``,
+    ``"any"``, ``"argmin"`` or ``"argmax"``) says how partial results over
+    the split axis merge across positions."""
     sanitation.sanitize_in(x)
     axes, _ = sanitize_axes_for_reduction(x.shape, axis)
     comm = x.comm
@@ -140,7 +222,7 @@ def _reduce_op(fn: Callable, x: DNDarray, axis=None, keepdims: bool = False, com
             shards = [_apply_reduction(fn, x.shards[0], axes, keepdims)] * comm.size
         else:
             shards = [_apply_reduction(fn, s, axes, keepdims) for s in x.shards]
-    elif combine == "argmin" and len(axes) > 1:
+    elif combine in ("argmin", "argmax") and len(axes) > 1:
         # a flat index over several axes, the split one among them: gather
         result = _apply_reduction(fn, x.larray, axes, keepdims)
         shards = [result] * comm.size
@@ -150,17 +232,15 @@ def _reduce_op(fn: Callable, x: DNDarray, axis=None, keepdims: bool = False, com
         live = [r for r in range(comm.size) if x.shards[r].shape[x.split] > 0]
         if not live:
             result = _apply_reduction(fn, x.larray, axes, keepdims)
-        elif combine == "sum":
-            result = collectives.psum([_apply_reduction(fn, x.shards[r], axes, keepdims) for r in live])[0]
-        elif combine == "min":
-            result = collectives.pmin([_apply_reduction(fn, x.shards[r], axes, keepdims) for r in live])[0]
+        elif combine in ("argmin", "argmax"):
+            result = _arg_across(x, live, axes[0], keepdims, largest=combine == "argmax")
         else:
-            result = _argmin_across(x, live, axes[0], keepdims)
+            result = _merge([_apply_reduction(fn, x.shards[r], axes, keepdims) for r in live], combine)
         shards = [result] * comm.size
     split = _reduce_split(x.split, axes, keepdims, shards[0].ndim)
     gshape = tuple(shards[0].shape) if split is None else _gshape(x.shape, axes, keepdims)
-    return DNDarray(
-        shards, gshape, types.canonical_heat_type(shards[0].dtype), split, x.device, x.comm
+    return _finish(
+        DNDarray(shards, gshape, types.canonical_heat_type(shards[0].dtype), split, x.device, x.comm), out
     )
 
 
@@ -170,23 +250,60 @@ def _gshape(shape, axes, keepdims: bool):
     return tuple(n for i, n in enumerate(shape) if i not in axes)
 
 
-def _argmin_across(x: DNDarray, live, axis: int, keepdims: bool) -> torch.Tensor:
-    """Argmin over the split axis: each shard's minimum and its global index,
-    merged so that the first minimum along the axis wins; a NaN is the
-    minimum, and the first NaN wins (``torch.argmin``, ``jnp.argmin``)."""
+def _arg_across(x: DNDarray, live, axis: int, keepdims: bool, largest: bool = False) -> torch.Tensor:
+    """Argmin (argmax with ``largest``) over the split axis: each shard's
+    extremum and its global index, merged so that the first extremum along
+    the axis wins; a NaN is both the minimum and the maximum, and the first
+    NaN wins (``torch.argmin``/``argmax``, ``jnp.argmin``/``argmax``)."""
+    pick, extreme, better = (
+        (torch.argmax, torch.amax, torch.gt) if largest else (torch.argmin, torch.amin, torch.lt)
+    )
     best_v = best_i = None
     for r in live:
         s = x.shards[r]
         if s.dtype == torch.bool:
             s = s.to(torch.uint8)
         off = x.comm.chunk(x.shape, x.split, rank=r)[0]
-        v = torch.amin(s, dim=axis, keepdim=keepdims)
-        i = torch.argmin(s, dim=axis, keepdim=keepdims) + off
+        v = extreme(s, dim=axis, keepdim=keepdims)
+        i = pick(s, dim=axis, keepdim=keepdims) + off
         if best_v is None:
             best_v, best_i = v, i
         else:
             v = v.to(best_v.device)
-            take = (v < best_v) | (torch.isnan(v) & ~torch.isnan(best_v))
+            take = better(v, best_v) | (torch.isnan(v) & ~torch.isnan(best_v))
             best_v = torch.where(take, v, best_v)
             best_i = torch.where(take, i.to(best_i.device), best_i)
     return best_i
+
+
+def _cum_op(
+    fn: Callable, x: DNDarray, axis: int, combine: str = "sum", dtype=None, out: Optional[DNDarray] = None
+) -> DNDarray:
+    """Scan ``fn(t, dim)`` (``torch.cumsum``/``cumprod``) along ``axis``.
+    Along the split axis each shard scans alone, then combines with the
+    exclusive scan of the last rows of the shards before it (their sum, or
+    their product with ``combine="prod"``).  The result keeps the input's
+    dtype, as ``jnp.cumsum``'s does, except that bool scans in int64;
+    ``dtype`` casts the input first."""
+    sanitation.sanitize_in(x)
+    axis = sanitize_axis(x.shape, axis)
+    if axis is None:
+        raise NotImplementedError("cumulative ops require an axis")
+    shards = x.shards if x.split is not None else x.shards[:1]
+    if dtype is not None:
+        shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
+    keep = torch.int64 if shards[0].dtype == torch.bool else shards[0].dtype
+    scanned = [fn(s, axis).to(keep) for s in shards]
+    if x.split == axis and len(scanned) > 1:
+        run = None
+        for r, sc in enumerate(scanned):
+            if sc.shape[axis] == 0:
+                continue
+            if run is not None:
+                scanned[r] = (sc + run if combine == "sum" else sc * run).to(keep)
+            run = scanned[r].narrow(axis, sc.shape[axis] - 1, 1)
+    if x.split is None:
+        scanned = scanned * x.comm.size
+    return _finish(
+        DNDarray(scanned, x.shape, types.canonical_heat_type(keep), x.split, x.device, x.comm), out
+    )

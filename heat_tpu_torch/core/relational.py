@@ -1,22 +1,44 @@
-"""Relational operations (counterpart of heat_tpu/core/relational.py)."""
+"""Relational operations (counterpart of heat_tpu/core/relational.py):
+the elementwise comparisons, their NumPy names, and ``equal``, which
+returns a Python bool."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _operations
 from .dndarray import DNDarray
 from ..parallel.sort import ordered_less
 
-__all__ = ["eq", "ge", "gt", "le", "lt", "ne"]
+__all__ = ["eq", "equal", "ge", "greater", "greater_equal", "gt", "le", "less", "less_equal", "lt", "ne", "not_equal"]
 
 
 def eq(x, y) -> DNDarray:
     return _operations._binary_op(torch.eq, x, y)
 
 
+def equal(x, y) -> bool:
+    """True iff the shapes and all elements match (a scalar or a
+    broadcastable operand compares elementwise); operands that do not
+    broadcast give False."""
+    if isinstance(x, DNDarray) and isinstance(y, DNDarray):
+        if tuple(x.shape) != tuple(y.shape):
+            return False
+        return bool(torch.all(x.larray == y.larray.to(x.larray.device)))
+    a = x.larray if isinstance(x, DNDarray) else torch.as_tensor(np.asarray(x))
+    b = y.larray if isinstance(y, DNDarray) else torch.as_tensor(np.asarray(y))
+    try:
+        return bool(torch.all(torch.eq(a, b.to(a.device))))
+    except RuntimeError:
+        return False
+
+
 def ne(x, y) -> DNDarray:
     return _operations._binary_op(torch.ne, x, y)
+
+
+not_equal = ne
 
 
 # complex values compare in NumPy's lexicographic order (real parts, then
@@ -25,16 +47,28 @@ def lt(x, y) -> DNDarray:
     return _operations._binary_op(ordered_less, x, y)
 
 
+less = lt
+
+
 def le(x, y) -> DNDarray:
     return _operations._binary_op(lambda a, b: ordered_less(a, b, or_equal=True), x, y)
+
+
+less_equal = le
 
 
 def gt(x, y) -> DNDarray:
     return _operations._binary_op(lambda a, b: ordered_less(b, a), x, y)
 
 
+greater = gt
+
+
 def ge(x, y) -> DNDarray:
     return _operations._binary_op(lambda a, b: ordered_less(b, a, or_equal=True), x, y)
+
+
+greater_equal = ge
 
 
 DNDarray.__eq__ = lambda self, other: eq(self, other)

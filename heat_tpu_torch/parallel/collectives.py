@@ -14,7 +14,7 @@ import torch
 
 from .sort import ordered_less
 
-__all__ = ["psum", "pmin", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan"]
+__all__ = ["psum", "pmin", "pmax", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan"]
 
 
 def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -37,6 +37,16 @@ def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         p = _to(p, low)
         low = torch.where(ordered_less(p, low), p, low) if low.is_complex() else torch.minimum(low, p)
     return [_to(low, p) for p in parts]
+
+
+def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """All-reduce elementwise maximum (complex values in NumPy's
+    lexicographic order)."""
+    high = parts[0]
+    for p in parts[1:]:
+        p = _to(p, high)
+        high = torch.where(ordered_less(high, p), p, high) if high.is_complex() else torch.maximum(high, p)
+    return [_to(high, p) for p in parts]
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:

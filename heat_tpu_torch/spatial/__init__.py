@@ -1,6 +1,6 @@
 """Pairwise-distance functions."""
 
 from . import distance
-from .distance import cdist, rbf
+from .distance import cdist, manhattan, rbf
 
-__all__ = ["cdist", "distance", "rbf"]
+__all__ = ["cdist", "distance", "manhattan", "rbf"]

@@ -1,5 +1,5 @@
 """Pairwise distance matrices (counterpart of heat_tpu/spatial/distance.py):
-``cdist`` and the Gaussian similarity ``rbf``.
+``cdist``, the Gaussian similarity ``rbf`` and the L1 ``manhattan``.
 
 Layouts, by the operands' splits:
 
@@ -34,7 +34,7 @@ from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
 from ..parallel import collectives
 
-__all__ = ["cdist", "rbf"]
+__all__ = ["cdist", "manhattan", "rbf"]
 
 
 def _check(x: DNDarray, y: Optional[DNDarray]):
@@ -138,3 +138,45 @@ def rbf(x: DNDarray, y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic
     of y, over the squared distances of :func:`cdist` (K1 for float32, in
     every layout).  ``quadratic_expansion`` is accepted for parity."""
     return _local_op(lambda d2: torch.exp(-d2 / (2.0 * sigma * sigma)), cdist(x, y, sqrt=False))
+
+
+# elements of the (rows, m, f) broadcast that one block of :func:`_l1`
+# holds (256 MB of f32)
+_L1_ELEMENTS = 1 << 26
+
+
+def _l1(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
+    """(n, m) Manhattan distances of the rows of xa to those of ya (one
+    dtype), a block of rows at a time: no (n, m, f) buffer exists."""
+    n, f = xa.shape
+    m = ya.shape[0]
+    acc = torch.float32 if xa.dtype in (torch.bfloat16, torch.float16) else None
+    out = torch.empty((n, m), dtype=xa.dtype, device=xa.device)
+    step = max(1, _L1_ELEMENTS // max(1, m * f))
+    for lo in range(0, n, step):
+        diff = xa[lo : lo + step, None, :] - ya[None, :, :]
+        out[lo : lo + step] = torch.sum(diff.abs_(), dim=-1, dtype=acc)
+    return out
+
+
+def manhattan(x: DNDarray, y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:
+    """L1 distance matrix of the rows of x to the rows of y (of x to itself
+    when y is None), in the promoted float type, split as ``cdist``'s:
+    rows of a row-split x, columns of a row-split y, else replicated.
+    ``expand`` is accepted for parity."""
+    x, y, promoted = _check(x, y)
+    tt = promoted.torch_type()
+    comm = x.comm
+    if x.split == 0:
+        ya = _whole(y).to(tt)
+        shards, split = [_l1(xs.to(tt), ya) for xs in x.shards], 0
+    elif y.split == 0:
+        xa = _whole(x).to(tt)
+        shards, split = [_l1(xa, ys.to(tt)) for ys in y.shards], 1
+    else:
+        out = _l1(_whole(x).to(tt), _whole(y).to(tt))
+        shards, split = [out] * comm.size, None
+    return DNDarray(
+        shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype),
+        split, x.device, comm,
+    )

@@ -231,6 +231,63 @@ def test_spatial_cdist_integer_input_promotes_to_float32(ht):
     np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-3)
 
 
+# ------------------------------------------------------------------ manhattan
+# L1 distances are sums of |x - y| over the features, taken in other orders
+# by the two packages: rtol 1e-6 for f32 (a few ulps of the sum); exact on
+# integer-valued data; bf16 differences are rounded in bf16 by both, the
+# f32 sums then rounded once to bf16 (one bf16 ulp)
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("splits", LAYOUTS)
+@pytest.mark.parametrize("integer", [False, True])
+def test_spatial_manhattan_layouts(ht, n, splits, integer):
+    x, y = _data(13, 6, 5, seed=12)
+    if integer:
+        x, y = np.round(x * 8), np.round(y * 8)
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.manhattan(ht.array(x, split=splits[0], comm=jc), ht.array(y, split=splits[1], comm=jc))
+    b = htt.spatial.manhattan(
+        htt.array(x, split=splits[0], comm=tc, device="cpu"),
+        htt.array(y, split=splits[1], comm=tc, device="cpu"),
+    )
+    assert b.shape == a.shape == (13, 6) and b.split == a.split and b.dtype is htt.float32
+    if integer:
+        np.testing.assert_array_equal(b.numpy(), a.numpy())
+    else:
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6)
+    assert [s.shape for s in b.lshards()] == [s.shape for s in a.lshards()]
+
+
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16", "int32"])
+def test_spatial_manhattan_dtypes(ht, n, dtype):
+    x, y = _data(13, 4, 3, seed=13)
+    x, y = np.round(x * 4), np.round(y * 4)
+    if dtype == "bfloat16":
+        ml_dtypes = pytest.importorskip("ml_dtypes")
+        x, y = (x + 0.25).astype(ml_dtypes.bfloat16), y.astype(ml_dtypes.bfloat16)
+    else:
+        x, y = x.astype(dtype), y.astype(dtype)
+    jc, tc = ht.parallel.mesh.local_mesh(n), htt.MeshComm(n)
+    a = ht.spatial.manhattan(ht.array(x, split=0, comm=jc), ht.array(y, comm=jc))
+    b = htt.spatial.manhattan(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu"))
+    assert b.dtype.__name__ == a.dtype.__name__ == ("float32" if dtype == "int32" else dtype)
+    np.testing.assert_array_equal(b.numpy().astype(np.float64), a.numpy().astype(np.float64))
+
+
+def test_spatial_manhattan_self_and_blocks(monkeypatch):
+    # y defaults to x; a block of two rows at a time gives the same values
+    from heat_tpu_torch.spatial import distance
+
+    x, _ = _data(13, 1, 5, seed=14)
+    tc = htt.MeshComm(4)
+    whole = htt.spatial.manhattan(htt.array(x, split=0, comm=tc, device="cpu"))
+    want = np.abs(x[:, None, :] - x[None, :, :]).sum(-1)
+    np.testing.assert_allclose(whole.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(np.diag(whole.numpy()), 0.0)
+    monkeypatch.setattr(distance, "_L1_ELEMENTS", 2 * 13 * 5)
+    np.testing.assert_array_equal(htt.spatial.manhattan(htt.array(x, split=0, comm=tc, device="cpu")).numpy(), whole.numpy())
+
+
 # ------------------------------------------------------------------ on the card
 CARD_SHAPES = [(1000, 8, 64), (1000, 1, 64), (1003, 257, 67), (5, 3, 1), (0, 8, 64), (130, 9, 16)]
 
