@@ -1,6 +1,7 @@
 """Drive heat_tpu_torch's KMeans, KMedians/KMedoids (the repo's cluster
-benchmark), QR, Lasso, sparse Spectral, TransformerLM and transport
-(reshape, resplit, advanced getitem) paths on one CUDA card and check them.
+benchmark), QR, Lasso, sparse Spectral, TransformerLM, transport
+(reshape, resplit, advanced getitem) and runtime-core (assignment, random,
+factories, printing) paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -44,7 +45,13 @@ flax-layout tree made from ``--seed``) forward on 8 x 2048 tokens,
 ``reshape`` at the benchmark's (999999, 20) -> (1999998, 10) and at 2.4 GB,
 a shift-carrying and a split-1 reshape, ``resplit`` at (4e6, 128), a mask
 getitem and an int-array take over 1e7 rows (benchmarks/cb/kernels.py:57-85,
-manipulations.py:16-30, :138-148); each with
+manipulations.py:16-30, :138-148); and over ``MeshComm(4)`` the runtime
+core at the Lloyd shape, 2e7 x 64 f32: the data pipeline (``randint``
+labels, mask assignments of ``randn`` draws, ``shuffle_rows``, a KMeans
+fit through K1), assignments across position bounds (a split value
+re-cut by K7 into the shards, an integer put, a full mask), the
+factories at size, ``str`` and one call of each new name on card and
+CPU; each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
@@ -134,6 +141,17 @@ SHIFT_IN, SHIFT_OUT = (6, 4_000_000), (2_400_000, 10)
 CHAIN_IN, CHAIN_OUT = (1000, 40_000), (4_000_000, 10)
 RESPLIT_N = 4_000_000
 SELECT_ROWS, TAKE_ROWS = 10_000_000, 2_000_000
+# the runtime core over MeshComm(4) at the Lloyd shape (benchmarks/cb/config.py:159-162):
+# the data pipeline (randint labels, mask assignment of normal draws,
+# shuffle_rows, KMeans through K1), assignments across position bounds
+# (the slice crosses two), the factories at size and str()
+RT_ROWS, RT_F, RT_K, RT_ITERS = ROWS, 64, 8, 10
+RT_LO, RT_SLICE = 4_999_990, 10_000_000
+RT_PUT, RT_PERM = 2_000_000, 100_000_000
+RT_EYE, RT_LIN = 32_768, 100_000_000
+# linspace within 2 ulps of its scale of torch's, logspace within 32 ulps
+# (float64; the CPU tests' tolerances against heat_tpu)
+TOL_LIN_ULPS, TOL_LOG_ULPS = 2, 32
 
 
 class SmokeFailure(RuntimeError):
@@ -1679,6 +1697,326 @@ def manipulation_paths(ht, seed: int, dev, card: str) -> None:
     check(not bad, f"manipulations differ between card and CPU: {bad}")
 
 
+def timed_call(fn):
+    """``fn()`` once on the card: (result, ms by the host clock around a
+    synchronize, peak bytes allocated above what existed before the call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated() - base
+
+
+def destinations_with_rows(mesh, n: int, rows: torch.Tensor) -> int:
+    """Positions of a split-0 extent ``n`` over ``mesh`` that own one of the
+    (sorted or not) global ``rows``: K7's launches for an assignment."""
+    ends = torch.tensor([mesh.chunk((n,), 0, rank=r)[0] + mesh.chunk((n,), 0, rank=r)[1][0] for r in range(mesh.size)],
+                        device=rows.device)
+    return int(torch.unique(torch.searchsorted(ends, rows, right=True)).numel())
+
+
+def runtime_card_vs_cpu(ht, dev, card_device: str = "gpu") -> int:
+    """One call of each name of the runtime core on the card and on the CPU
+    over ``MeshComm(4)``, on the same small inputs: bitwise, ``logspace``
+    within 32 float64 ulps (the card's ``pow``); random draws, whose
+    generators differ between card and CPU, by their properties.  Returns
+    the count of calls compared."""
+    mesh = ht.MeshComm(4)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((37, 6)).astype(np.float32)
+    z = (x + 1j * x[::-1]).astype(np.complex64)
+    mask = x[:, 0] > 0
+    small = rng.standard_normal((int(mask.sum()), 6)).astype(np.float32)
+
+    def put(key, value, split=0, src=x):
+        def op(d):
+            a = ht.array(src, split=split, comm=mesh, device=d)
+            v = value(d) if callable(value) else value
+            a[key] = v
+            return a
+        return op
+
+    def arr(v, split=0):
+        return lambda d: ht.array(v, split=split, comm=mesh, device=d)
+
+    def lloc_put(d):
+        a = arr(x, 1)(d)
+        a.lloc[0:2] = 1.0
+        return a
+
+    cases = [
+        ("full", lambda d: ht.full((37, 6), 2.5, split=0, comm=mesh, device=d)),
+        ("full_like", lambda d: ht.full_like(arr(x)(d), -1)),
+        ("zeros_like", lambda d: ht.zeros_like(arr(x, 1)(d))),
+        ("ones_like", lambda d: ht.ones_like(arr(x)(d), dtype=ht.int8)),
+        ("empty_like", lambda d: ht.zeros(ht.empty_like(arr(x)(d)).shape, split=0, comm=mesh, device=d)),
+        ("eye", lambda d: ht.eye((37, 29), split=0, comm=mesh, device=d)),
+        ("eye split 1", lambda d: ht.eye(33, split=1, comm=mesh, device=d)),
+        ("linspace", lambda d: ht.linspace(-3.5, 7.25, 1001, split=0, comm=mesh, device=d)),
+        ("linspace f32", lambda d: ht.linspace(0, 1, 999, endpoint=False, dtype=ht.float32, split=0, comm=mesh, device=d)),
+        ("meshgrid", lambda d: ht.meshgrid(arr(x[:, 0])(d), arr(x[0], None)(d))[0]),
+        ("asarray", lambda d: ht.asarray(x, dtype=ht.float64, is_split=0, comm=mesh, device=d)),
+        ("from_partitioned", lambda d: ht.from_partitioned(arr(x)(d), comm=mesh)),
+        ("copy", lambda d: ht.copy(arr(x)(d))),
+        ("iscomplex", lambda d: ht.iscomplex(arr(z)(d))),
+        ("isreal", lambda d: ht.isreal(arr(z)(d))),
+        ("real", lambda d: arr(z)(d).real),
+        ("imag", lambda d: arr(z)(d).imag),
+        ("transpose", lambda d: arr(x)(d).transpose()),
+        ("scalar_to_1d", lambda d: ht.scalar_to_1d(ht.array(np.float32(2.5), comm=mesh, device=d))),
+        ("sanitize_distribution", lambda d: ht.sanitize_distribution(arr(x)(d), target=arr(x, 1)(d))),
+        ("fill_diagonal", lambda d: arr(x)(d).fill_diagonal(-2.0)),
+        ("fill_diagonal split 1", lambda d: arr(x, 1)(d).fill_diagonal(-2.0)),
+        ("setitem slice", put(slice(3, 30), lambda d: arr(x[:27] * 2)(d))),
+        ("setitem strided", put((slice(3, 30), slice(1, 4)), lambda d: arr(x[:27, :3] * 2)(d))),
+        ("setitem negative step", put(slice(30, 3, -2), 7.0)),
+        ("setitem row mask", put(mask, lambda d: arr(small)(d))),
+        ("setitem full mask", put(x > 0.5, 0.0)),
+        ("setitem int array", put(np.array([36, 0, -5, 11]), lambda d: arr(x[:4])(d))),
+        ("setitem mixed", put((slice(None), np.array([5, 1])), 3.0, split=1)),
+        ("setitem split-1 value", put(slice(2, 8), lambda d: arr(x[10:16], 1)(d))),
+        ("setitem replicated", put(slice(0, 2), 1.0, split=None)),
+        ("lloc", lloc_put),
+    ]
+    for name, op in cases:
+        a, b = op(card_device), op("cpu")
+        torch.cuda.synchronize()
+        ok = a.shape == b.shape and a.split == b.split and a.dtype is b.dtype and all(
+            torch.equal(raw(u.cpu()), raw(v)) for u, v in zip(a.shards, b.shards))
+        check(ok, f"runtime card vs cpu {name} differs")
+    a = ht.logspace(0, 3, 777, split=0, comm=mesh, device=card_device).larray.cpu()
+    b = ht.logspace(0, 3, 777, split=0, comm=mesh, device="cpu").larray
+    eps = torch.finfo(torch.float64).eps
+    check(bool(torch.isclose(a, b, rtol=32 * eps, atol=0).all()), "runtime card vs cpu logspace differs")
+    # members and printing: equal values, the string up to the device's name
+    a, b = arr(x)(card_device), arr(x)("cpu")
+    check(a.tolist() == b.tolist() and a.counts_displs() == b.counts_displs() and a.nbytes == b.nbytes
+          and a.strides == b.strides and torch.equal(a.lloc[1:3], b.lloc[1:3].to(dev))
+          and torch.equal(a.cpu().larray, b.larray), "runtime card vs cpu members differ")
+    check(str(a).replace(str(a.device), "cpu:0") == str(b), "runtime card vs cpu str differs")
+    # random draws: properties on the card
+    ht.random.seed(3)
+    p = ht.random.randperm(1001, split=0, comm=mesh).larray
+    check(torch.equal(torch.sort(p).values, torch.arange(1001, dtype=torch.int32, device=dev)), "card randperm")
+    r = ht.random.randint(0, 256, (5000,), dtype=ht.uint8, split=0, comm=mesh).larray
+    check(int(r.min()) == 0 and int(r.max()) == 255, "card randint bounds")
+    xs, idx = ht.random.shuffle_rows([arr(x)(card_device), ht.arange(37, split=0, comm=mesh)])
+    check(torch.equal(xs.larray, torch.from_numpy(x).to(dev)[idx.larray]), "card shuffle_rows")
+    q = ht.random.permutation(arr(x, 1)(card_device)).larray
+    check(torch.equal(torch.sort(q[:, 0]).values, torch.sort(torch.from_numpy(x[:, 0]).to(dev)).values), "card permutation")
+    nrm = ht.random.normal(ht.array(torch.full((4,), 5.0, device=dev), comm=mesh), 0.5, (200_000, 4), split=0, comm=mesh)
+    check(abs(float(nrm.larray.mean()) - 5) < 0.01, "card normal")
+    state = ht.random.get_state()
+    first = ht.random.rand(5).larray
+    ht.random.set_state(state)
+    check(torch.equal(ht.random.rand(5).larray, first), "card get_state/set_state")
+    return len(cases) + 9
+
+
+def runtime_core_paths(ht, k1, k7, seed: int, dev, card: str, card_device: str = "gpu") -> dict:
+    """The runtime core over ``MeshComm(4)`` on the card at the Lloyd shape:
+    (a) the data pipeline users write to feed a fit (randint labels, mask
+    assignments of normal draws, ``shuffle_rows``, ``KMeans`` through K1);
+    (b) assignments across position bounds (a split value re-cut by K7, an
+    integer put, a full mask); (c) the factories at size; (d) ``str`` of
+    the 5.12 GB array; (e) one call of each new name on card and CPU.
+    Returns the K1 and K7 launches of (a) and (b)."""
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    ht.random.seed(seed + 14)
+    n, f, k = RT_ROWS, RT_F, RT_K
+    out = {}
+
+    # (a) the data pipeline
+    k1.launches = 0
+    k7.launches = 0
+    centres = ht.random.normal(0, 300, (k, f), comm=mesh)
+    labels = ht.random.randint(0, k, n, split=0, comm=mesh)
+    x = ht.empty((n, f), split=0, comm=mesh)
+    blocks, ms, peaks, k7_want = [], [], [], 0
+    for c in range(k):
+        m = labels == c
+        blk = ht.random.randn(int(m.sum()), f, split=0, comm=mesh) + centres[c]
+        k7_want += destinations_with_rows(mesh, n, torch.nonzero(m.larray).reshape(-1))
+        _, t_ms, peak = timed_call(lambda: x.__setitem__(m, blk))
+        blocks.append(blk)
+        ms.append(t_ms)
+        peaks.append(peak)
+    pipeline_k7 = k7.launches
+    lab = labels.larray
+    want = torch.empty(n, f, device=dev)
+    for c, blk in enumerate(blocks):
+        want[lab == c] = blk.larray
+    built = same_shards(x, want, mesh)
+    print(f"[e2e] runtime x[labels == c] = randn(count_c, {f}) + centres[c] for {k} clusters, ({n},{f}) f32 split 0 over "
+          f"MeshComm({mesh.size}): {sum(ms) / k:.4f} ms per assignment (max {max(ms):.4f}), peak above x, key and value "
+          f"{max(peaks) / 1e9:.6f} GB, repack launches {pipeline_k7} (expected {k7_want}), every row its block's row "
+          f"bitwise {built} on {card}")
+    check(built, "runtime: the mask assignments differ from torch's")
+    check(pipeline_k7 == k7_want, f"runtime: repack launches {pipeline_k7} != {k7_want}")
+    check(max(peaks) <= 4 * f * max(b.shape[0] for b in blocks), "runtime: a mask assignment held more than its value")
+    del blocks
+    out["mask_ms"] = sum(ms) / k
+    state = ht.random.get_state()
+    (xs, ls), shuffle_ms, shuffle_peak = timed_call(lambda: ht.random.shuffle_rows([x, labels]))
+    ht.random.set_state(state)
+    (idx,) = ht.random.shuffle_rows([ht.arange(n, split=0, comm=mesh)])
+    moved = (n * f + n) * 4
+    idx_t = idx.larray
+    paired = same_shards(xs, want[idx_t], mesh) and same_shards(ls, lab[idx_t], mesh)
+    print(f"[e2e] runtime shuffle_rows([x, labels]) over MeshComm({mesh.size}): {shuffle_ms:.4f} ms, "
+          f"{2 * moved / shuffle_ms / 1e6:.1f} GB/s (2 x {moved / 1e9:.3f} GB moved), peak above the inputs "
+          f"{shuffle_peak / 1e9:.3f} GB, rows paired with their generating rows through the permutation bitwise {paired} on {card}")
+    check(paired, "runtime: shuffle_rows lost a row's pairing")
+    # one copy of the inputs, plus the permutation and its draw (eight int64
+    # words a row bound torch.randperm's sort on the card)
+    check(shuffle_peak <= moved + 64 * n, "runtime: shuffle_rows held more than one copy of its inputs and the permutation")
+    del x, labels, want, lab, idx, idx_t
+    torch.cuda.empty_cache()
+    out["shuffle_ms"] = shuffle_ms
+    perm, perm_ms, perm_peak = timed_call(lambda: ht.random.randperm(RT_PERM, split=0, comm=mesh))
+    is_perm = torch.equal(torch.sort(perm.larray).values, torch.arange(RT_PERM, dtype=torch.int32, device=dev))
+    print(f"[e2e] runtime randperm({RT_PERM}, split=0): {perm_ms:.4f} ms, peak {perm_peak / 1e9:.3f} GB, "
+          f"its sort equals arange {is_perm} on {card}")
+    check(is_perm, "runtime: randperm is not a permutation")
+    del perm
+    torch.cuda.empty_cache()
+
+    k1.launches = 0
+    model, fit_ms, _ = timed_call(lambda: ht.cluster.KMeans(n_clusters=k, init=centres, max_iter=RT_ITERS, tol=-1).fit(xs))
+    fit_k1 = k1.launches
+    fitted = model.cluster_centers_.larray.float()
+    gen_c = centres.larray
+    centre_err = float((fitted - gen_c).norm(dim=1).max())
+    pred = model.labels_.larray.reshape(-1)
+    truth = ls.larray.to(pred.dtype)
+    d2 = torch.cat([k1.reference_cdist(s, fitted, sqrt=False) for s in xs.shards])
+    top2 = d2.topk(2, dim=1, largest=False)
+    scale = torch.cat([(s * s).sum(1) for s in xs.shards]) + (fitted * fitted).sum(1).max()
+    clear = (top2.values[:, 1] - top2.values[:, 0]) > 2 * TOL * scale
+    disagree = int(((pred != truth) & clear).sum())
+    k1_want = (RT_ITERS + 1) * mesh.size
+    print(f"[e2e] runtime KMeans(k={k}, init=centres, max_iter={RT_ITERS}, tol=-1).fit(shuffled x): {fit_ms:.3f} ms, "
+          f"centre error {centre_err:.4e} (tolerance 0.05), labels vs the generating labels: {disagree} disagreements "
+          f"over {int(clear.sum())} rows with a clear margin, cdist launches {fit_k1} (expected {k1_want}) on {card}")
+    check(centre_err <= 0.05, f"runtime: centre error {centre_err} > 0.05")
+    check(disagree == 0, f"runtime: {disagree} labels differ from the generating ones")
+    check(fit_k1 == k1_want, f"runtime: cdist launches {fit_k1} != {k1_want}")
+    out["k1"] = fit_k1
+    del model, d2, top2, scale, clear, pred, truth, ls
+    torch.cuda.empty_cache()
+
+    # (b) assignments across position bounds, on the shuffled x
+    x = xs
+    g = torch.cat(x.shards)
+    hi = RT_LO + RT_SLICE
+    y = ht.random.randn(RT_SLICE, f, split=0, comm=mesh)
+    g[RT_LO:hi] = y.larray
+    k7.launches = 0
+    _, first_ms, peak = timed_call(lambda: x.__setitem__(slice(RT_LO, hi), y))
+    slice_k7 = k7.launches
+    exact = same_shards(x, g, mesh)
+    slice_ms = time_ms(lambda: x.__setitem__(slice(RT_LO, hi), y), reps=5, warmup=1)
+    vbytes = RT_SLICE * f * 4
+    bound_ms = 1e3 * 2 * vbytes / HBM_BYTES_PER_S
+    k7_want = destinations_with_rows(mesh, n, torch.arange(RT_LO, hi, device=dev))
+    print(f"[e2e] runtime x[{RT_LO}:{hi}] = y ({RT_SLICE},{f}) f32 split 0 over MeshComm({mesh.size}): {slice_ms:.4f} ms/call "
+          f"(first {first_ms:.4f}), bound {bound_ms:.4f} ms (2 x {vbytes / 1e9:.3f} GB / 3.35 TB/s), peak above x, key "
+          f"and value {peak / 1e9:.6f} GB, repack launches {slice_k7} (expected {k7_want}), bitwise equal to torch's "
+          f"{exact} on {card}")
+    check(exact, "runtime: x[lo:hi] = y differs from torch's")
+    check(slice_k7 == k7_want == 3, f"runtime: repack launches {slice_k7} != {k7_want}")
+    check(peak <= vbytes, f"runtime: x[lo:hi] = y held {peak} bytes above x, key and value")
+    out["slice_ms"], out["slice_bound_ms"], out["k7"] = slice_ms, bound_ms, pipeline_k7 + slice_k7
+    del y
+    torch.cuda.empty_cache()
+    rows = ht.random.randperm(n, split=0, comm=mesh)[:RT_PUT]
+    v = ht.random.randn(RT_PUT, f, split=0, comm=mesh)
+    g[rows.larray.long()] = v.larray
+    _, put_ms, peak = timed_call(lambda: x.__setitem__(rows, v))
+    exact = same_shards(x, g, mesh)
+    print(f"[e2e] runtime x[rows] = v, rows {RT_PUT} of a randperm({n}), v ({RT_PUT},{f}) split 0: {put_ms:.4f} ms, "
+          f"peak above x, key and value {peak / 1e9:.6f} GB (the value {RT_PUT * f * 4 / 1e9:.3f} GB), bitwise equal "
+          f"to torch's {exact} on {card}")
+    check(exact, "runtime: x[rows] = v differs from torch's")
+    check(peak <= RT_PUT * f * 4, "runtime: x[rows] = v held more than its value")
+    del rows, v
+    mk = x > 2.5
+    g[mk.larray] = 0.0
+    _, mask_ms, peak = timed_call(lambda: x.__setitem__(mk, 0.0))
+    exact = same_shards(x, g, mesh)
+    print(f"[e2e] runtime x[x > 2.5] = 0 (a full-ndim mask, scalar value): {mask_ms:.4f} ms, peak above x, key and the "
+          f"value on the card {peak} bytes, bitwise equal to torch's {exact} on {card}")
+    check(exact, "runtime: x[mask] = 0 differs from torch's")
+    check(peak <= 512, "runtime: x[mask] = 0 held more than the value's 512-byte block")
+    del mk, g
+    torch.cuda.empty_cache()
+
+    # (d) str of the 5.12 GB array
+    s, str_ms, _ = timed_call(lambda: str(x))
+    moved = ht.printing.last_bytes_moved
+    host = x.numpy()
+    with np.printoptions(precision=4, threshold=1000, edgeitems=3, linewidth=120):
+        body = np.array2string(host)
+    same_str = s == f"DNDarray({body}, dtype=ht.float32, device={x.device}, split=0)"
+    print(f"[e2e] runtime str(x) of ({n},{f}) f32: {str_ms:.4f} ms, {moved} bytes to the host, equal to numpy's "
+          f"array2string of the host copy {same_str} on {card}")
+    check(same_str, "runtime: str(x) differs from numpy's array2string")
+    del host, x, xs
+    torch.cuda.empty_cache()
+
+    # (c) factories at size, each against torch on the card
+    e, eye_ms, eye_peak = timed_call(lambda: ht.eye(RT_EYE, split=0, comm=mesh))
+    ebytes = RT_EYE * RT_EYE * 4
+    ge = torch.eye(RT_EYE, device=dev)
+    eye_ok = same_shards(e, ge, mesh)
+    _, diag_ms, diag_peak = timed_call(lambda: e.fill_diagonal(5.0))
+    ge.diagonal().fill_(5.0)
+    diag_ok = same_shards(e, ge, mesh)
+    print(f"[e2e] runtime eye({RT_EYE}, split=0) f32 ({ebytes / 1e9:.3f} GB): {eye_ms:.4f} ms, peak {eye_peak / 1e9:.4f} GB, "
+          f"bitwise torch.eye {eye_ok}; fill_diagonal {diag_ms:.4f} ms, peak {diag_peak} bytes, bitwise {diag_ok} on {card}")
+    check(eye_ok and diag_ok, "runtime: eye or fill_diagonal differs from torch's")
+    check(eye_peak <= ebytes * 1.001 and diag_peak <= 512, "runtime: eye held more than itself, or fill_diagonal allocated")
+    del e, ge
+    torch.cuda.empty_cache()
+    lin, lin_ms, lin_peak = timed_call(lambda: ht.linspace(0, 1, RT_LIN, split=0, comm=mesh))
+    ref = torch.linspace(0, 1, RT_LIN, dtype=torch.float64, device=dev)
+    eps = torch.finfo(torch.float64).eps
+    lin_err = float((lin.larray - ref).abs().max()) / eps
+    del lin, ref
+    lg, log_ms, _ = timed_call(lambda: ht.logspace(0, 2, RT_LIN // 10, split=0, comm=mesh))
+    ref = torch.pow(10.0, torch.linspace(0, 2, RT_LIN // 10, dtype=torch.float64, device=dev))
+    log_err = float(((lg.larray - ref).abs() / ref).max()) / eps
+    del lg, ref
+    print(f"[e2e] runtime linspace(0, 1, {RT_LIN}, split=0) f64: {lin_ms:.4f} ms, peak {lin_peak / 1e9:.3f} GB, "
+          f"max |d| against torch.linspace {lin_err:.2f} ulps of 1 (tolerance {TOL_LIN_ULPS}); logspace(0, 2, "
+          f"{RT_LIN // 10}) {log_ms:.4f} ms, max relative |d| against 10 ** torch.linspace {log_err:.2f} ulps "
+          f"(tolerance {TOL_LOG_ULPS}) on {card}")
+    check(lin_err <= TOL_LIN_ULPS and log_err <= TOL_LOG_ULPS, "runtime: linspace or logspace off torch's")
+    torch.cuda.empty_cache()
+    like = ht.empty((n, f), split=0, comm=mesh)
+    for name, make, value in [("full", lambda: ht.full((n, f), 2.5, split=0, comm=mesh), 2.5),
+                              ("zeros_like", lambda: ht.zeros_like(like), 0.0),
+                              ("ones_like", lambda: ht.ones_like(like), 1.0),
+                              ("full_like", lambda: ht.full_like(like, 7), 7.0),
+                              ("empty_like", lambda: ht.empty_like(like), None)]:
+        a, a_ms, a_peak = timed_call(make)
+        ok = a.shape == (n, f) and a.split == 0 and a.dtype is ht.float32 and (
+            value is None or all(torch.equal(s, torch.full_like(s, value)) for s in a.shards))
+        print(f"[e2e] runtime {name} ({n},{f}) f32 split 0: {a_ms:.4f} ms, peak {a_peak / 1e9:.3f} GB, "
+              f"{'bitwise torch.full' if value is not None else 'shape and split'} {ok} on {card}")
+        check(ok and a_peak <= n * f * 4 * 1.001, f"runtime: {name} differs or held more than itself")
+        del a
+    del like
+    torch.cuda.empty_cache()
+
+    # (e) every new name on the card and the CPU
+    calls = runtime_card_vs_cpu(ht, dev, card_device)
+    print(f"[e2e] runtime core: {calls} calls of its names on MeshComm({mesh.size}) equal on card and cpu")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2324,6 +2662,9 @@ def main() -> int:
     tr = transport_paths(ht, k7, args.seed, dev, card)
     manipulation_paths(ht, args.seed, dev, card)
 
+    # the runtime core: the data pipeline through K1, assignments through K7
+    rt = runtime_core_paths(ht, k1, k7, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -2331,7 +2672,7 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"] + cb["launches"],
+            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -2342,6 +2683,7 @@ def main() -> int:
             "launches_f32_kmeans": launches,
             "launches_northstar": ns["launches"],
             "launches_cluster_benchmark": cb["launches"],
+            "launches_runtime_core": rt["k1"],
             "max_abs_err_d3": cb["max_abs_err"],
             **{key: cb[key] for key in ("ms_d3", "plain_ms_d3", "library_ms_d3", "bound_ms_d3", "bound_by_d3")},
             "at_d3": f"({4 * CLUSTER_N}, 3) x ({CLUSTER_K}, 3) f32, the cluster benchmark's spherical data",
@@ -2446,7 +2788,9 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/repack.cu",
             "replaces": "heat_tpu/ops/repack.py:75",
-            "launches": tr["launches"],
+            "launches": tr["launches"] + rt["k7"],
+            "launches_transport": tr["launches"],
+            "launches_runtime_core": rt["k7"],
             "max_abs_err": k7_abs,
             "bitwise_equal": k7_equal,
             "ms": k7_times[REPACK_OUT][0],

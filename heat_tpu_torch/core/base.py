@@ -1,6 +1,6 @@
 """Estimator base API (counterpart of heat_tpu/core/base.py):
-scikit-learn-style parameter handling and the clustering and regression
-mixins."""
+scikit-learn-style parameter handling, the classification, clustering,
+regression and transform mixins, and the ``is_*`` predicates."""
 
 from __future__ import annotations
 
@@ -11,7 +11,18 @@ import torch
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "TransformMixin",
+    "is_classifier",
+    "is_clusterer",
+    "is_estimator",
+    "is_regressor",
+    "is_transformer",
+]
 
 
 class BaseEstimator:
@@ -60,6 +71,25 @@ class BaseEstimator:
         return f"{self.__class__.__name__}({params})"
 
 
+class ClassificationMixin:
+    """fit/predict/score for classifiers (heat_tpu/core/base.py:98)."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+    def score(self, x: DNDarray, y: DNDarray, sample_weight=None) -> float:
+        """Mean accuracy of ``predict(x)`` against ``y``."""
+        pred = self.predict(x).larray.reshape(-1)
+        return float((pred == y.larray.reshape(-1).to(pred.device)).double().mean())
+
+
 class ClusteringMixin:
     """fit/fit_predict for clusterers."""
 
@@ -91,3 +121,37 @@ class RegressionMixin:
         ss_res = torch.sum((yv - pred) ** 2)
         ss_tot = torch.sum((yv - torch.mean(yv)) ** 2)
         return float(1.0 - ss_res / ss_tot)
+
+
+class TransformMixin:
+    """fit/transform for transformers (heat_tpu/core/base.py:133)."""
+
+    def fit(self, x: DNDarray):
+        raise NotImplementedError()
+
+    def transform(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+    def fit_transform(self, x: DNDarray) -> DNDarray:
+        self.fit(x)
+        return self.transform(x)
+
+
+def is_estimator(obj: Any) -> bool:
+    return isinstance(obj, BaseEstimator)
+
+
+def is_classifier(obj: Any) -> bool:
+    return is_estimator(obj) and isinstance(obj, ClassificationMixin)
+
+
+def is_clusterer(obj: Any) -> bool:
+    return is_estimator(obj) and isinstance(obj, ClusteringMixin)
+
+
+def is_regressor(obj: Any) -> bool:
+    return is_estimator(obj) and isinstance(obj, RegressionMixin)
+
+
+def is_transformer(obj: Any) -> bool:
+    return is_estimator(obj) and isinstance(obj, TransformMixin)

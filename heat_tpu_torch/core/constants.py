@@ -13,4 +13,10 @@ nan = NAN
 pi = PI
 e = E
 
-__all__ = ["e", "inf", "nan", "pi", "E", "INF", "NAN", "NINF", "PI"]
+Euler = E
+Inf = INF
+Infty = INF
+Infinity = INF
+NaN = NAN
+
+__all__ = ["e", "Euler", "inf", "Inf", "Infty", "Infinity", "nan", "NaN", "pi", "E", "INF", "NAN", "NINF", "PI"]

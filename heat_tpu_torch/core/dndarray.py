@@ -22,14 +22,39 @@ from ..parallel import transport
 from ..parallel.select import distributed_mask_select, distributed_pair_take
 from ..parallel.mesh import MeshComm
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
+
+
+class LocalIndex:
+    """Marker for indexing a shard directly (kept for the names' sake;
+    :attr:`DNDarray.lloc` is the accessor)."""
+
+    def __init__(self, obj):
+        self.obj = obj
+
+
+class _LlocAccessor:
+    """The indexing proxy behind :attr:`DNDarray.lloc`: under the single
+    controller the "local" data is the global array.  Reads return
+    tensors; writes go through :meth:`DNDarray.__setitem__`."""
+
+    def __init__(self, owner: "DNDarray"):
+        self._owner = owner
+
+    def __getitem__(self, key):
+        return self._owner.larray[key]
+
+    def __setitem__(self, key, value):
+        self._owner[key] = value
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """``t`` as a host numpy array.  numpy has no bfloat16 of its own:
     bfloat16 comes back as an ``ml_dtypes.bfloat16`` array of the same
     bits, and ``ml_dtypes`` is imported only here, when one is asked for."""
-    t = t.detach().cpu()
+    # a tensor already on the host is copied: the array's later in-place
+    # writes must not show through an earlier numpy result
+    t = t.detach().cpu() if t.device.type != "cpu" else t.detach().clone()
     if t.dtype != torch.bfloat16:
         return t.numpy()
     try:
@@ -151,14 +176,168 @@ class DNDarray:
     def size(self) -> int:
         return int(np.prod(self.__gshape, dtype=np.int64)) if self.__gshape else 1
 
+    gnumel = size
+
+    @property
+    def lnumel(self) -> int:
+        """Elements of the first position's shard."""
+        return int(np.prod(self.lshape, dtype=np.int64)) if self.lshape else 1
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the global array."""
+        return self.size * self.__dtype.nbytes()
+
+    gnbytes = nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        """Bytes of the first position's shard."""
+        return self.lnumel * self.__dtype.nbytes()
+
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
+    @property
+    def balanced(self) -> bool:
+        """Always true: every array holds the chunk rule's layout."""
+        return True
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        return True
+
+    def balance_(self) -> "DNDarray":
+        """A no-op: the chunk rule's layout is the balanced one."""
+        return self
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
+        """A no-op for the chunk rule's layout, the only one an array holds
+        (heat_tpu/core/dndarray.py:508); any other ``target_map`` raises."""
+        if target_map is not None and not np.array_equal(np.asarray(target_map), self.lshape_map):
+            raise NotImplementedError(
+                "arbitrary lshape maps are not representable; arrays always hold the chunk rule's layout"
+            )
+        return self
+
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        return self.lshape_map
+
+    def counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """(counts, displacements) of the split dimension per position."""
+        if self.__split is None:
+            raise ValueError("Non-distributed DNDarray. Cannot calculate counts and displacements.")
+        counts = tuple(int(row[self.__split]) for row in self.lshape_map)
+        displs = tuple(int(d) for d in np.concatenate(([0], np.cumsum(counts)[:-1])))
+        return counts, displs
+
     def is_distributed(self) -> bool:
         return self.__split is not None and self.__comm.size > 1
 
+    def stride(self) -> Tuple[int, ...]:
+        """Element strides of the global array in C order, as
+        ``torch.Tensor.stride()`` gives them."""
+        strides, acc = [], 1
+        for dim in reversed(self.__gshape):
+            strides.append(acc)
+            acc *= dim
+        return tuple(reversed(strides))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Byte strides of the global array in C order, as numpy's."""
+        return tuple(st * self.__dtype.nbytes() for st in self.stride())
+
+    def copy(self) -> "DNDarray":
+        """A copy: each shard copied where it lies (:func:`memory.copy`)."""
+        from . import memory
+
+        return memory.copy(self)
+
+    def cpu(self) -> "DNDarray":
+        """A copy on the host CPU over one position, keeping the split, as
+        heat_tpu's lands on a one-device CPU mesh."""
+        from .devices import cpu
+
+        t = self.larray
+        t = t.cpu() if t.device.type != "cpu" else t.clone()
+        return DNDarray([t], self.__gshape, self.__dtype, self.__split, cpu, MeshComm(1))
+
+    def tolist(self, keepsplit: bool = False):
+        """The global array as (nested) python lists."""
+        return self.numpy().tolist()
+
+    def transpose(self, axes=None) -> "DNDarray":
+        from .linalg import basics
+
+        return basics.transpose(self, axes)
+
+    @property
+    def lloc(self) -> _LlocAccessor:
+        """Local-shard indexing: under the single controller the "local"
+        view is the global array."""
+        return _LlocAccessor(self)
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Fill the main diagonal of a 2-D array in place and return it:
+        each position writes the diagonal's slice that crosses its shard,
+        which needs no mask or eye."""
+        if self.ndim != 2:
+            raise ValueError("Only 2D tensors supported at the moment")
+        if isinstance(value, (DNDarray, torch.Tensor, np.ndarray)):
+            value = value.item()
+        for r, s in _distinct(self.__shards):
+            if self.__split is None:
+                s.diagonal().fill_(value)
+            else:
+                lo = self.__comm.chunk(self.__gshape, self.__split, rank=r)[0]
+                s.diagonal(offset=lo if self.__split == 0 else -lo).fill_(value)
+        return self
+
+    @property
+    def __partitioned__(self) -> dict:
+        return self.create_partition_interface()
+
+    def create_partition_interface(self) -> dict:
+        """The partition interface (heat_tpu/core/dndarray.py:351): the
+        global shape, the tiling of the split dimension, and per position
+        its start, shape, location, dtype code and data, here the shard
+        tensor itself; ``get(key)`` gives the tensor of a region."""
+        nshards = self.__comm.size if self.__split is not None else 1
+        partitions = {}
+        for r in range(nshards):
+            _, lshape, slices = self.__comm.chunk(self.__gshape, self.__split, rank=r)
+            pos = tuple(r if i == self.__split else 0 for i in range(self.ndim))
+            partitions[pos] = {
+                "start": tuple(sl.start for sl in slices),
+                "shape": lshape,
+                "data": self.__shards[r],
+                "location": [r],
+                "dtype": self.__dtype.char(),
+            }
+        tiling = tuple(nshards if i == self.__split else 1 for i in range(self.ndim))
+        return {
+            "shape": self.__gshape,
+            "partition_tiling": tiling,
+            "partitions": partitions,
+            "locals": list(partitions.keys()),
+            "get": lambda key: self[key].larray if key is not None else None,
+        }
+
     def __repr__(self) -> str:
-        return (
-            f"DNDarray(shape={self.__gshape}, dtype={self.__dtype.__name__}, "
-            f"split={self.__split}, device={self.__device}, comm={self.__comm})"
-        )
+        from . import printing
+
+        return printing.__str__(self)
+
+    __str__ = __repr__
 
     # -------------------------------------------------------------- shards
     def lshards(self) -> List[np.ndarray]:
@@ -213,6 +392,9 @@ class DNDarray:
 
     def __int__(self) -> int:
         return int(self.item())
+
+    def __complex__(self) -> complex:
+        return complex(self.item())
 
     def __bool__(self) -> bool:
         return bool(self.item())
@@ -479,6 +661,226 @@ class DNDarray:
         out_dims = [self.__gshape[d] for d in range(self.ndim) if d not in (split, p2)]
         out_dims.insert(bp, L)
         return DNDarray(shards, tuple(out_dims), self.__dtype, bp, self.__device, comm)
+
+    # ----------------------------------------------------------- assignment
+    def __setitem__(self, key, value) -> None:
+        """Global assignment (heat_tpu/core/dndarray.py:1262): every key
+        form :meth:`__getitem__` takes, a value that is a scalar, a tensor,
+        an ndarray or a DNDarray, cast to this array's dtype and broadcast
+        as numpy does.  Each position writes only into its own shard, in
+        place.  Host integer keys out of bounds raise; device integer keys
+        (tensors, integer DNDarrays) are clamped to the extent, as
+        heat_tpu's are.  Of duplicate indices one write wins, which one is
+        not defined (as in XLA's scatter).
+
+        Routes: a boolean mask on the split dimension (or a full mask of a
+        split-0 array) assigns each position's selected elements the value
+        rows that the exclusive prefix of the per-position counts gives
+        them; basic keys let each position write its intersection with the
+        key; any other key writes, per position, the elements of the
+        broadcast index block that it owns.  A value split along the
+        region's split dimension is never gathered: each position reads
+        the value rows it receives from the value shards that hold them,
+        by K7 (:func:`parallel.transport.rechunk_rows`) where the region's
+        rows lead its layout, straight into the shard where they are
+        contiguous there."""
+        keys = _assign_key(key, self.__gshape)
+        scalar_bools = [k for k in keys if _is_scalar_bool_key(k)]
+        if scalar_bools:
+            if any(_is_array(k) or isinstance(k, DNDarray) for k in keys if not _is_scalar_bool_key(k)):
+                raise IndexError("an assignment cannot mix scalar boolean keys with array keys")
+            if not all(bool(k) for k in scalar_bools):
+                return  # numpy: a False key selects nothing
+            keys = tuple(None if _is_scalar_bool_key(k) else k for k in keys)
+        value = self.__assign_value(value)
+        if not self.__mask_assign(keys, value):
+            self.__put(keys, value)
+
+    def __assign_value(self, value):
+        """The value as a tensor of this array's dtype on its device, or as
+        a DNDarray of that dtype distributed over this mesh; a value that
+        shares memory with this array is copied first."""
+        tdev, tt = self.__shards[0].device, self.__dtype.torch_type()
+        if isinstance(value, DNDarray):
+            if value.is_distributed() and value.comm.size == self.__comm.size:
+                if value.dtype is not self.__dtype:
+                    value = value.astype(self.__dtype)
+                shards = [sh if sh.device == tdev else sh.to(tdev) for sh in value.shards]
+                if any(_shares(sh, self.__shards) for sh in shards):
+                    shards = [sh.clone() for sh in shards]
+                return DNDarray(shards, value.shape, value.dtype, value.split, self.__device, self.__comm)
+            value = value.larray
+        if isinstance(value, np.generic):
+            value = value.item()
+        if isinstance(value, torch.Tensor):
+            t = value.detach().to(device=tdev, dtype=tt)
+        elif isinstance(value, (bool, int, float, complex)):
+            t = torch.tensor(value).to(device=tdev, dtype=tt)
+        else:
+            host = np.asarray(value)
+            if host.dtype.name == "bfloat16":
+                t = torch.from_numpy(host.view(np.int16).copy()).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.ascontiguousarray(host))
+            t = t.to(device=tdev, dtype=tt)
+        return t.clone() if _shares(t, self.__shards) else t
+
+    def __positions(self):
+        """(rank, shard, lo, hi) of each distinct shard: its rows of the
+        split dimension; one entry covering everything when the array is
+        not distributed."""
+        if not self.is_distributed():
+            n = self.__gshape[self.__split] if self.__split is not None else 0
+            return [(0, self.__shards[0], 0, n)]
+        out = []
+        for r, shard in _distinct(self.__shards):
+            lo = self.__comm.chunk(self.__gshape, self.__split, rank=r)[0]
+            out.append((r, shard, lo, lo + shard.shape[self.__split]))
+        return out
+
+    def __mask_assign(self, keys, value) -> bool:
+        """The mask route: one boolean array key, 1-D on the split
+        dimension (every other key a full slice), or covering every
+        dimension of a split-0 array (any split for a one-element value).
+        False when the key is another form."""
+        arrays = [(p, k) for p, k in enumerate(keys) if not (k is None or isinstance(k, (int, slice)))]
+        if len(arrays) != 1 or any(k is None for k in keys):
+            return False
+        p, mask = arrays[0]
+        if not _is_bool_dtype(mask):
+            return False
+        nd = _ndim(mask)
+        if any(k != slice(None) for q, k in enumerate(keys) if q != p):
+            return False
+        distributed = self.is_distributed()
+        split = self.__split
+        flatten = nd == self.ndim > 1
+        scalar = isinstance(value, torch.Tensor) and value.numel() == 1
+        if flatten:
+            if distributed and split != 0 and not scalar:
+                return False
+            if tuple(mask.shape) != self.__gshape:
+                raise IndexError(f"boolean index shape {tuple(mask.shape)} does not match the array's {self.__gshape}")
+            along = split if distributed else 0
+        else:
+            if nd != 1 or (distributed and p != split):
+                return False
+            if tuple(mask.shape)[0] != self.__gshape[p]:
+                raise IndexError(f"boolean index of {tuple(mask.shape)[0]} does not match dimension {p} of {self.__gshape[p]}")
+            along = 0
+        tdev = self.__shards[0].device
+        positions = self.__positions()
+        if distributed and isinstance(mask, DNDarray) and mask.is_distributed() and mask.split == along \
+                and mask.comm.size == self.__comm.size:
+            pieces = {r: mask.shards[r].to(device=tdev) for r, *_ in positions}
+        else:
+            whole = (mask.larray if isinstance(mask, DNDarray) else torch.as_tensor(mask)).to(device=tdev, dtype=torch.bool)
+            pieces = {r: whole.narrow(along, lo, hi - lo) if distributed else whole for r, _, lo, hi in positions}
+        if scalar:
+            fill = value.reshape(())
+            for r, shard, _, _ in positions:
+                m = pieces[r]
+                if not flatten:
+                    m = m.reshape([-1 if d == p else 1 for d in range(self.ndim)])
+                shard.masked_fill_(m, fill)
+            return True
+        counts = torch.stack([pieces[r].sum() for r, *_ in positions]).tolist()  # one host read
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1])).tolist()
+        n_sel = int(sum(counts))
+        full_shape = (n_sel,) if flatten else self.__gshape[:p] + (n_sel,) + self.__gshape[p + 1 :]
+        labels = [("dim", d) for d in range(len(full_shape))]
+        dim = 0 if flatten else p
+        src = _value_source(value, full_shape, labels, labels, labels[dim], ())
+
+        def index(m):
+            return m if flatten else (slice(None),) * p + (m,)
+
+        by_k7 = distributed and dim == 0 and _rows_contiguous(src, full_shape)
+        for i, (r, shard, _, _) in enumerate(positions):
+            if counts[i]:
+                a, b = starts[i], starts[i] + counts[i]
+                shard[index(pieces[r])] = _k7_rows(src, r, a, b, self.__comm) if by_k7 else src.range(a, b)
+        return True
+
+    def __put(self, keys, value) -> None:
+        """Every key but the mask route's: ints, slices, ``None`` and
+        integer arrays (masks as their nonzero indices).  Each position
+        writes what of the region lies in its shard: a slice's run of rows
+        on the split dimension (K7 re-cuts a split value there), an int's
+        one row, or the elements of the broadcast index block it owns."""
+        gshape, split = self.__gshape, self.__split
+        distributed = self.is_distributed()
+        tdev = self.__shards[0].device
+        keys = _bools_to_indices(tuple(k.larray if isinstance(k, DNDarray) else k for k in keys), gshape)
+        comps, in_dim, flips = [], 0, []
+        for k in keys:
+            if k is None:
+                comps.append(None)
+                continue
+            n = gshape[in_dim]
+            if isinstance(k, slice):
+                if k.indices(n)[2] < 0:
+                    flips.append(("dim", in_dim))
+                    k = _positive_step(k, n)
+                comps.append(slice(*k.indices(n)))
+            elif isinstance(k, int):
+                if not -n <= k < n:
+                    raise IndexError(f"index {k} is out of bounds for dimension {in_dim} with size {n}")
+                comps.append(k % n)
+            elif isinstance(k, torch.Tensor):
+                comps.append(_clamp_index(k.to(tdev), n))
+            else:
+                comps.append(torch.from_numpy(_host_index(k, n)).reshape(k.shape).to(tdev))
+            in_dim += 1
+        arrays = [c.shape for c in comps if isinstance(c, torch.Tensor)]
+        block = tuple(np.broadcast_shapes(*arrays)) if arrays else None
+        full_labels, full_shape = _layout(comps, block)
+        core = [c for c in comps if c is not None]
+        core_labels, core_shape = _layout(core, block)
+        # ints of a block as tensors of its shape, so that torch places the
+        # block where numpy does
+        core = [torch.full(block, c, dtype=torch.int64, device=tdev) if block and isinstance(c, int) else c
+                for c in core]
+        kind = [c for c in comps if c is not None][split] if distributed else None
+        if not isinstance(kind, (slice, torch.Tensor)):
+            # replicated, or one int on the split dimension: one writer
+            src = _value_source(value, full_shape, full_labels, core_labels, None, flips)
+            for _, shard, lo, hi in self.__positions():
+                local = list(core)
+                if distributed:
+                    if not lo <= kind < hi:
+                        continue
+                    local[split] = local[split] - lo
+                shard[tuple(local)] = src
+            return
+        if isinstance(kind, slice):
+            src = _value_source(value, full_shape, full_labels, core_labels, ("dim", split), flips)
+            by_k7 = split == 0 and _rows_contiguous(src, core_shape)
+            # whole rows at step 1 lie contiguous in a shard: K7 writes there
+            whole_rows = by_k7 and kind.step == 1 and all(
+                c == slice(0, gshape[d], 1) for d, c in enumerate(core) if d != split)
+            for r, shard, lo, hi in self.__positions():
+                k0, k1, local_rows = _span(kind, lo, hi)
+                if k1 <= k0:
+                    continue
+                if whole_rows and shard.is_contiguous():
+                    _k7_rows(src, r, k0, k1, self.__comm, out=shard[local_rows])
+                    continue
+                local = list(core)
+                local[split] = local_rows
+                shard[tuple(local)] = _k7_rows(src, r, k0, k1, self.__comm) if by_k7 else src.range(k0, k1)
+            return
+        # the split dimension is indexed by an array of the block: merge the
+        # block's dimensions into one, then each position takes its elements
+        src = _value_source(value, full_shape, full_labels, core_labels, ("blk", 0), flips, merge=len(block))
+        flat = [c.expand(block).reshape(-1) if isinstance(c, torch.Tensor) else c for c in core]
+        for _, shard, lo, hi in self.__positions():
+            sel = torch.nonzero((flat[split] >= lo) & (flat[split] < hi)).reshape(-1)
+            if sel.numel() == 0:
+                continue
+            local = [c.index_select(0, sel) if isinstance(c, torch.Tensor) else c for c in flat]
+            local[split] = local[split] - lo
+            shard[tuple(local)] = src.take(sel)
 
     @property
     def T(self) -> "DNDarray":
@@ -761,3 +1163,190 @@ def _advanced_key(key, gshape: Tuple[int, ...], split: Optional[int], device) ->
             raise TypeError(f"a DNDarray cannot be indexed by {type(k)}")
         dim += 1
     return tuple(out), new_split, flips
+
+
+def _distinct(shards: Sequence[torch.Tensor]):
+    """(position, shard) for each distinct tensor object, in position order:
+    a replicated array's one tensor once."""
+    seen = set()
+    for r, t in enumerate(shards):
+        if id(t) not in seen:
+            seen.add(id(t))
+            yield r, t
+
+
+def _shares(t: torch.Tensor, shards: Sequence[torch.Tensor]) -> bool:
+    """Whether ``t`` lies in the memory of one of ``shards``."""
+    if t.numel() == 0:
+        return False
+    ptr = t.untyped_storage().data_ptr()
+    return any(s.numel() and s.untyped_storage().data_ptr() == ptr for s in shards)
+
+
+def _assign_key(key, shape: Tuple[int, ...]) -> tuple:
+    """An assignment key as a tuple over every dimension: ``...`` expanded
+    and trailing dimensions filled with full slices; lists become arrays,
+    numpy scalars and 0-d integer arrays python scalars, integer
+    DNDarrays their tensor; boolean DNDarrays stay (the mask route reads
+    their shards)."""
+    if not isinstance(key, tuple):
+        key = (key,)
+    out = []
+    for k in key:
+        if isinstance(k, DNDarray) and k.dtype is not types.bool:
+            k = k.larray
+        elif isinstance(k, list):
+            k = np.asarray(k)
+        if isinstance(k, np.bool_):
+            k = bool(k)
+        elif isinstance(k, np.integer):
+            k = int(k)
+        elif isinstance(k, (np.ndarray, torch.Tensor)) and k.ndim == 0:
+            if _is_bool_dtype(k):
+                k = bool(k)
+            elif isinstance(k, np.ndarray) and np.issubdtype(k.dtype, np.integer) or \
+                    isinstance(k, torch.Tensor) and _is_int_dtype(k.dtype):
+                k = int(k)
+        ok = k is None or k is Ellipsis or isinstance(k, (bool, int, slice)) or (
+            isinstance(k, (np.ndarray, torch.Tensor, DNDarray)) and (_is_bool_dtype(k) or (
+                np.issubdtype(k.dtype, np.integer) if isinstance(k, np.ndarray) else
+                isinstance(k, torch.Tensor) and _is_int_dtype(k.dtype))))
+        if not ok:
+            raise TypeError(f"a DNDarray cannot be indexed by {type(k)}")
+        out.append(k)
+
+    def consumed(k):
+        if k is None or k is Ellipsis or isinstance(k, bool):
+            return 0
+        return _ndim(k) if _is_bool_array(k) else 1
+
+    n_spec = sum(consumed(k) for k in out)
+    if n_spec > len(shape):
+        raise IndexError(f"too many indices: array is {len(shape)}-D, got {n_spec}")
+    ellipses = [i for i, k in enumerate(out) if k is Ellipsis]
+    if len(ellipses) > 1:
+        raise IndexError("an index can only have a single ellipsis")
+    fill = [slice(None)] * (len(shape) - n_spec)
+    if ellipses:
+        return tuple(out[: ellipses[0]] + fill + out[ellipses[0] + 1 :])
+    return tuple(out + fill)
+
+
+def _k7_rows(src, r: int, a: int, b: int, comm, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rows [a, b) of the split value ``src`` for position ``r``: one K7
+    call (more where more value chunks cover them) into ``out`` or a new
+    piece-sized buffer, so one position's piece exists at a time."""
+    bounds = [(0, 0)] * comm.size
+    bounds[r] = (a, b)
+    outs = [None] * comm.size
+    outs[r] = out
+    return transport.rechunk_rows(src.shards, bounds, comm, out=outs)[r]
+
+
+def _rows_contiguous(src, shape) -> bool:
+    """Whether K7 can move ``src``'s rows: split shards laid along the
+    region's leading dimension, read forwards, each contiguous (no
+    broadcast dimension)."""
+    return (
+        isinstance(src, transport.RowSource) and src.shards is not None and not src.reverse and src.dim == 0
+        and all(s.is_contiguous() and tuple(s.shape[1:]) == tuple(shape[1:]) for s in src.shards)
+    )
+
+
+def _broadcast_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` broadcast to ``shape`` as numpy's assignment does (leading
+    dimensions of extent 1 dropped first); raises ``ValueError``."""
+    shape = tuple(shape)
+    while t.ndim > len(shape) and t.shape[0] == 1:
+        t = t[0]
+    try:
+        return t.broadcast_to(shape)
+    except RuntimeError:
+        raise ValueError(f"could not broadcast input array from shape {tuple(t.shape)} into shape {shape}") from None
+
+
+def _layout(comps, block: Optional[Tuple[int, ...]]):
+    """Labels and extents of the dimensions of ``x[comps]`` by numpy's rule
+    (ints, positive-step slices, ``None`` and integer tensors broadcasting
+    to ``block``): ``("blk", j)`` for the index block (where its arrays and
+    ints stand when they are adjacent, else first), ``("dim", d)`` for a
+    slice of dimension d, ``("new", i)`` for ``None`` at key position i."""
+    adv = [i for i, c in enumerate(comps) if isinstance(c, torch.Tensor) or (block is not None and isinstance(c, int))]
+    adjacent = not adv or adv == list(range(adv[0], adv[-1] + 1))
+    blk = [("blk", j) for j in range(len(block or ()))]
+    labels, ext = ([] if adjacent else list(blk)), ([] if adjacent else list(block))
+    in_dim = 0
+    for i, c in enumerate(comps):
+        if c is None:
+            labels.append(("new", i))
+            ext.append(1)
+            continue
+        if i in adv:
+            if adjacent and i == adv[0]:
+                labels += blk
+                ext += list(block)
+        elif isinstance(c, slice):
+            labels.append(("dim", in_dim))
+            ext.append(len(range(c.start, c.stop, c.step)))
+        in_dim += 1
+    return labels, tuple(ext)
+
+
+def _span(sl: slice, lo: int, hi: int):
+    """(k0, k1, local slice): the entries k0 .. k1 - 1 of the positive-step
+    slice ``sl`` that fall in a position's rows [lo, hi), and where they
+    lie in its shard."""
+    cnt = len(range(sl.start, sl.stop, sl.step))
+    k0 = min(max(0, -(-(lo - sl.start) // sl.step)), cnt)
+    k1 = max(k0, min(max(0, -(-(hi - sl.start) // sl.step)), cnt))
+    return k0, k1, slice(sl.start + sl.step * k0 - lo, sl.start + sl.step * (k1 - 1) - lo + 1, sl.step)
+
+
+def _value_source(value, full_shape, full_labels, core_labels, dim_label, flips, merge: int = 0):
+    """The assigned value laid out for the torch key of an assignment.
+
+    The value broadcasts against the region's full shape (``full_labels``,
+    numpy's layout, ``None`` dimensions included); the torch key writes the
+    ``core_labels`` layout (no ``None`` dimensions, the dimensions of
+    negative-step slices, ``flips``, reversed).  With ``dim_label`` None
+    the result is that tensor; else a :class:`transport.RowSource` along
+    that dimension (``merge`` > 0: the index block's ``merge`` dimensions
+    merged into one).  A DNDarray value is used through its shards when it
+    is, or can be resplit to be, split along that dimension; only other
+    layouts are gathered."""
+    full_shape = tuple(full_shape)
+    nd = len(full_shape)
+    target = full_labels.index(dim_label) if dim_label is not None else None
+
+    def to_core(t, extent=None, flip_dim=True):
+        shape = list(full_shape)
+        if extent is not None:
+            shape[target] = extent
+        t = _broadcast_to(t, shape)
+        for i in reversed(range(nd)):
+            if full_labels[i][0] == "new":
+                t = t.select(i, 0)
+        rest = [lab for lab in full_labels if lab[0] != "new"]
+        t = t.permute([rest.index(lab) for lab in core_labels])
+        fl = [core_labels.index(lab) for lab in flips if flip_dim or lab != dim_label]
+        if fl:
+            t = t.flip(fl)
+        if merge:
+            b0 = core_labels.index(("blk", 0))
+            t = t.reshape(tuple(t.shape[:b0]) + (-1,) + tuple(t.shape[b0 + merge :]))
+        return t
+
+    if isinstance(value, DNDarray):
+        vd = target - (nd - value.ndim) if target is not None else -1
+        if merge <= 1 and 0 <= vd < value.ndim and value.shape[vd] == full_shape[target]:
+            if value.split != vd:
+                value = value.resplit(vd)
+            shards = [to_core(sh, sh.shape[vd], flip_dim=False) for sh in value.shards]
+            return transport.RowSource(core_labels.index(dim_label), full_shape[target], shards=shards,
+                                       reverse=dim_label in flips)
+        value = value.larray
+    t = to_core(value)
+    if dim_label is None:
+        return t
+    dim = core_labels.index(dim_label)
+    return transport.RowSource(dim, t.shape[dim], tensor=t)

@@ -7,7 +7,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape", "sanitize_slice"]
 
 
 def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -18,6 +18,14 @@ def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple
         raise ValueError(
             f"operands could not be broadcast, input shapes {tuple(shape_a)} {tuple(shape_b)}"
         )
+
+
+def broadcast_shapes(*shapes: Tuple[int, ...]) -> Tuple[int, ...]:
+    """NumPy broadcast shape of any number of shapes; raises ``ValueError``."""
+    try:
+        return tuple(np.broadcast_shapes(*[tuple(s) for s in shapes]))
+    except ValueError:
+        raise ValueError(f"operands could not be broadcast, input shapes {shapes}")
 
 
 def sanitize_axis(
@@ -57,6 +65,14 @@ def sanitize_shape(shape, lval: int = 0) -> Tuple[int, ...]:
         if dim < lval:
             raise ValueError(f"negative dimensions are not allowed, got {dim}")
     return shape
+
+
+def sanitize_slice(sl: slice, max_dim: int) -> slice:
+    """``sl`` with start, stop and step resolved against an extent
+    ``max_dim`` (``slice.indices``)."""
+    if not isinstance(sl, slice):
+        raise TypeError("can only be used for slices")
+    return slice(*sl.indices(max_dim))
 
 
 def sanitize_axes_for_reduction(shape: Tuple[int, ...], axis) -> Tuple[Tuple[int, ...], bool]:

@@ -26,27 +26,44 @@ __all__ = [
     "unsignedinteger",
     "floating",
     "complexfloating",
+    "complex",
     "int8",
+    "byte",
     "int16",
+    "short",
     "int32",
     "int",
     "int64",
     "long",
     "uint8",
+    "ubyte",
     "float16",
     "half",
     "bfloat16",
     "float32",
     "float",
+    "float_",
     "float64",
     "double",
     "complex64",
+    "cfloat",
+    "csingle",
     "complex128",
+    "cdouble",
+    "flexible",
     "canonical_heat_type",
+    "heat_type_is_exact",
+    "heat_type_is_inexact",
+    "heat_type_is_complexfloating",
     "heat_type_of",
     "issubdtype",
+    "can_cast",
     "promote_types",
     "result_type",
+    "iscomplex",
+    "isreal",
+    "finfo",
+    "iinfo",
 ]
 
 
@@ -114,16 +131,26 @@ class complexfloating(number):
     """Abstract complex."""
 
 
+class flexible(datatype):
+    """Abstract non-numeric type (kept for the names' sake)."""
+
+
 class int8(signedinteger):
     _torch_type = torch.int8
     _char = "i1"
     _nbytes = 1
 
 
+byte = int8
+
+
 class int16(signedinteger):
     _torch_type = torch.int16
     _char = "i2"
     _nbytes = 2
+
+
+short = int16
 
 
 class int32(signedinteger):
@@ -150,6 +177,9 @@ class uint8(unsignedinteger):
     _nbytes = 1
 
 
+ubyte = uint8
+
+
 class float16(floating):
     _torch_type = torch.float16
     _char = "f2"
@@ -172,6 +202,7 @@ class float32(floating):
 
 
 float = float32
+float_ = float32
 
 
 class float64(floating):
@@ -189,10 +220,19 @@ class complex64(complexfloating):
     _nbytes = 8
 
 
+cfloat = complex64
+csingle = complex64
+
+
 class complex128(complexfloating):
     _torch_type = torch.complex128
     _char = "c16"
     _nbytes = 16
+
+
+cdouble = complex128
+# heat_tpu names the abstract complex class ``complex`` too
+complex = complexfloating
 
 
 # ----------------------------------------------------------------- mappings
@@ -288,6 +328,20 @@ def heat_type_of(obj: Any) -> Type[datatype]:
     raise TypeError(f"cannot infer heat type of {type(obj)}")
 
 
+def heat_type_is_exact(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True for the integer types and bool."""
+    return issubclass(ht_dtype, integer) or ht_dtype is bool
+
+
+def heat_type_is_inexact(ht_dtype: Type[datatype]) -> builtins.bool:
+    """True for the floating and complex types."""
+    return issubclass(ht_dtype, (floating, complexfloating))
+
+
+def heat_type_is_complexfloating(ht_dtype: Type[datatype]) -> builtins.bool:
+    return issubclass(ht_dtype, complexfloating)
+
+
 def issubdtype(arg1: Any, arg2: Any) -> builtins.bool:
     """NumPy-style subtype check over the lattice."""
     if not (isinstance(arg1, type) and issubclass(arg1, datatype)):
@@ -375,3 +429,114 @@ def result_type(*operands: Any) -> Type[datatype]:
         t2, p2 = classify(op)
         t, p = combine(t2, p2, t, p)
     return t
+
+
+# numpy's cast rules over the lattice; numpy has no bfloat16, so its pairs
+# follow the table that ml_dtypes registers with numpy (heat_tpu asks numpy
+# with ml_dtypes' type)
+_NP_OF = {
+    bool: np.dtype(np.bool_), int8: np.dtype(np.int8), int16: np.dtype(np.int16), int32: np.dtype(np.int32),
+    int64: np.dtype(np.int64), uint8: np.dtype(np.uint8), float16: np.dtype(np.float16),
+    float32: np.dtype(np.float32), float64: np.dtype(np.float64), complex64: np.dtype(np.complex64),
+    complex128: np.dtype(np.complex128),
+}
+_BF16_WIDER = (bfloat16, float32, float64, complex64, complex128)
+_BF16_CASTS = {  # casting -> (types that cast to bfloat16, types bfloat16 casts to)
+    "no": ((bfloat16,), (bfloat16,)),
+    "equiv": ((bfloat16,), (bfloat16,)),
+    "safe": ((bool, int8, uint8, bfloat16), _BF16_WIDER),
+    "same_kind": (None, _BF16_WIDER),
+    "unsafe": (None, None),
+}
+
+
+def _np_can_cast(a: Type[datatype], b: Type[datatype], casting: str) -> builtins.bool:
+    if bfloat16 not in (a, b):
+        return builtins.bool(np.can_cast(_NP_OF[a], _NP_OF[b], casting=casting))
+    if casting not in _BF16_CASTS:
+        raise ValueError(f"casting must be one of 'no', 'equiv', 'safe', 'same_kind' or 'unsafe', got {casting!r}")
+    into, outof = _BF16_CASTS[casting]
+    allowed = into if b is bfloat16 else outof
+    return allowed is None or (a if b is bfloat16 else b) in allowed
+
+
+def can_cast(from_: Any, to: Any, casting: str = "intuitive") -> builtins.bool:
+    """Whether ``from_`` (a type, or a scalar or array whose type is taken)
+    casts to ``to`` under ``casting``: numpy's ``"no"``, ``"equiv"``,
+    ``"safe"``, ``"same_kind"``, ``"unsafe"``, or the default
+    ``"intuitive"``: what ``"safe"`` allows plus an integer to a float or
+    complex type of at least its bit length (int32 to float32)."""
+    if not isinstance(from_, type):
+        try:
+            from_ = heat_type_of(from_)
+        except TypeError:
+            from_ = canonical_heat_type(from_)
+    else:
+        from_ = canonical_heat_type(from_)
+    to = canonical_heat_type(to)
+    if casting == "intuitive":
+        if _np_can_cast(from_, to, "safe"):
+            return True
+        to_bits = to.nbytes() // 2 if _cast_kind(to) == "c" else to.nbytes()
+        return _cast_kind(from_) in ("u", "i") and _cast_kind(to) in ("f", "c") and to_bits >= from_.nbytes()
+    return _np_can_cast(from_, to, casting)
+
+
+def iscomplex(x):
+    """Elementwise: True where the imaginary part is nonzero (False for
+    every element of a real array)."""
+    from . import _operations
+
+    return _operations._local_op(
+        lambda t: t.imag != 0 if t.is_complex() else torch.zeros_like(t, dtype=torch.bool), x, no_cast=True
+    )
+
+
+def isreal(x):
+    """Elementwise: True where the imaginary part is zero (True for every
+    element of a real array)."""
+    from . import _operations
+
+    return _operations._local_op(
+        lambda t: t.imag == 0 if t.is_complex() else torch.ones_like(t, dtype=torch.bool), x, no_cast=True
+    )
+
+
+class finfo:
+    """Machine limits of a floating type: ``bits``, ``eps``, ``max``,
+    ``min``, ``tiny`` and ``resolution`` as python numbers; a complex type
+    gives those of its parts.  Read from ``torch.finfo``, which knows
+    bfloat16 too."""
+
+    def __new__(cls, ht_dtype):
+        ht_dtype = canonical_heat_type(ht_dtype)
+        if not issubclass(ht_dtype, (floating, complexfloating)):
+            raise TypeError(f"data type {ht_dtype} not inexact")
+        tt = {complex64: torch.float32, complex128: torch.float64}.get(ht_dtype, ht_dtype.torch_type())
+        info = torch.finfo(tt)
+        obj = object.__new__(cls)
+        obj.bits = info.bits
+        obj.eps = builtins.float(info.eps)
+        obj.max = builtins.float(info.max)
+        obj.min = builtins.float(info.min)
+        obj.tiny = builtins.float(info.tiny)
+        # numpy's resolution is 10 ** -precision rounded to the type
+        obj.resolution = builtins.float(torch.tensor(info.resolution, dtype=tt).item())
+        return obj
+
+
+class iinfo:
+    """Machine limits of an integer type (or bool): ``bits``, ``max`` and
+    ``min`` as python ints."""
+
+    def __new__(cls, ht_dtype):
+        ht_dtype = canonical_heat_type(ht_dtype)
+        if not issubclass(ht_dtype, integer) and ht_dtype is not bool:
+            raise TypeError(f"data type {ht_dtype} not integral")
+        obj = object.__new__(cls)
+        if ht_dtype is bool:
+            obj.bits, obj.max, obj.min = 8, 1, 0
+        else:
+            info = torch.iinfo(ht_dtype.torch_type())
+            obj.bits, obj.max, obj.min = info.bits, builtins.int(info.max), builtins.int(info.min)
+        return obj

@@ -9,7 +9,9 @@ cover it and written in its final shape, bit for bit.
 
 :func:`repack_segments` lays ``(src, start, length)`` segments of contiguous
 1-D tensors end to end and returns them as a new contiguous tensor of
-``shape_out``; :func:`repack` is the one-segment case, the JAX signature.
+``shape_out``, or writes them into ``out=``, a contiguous tensor such as a
+row range of a shard (the assignment routes of ``DNDarray.__setitem__``);
+:func:`repack` is the one-segment case, the JAX signature.
 For tensors on the card they launch the hand-written CUDA kernel in
 ``csrc/repack.cu`` (a raw byte copy, so every dtype is exact); for tensors
 on the CPU they compute :func:`reference_repack_segments`, ``torch.cat``
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -46,14 +48,21 @@ def _shape(shape_out) -> Tuple[int, ...]:
     return tuple(int(d) for d in shape_out)
 
 
-def reference_repack_segments(segments: Sequence[Segment], shape_out) -> torch.Tensor:
+def reference_repack_segments(segments: Sequence[Segment], shape_out, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: ``torch.cat`` of the segments, then
-    ``.reshape(shape_out).clone()``."""
+    ``.reshape(shape_out).clone()``; with ``out``, each segment copied into
+    its place there."""
     shape_out = _shape(shape_out)
     parts = [src.narrow(0, int(start), int(length)) for src, start, length in segments]
     if not parts:
         raise ValueError("repack needs at least one segment")
-    return torch.cat(parts).reshape(shape_out).clone()
+    if out is None:
+        return torch.cat(parts).reshape(shape_out).clone()
+    flat, at = out.view(-1), 0
+    for p in parts:
+        flat.narrow(0, at, p.numel()).copy_(p)
+        at += p.numel()
+    return out
 
 
 def reference_repack(flat: torch.Tensor, shape_out) -> torch.Tensor:
@@ -72,6 +81,13 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _check_out(out: torch.Tensor, segments: Sequence[Segment], shape_out: Tuple[int, ...]):
+    if not out.is_contiguous():
+        raise ValueError("repack's out must be contiguous")
+    if out.dtype != segments[0][0].dtype or tuple(out.shape) != shape_out:
+        raise ValueError(f"repack's out is {out.dtype} {tuple(out.shape)}, the segments fill {segments[0][0].dtype} {shape_out}")
 
 
 def _check(segments: Sequence[Segment], shape_out: Tuple[int, ...]):
@@ -94,10 +110,12 @@ def _check(segments: Sequence[Segment], shape_out: Tuple[int, ...]):
         raise ValueError(f"segments of {total} elements cannot fill shape {shape_out}")
 
 
-def repack_segments(segments: Sequence[Segment], shape_out) -> torch.Tensor:
+def repack_segments(segments: Sequence[Segment], shape_out, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The segments ``(src, start, length)`` (contiguous 1-D tensors of one
     dtype, on one device) laid end to end, as a new contiguous tensor of
-    ``shape_out``, bit for bit.
+    ``shape_out``, bit for bit, or written into ``out`` (contiguous, of
+    that shape and dtype, on that device; it must not overlap a source),
+    which is returned.
 
     On the card: one launch, at most :data:`MAX_SEGMENTS` non-empty
     segments; zero-length segments are dropped and a zero-element result
@@ -105,16 +123,19 @@ def repack_segments(segments: Sequence[Segment], shape_out) -> torch.Tensor:
     global launches, calls
     shape_out = _shape(shape_out)
     _check(segments, shape_out)
+    if out is not None:
+        _check_out(out, segments, shape_out)
     calls += 1
-    if all(src.device.type == "cpu" for src, _, _ in segments):
-        return reference_repack_segments(segments, shape_out)
+    if all(src.device.type == "cpu" for src, _, _ in segments) and (out is None or out.device.type == "cpu"):
+        return reference_repack_segments(segments, shape_out, out)
     dev = segments[0][0].device
-    if dev.type != "cuda" or any(src.device != dev for src, _, _ in segments):
+    if dev.type != "cuda" or any(src.device != dev for src, _, _ in segments) or (out is not None and out.device != dev):
         raise ValueError(f"repack needs its segments on one CUDA device, got {sorted({str(s.device) for s, _, _ in segments})}")
     live = [(src, int(start), int(length)) for src, start, length in segments if int(length) > 0]
     if len(live) > MAX_SEGMENTS:
         raise ValueError(f"the repack kernel takes at most {MAX_SEGMENTS} segments, got {len(live)}")
-    out = torch.empty(shape_out, dtype=segments[0][0].dtype, device=dev)
+    if out is None:
+        out = torch.empty(shape_out, dtype=segments[0][0].dtype, device=dev)
     if not live:
         return out
     item = out.element_size()

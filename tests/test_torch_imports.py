@@ -3,7 +3,7 @@ anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
 KMeans fit, QR, Lasso fit, sparse product, sparse Spectral fit, the
 TransformerLM forward (dense and sequence-parallel), ``pallas_matmul`` and
 the transport engine (a split-crossing reshape, resplit, a mask getitem and
-an int-array take); a scan of every import statement in the port backs it
+an int-array take), one split assignment and one ``shuffle_rows``; a scan of every import statement in the port backs it
 up."""
 
 import ast
@@ -49,6 +49,11 @@ assert ht.resplit(x, 1).split == 1 and x.split == 0
 assert np.array_equal(x[x.larray[:, 0] > 0].numpy(), x.numpy()[x.numpy()[:, 0] > 0])
 assert np.array_equal(x[np.array([39, 0, 7])].numpy(), x.numpy()[[39, 0, 7]])
 assert ht.ops.repack.calls > 0
+w = ht.zeros((40, 3), split=0, comm=x.comm)
+w[5:25] = x[10:30]
+assert np.array_equal(w.numpy()[5:25], x.numpy()[10:30])
+xs, labels = ht.random.shuffle_rows([x, ht.arange(40, split=0, comm=x.comm)])
+assert np.array_equal(xs.numpy(), x.numpy()[labels.numpy()])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """
