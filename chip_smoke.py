@@ -1,7 +1,9 @@
 """Drive heat_tpu_torch's KMeans, KMedians/KMedoids (the repo's cluster
 benchmark), QR, Lasso, sparse Spectral, TransformerLM, transport
-(reshape, resplit, advanced getitem) and runtime-core (assignment, random,
-factories, printing) paths on one CUDA card and check them.
+(reshape, resplit, advanced getitem), runtime-core (assignment, random,
+factories, printing) and linear-algebra and classifier (KNN, GaussianNB,
+svd, det/inv, convolve, pad, tiles) paths on one CUDA card and check
+them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -51,7 +53,17 @@ labels, mask assignments of ``randn`` draws, ``shuffle_rows``, a KMeans
 fit through K1), assignments across position bounds (a split value
 re-cut by K7 into the shards, an integer put, a full mask), the
 factories at size, ``str`` and one call of each new name on card and
-CPU; each with
+CPU; and over ``MeshComm(4)`` linear algebra and the classifiers:
+``KNeighborsClassifier(5)`` on the served benchmark's 65536 x 64 corpus
+(benchmarks/cb/config.py:211-212, quantize.py:157-170; K1 at its blocks,
+a batch of 65536 split queries, 128 replicated requests of 1-8 rows,
+each label against a float64 top-5 vote), ``GaussianNB`` on the 2e7 x 64
+blobs (fit, predict, predict_proba, four partial fits), ``svd`` at
+1e6 x 128 (TSQR) and 2048^2, ``det``/``inv`` at 2048^2 split 0, split 1
+(the elimination) and replicated (LU), ``convolve`` of 1e8 samples with a
+1025-tap filter in three modes against a float64 FFT, five ``pad`` modes
+along the split axis of the 2e7 x 64 blobs, and the tiles of 2048^2;
+each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before that
@@ -779,10 +791,11 @@ def cluster_benchmark_paths(ht, k1, seed: int, dev, card: str) -> dict:
           f"within 4 f32 ulps, sums within 1e-5, the rest bitwise)")
     return out
 
-def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0):
+def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0, return_labels: bool = False):
     """Gaussian blobs (sigma 1) around k centres drawn at ``scale`` (at 300
     and dim 64 every pair of centres lies ~3400 apart); made on the card
-    from ``seed``."""
+    from ``seed``.  ``(x, centres)``, and the labels with
+    ``return_labels``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     centres = scale * torch.randn(k, dim, generator=gen, device=dev)
     labels = torch.randint(0, k, (rows,), generator=gen, device=dev)
@@ -790,7 +803,7 @@ def make_blobs(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300.0
     step = 1 << 20
     for s in range(0, rows, step):
         x[s : s + step] += centres[labels[s : s + step]]
-    return x, centres
+    return (x, centres, labels) if return_labels else (x, centres)
 
 
 def bound(nbytes: float, flops: float):
@@ -2017,6 +2030,430 @@ def runtime_core_paths(ht, k1, k7, seed: int, dev, card: str, card_device: str =
     return out
 
 
+# ------------------------------------------- linear algebra and classifiers
+# (a) KNN at the served benchmark's shape (benchmarks/cb/config.py:211-212,
+# benchmarks/cb/quantize.py:157-170); (b) GaussianNB at the Lloyd shape
+# (config.py:159-162); (c) svd (config.py:152-153); (d) det and inv at
+# 2048^2; (e) convolve, pad modes and tiles
+KNN_N, KNN_F, KNN_K, KNN_REQS = 65_536, 64, 5, 128
+KNN_PEAK_GATE = 1.1 * 4 * KNN_N * KNN_N  # the distance matrix + 10%
+GNB_K = 8
+GNB_PEAK_GATE = 4.0 * ROWS * GNB_K * 64  # one (n, c, f) f32 buffer
+SVD_SHAPES = [((1_000_000, 128), 0), ((2048, 2048), None)]
+DET_N = 2048
+CONV_N, CONV_K = 100_000_000, 1025
+PAD_WIDTH = (1000, 2500)
+PAD_MODES = ("reflect", "symmetric", "edge", "wrap", "linear_ramp")
+TILE_N = 2048
+
+
+def knn_reference(q: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, k: int):
+    """Plain float64 k-NN on the card (the host would take minutes at 65536^2):
+    the majority of the k nearest binary labels, and whether the k-th and
+    (k+1)-th squared distances differ by more than K1's bound
+    1e-5 (|q|^2 + |y|^2)."""
+    x64 = x.double()
+    x2 = (x64 * x64).sum(1)
+    out, clear = [], []
+    for lo in range(0, q.shape[0], 2048):
+        qb = q[lo : lo + 2048].double()
+        q2 = (qb * qb).sum(1)
+        d = q2[:, None] + x2[None, :] - 2.0 * (qb @ x64.T)
+        v, i = torch.topk(d, k + 1, dim=1, largest=False, sorted=True)
+        votes = labels[i[:, :k]].sum(1)
+        out.append((2 * votes > k).to(labels.dtype))
+        bound = 1e-5 * (q2 + torch.maximum(x2[i[:, k - 1]], x2[i[:, k]]))
+        clear.append((v[:, k] - v[:, k - 1]) > bound)
+        del d
+    return torch.cat(out), torch.cat(clear)
+
+
+def kernel_count(fn) -> int:
+    """CUDA kernels (and copies) ``fn`` launches, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def host_syncs(fn) -> list:
+    """Calls in ``fn`` that wait for the card (reads of a tensor value by
+    the host and the like), from torch.cuda's sync debug mode: the
+    ``file:line`` of each."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature ...") is not a sync
+    return [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
+    """(a) KNeighborsClassifier(5) fitted on 65536 x 64 f32 at split 0 over
+    MeshComm(4): one predict of 65536 fresh split-0 queries (a K1 launch a
+    position against the gathered corpus, then the top-k and the vote), and
+    the benchmark's 128 served requests of 1-8 replicated rows (column-split
+    distances, candidates merged)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    X = torch.randn(KNN_N, KNN_F, generator=gen, device=dev)
+    labels = (X[:, 0] > 0).to(torch.int32)
+    Q = torch.randn(KNN_N, KNN_F, generator=gen, device=dev)
+    n_pos = mesh.size
+    # K1 at the shapes this path gives it, against its plain version
+    rows = KNN_N // n_pos
+    for name, a in (("knn batch block", Q[:rows]), ("knn request", Q[:8])):
+        b = X if a.shape[0] == rows else X[:rows]
+        abs_err, rel = compare_cdist(k1, a, b, True)
+        print(f"[check] cdist {name} {tuple(a.shape)}x{tuple(b.shape)} sqrt=True: max_abs_err={abs_err:.3e} "
+              f"max_rel_err={rel:.3e}")
+        check(rel <= TOL, f"cdist {name}: relative error {rel:.3e} > {TOL}")
+    t_k = time_ms(lambda: k1.cdist(Q[:rows], X, sqrt=True), reps=10)
+    t_p = time_ms(lambda: k1.reference_cdist(Q[:rows], X, sqrt=True), reps=3)
+    t_l = time_ms(lambda: torch.cdist(Q[:rows], X), reps=3)
+    nbytes = 4.0 * (rows * KNN_F + KNN_N * KNN_F + rows * KNN_N)
+    flops = 2.0 * rows * KNN_N * KNN_F + 2.0 * (rows + KNN_N) * KNN_F + 4.0 * rows * KNN_N
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[time] cdist knn block ({rows},{KNN_F})x({KNN_N},{KNN_F}) sqrt: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+          f"library_ms={t_l:.4f} (torch.cdist) bound_ms={b_ms:.4f} ({b_by}) on {card}")
+    out = dict(ms_knn=t_k, plain_ms_knn=t_p, library_ms_knn=t_l, bound_ms_knn=b_ms, bound_by_knn=b_by)
+    torch.cuda.empty_cache()
+
+    x_ht = ht.array(X, split=0, comm=mesh, copy=False)
+    model = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(x_ht, ht.array(labels, split=0, comm=mesh, copy=False))
+    q_ht = ht.array(Q, split=0, comm=mesh, copy=False)
+    model.predict(ht.array(Q[:4096], split=0, comm=mesh, copy=False))  # warm-up
+    k1.launches = 0
+    pred, ms, peak = timed_call(lambda: model.predict(q_ht))
+    launches = k1.launches
+    got = pred.larray
+    again = model.predict(q_ht).larray
+    rows_t = trace("knn batch predict", lambda: model.predict(q_ht), 1)
+    kinds = {"K1": 0.0, "top-k": 0.0, "vote and rest": 0.0}
+    for us, _, name in rows_t:
+        kind = ("K1" if "cdist" in name else "top-k" if any(t in name.lower() for t in ("topk", "sort", "radix", "select"))
+                else "vote and rest")
+        kinds[kind] += us / 1e3
+    print("[trace] knn batch predict by kind: " + ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.items()))
+    want, clear = knn_reference(Q, X, labels, KNN_K)
+    agree = bool(torch.equal(got[clear], want[clear]))
+    share = float(clear.float().mean())
+    print(f"[e2e] knn predict of ({KNN_N},{KNN_F}) split 0 against ({KNN_N},{KNN_F}) over MeshComm({n_pos}), k={KNN_K}: "
+          f"{ms:.4f} ms, cdist launches {launches} (expected {n_pos}), peak above corpus and queries "
+          f"{peak / 1e9:.3f} GB (gate {KNN_PEAK_GATE / 1e9:.2f}), labels equal the f64 top-{KNN_K} vote on the "
+          f"{share:.5f} of queries with a clear 5th/6th gap {agree}, rerun bitwise {torch.equal(got, again)} on {card}")
+    check(launches == n_pos, f"knn: cdist launches {launches} != {n_pos}")
+    check(peak <= KNN_PEAK_GATE, "knn: predict held more than the distance matrix + 10%")
+    check(agree and share > 0.99 and torch.equal(got, again), "knn: batch labels differ from the f64 vote")
+    out.update(batch_ms=ms, batch_peak=peak, k1=launches, trace=kinds)
+    del pred, got, again, want, clear
+    torch.cuda.empty_cache()
+
+    # the served requests: 1-8 replicated rows each (the benchmark's mix)
+    rng = np.random.default_rng(seed + 15)
+    sizes = [int(r) for r in rng.integers(1, 9, size=KNN_REQS)]
+    reqs = [torch.randn(r, KNN_F, generator=gen, device=dev) for r in sizes]
+    model.predict(ht.array(reqs[0], comm=mesh, copy=False))
+    times, per_req, answers = [], [], []
+    for r in reqs:
+        k1.launches = 0
+        res, t_ms, _ = timed_call(lambda: model.predict(ht.array(r, comm=mesh, copy=False)))
+        times.append(t_ms)
+        per_req.append(k1.launches)
+        answers.append(res.larray)
+    want, clear = knn_reference(torch.cat(reqs), X, labels, KNN_K)
+    got = torch.cat(answers)
+    agree = bool(torch.equal(got[clear], want[clear]))
+    med, p99 = float(np.median(times)), float(np.percentile(times, 99))
+    print(f"[e2e] knn served: {KNN_REQS} requests of 1-8 replicated rows ({sum(sizes)} rows): median {med:.4f} ms, "
+          f"p99 {p99:.4f} ms per request, cdist launches per request {sorted(set(per_req))} (expected [{n_pos}]), "
+          f"labels equal the f64 vote on {float(clear.float().mean()):.4f} of rows with a clear gap {agree} on {card}")
+    check(set(per_req) == {n_pos} and agree, "knn: served labels or launches differ")
+    out.update(served_median_ms=med, served_p99_ms=p99, k1=out["k1"] + sum(per_req))
+
+    # small input on the card and on the CPU
+    xs, ys, qs = X[:4096], labels[:4096], Q[:512]
+    a = ht.classification.KNeighborsClassifier(KNN_K).fit(ht.array(xs, split=0, comm=mesh), ht.array(ys, split=0, comm=mesh))
+    b = ht.classification.KNeighborsClassifier(KNN_K).fit(ht.array(xs.cpu(), split=0, comm=mesh, device="cpu"),
+                                                          ht.array(ys.cpu(), split=0, comm=mesh, device="cpu"))
+    _, clear_s = knn_reference(qs, xs, ys, KNN_K)
+    k1.launches = 0
+    la = a.predict(ht.array(qs, split=0, comm=mesh)).larray.cpu()
+    small_launches = k1.launches  # a comparison: not counted with the path's launches
+    lb = b.predict(ht.array(qs.cpu(), split=0, comm=mesh, device="cpu")).larray
+    same = bool(torch.equal(la[clear_s.cpu()], lb[clear_s.cpu()]))
+    print(f"[e2e] knn small (4096 x 64, 512 queries) card vs cpu: labels equal where the gap is clear {same}, "
+          f"cdist launches on the card {small_launches} (expected {n_pos})")
+    check(same and small_launches == n_pos, "knn: card and CPU differ, or the card's predict missed K1")
+    del X, Q, x_ht, q_ht, model, reqs
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnb_paths(ht, seed: int, dev, card: str, mesh) -> dict:
+    """(b) GaussianNB on phase 5's eight blobs, 2e7 x 64 f32 at split 0 over
+    MeshComm(4): fit, predict and predict_proba with their peaks; the fitted
+    moments against the generating ones; four partial fits against one
+    fit; a 1e4-row subset on the card and on the CPU."""
+    x, centres, labels = make_blobs(ROWS, 64, GNB_K, seed, dev, return_labels=True)
+    x_ht = ht.array(x, split=0, comm=mesh, copy=False)
+    y_ht = ht.array(labels, split=0, comm=mesh, copy=False)
+    warm = ht.array(x[:65536], split=0, comm=mesh, copy=False)
+    ht.naive_bayes.GaussianNB().fit(warm, ht.array(labels[:65536], split=0, comm=mesh, copy=False)).predict_proba(warm)
+    model = ht.naive_bayes.GaussianNB()
+    _, fit_ms, fit_peak = timed_call(lambda: model.fit(x_ht, y_ht))
+    pred, first_ms, pred_peak = timed_call(lambda: model.predict(x_ht))
+    pred, pred_ms, _ = timed_call(lambda: model.predict(x_ht))
+    proba, proba_ms, proba_peak = timed_call(lambda: model.predict_proba(x_ht))
+    theta_err = float((model.theta_.larray - centres).abs().max())
+    var_err = float((model.var_.larray - 1).abs().max())
+    wrong = int((pred.larray != labels).sum())
+    rows_ok = bool(torch.allclose(proba.larray.sum(1), torch.ones(1, device=dev), atol=1e-5))
+    print(f"[e2e] gaussiannb ({ROWS},64) f32, {GNB_K} classes, split 0 over MeshComm({mesh.size}): fit {fit_ms:.4f} ms "
+          f"(peak above the input {fit_peak / 1e9:.3f} GB), predict {pred_ms:.4f} ms (first call {first_ms:.4f}; "
+          f"{pred_peak / 1e9:.3f} GB), "
+          f"predict_proba {proba_ms:.4f} ms ({proba_peak / 1e9:.3f} GB; gate {GNB_PEAK_GATE / 1e9:.2f}), |theta - centres| "
+          f"{theta_err:.4f}, |var - 1| {var_err:.4f} (tolerance 0.05), labels off the generating ones {wrong}, "
+          f"probabilities sum to 1 {rows_ok}, epsilon_ {model.epsilon_:.6g} on {card}")
+    check(theta_err <= 0.05 and var_err <= 0.05, "gaussiannb: moments off the generating ones")
+    check(max(fit_peak, pred_peak, proba_peak) < GNB_PEAK_GATE, "gaussiannb: a call held an (n, c, f) buffer")
+    check(wrong == 0 and rows_ok, "gaussiannb: labels off the generating blobs")
+    del pred, proba
+    inc = ht.naive_bayes.GaussianNB()
+    step = ROWS // 4
+    for lo in range(0, ROWS, step):
+        inc.partial_fit(ht.array(x[lo : lo + step], split=0, comm=mesh, copy=False),
+                        ht.array(labels[lo : lo + step], split=0, comm=mesh, copy=False), classes=np.arange(GNB_K))
+    th = float(((inc.theta_.larray - model.theta_.larray).abs() / model.theta_.larray.abs().clamp_min(1e-30)).max())
+    va = float(((inc.var_.larray - model.var_.larray).abs() / model.var_.larray).max())
+    print(f"[e2e] gaussiannb partial_fit over 4 row batches vs fit: theta max relative {th:.3e} (tolerance 1e-4), "
+          f"var {va:.3e} (tolerance 1e-3)")
+    check(th <= 1e-4 and va <= 1e-3, "gaussiannb: partial fits differ from one fit")
+    again = model.predict(x_ht).larray
+    check(torch.equal(again, labels), "gaussiannb: predict rerun differs")
+    # a 1e4-row subset on the card and on the CPU
+    xs, ys = x[:10_000], labels[:10_000]
+    a = ht.naive_bayes.GaussianNB().fit(ht.array(xs, split=0, comm=mesh), ht.array(ys, split=0, comm=mesh))
+    b = ht.naive_bayes.GaussianNB().fit(ht.array(xs.cpu(), split=0, comm=mesh, device="cpu"),
+                                        ht.array(ys.cpu(), split=0, comm=mesh, device="cpu"))
+    la = a.predict_log_proba(ht.array(xs, split=0, comm=mesh)).larray.cpu()
+    lb = b.predict_log_proba(ht.array(xs.cpu(), split=0, comm=mesh, device="cpu")).larray
+    err = float(((la - lb).abs() / (lb.abs() + 1.0)).max())
+    print(f"[e2e] gaussiannb 1e4-row subset card vs cpu: predict_log_proba max |d|/(|lp|+1) {err:.3e} (tolerance 1e-5)")
+    check(err <= 1e-5, "gaussiannb: card and CPU differ")
+    out = dict(fit_ms=fit_ms, predict_ms=pred_ms, proba_ms=proba_ms, peak=max(fit_peak, pred_peak, proba_peak))
+    return out, x
+
+
+def svd_paths(ht, seed: int, dev, card: str, mesh) -> dict:
+    """(c) svd of 1e6 x 128 f32 at split 0 over MeshComm(4) (TSQR) and of
+    2048^2 replicated; reconstruction, orthogonality and S against the
+    f64 singular values."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    out = {}
+    for (m, n), split in SVD_SHAPES:
+        A = torch.randn(m, n, generator=gen, device=dev)
+        a_ht = ht.array(A, split=split, comm=mesh, copy=False)
+        ht.linalg.svd(a_ht)  # warm-up
+        (U, S, V), ms, peak = timed_call(lambda: ht.linalg.svd(a_ht))
+        u, s, v = U.larray, S.larray, V.larray
+        rec = float(torch.linalg.norm(((u * s) @ v.T - A).double()) / torch.linalg.norm(A.double()))
+        orth = float((u.double().T @ u.double() - torch.eye(n, dtype=torch.float64, device=dev)).abs().max())
+        r64 = torch.linalg.qr(A.double(), mode="r")[1] if m > n else A.double()
+        s64 = torch.linalg.svdvals(r64)
+        s_err = float((s.double() - s64).abs().max() / s64[0])
+        route = "TSQR" if split == 0 else "torch.linalg.svd"
+        print(f"[e2e] svd ({m},{n}) f32 split {split} over MeshComm({mesh.size}) ({route}): {ms:.4f} ms, peak "
+              f"{peak / 1e9:.3f} GB, |USV^T - A|/|A| {rec:.3e} (tolerance 1e-5), max|U^T U - I| {orth:.3e} "
+              f"(tolerance 1e-4), max|S - S64|/S64_0 {s_err:.3e} (tolerance 1e-5), U split {U.split} on {card}")
+        check(rec <= 1e-5 and orth <= 1e-4 and s_err <= 1e-5 and U.split == split, f"svd ({m},{n}) off")
+        out[f"{m}x{n}"] = ms
+        if split is None:
+            # the cost of factoring float32 in float64: cuSOLVER's float32 gesvd
+            f32_svd = lambda: torch.linalg.svd(A, full_matrices=False, driver="gesvd")  # noqa: E731
+            f32_svd()  # warm-up
+            (_, s32, _), ms32, _ = timed_call(f32_svd)
+            err32 = float((s32.double() - s64).abs().max() / s64[0])
+            print(f"[e2e] svd ({m},{n}) f32 by cuSOLVER's gesvd in f32: {ms32:.4f} ms, max|S - S64|/S64_0 {err32:.3e} "
+                  f"(the port factors in f64: {ms:.4f} ms, {s_err:.3e}) on {card}")
+            out[f"{m}x{n}_gesvd_f32"] = ms32
+        del A, a_ht, U, S, V, u, s, v, r64
+        torch.cuda.empty_cache()
+    small = torch.randn(512, 16, generator=gen, device=dev)
+    sa = ht.linalg.svd(ht.array(small, split=0, comm=mesh), compute_uv=False).larray.cpu()
+    sb = ht.linalg.svd(ht.array(small.cpu(), split=0, comm=mesh, device="cpu"), compute_uv=False).larray
+    check(bool(torch.allclose(sa, sb, rtol=1e-5)), "svd: card and CPU differ")
+    return out
+
+
+def det_inv_paths(ht, seed: int, dev, card: str, mesh) -> dict:
+    """(d) det and inv of A = I + 0.1 G / sqrt(n), n = 2048, at split 0 and
+    1 over MeshComm(4) (the elimination over the rows) and replicated
+    (LU): ms, kernels and host syncs per call, the peak above A."""
+    n = DET_N
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    A = torch.eye(n, device=dev) + 0.1 * torch.randn(n, n, generator=gen, device=dev) / n**0.5
+    sign, logabs = torch.linalg.slogdet(A.double())
+    det64 = float(sign * torch.exp(logabs))
+    a_bytes = 4 * n * n
+    check(len(host_syncs(lambda: float(A[0, 0]))) == 1, "host_syncs misses a host read")
+    out = {}
+    for split in (0, 1, None):
+        a_ht = ht.array(A, split=split, comm=mesh, copy=False)
+        ht.linalg.det(a_ht)  # warm-up
+        d, d_ms, d_peak = timed_call(lambda: ht.linalg.det(a_ht))
+        d_syncs = host_syncs(lambda: ht.linalg.det(a_ht))
+        d_kernels = kernel_count(lambda: ht.linalg.det(a_ht))
+        inv, i_ms, i_peak = timed_call(lambda: ht.linalg.inv(a_ht))
+        i_syncs = host_syncs(lambda: ht.linalg.inv(a_ht))
+        i_kernels = kernel_count(lambda: ht.linalg.inv(a_ht))
+        det_err = abs(float(d.item()) - det64) / abs(det64)
+        resid = float((A.double() @ inv.larray.double() - torch.eye(n, dtype=torch.float64, device=dev)).abs().max())
+        rerun = torch.equal(inv.larray, ht.linalg.inv(a_ht).larray) and float(d.item()) == float(ht.linalg.det(a_ht).item())
+        route = "elimination" if split is not None else "LU"
+        d_reads, i_reads = len(d_syncs), len(i_syncs)
+        print(f"[e2e] det/inv ({n},{n}) f32 split {split} over MeshComm({mesh.size}) ({route}): det {d_ms:.4f} ms, "
+              f"{d_kernels} kernels and {d_reads} host syncs a call, peak above A {d_peak / 1e6:.3f} MB, relative error "
+              f"against the f64 slogdet {det_err:.3e} (tolerance 1e-3; det {float(d.item()):.6e}); inv {i_ms:.4f} ms, "
+              f"{i_kernels} kernels and {i_reads} host syncs a call, peak above A {i_peak / 1e6:.3f} MB (A "
+              f"{a_bytes / 1e6:.3f} MB), max|A inv(A) - I| {resid:.3e} (tolerance 1e-3), inv split {inv.split}, reruns "
+              f"bitwise {rerun} on {card}")
+        if d_syncs or i_syncs:
+            print(f"[e2e] det/inv split {split} host syncs at: det {d_syncs}, inv {i_syncs}")
+        check(det_err <= 1e-3 and resid <= 1e-3 and inv.split == split, f"det/inv split {split} off")
+        if split is not None:
+            # [A | I] by rows, plus per-column temporaries of a few rows
+            check(i_peak <= 2 * a_bytes + 64 * 1024, f"inv split {split} held more than [A | I]")
+            check(rerun, f"det/inv split {split} reruns differ")
+            check(d_reads == 0 and i_reads == 0, f"det/inv split {split}: the elimination waited on the host")
+        out[f"det_ms_{split}"], out[f"inv_ms_{split}"] = d_ms, i_ms
+        del a_ht, inv
+        torch.cuda.empty_cache()
+    small = A[:96, :96].contiguous()
+    for split in (0, 1):
+        a = ht.linalg.inv(ht.array(small, split=split, comm=mesh)).larray.cpu()
+        b = ht.linalg.inv(ht.array(small.cpu(), split=split, comm=mesh, device="cpu")).larray
+        check(float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), "inv: card and CPU differ")
+    return out
+
+
+def signal_paths(ht, x, seed: int, dev, card: str, mesh) -> dict:
+    """(e) convolve of 1e8 f32 at split 0 over MeshComm(4) with a 1025-tap
+    filter in the three modes against an f64 FFT; pad along the split axis
+    of the 2e7 x 64 blobs in five modes against np.pad's index rule on the
+    global copy; SplitTiles and SquareDiagTiles of 2048^2 at split 0."""
+    signal_mod = importlib.import_module("heat_tpu_torch.core.signal")
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    a = torch.randn(CONV_N, generator=gen, device=dev)
+    v = torch.randn(CONV_K, generator=gen, device=dev)
+    a_ht = ht.array(a, split=0, comm=mesh, copy=False)
+    size = 1 << (CONV_N + CONV_K - 1 - 1).bit_length()
+    full64 = torch.fft.irfft(torch.fft.rfft(a.double(), size) * torch.fft.rfft(v.double(), size), size)[: CONV_N + CONV_K - 1]
+    tol = 1e-5 * float(v.abs().sum()) * float(a.abs().max())
+    out = {}
+    for mode, lo in (("full", 0), ("same", (CONV_K - 1) // 2), ("valid", CONV_K - 1)):
+        ht.convolve(a_ht, v, mode=mode)  # warm-up
+        c, ms, peak = timed_call(lambda: ht.convolve(a_ht, v, mode=mode))
+        halo = signal_mod.last_halo_bytes
+        ref = full64[lo : lo + c.shape[0]]
+        err = float((c.larray.double() - ref).abs().max())
+        same = torch.equal(c.larray, ht.convolve(a_ht, v, mode=mode).larray)
+        print(f"[e2e] convolve ({CONV_N},) f32 * ({CONV_K},) {mode} split 0 over MeshComm({mesh.size}): {ms:.4f} ms, "
+              f"halo bytes {halo}, peak {peak / 1e9:.3f} GB, max|d| against the f64 FFT {err:.3e} (gate {tol:.3e}), "
+              f"output shards {[s.shape[0] for s in c.shards]}, rerun bitwise {same} on {card}")
+        check(err <= tol and same, f"convolve {mode} off")
+        out[f"convolve_{mode}_ms"] = ms
+        del c, ref
+    del full64, a, a_ht
+    torch.cuda.empty_cache()
+    small, vs = torch.randn(10_001, generator=gen, device=dev), torch.randn(33, generator=gen, device=dev)
+    ca = ht.convolve(ht.array(small, split=0, comm=mesh), vs, mode="same").larray.cpu()
+    cb = ht.convolve(ht.array(small.cpu(), split=0, comm=mesh, device="cpu"), vs.cpu(), mode="same").larray
+    check(float((ca - cb).abs().max()) <= 1e-5 * float(vs.abs().sum() * small.abs().max()), "convolve: card and CPU differ")
+
+    # pad along the split axis of the 2e7 x 64 blobs
+    x_ht = ht.array(x, split=0, comm=mesh, copy=False)
+    n = x.shape[0]
+    b, e = PAD_WIDTH
+    i = torch.arange(-b, n + e, device=dev)
+    index = {
+        "edge": i.clamp(0, n - 1),
+        "wrap": i % n,
+        "reflect": torch.where(i % (2 * n - 2) < n, i % (2 * n - 2), 2 * n - 2 - i % (2 * n - 2)),
+        "symmetric": torch.where(i % (2 * n) < n, i % (2 * n), 2 * n - 1 - i % (2 * n)),
+    }
+    for mode in PAD_MODES:
+        p, ms, peak = timed_call(lambda: ht.pad(x_ht, (PAD_WIDTH, (0, 0)), mode=mode))
+        note = ""
+        if mode == "linear_ramp":
+            # jnp.linspace(0, edge, num, endpoint=False) as XLA computes it:
+            # 0 (1 - s) + edge s with s = i (1/num) in f32 (np.pad's float64
+            # rule is up to 2 f32 ulps away from it)
+            def ramp(edge, num, dt):
+                s = (torch.arange(num, device=dev, dtype=dt) * (torch.ones((), dtype=dt, device=dev) / num))[:, None]
+                return torch.zeros((), dtype=dt, device=dev) * (1 - s) + edge.to(dt) * s
+
+            ramps = [ramp(x[:1], b, torch.float32), ramp(x[-1:], e, torch.float32).flip(0)]
+            ok = same_shards(p, torch.cat([ramps[0], x, ramps[1]]), mesh)
+            r64 = torch.cat([ramp(x[:1], b, torch.float64), ramp(x[-1:], e, torch.float64).flip(0)])
+            got = torch.cat([p.larray[:b], p.larray[b + n :]])
+            ulps = float(((got.double() - r64).abs() / (torch.finfo(torch.float32).eps * r64.abs()).clamp_min(1e-45)).max())
+            note = f" (and {ulps:.2f} ulps from np.pad's float64 rule, gate 2)"
+            ok = ok and ulps <= 2.0
+            del ramps, r64, got
+        else:
+            ok = same_shards(p, x.index_select(0, index[mode]), mesh)
+        print(f"[e2e] pad ({n},64) f32 split 0 by {PAD_WIDTH} rows, {mode}: {ms:.4f} ms, peak {peak / 1e9:.3f} GB, "
+              f"bitwise {'jnp.pad' if mode == 'linear_ramp' else 'np.pad'}'s rule on the global copy {ok}{note} on {card}")
+        check(ok, f"pad {mode} differs from the rule")
+        out[f"pad_{mode}_ms"] = ms
+        del p
+        torch.cuda.empty_cache()
+    sp = torch.randn(13, 5, generator=gen, device=dev)
+    for mode in PAD_MODES + ("mean", "median", "maximum", "constant"):
+        pa = ht.pad(ht.array(sp, split=0, comm=mesh), ((3, 20), (1, 2)), mode=mode).larray.cpu()
+        pb = ht.pad(ht.array(sp.cpu(), split=0, comm=mesh, device="cpu"), ((3, 20), (1, 2)), mode=mode).larray
+        check(bool(torch.allclose(pa, pb, rtol=1e-6, atol=1e-6)), f"pad {mode}: card and CPU differ")
+
+    # tiles of 2048^2 at split 0
+    t = torch.randn(TILE_N, TILE_N, generator=gen, device=dev)
+    t_ht = ht.array(t, split=0, comm=mesh, copy=False)
+    st = ht.SplitTiles(t_ht)
+    ok = all(torch.equal(st[r], t[st.tile_ranges(r)]) for r in range(mesh.size))
+    dt = ht.SquareDiagTiles(t_ht, tiles_per_proc=2)
+    for i_ in range(dt.tile_rows):
+        for j_ in range(dt.tile_columns):
+            r0, r1, c0, c1 = dt.get_start_stop((i_, j_))
+            ok = ok and torch.equal(dt[i_, j_], t[r0:r1, c0:c1])
+    print(f"[e2e] tiles of ({TILE_N},{TILE_N}) split 0 over MeshComm({mesh.size}): SplitTiles {mesh.size} and "
+          f"SquareDiagTiles {dt.tile_rows}x{dt.tile_columns} tiles each equal to the global slice {ok}")
+    check(ok, "tiles differ from the global slices")
+    return out
+
+
+def linalg_classifier_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """The linear algebra and classifiers phase: (a) KNN through K1, (b)
+    GaussianNB, (c) svd, (d) det and inv, (e) convolve, pad and tiles.
+    Returns the K1 launches of (a) and the numbers PERF.md reads."""
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    out = {"knn": knn_paths(ht, k1, seed, dev, card, mesh)}
+    out["gnb"], x = gnb_paths(ht, seed, dev, card, mesh)
+    out["svd"] = svd_paths(ht, seed, dev, card, mesh)
+    out["det_inv"] = det_inv_paths(ht, seed, dev, card, mesh)
+    out["signal"] = signal_paths(ht, x, seed, dev, card, mesh)
+    del x
+    torch.cuda.empty_cache()
+    print(f"[e2e] linear algebra and classifiers: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2665,6 +3102,10 @@ def main() -> int:
     # the runtime core: the data pipeline through K1, assignments through K7
     rt = runtime_core_paths(ht, k1, k7, args.seed, dev, card)
 
+    # linear algebra and classifiers: KNN through K1, GaussianNB, svd,
+    # det/inv, convolve, pad and tiles
+    la = linalg_classifier_paths(ht, k1, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -2672,7 +3113,7 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"],
+            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -2684,6 +3125,9 @@ def main() -> int:
             "launches_northstar": ns["launches"],
             "launches_cluster_benchmark": cb["launches"],
             "launches_runtime_core": rt["k1"],
+            "launches_linalg_classifiers": la["knn"]["k1"],
+            **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
+            "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
             **{key: cb[key] for key in ("ms_d3", "plain_ms_d3", "library_ms_d3", "bound_ms_d3", "bound_by_d3")},
             "at_d3": f"({4 * CLUSTER_N}, 3) x ({CLUSTER_K}, 3) f32, the cluster benchmark's spherical data",

@@ -37,8 +37,10 @@ from .core import (
     relational,
     rounding,
     sanitation,
+    signal,
     statistics,
     stride_tricks,
+    tiling,
     trigonometrics,
     types,
 )
@@ -47,9 +49,11 @@ from . import ops
 from . import spatial
 from . import sparse
 from . import graph
+from . import classification
 from . import cluster
 from . import regression
 from . import models
+from . import naive_bayes
 from . import utils
 
 __version__ = "0.1.0"

@@ -51,3 +51,7 @@ from .indexing import *
 from . import random
 from . import linalg
 from .linalg import *
+from . import signal
+from .signal import *
+from . import tiling
+from .tiling import *

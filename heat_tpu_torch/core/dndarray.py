@@ -120,6 +120,7 @@ class DNDarray:
         self.__split = split
         self.__device = device
         self.__comm = comm
+        self.__halos = None
 
     # ------------------------------------------------------------ properties
     @property
@@ -300,7 +301,77 @@ class DNDarray:
             else:
                 lo = self.__comm.chunk(self.__gshape, self.__split, rank=r)[0]
                 s.diagonal(offset=lo if self.__split == 0 else -lo).fill_(value)
+        self._invalidate_halos()
         return self
+
+    # ---------------------------------------------------------------- halos
+    def _invalidate_halos(self) -> None:
+        """Drop the halos :meth:`get_halo` fetched: they hold until the next
+        change of the data or the split."""
+        self.__halos = None
+
+    def get_halo(self, halo_size: int) -> None:
+        """Fetch ``halo_size`` rows along the split axis from each position's
+        neighbours (heat_tpu/core/dndarray.py:523): the last rows of the
+        previous populated position and the first rows of the next
+        (``ops.halo.exchange_halos``).  Read them with :meth:`shard_halos`,
+        :attr:`halo_prev`/:attr:`halo_next` and :meth:`shard_with_halos`.
+        An array that is not distributed, or a size of 0, fetches nothing."""
+        if not isinstance(halo_size, int):
+            raise TypeError(f"halo_size needs to be of Python type integer, {type(halo_size)} given")
+        if halo_size < 0:
+            raise ValueError(f"halo_size needs to be a positive Python integer, {halo_size} given")
+        if not self.is_distributed() or halo_size == 0:
+            return
+        lmap = self.lshape_map[:, self.__split]
+        populated = np.nonzero(lmap)[0]
+        if len(populated) and (halo_size > lmap[populated]).any():
+            raise ValueError(
+                f"halo_size {halo_size} needs to be smaller than chunk-size {int(lmap[populated].min())} )"
+            )
+        from ..ops.halo import exchange_halos
+
+        prev_all, next_all = exchange_halos(self, halo_size)
+        self.__halos = (halo_size, prev_all, next_all, [int(r) for r in populated])
+
+    def shard_halos(self, rank: int):
+        """``(halo_prev, halo_next)`` of position ``rank`` after
+        :meth:`get_halo`: ``None`` before it, at the first (prev) and last
+        (next) populated position, and at positions without rows."""
+        if self.__halos is None:
+            return None, None
+        _, prev_all, next_all, populated = self.__halos
+        if rank not in populated:
+            return None, None
+        prev = None if rank == populated[0] else prev_all[rank].movedim(0, self.__split)
+        nxt = None if rank == populated[-1] else next_all[rank].movedim(0, self.__split)
+        return prev, nxt
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        """The calling position's halo from its previous neighbour (the
+        single controller's position 0)."""
+        return self.shard_halos(self.__comm.rank)[0]
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        """The calling position's halo from its next neighbour."""
+        return self.shard_halos(self.__comm.rank)[1]
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """The calling position's shard with its halos attached
+        (heat_tpu/core/dndarray.py:594)."""
+        return self.shard_with_halos(self.__comm.rank)
+
+    def shard_with_halos(self, rank: int) -> torch.Tensor:
+        """Position ``rank``'s shard with the halos :meth:`get_halo` fetched
+        concatenated along the split axis; a replicated array's data."""
+        if self.__split is None:
+            return self.__shards[0]
+        prev, nxt = self.shard_halos(rank)
+        parts = [p for p in (prev, self.__shards[rank], nxt) if p is not None]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=self.__split)
 
     @property
     def __partitioned__(self) -> dict:
@@ -368,6 +439,7 @@ class DNDarray:
         if not copy:
             self.__shards = shards
             self.__dtype = dtype
+            self._invalidate_halos()
             return self
         return DNDarray(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 
@@ -380,6 +452,7 @@ class DNDarray:
         else:
             self.__shards = [s.to(tt) for s in result.shards]
         self.__split = result.split
+        self._invalidate_halos()
         return self
 
     def item(self):
@@ -417,6 +490,7 @@ class DNDarray:
             shards = _shard(self.larray, axis, self.__comm)
         self.__shards = shards
         self.__split = axis
+        self._invalidate_halos()
         return self
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
@@ -693,6 +767,7 @@ class DNDarray:
                 return  # numpy: a False key selects nothing
             keys = tuple(None if _is_scalar_bool_key(k) else k for k in keys)
         value = self.__assign_value(value)
+        self._invalidate_halos()
         if not self.__mask_assign(keys, value):
             self.__put(keys, value)
 

@@ -1,7 +1,7 @@
 """Distributed linear algebra (counterpart of heat_tpu/core/linalg/):
-the basics, QR and the iterative solvers.  ``svd`` is a later slice
-(ROADMAP queue 1, item 10)."""
+the basics, QR, SVD and the iterative solvers."""
 
 from .basics import *
 from .qr import *
 from .solver import *
+from .svd import *

@@ -1,5 +1,7 @@
 """Linear-algebra basics (counterpart of heat_tpu/core/linalg/basics.py):
-``matmul``, ``dot``, ``transpose``, ``tril``/``triu`` and the norms.
+``matmul``, ``dot``, ``transpose``, ``tril``/``triu``, the norms, ``outer``,
+``projection``, ``trace``, ``vdot``, ``vecdot``, ``cross``, ``det`` and
+``inv``.
 
 ``matmul`` of two 2-D arrays runs over the shard list by the operands'
 splits, with the JAX package's output split (basics.py:96-112): a row-split
@@ -17,10 +19,25 @@ An operand that must be whole is gathered first.  The local product is
 ``torch.matmul`` in IEEE float32 (the card's TF32 stays off), as the JAX
 package leaves it to XLA; the overlap ring schedules (``parallel/overlap.py``)
 are a later slice (ROADMAP item 13).
+
+``det`` and ``inv`` keep the JAX package's two routes.  A 2-D matrix split
+over several positions is eliminated over the shard list with partial
+pivoting in the order of its ``_pp_lu_det`` and ``_gj_inv``: each position
+keeps its rows (``det`` a copy of A's, ``inv`` the augmented ``[A | I]``),
+each position's block a view of one working buffer on the array's device.
+The pivot of each column is found and its row swapped into place by index
+copies driven by device tensors, so the loop never waits on the host, as
+the JAX package's ``fori_loop`` never leaves the device; every position
+then updates its own rows.  A split-1 matrix goes through its row-split
+transpose.  Every other matrix (replicated, one position, a stack) goes to
+``torch.linalg``.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Sequence
+
+import numpy as np
 import torch
 
 from .. import sanitation, types
@@ -28,13 +45,21 @@ from ..dndarray import DNDarray, _wrap
 from ...parallel import collectives
 
 __all__ = [
+    "cross",
+    "det",
     "dot",
+    "inv",
     "matmul",
     "matrix_norm",
     "norm",
+    "outer",
+    "projection",
+    "trace",
     "transpose",
     "tril",
     "triu",
+    "vdot",
+    "vecdot",
     "vector_norm",
 ]
 
@@ -81,8 +106,9 @@ def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
     return _wrap(out, split, a.device, comm)
 
 
-def matmul(a: DNDarray, b: DNDarray) -> DNDarray:
-    """Matrix product (heat_tpu/core/linalg/basics.py:50)."""
+def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
+    """Matrix product (heat_tpu/core/linalg/basics.py:50).
+    ``allow_resplit`` is accepted for parity; operands are never resplit."""
     sanitation.sanitize_in(a)
     sanitation.sanitize_in(b)
     if a.ndim == 0 or b.ndim == 0:
@@ -112,10 +138,10 @@ def matmul(a: DNDarray, b: DNDarray) -> DNDarray:
     return _wrap(result, split, a.device, a.comm)
 
 
-def dot(a: DNDarray, b: DNDarray) -> DNDarray:
+def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
     """Dot product (heat_tpu/core/linalg/basics.py:137): of two vectors a
     replicated scalar (partial dot products summed over the positions when
-    both are split); otherwise :func:`matmul`."""
+    both are split); otherwise :func:`matmul`.  ``out`` takes the result."""
     sanitation.sanitize_in(a)
     sanitation.sanitize_in(b)
     if a.ndim == 1 and b.ndim == 1:
@@ -124,9 +150,12 @@ def dot(a: DNDarray, b: DNDarray) -> DNDarray:
         tt = torch.promote_types(a.dtype.torch_type(), b.dtype.torch_type())
         if a.split == 0 and b.split == 0 and a.comm.size > 1:
             parts = [torch.dot(x.to(tt), y.to(tt)) for x, y in zip(a.shards, b.shards)]
-            return _replicated(collectives.psum(parts)[0], a)
-        return _replicated(torch.dot(a.larray.to(tt), b.larray.to(tt)), a)
-    return matmul(a, b)
+            ret = _replicated(collectives.psum(parts)[0], a)
+        else:
+            ret = _replicated(torch.dot(a.larray.to(tt), b.larray.to(tt)), a)
+    else:
+        ret = matmul(a, b)
+    return _into(out, ret)
 
 
 def transpose(a: DNDarray, axes=None) -> DNDarray:
@@ -224,6 +253,271 @@ def matrix_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DND
         axis = (0, 1)
     result = torch.linalg.norm(_inexact(x.larray), ord=ord, dim=tuple(axis), keepdim=keepdims)
     return _wrap(result, None, x.device, x.comm)
+
+
+
+def _into(out: Optional[DNDarray], ret: DNDarray) -> DNDarray:
+    """``ret``, or ``out`` holding its values: as the JAX package's
+    ``out.larray = ...`` does, ``out`` keeps its split (and its dtype)."""
+    if out is None:
+        return ret
+    if ret.split != out.split:
+        ret = ret.resplit(out.split)
+    return sanitation.sanitize_out(out, ret)
+
+
+def _promoted(*arrays: DNDarray) -> torch.dtype:
+    t = arrays[0].dtype
+    for a in arrays[1:]:
+        t = types.promote_types(t, a.dtype)
+    return t.torch_type()
+
+
+def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split=None) -> DNDarray:
+    """Outer product of the flattened a and b (heat_tpu/core/linalg/basics.py:154).
+    The result is split 0 when either input is split, else replicated,
+    unless ``split`` says otherwise.  A 1-D split-0 ``a`` gives each
+    position its rows against the whole of ``b`` (and a split-0 ``b`` each
+    position its columns for ``split=1``); other layouts gather."""
+    sanitation.sanitize_in(a)
+    sanitation.sanitize_in(b)
+    if split is None:
+        split = 0 if (a.split is not None or b.split is not None) else None
+    tt = _promoted(a, b)
+    shape = (a.size, b.size)
+    if split == 0 and a.ndim == 1 and a.split == 0:
+        bw = b.larray.reshape(-1).to(tt)
+        ret = DNDarray([torch.outer(s.to(tt), bw) for s in a.shards], shape, types.canonical_heat_type(tt), 0,
+                       a.device, a.comm)
+    elif split == 1 and b.ndim == 1 and b.split == 0:
+        aw = a.larray.reshape(-1).to(tt)
+        ret = DNDarray([torch.outer(aw, s.to(tt)) for s in b.shards], shape, types.canonical_heat_type(tt), 1,
+                       a.device, a.comm)
+    else:
+        ret = _wrap(torch.outer(a.larray.reshape(-1).to(tt), b.larray.reshape(-1).to(tt)), split, a.device, a.comm)
+    return _into(out, ret)
+
+
+def projection(a: DNDarray, b: DNDarray) -> DNDarray:
+    """Projection of the vector a onto the vector b, ``b · (a·b)/(b·b)``
+    (heat_tpu/core/linalg/basics.py:333), split as b."""
+    if a.ndim != 1 or b.ndim != 1:
+        raise RuntimeError("projection requires 1-D vectors")
+    scale = dot(a, b).shards[0] / dot(b, b).shards[0]
+    shards = [s * scale for s in b.shards]
+    return DNDarray(shards, b.shape, types.canonical_heat_type(shards[0].dtype), b.split, b.device, b.comm)
+
+
+def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
+    """Sum of the diagonal (heat_tpu/core/linalg/basics.py:343), replicated,
+    in the type ``sum`` gives (``dtype`` casts it).  A 2-D array split along
+    one of the two axes joins the diagonal's pieces from the positions
+    that hold them, never the matrix."""
+    sanitation.sanitize_in(a)
+    from .. import arithmetics
+
+    ax1, ax2 = axis1 % a.ndim, axis2 % a.ndim
+    if a.ndim == 2 and a.split in (ax1, ax2) and a.comm.size > 1:
+        pieces = []
+        for r, s in enumerate(a.shards):
+            off = a.comm.chunk(a.shape, a.split, rank=r)[0]
+            shift = off if a.split == ax1 else -off
+            pieces.append(torch.diagonal(s, offset=offset + shift, dim1=ax1, dim2=ax2))
+        diag = torch.cat(pieces)
+    else:
+        diag = torch.diagonal(a.larray, offset=offset, dim1=ax1, dim2=ax2)
+    ret = arithmetics.sum(_wrap(diag.contiguous(), None, a.device, a.comm), axis=-1)
+    if dtype is not None:
+        ret = ret.astype(types.canonical_heat_type(dtype))
+    return _into(out, ret)
+
+
+def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
+    """Dot product of the flattened arrays, the first conjugated
+    (heat_tpu/core/linalg/basics.py:396); a replicated scalar."""
+    tt = _promoted(x1, x2)
+    a, b = x1.larray.reshape(-1).to(tt), x2.larray.reshape(-1).to(tt)
+    if a.shape != b.shape:
+        raise ValueError(f"vdot: sizes {a.numel()} and {b.numel()} differ")
+    return _replicated(torch.sum(a.conj() * b, dtype=tt), x1)
+
+
+def vecdot(x1: DNDarray, x2: DNDarray, axis: int = -1, keepdims: bool = False) -> DNDarray:
+    """Sum of the elementwise product along ``axis``
+    (heat_tpu/core/linalg/basics.py:402), no conjugation."""
+    from .. import arithmetics
+
+    return arithmetics.sum(arithmetics.mul(x1, x2), axis=axis, keepdims=keepdims)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor, axisa: int, axisb: int, axisc: int) -> torch.Tensor:
+    """``jnp.cross``'s arithmetic: 2-vectors get a zero third component,
+    two 2-vectors give the scalar z component."""
+    a, b = a.movedim(axisa, -1), b.movedim(axisb, -1)
+    if a.shape[-1] not in (2, 3) or b.shape[-1] not in (2, 3):
+        raise ValueError("Dimension must be either 2 or 3 for cross product")
+    if a.shape[-1] == 2:
+        if b.shape[-1] == 2:
+            return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+        a = torch.cat([a, torch.zeros_like(a[..., :1])], dim=-1)
+    elif b.shape[-1] == 2:
+        b = torch.cat([b, torch.zeros_like(b[..., :1])], dim=-1)
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    c = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
+    return c.movedim(0, axisc)
+
+
+def cross(a: DNDarray, b: DNDarray, axisa: int = -1, axisb: int = -1, axisc: int = -1, axis: int = -1) -> DNDarray:
+    """Cross product of vectors along the given axes
+    (heat_tpu/core/linalg/basics.py:412).  ``axis`` overrides ``axisa``,
+    ``axisb`` and ``axisc``; 2-vectors get a zero third component.  The
+    result is split where a's split dimension lands: dropped with the
+    vector axis, moved past ``axisc``, or kept (:430-444)."""
+    sanitation.sanitize_in(a)
+    sanitation.sanitize_in(b)
+    if axis != -1:
+        axisa = axisb = axisc = axis
+    tt = _promoted(a, b)
+    result = _cross(a.larray.to(tt), b.larray.to(tt), axisa, axisb, axisc)
+    new_split = None
+    if a.split is not None:
+        axisa_n = axisa % a.ndim
+        if a.split != axisa_n:
+            pos = [d for d in range(a.ndim) if d != axisa_n].index(a.split)
+            if result.ndim == a.ndim:
+                new_split = pos if pos < axisc % result.ndim else pos + 1
+            else:
+                new_split = pos
+    return _wrap(result, new_split, a.device, a.comm)
+
+
+def _square_check(a: DNDarray) -> None:
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+        raise RuntimeError(f"expected square matrix, got shape {a.shape}")
+
+
+def _factor_input(t: torch.Tensor) -> torch.Tensor:
+    """Integers as float32 (heat_tpu/core/linalg/basics.py:252); the
+    factorizations of LAPACK and cuSOLVER take no 16-bit floats, so those
+    raise as in the JAX package."""
+    if not (t.is_floating_point() or t.is_complex()):
+        return t.to(torch.float32)
+    if t.dtype in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(f"Unsupported dtype {str(t.dtype).split('.')[-1]}")
+    return t
+
+
+def _row_blocks(a: DNDarray, width: int):
+    """The working rows of A (of Aᵀ for a split-1 A), ``width`` columns
+    (A's n, or 2n for ``[A | I]``), as one buffer on A's device, and each
+    position's block of it (a view) with its global row offset."""
+    n = a.shape[0]
+    dtype = a.shards[0].dtype
+    if not (dtype.is_floating_point or dtype.is_complex):
+        dtype = torch.float32
+    buf = a.shards[0].new_zeros((n, width), dtype=dtype)
+    if width > n:
+        buf[:, n:].diagonal().fill_(1)
+    blocks, offs = [], []
+    for r, s in enumerate(a.shards):
+        off = a.comm.chunk(a.shape, a.split, rank=r)[0]
+        rows = s.T if a.split == 1 else s
+        block = buf[off : off + rows.shape[0]]
+        block[:, :n] = rows
+        blocks.append(block)
+        offs.append(off)
+    return buf, blocks, offs
+
+
+def _pivot(buf: torch.Tensor, i: int, rows: torch.Tensor) -> torch.Tensor:
+    """Partial pivoting for column i: the first row j ≥ i of the largest
+    |A[j, i]| (``jnp.argmax`` over the candidates) is swapped with row i by
+    an index copy.  j stays on the device (``rows`` is ``arange(n)``
+    there).  Returns ``j != i`` as a 0-d bool tensor."""
+    j = torch.argmax(buf[i:, i].abs()) + i
+    ij = torch.stack((rows[i], j, j, rows[i]))
+    buf[ij[2:]] = buf[ij[:2]]
+    return j != i
+
+
+def _det_by_elimination(buf: torch.Tensor, blocks: List[torch.Tensor], offs: Sequence[int], n: int) -> torch.Tensor:
+    """``_pp_lu_det`` over the row blocks: per column the pivot row is
+    swapped into place, the determinant multiplied by its pivot, and each
+    position subtracts ``(A[j, i] / pivot) · pivot_row`` from its rows
+    below the pivot.  Only the columns right of the pivot are updated: the
+    others are never read again, so the values are those of the full
+    update.  The sign is that of the number of swaps."""
+    det = buf.new_ones(())
+    swaps = torch.zeros((), dtype=torch.int64, device=buf.device)
+    rows = torch.arange(n, device=buf.device)
+    for i in range(n):
+        swaps += _pivot(buf, i, rows)
+        piv = buf[i, i]
+        det = det * piv
+        denom = torch.where(piv == 0, torch.ones_like(piv), piv)
+        pr = buf[i, i + 1 :]
+        for b, o in zip(blocks, offs):
+            lo = max(i + 1 - o, 0)
+            if lo < b.shape[0] and i + 1 < n:
+                z = b[lo:, i] / denom
+                b[lo:, i + 1 :].addcmul_(z[:, None], pr[None, :], value=-1)
+    return torch.where(swaps % 2 == 1, -det, det)
+
+
+def _inv_by_elimination(buf: torch.Tensor, blocks: List[torch.Tensor], offs: Sequence[int], n: int) -> List[torch.Tensor]:
+    """``_gj_inv`` over the rows of ``[A | I]``: per column the pivot row is
+    swapped into place and divided by its pivot, and every other row
+    subtracts ``A[j, i] · pivot_row``.  The left half's columns up to the
+    pivot are not updated (they are never read again); the right half is
+    the inverse, returned as a view of each block.  A zero pivot gives
+    inf/NaN, as in the JAX package."""
+    rows = torch.arange(n, device=buf.device)
+    for i in range(n):
+        _pivot(buf, i, rows)
+        row = buf[i]
+        row[i + 1 :].div_(row[i])
+        pr = row[i + 1 :]  # no other row's update writes row i
+        for b, o in zip(blocks, offs):
+            li = i - o
+            parts = [(0, li), (li + 1, b.shape[0])] if 0 <= li < b.shape[0] else [(0, b.shape[0])]
+            for lo, hi in parts:
+                if hi > lo:
+                    b[lo:hi, i + 1 :].addcmul_(b[lo:hi, i, None], pr[None, :], value=-1)
+    return [b[:, n:] for b in blocks]
+
+
+def det(a: DNDarray) -> DNDarray:
+    """Determinant (heat_tpu/core/linalg/basics.py:245), replicated.  A 2-D
+    matrix split over several positions takes the elimination over its
+    rows (module docstring); every other matrix, and stacks,
+    ``torch.linalg.det``."""
+    sanitation.sanitize_in(a)
+    _square_check(a)
+    if a.ndim == 2 and a.is_distributed():
+        buf, blocks, offs = _row_blocks(a, a.shape[0])
+        return _replicated(_det_by_elimination(buf, blocks, offs, a.shape[0]), a)
+    return _replicated(torch.linalg.det(_factor_input(a.larray)), a)
+
+
+def inv(a: DNDarray) -> DNDarray:
+    """Inverse (heat_tpu/core/linalg/basics.py:264), split as ``a``.  A 2-D
+    matrix split over several positions takes Gauss-Jordan elimination on
+    the rows of ``[A | I]`` (module docstring); every other matrix, and
+    stacks, an LU factorization and solve (``jnp.linalg.inv``'s route).  A
+    singular matrix gives inf/NaN, never an exception."""
+    sanitation.sanitize_in(a)
+    _square_check(a)
+    n = a.shape[-1]
+    if a.ndim == 2 and a.is_distributed():
+        buf, blocks, offs = _row_blocks(a, 2 * n)
+        rows = _inv_by_elimination(buf, blocks, offs, n)
+        shards = [t.T for t in rows] if a.split == 1 else rows
+        return DNDarray(shards, a.shape, types.canonical_heat_type(rows[0].dtype), a.split, a.device, a.comm)
+    arr = _factor_input(a.larray)
+    lu, piv, _ = torch.linalg.lu_factor_ex(arr)
+    eye = torch.eye(n, dtype=arr.dtype, device=arr.device).expand(arr.shape)
+    return _wrap(torch.linalg.lu_solve(lu, piv, eye), a.split, a.device, a.comm)
 
 
 DNDarray.__matmul__ = lambda self, other: matmul(self, other)

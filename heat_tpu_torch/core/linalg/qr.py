@@ -170,7 +170,9 @@ def qr(
     if precision not in ("float32", "mixed"):
         raise ValueError(f'precision must be "float32" or "mixed", got {precision!r}')
     if a.dtype in (types.float16, types.bfloat16):
-        raise NotImplementedError("qr of 16-bit floats is not ported yet (ROADMAP queue 1, item 10)")
+        # neither LAPACK nor cuSOLVER factors 16-bit floats; the JAX
+        # package raises the same error
+        raise NotImplementedError(f"Unsupported dtype {a.dtype.__name__}")
 
     m, n = a.shape
     r_split = 1 if a.split == 1 else None

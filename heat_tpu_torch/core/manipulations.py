@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from . import sanitation, stride_tricks, types
-from ..parallel import transport
+from ..parallel import collectives, transport
 from ..parallel.sort import (
     distributed_sort,
     distributed_topk,
@@ -50,6 +50,7 @@ __all__ = [
     "hsplit",
     "hstack",
     "moveaxis",
+    "mpi_topk",
     "pad",
     "ravel",
     "redistribute",
@@ -407,27 +408,229 @@ def repeat(a: DNDarray, repeats, axis=None) -> DNDarray:
     return _like(a, lambda s: torch.repeat_interleave(s, n, dim=axis), gshape, a.split)
 
 
-def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -> DNDarray:
-    """Pad with a constant (heat_tpu/core/manipulations.py:256): per shard
-    when the split axis is not padded, else on the gathered array; the split
-    is kept.  Only ``mode="constant"`` with one scalar value is ported."""
+_PAD_MODES = ("constant", "edge", "empty", "linear_ramp", "maximum", "mean", "median", "minimum", "reflect",
+              "symmetric", "wrap")
+
+
+def _pad_index(n: int, i: np.ndarray, mode: str) -> np.ndarray:
+    """Source index along the axis of the padded positions ``i`` (relative
+    to the array's first element) in an index mode, as ``jnp.pad`` builds
+    them (its repeated reflections and wraps are periodic in the source)."""
+    if mode == "edge" or n == 1:
+        return np.clip(i, 0, n - 1)
+    if mode == "wrap":
+        return i % n
+    if mode == "reflect":
+        period = 2 * (n - 1)
+        m = i % period
+        return np.where(m < n, m, period - m)
+    period = 2 * n  # symmetric
+    m = i % period
+    return np.where(m < n, m, period - 1 - m)
+
+
+# jax's inexact type of each integer type (dtypes._dtype_to_inexact)
+_INEXACT = {torch.int64: torch.float64, torch.uint64: torch.float64}
+
+
+def _ramp(edge: torch.Tensor, num: int, axis: int, reverse: bool) -> torch.Tensor:
+    """``linear_ramp``'s padding: ``jnp.linspace(0, edge, num,
+    endpoint=False, axis=axis)`` of the edge slice (extent 1 along
+    ``axis``) in its type, reversed for the far side.  That is
+    ``0·(1 − step) + edge·step`` with ``step = i · (1/num)`` in jax's inexact
+    type (float32 for integers up to 32 bits, float64 for 64 bits), floored
+    for integers."""
+    tt = edge.dtype
+    ct = tt if (tt.is_floating_point or tt.is_complex) else _INEXACT.get(tt, torch.float32)
+    shape = [1] * edge.ndim
+    shape[axis] = num
+    stop = edge.to(ct)
+    start = torch.zeros((), dtype=ct, device=edge.device)
+    if num == 1:
+        out = torch.zeros_like(stop)
+    else:
+        real = ct.to_real() if ct.is_complex else ct
+        # XLA folds the division by the constant num into a product with
+        # its reciprocal; so does this, for integer ramps floored alike
+        recip = torch.ones((), dtype=real, device=edge.device) / num
+        step = torch.arange(num, dtype=real, device=edge.device) * recip
+        step = step.to(ct).reshape(shape)
+        out = start * (1 - step) + stop * step
+    if not (tt.is_floating_point or tt.is_complex):
+        out = torch.floor(out)
+    out = out.to(tt)
+    return out.flip(axis) if reverse else out
+
+
+def _finish_stat(stat: torch.Tensor, tt: torch.dtype) -> torch.Tensor:
+    if not (tt.is_floating_point or tt.is_complex):
+        stat = torch.round(stat)
+    return stat.to(tt)
+
+
+def _stat_local(t: torch.Tensor, axis: int, mode: str) -> torch.Tensor:
+    """The statistic of a stat mode over ``t``'s whole ``axis`` (kept with
+    extent 1), rounded and cast back for integers, as ``jnp.pad`` fills."""
+    if t.numel() == 0:
+        return t.new_zeros(tuple(1 if d == axis else e for d, e in enumerate(t.shape)))
+    if mode == "maximum":
+        return torch.amax(t, dim=axis, keepdim=True)
+    if mode == "minimum":
+        return torch.amin(t, dim=axis, keepdim=True)
+    if mode == "mean":
+        acc = t.dtype if (t.dtype.is_floating_point or t.dtype.is_complex) else torch.float64
+        return _finish_stat(torch.mean(t.to(acc), dim=axis, keepdim=True), t.dtype)
+    # jnp.median: the midpoint of the middle pair
+    ft = t if t.dtype in (torch.float32, torch.float64) else t.to(torch.float64)
+    return _finish_stat(torch.quantile(ft, 0.5, dim=axis, keepdim=True, interpolation="midpoint"), t.dtype)
+
+
+def _stat_split(x: DNDarray, axis: int, mode: str) -> torch.Tensor:
+    """:func:`_stat_local` along the split axis of a distributed array: the
+    positions' partial extremes or sums all-reduced, the median by the
+    distributed selection."""
+    from . import statistics
+
+    tt = x.dtype.torch_type()
+    if mode in ("maximum", "minimum"):
+        red = torch.amax if mode == "maximum" else torch.amin
+        parts = [red(s, dim=axis, keepdim=True) for s in x.shards if s.shape[axis]]
+        return (collectives.pmax if mode == "maximum" else collectives.pmin)(parts)[0]
+    if mode == "mean":
+        acc = tt if (tt.is_floating_point or tt.is_complex) else torch.float64
+        total = collectives.psum([torch.sum(s.to(acc), dim=axis, keepdim=True) for s in x.shards])[0]
+        return _finish_stat(total / x.shape[axis], tt)
+    return _finish_stat(statistics.median(x, axis=axis, keepdims=True).shards[0], tt)
+
+
+_STAT_MODES = ("maximum", "mean", "median", "minimum")
+
+
+class _PadPlan:
+    """What fills the padding of one axis: :meth:`piece` gives the padded
+    axis's positions [lo, hi) that lie in the padding, read from ``src``
+    (a tensor holding the whole axis, or a ``transport.RowSource`` over the
+    shards); ``fill`` is the side's ramps or the statistic."""
+
+    def __init__(self, n: int, axis: int, before: int, after: int, mode: str, const):
+        self.axis, self.before, self.after, self.mode, self.const, self.n = axis, before, after, mode, const, n
+
+    def fill(self, first: torch.Tensor, last: torch.Tensor, stat):
+        if self.mode == "linear_ramp":
+            return _ramp(first, self.before, self.axis, False), _ramp(last, self.after, self.axis, True)
+        return stat
+
+    def piece(self, src, like: torch.Tensor, lo: int, hi: int, fill) -> torch.Tensor:
+        ax = self.axis
+        shape = list(like.shape)
+        shape[ax] = hi - lo
+        if self.mode in ("constant", "empty"):
+            c = self.const[0] if lo < self.before else self.const[1]
+            return like.new_empty(shape).fill_(torch.tensor(c).to(like.dtype))
+        if self.mode in _STAT_MODES:
+            return fill.to(like.device).expand(shape)
+        if self.mode in ("edge", "reflect", "symmetric", "wrap"):
+            idx = torch.as_tensor(_pad_index(self.n, np.arange(lo, hi) - self.before, self.mode), device=like.device)
+            return src.take(idx) if isinstance(src, transport.RowSource) else src.index_select(ax, idx)
+        if lo < self.before:
+            return fill[0].narrow(ax, lo, hi - lo)
+        return fill[1].narrow(ax, lo - self.before - self.n, hi - lo)
+
+
+def _pad_tensor(t: torch.Tensor, plan: _PadPlan) -> torch.Tensor:
+    """One tensor holding the whole axis, padded along it."""
+    ax, b, n = plan.axis, plan.before, plan.n
+    stat = _stat_local(t, ax, plan.mode) if plan.mode in _STAT_MODES else None
+    fill = plan.fill(t.narrow(ax, 0, 1), t.narrow(ax, n - 1, 1), stat) if n else None
+    parts = [plan.piece(t, t, 0, b, fill), t, plan.piece(t, t, b + n, b + n + plan.after, fill)]
+    return torch.cat(parts, dim=ax)
+
+
+def _pad_split_axis(x: DNDarray, plan: _PadPlan) -> DNDarray:
+    """Padding along the split axis of a distributed array: each new shard
+    (the chunk rule over the padded length) is written from the body rows
+    and edge rows of the positions that own them, never a gathered copy."""
+    ax, b, n = plan.axis, plan.before, plan.n
+    length = n + b + plan.after
+    src = transport.RowSource(ax, n, shards=x.shards)
+    stat = _stat_split(x, ax, plan.mode) if plan.mode in _STAT_MODES else None
+    fill = plan.fill(src.range(0, 1), src.range(n - 1, n), stat) if n else None
+    shards = []
+    for r in range(x.comm.size):
+        o0 = x.comm.chunk((length,), 0, rank=r)[0]
+        o1 = o0 + x.comm.chunk((length,), 0, rank=r)[1][0]
+        shape = list(x.shards[0].shape)
+        shape[ax] = o1 - o0
+        block = x.shards[0].new_empty(shape)
+        for lo, hi in ((o0, min(o1, b)), (max(o0, b + n), o1)):
+            if lo < hi:
+                block.narrow(ax, lo - o0, hi - lo).copy_(plan.piece(src, block, lo, hi, fill))
+        # the body, each source shard's rows copied into place
+        for s, (s0, s1) in zip(x.shards, src.bounds):
+            lo, hi = max(o0, b + s0), min(o1, b + s1)
+            if lo < hi:
+                block.narrow(ax, lo - o0, hi - lo).copy_(s.narrow(ax, lo - b - s0, hi - lo))
+        shards.append(block)
+    gshape = tuple(length if d == ax else e for d, e in enumerate(x.shape))
+    return DNDarray(shards, gshape, x.dtype, x.split, x.device, x.comm)
+
+
+def _pad_callable(array: DNDarray, widths: np.ndarray, fn) -> DNDarray:
+    """``jnp.pad`` with a callable mode: zero padding, then ``fn(row,
+    (before, after), axis, {})`` on every 1-D slice along each axis in
+    turn, on the gathered array."""
+    t = array.larray
+    t = torch.nn.functional.pad(t, [int(v) for d in reversed(range(t.ndim)) for v in widths[d]])
+    for axis in range(t.ndim):
+        moved = t.movedim(axis, -1)
+        rows = moved.reshape(-1, moved.shape[-1])
+        done = [torch.as_tensor(fn(row, tuple(int(v) for v in widths[axis]), axis, {})) for row in rows]
+        out = torch.stack(done) if done else rows
+        t = out.to(t.dtype).reshape(moved.shape).movedim(-1, axis)
+    return _gathered(array, t, array.split)
+
+
+def pad(array: DNDarray, pad_width, mode="constant", constant_values=0) -> DNDarray:
+    """Pad an array (heat_tpu/core/manipulations.py:256) in any mode
+    ``jnp.pad`` takes: ``constant`` (``constant_values`` a scalar, a
+    (before, after) pair or one pair per axis), ``edge``, ``wrap``,
+    ``reflect``, ``symmetric``, ``linear_ramp`` (to 0), ``maximum``,
+    ``mean``, ``median``, ``minimum`` (over the whole axis), ``empty``
+    (zeros), or a callable.  The options other than ``constant_values``
+    take ``jnp.pad``'s defaults, as the JAX package passes none.  Axes are
+    padded in order, each on the already padded array; the split is kept.
+    Along a non-split axis every position pads its own shard; along the
+    split axis each new shard is written from the positions that own the
+    rows it needs (edge rows included)."""
     sanitation.sanitize_in(array)
-    if mode != "constant":
-        raise NotImplementedError(f"pad mode {mode!r} is not ported yet (ROADMAP queue 1, item 7)")
-    if np.ndim(constant_values) != 0:
-        raise NotImplementedError("pad takes one scalar constant_values in the port")
-    widths = np.broadcast_to(np.asarray(pad_width, dtype=np.int64), (array.ndim, 2))
+    nd = array.ndim
+    widths = np.asarray(pad_width)
+    if widths.dtype.kind not in "iu":
+        raise TypeError("`pad_width` must be of integral type.")
+    widths = np.broadcast_to(widths.astype(np.int64), (nd, 2)) if nd else widths.reshape(0, 2)
     if (widths < 0).any():
         raise ValueError("index can't contain negative values")
-    flat = [int(v) for d in reversed(range(array.ndim)) for v in widths[d]]
-    gshape = tuple(e + int(widths[d].sum()) for d, e in enumerate(array.shape))
-
-    def do(t):
-        return torch.nn.functional.pad(t, flat, mode="constant", value=constant_values)
-
-    if array.split is not None and widths[array.split].any():
-        return _gathered(array, do(array.larray), array.split)
-    return _like(array, do, gshape, array.split)
+    if nd == 0:
+        return array
+    if callable(mode):
+        return _pad_callable(array, widths, mode)
+    if mode not in _PAD_MODES:
+        raise NotImplementedError(f"Unimplemented padding mode '{mode}' for np.pad.")
+    consts = np.broadcast_to(np.asarray(constant_values if mode == "constant" else 0), (nd, 2))
+    out = array
+    for axis in range(nd):
+        before, after = int(widths[axis, 0]), int(widths[axis, 1])
+        if before == after == 0:
+            continue
+        if out.shape[axis] == 0 and mode not in ("constant", "empty"):
+            raise ValueError(f"can't extend empty axis {axis} using modes other than 'constant' or 'empty'")
+        plan = _PadPlan(out.shape[axis], axis, before, after, mode, tuple(consts[axis].tolist()))
+        if out.split == axis and out.is_distributed():
+            out = _pad_split_axis(out, plan)
+        else:
+            gshape = tuple(e + before + after if d == axis else e for d, e in enumerate(out.shape))
+            out = _like(out, lambda t: _pad_tensor(t, plan), gshape, out.split)
+    return out
 
 
 def diagonal(a: DNDarray, offset: int = 0, dim1: int = 0, dim2: int = 1) -> DNDarray:
@@ -660,6 +863,27 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         out[1]._adopt(i)
         return out
     return v, i
+
+
+def _plain(t) -> torch.Tensor:
+    if isinstance(t, DNDarray):
+        return t.larray
+    return t if isinstance(t, torch.Tensor) else torch.as_tensor(np.asarray(t))
+
+
+def mpi_topk(a, b, dim: int = -1, largest: bool = True, sorted: bool = True):
+    """Combine two partial top-k results (heat_tpu/core/manipulations.py:634):
+    ``a`` and ``b`` are ``(values, indices)`` pairs, the result is the top
+    ``k = a``'s extent along ``dim`` of their concatenation along ``dim``,
+    as ``(values, indices)`` tensors, in ``lax.top_k``'s order (ties keep
+    the element that comes first in the concatenation, ``a`` before ``b``)."""
+    (av, ai), (bv, bi) = a, b
+    av, ai, bv, bi = _plain(av), _plain(ai), _plain(bv), _plain(bi)
+    k = av.shape[dim]
+    values = torch.cat((av, bv.to(av.device)), dim=dim).movedim(dim, -1)
+    indices = torch.cat((ai, bi.to(ai.device)), dim=dim).movedim(dim, -1)
+    sel = topk_order(values, k, largest)
+    return values.gather(-1, sel).movedim(-1, dim), indices.gather(-1, sel).movedim(-1, dim)
 
 
 def _unique_sorted(flat: torch.Tensor):

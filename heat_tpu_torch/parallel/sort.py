@@ -26,6 +26,7 @@ __all__ = [
     "searchsorted_left",
     "stable_sort",
     "topk_order",
+    "topk_select",
     "unique_compact_sorted",
 ]
 
@@ -141,6 +142,33 @@ def topk_order(t: torch.Tensor, k: int, largest: bool) -> torch.Tensor:
     if not largest:
         t = -t if t.dtype.is_floating_point else (~t if t.dtype != torch.bool else t.logical_not())
     return torch.sort(_total_order_key(t), dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+# elements up to which topk_select sorts whole rows instead of selecting
+_SORT_ELEMENTS = 1 << 20
+
+
+def topk_select(t: torch.Tensor, k: int, largest: bool = True) -> torch.Tensor:
+    """:func:`topk_order`'s result for a 2-D float ``t`` whose rows are much
+    longer than ``k``, without sorting them: ``torch.topk`` selects k + 1,
+    and only a row whose k-th and (k+1)-th values are equal (a tie across
+    the cut, where ``torch.topk`` may keep any of the equal elements) is
+    ranked again by :func:`topk_order`, which reads the host once for all
+    such rows.  The selection is then ordered as ``lax.top_k`` orders it.
+    Nothing of the row's size is allocated.  A small ``t`` (up to
+    ``_SORT_ELEMENTS``) is ranked by :func:`topk_order` directly, with no
+    host read."""
+    if t.numel() <= _SORT_ELEMENTS:
+        return topk_order(t, k, largest)
+    m = t.shape[-1]
+    vals, idx = torch.topk(t, min(k + 1, m), dim=-1, largest=largest, sorted=True)
+    if m > k:
+        cut = torch.eq(vals[..., k], vals[..., k - 1]).nonzero().reshape(-1)
+        idx = idx[..., :k].clone()
+        if cut.numel():
+            idx[cut] = topk_order(t[cut], k, largest)
+    idx = torch.sort(idx, dim=-1).values
+    return idx.gather(-1, topk_order(t.gather(-1, idx), k, largest))
 
 
 def distributed_topk(shards: Sequence[torch.Tensor], axis: int, k: int, largest: bool = True):

@@ -179,5 +179,6 @@ def test_errors():
         htt.broadcast_to(b, (5, 4))
     with pytest.raises(ValueError):
         htt.rot90(b, 1, (0, 0))
+    # every mode of jnp.pad is ported; an unknown one raises as jnp.pad does
     with pytest.raises(NotImplementedError):
-        htt.pad(b, 1, mode="edge")
+        htt.pad(b, 1, mode="bogus")

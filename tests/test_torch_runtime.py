@@ -502,9 +502,20 @@ NAMES = [
     "sanitize_in_tensor", "sanitize_infinity", "sanitize_lshape", "sanitize_sequence", "scalar_to_1d",
     "broadcast_shapes", "sanitize_slice", "Device", "LocalIndex", "MPIRequest", "ClassificationMixin",
     "TransformMixin",
+    # linear algebra, signals, tiles and top-k merging
+    "cross", "det", "inv", "outer", "projection", "svd", "trace", "vdot", "vecdot", "matmul", "dot", "convolve",
+    "SplitTiles", "SquareDiagTiles", "mpi_topk", "pad",
 ]
 MEMBERS = ["tolist", "fill_diagonal", "counts_displs", "create_lshape_map", "is_balanced", "balance_",
-           "redistribute_", "copy", "cpu", "stride", "transpose", "create_partition_interface", "astype", "resplit_"]
+           "redistribute_", "copy", "cpu", "stride", "transpose", "create_partition_interface", "astype", "resplit_",
+           "get_halo", "shard_halos", "shard_with_halos"]
+LINALG = ["cross", "det", "inv", "outer", "projection", "svd", "trace", "vdot", "vecdot", "matmul", "dot", "qr"]
+ESTIMATORS = {
+    ("classification", "KNeighborsClassifier"): ["__init__", "one_hot_encoding", "fit", "predict", "quantize_",
+                                                  "fit_stream", "close_stream"],
+    ("naive_bayes", "GaussianNB"): ["__init__", "fit", "partial_fit", "fit_stream", "logsumexp", "predict_log_proba",
+                                    "predict_proba", "predict"],
+}
 
 
 def test_names_and_signatures(ht):
@@ -522,5 +533,18 @@ def test_names_and_signatures(ht):
     for name in MEMBERS:
         assert params(getattr(htt.DNDarray, name)) == params(getattr(ht.DNDarray, name)), name
     for name in ("nbytes", "gnbytes", "lnbytes", "gnumel", "lnumel", "real", "imag", "balanced", "strides", "lloc",
-                 "__partitioned__"):
+                 "__partitioned__", "halo_prev", "halo_next", "array_with_halos"):
         assert hasattr(htt.DNDarray, name), name
+    for name in LINALG:
+        assert params(getattr(htt.linalg, name)) == params(getattr(ht.linalg, name)), name
+    for (module, cls), methods in ESTIMATORS.items():
+        a, b = getattr(getattr(ht, module), cls), getattr(getattr(htt, module), cls)
+        for method in methods:
+            assert params(getattr(b, method)) == params(getattr(a, method)), (cls, method)
+    for module in ("classification", "naive_bayes", "signal", "tiling"):
+        assert hasattr(htt, module), module
+    from heat_tpu.ops import halo as jhalo
+    from heat_tpu_torch.ops import halo as thalo
+
+    for name in ("map_with_halos", "exchange_halos"):
+        assert params(getattr(thalo, name)) == params(getattr(jhalo, name)), name
