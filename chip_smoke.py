@@ -1,9 +1,9 @@
 """Drive heat_tpu_torch's KMeans, KMedians/KMedoids (the repo's cluster
 benchmark), QR, Lasso, sparse Spectral, TransformerLM, transport
 (reshape, resplit, advanced getitem), runtime-core (assignment, random,
-factories, printing) and linear-algebra and classifier (KNN, GaussianNB,
-svd, det/inv, convolve, pad, tiles) paths on one CUDA card and check
-them.
+factories, printing), linear-algebra and classifier (KNN, GaussianNB,
+svd, det/inv, convolve, pad, tiles) and I/O (files to the card and back)
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -63,6 +63,15 @@ blobs (fit, predict, predict_proba, four partial fits), ``svd`` at
 (the elimination) and replicated (LU), ``convolve`` of 1e8 samples with a
 1025-tap filter in three modes against a float64 FFT, five ``pad`` modes
 along the split axis of the 2e7 x 64 blobs, and the tiles of 2048^2;
+and the I/O phase on the 2e7 x 64 f32 blobs: ``save_npy`` over
+``MeshComm(4)``, ``load_npy(split=0)`` over ``MeshComm(1)`` and
+``MeshComm(4)`` (bitwise, GB/s beside numpy's read alone and a pinned
+host-to-card copy, the host's peak by tracemalloc and the card's),
+KMeans through K1 on the loaded array, ``cluster.load_hdf5_packed`` in
+bf16 and KMeans on it, a split-1 load and ``resplit(0)``, CSV at 1e6 x 64
+(the native parser against numpy's) and NetCDF at 8e6 x 64, and the
+DCSR members of the Spectral cell's k-NN graph against K6 (files in a
+temporary directory removed at the end);
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -164,6 +173,21 @@ RT_EYE, RT_LIN = 32_768, 100_000_000
 # linspace within 2 ulps of its scale of torch's, logspace within 32 ulps
 # (float64; the CPU tests' tolerances against heat_tpu)
 TOL_LIN_ULPS, TOL_LOG_ULPS = 2, 32
+
+
+# the I/O phase: the Lloyd shape (2e7 x 64 f32, 5.12 GB) written to a file
+# and loaded back split over MeshComm(1) and MeshComm(4); the chip
+# machine's temporary directory (75 GB free) holds it uncut.  h5py and
+# netCDF4 are not installed there, so the HDF5 steps read and write .npy
+# through the same slab funnel (load_hdf5_packed opens it through
+# stream.open_source), and NetCDF goes through scipy's classic format,
+# whose 32-bit offsets keep a file under 2 GiB: IO_NC_ROWS x 64 f32 is
+# 2.048 GB.  CSV at 1e6 x 64.
+IO_ROWS, IO_F, IO_K, IO_ITERS = ROWS, 64, 8, 10
+IO_CSV_ROWS, IO_NC_ROWS = 1_000_000, 8_000_000
+# a split load's host peak (tracemalloc, which sees numpy's buffers): one
+# position's slab plus 64 MiB for everything else the load allocates
+IO_HOST_MARGIN = 64 << 20
 
 
 class SmokeFailure(RuntimeError):
@@ -348,6 +372,49 @@ def make_blobs16(rows: int, dim: int, k: int, seed: int, dev, scale: float = 300
     return x, centres, labels
 
 
+def bf16_blob_gate(k1, model, blocks, centres, truth, what: str) -> None:
+    """The gate on a bf16 KMeans fit of blobs: the centres a permutation of
+    the generating ones, each coordinate within half a bf16 ulp of its
+    generating value (the update rounds the f32 mean to bf16) plus 0.05
+    (the mean of millions of samples sits within ~1e-3 of its centre); the
+    labels the plain version's wherever the top-two margin is clear, and the
+    generating blob recovered on more than 0.9999 of the rows.  ``blocks``
+    are the samples, in order, as bf16 (count, f) tensors."""
+    fitted = model.cluster_centers_.larray.float()
+    k = fitted.shape[0]
+    dist = torch.cdist(fitted, centres)
+    match = dist.argmin(dim=1)
+    check(sorted(match.tolist()) == list(range(k)), f"{what}: centres are not a permutation of the generating ones")
+    true = centres[match]
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(true.abs(), fitted.abs()).clamp_min(2.0**-14))) - 7)
+    off = (fitted - true).abs() - 0.5 * ulp
+    worst = int(torch.argmax(off))
+    excess = float(off.max()) - 0.05
+    print(f"[e2e] {what}: centre error {float(dist.min(dim=1).values.max()):.4e}, "
+          f"worst coordinate {excess:+.4e} past half a bf16 ulp + 0.05 (fitted {float(fitted.view(-1)[worst]):.6g}, "
+          f"generating {float(true.view(-1)[worst]):.6g}, ulp {float(ulp.view(-1)[worst]):.6g}), matched {match.tolist()}")
+    check(excess <= 0, f"{what}: centres are off their generating ones")
+    pred = model.labels_.larray.reshape(-1)
+    disagree = clear_rows = at = 0
+    for block in blocks:
+        for lo in range(0, block.shape[0], PLAIN_ROWS):
+            xs_ = block[lo : lo + PLAIN_ROWS]
+            d2 = k1.reference_cdist(xs_, model.cluster_centers_.larray, sqrt=False)
+            top2 = d2.topk(2, dim=1, largest=False)
+            margin = top2.values[:, 1] - top2.values[:, 0]
+            scale = (xs_.float() ** 2).sum(1) + (fitted * fitted).sum(1).max()
+            clear = margin > 2 * TOL * scale
+            disagree += int(((pred[at + lo : at + lo + xs_.shape[0]] != top2.indices[:, 0]) & clear).sum())
+            clear_rows += int(clear.sum())
+            del d2, top2, margin, scale, clear
+        at += block.shape[0]
+    agree_truth = float((match[pred.long()] == truth).float().mean())
+    print(f"[e2e] {what} labels vs plain: {disagree} disagreements over {clear_rows} rows with a clear margin; "
+          f"generating blob recovered on {agree_truth:.6f}")
+    check(disagree == 0, f"{what}: {disagree} labels disagree with the plain version")
+    check(agree_truth > 0.9999, f"{what}: labels do not recover the blobs")
+
+
 def northstar_paths(ht, k1, km_mod, seed: int, dev, card: str) -> dict:
     """BASELINE.md's north star through the entry points, as
     ``_northstar_slope`` runs it: ``KMeans(k=8, init="random", tol=-1)``
@@ -433,41 +500,8 @@ def northstar_paths(ht, k1, km_mod, seed: int, dev, card: str) -> dict:
     packed = ht.cluster.pack(ht.array(data, split=0, copy=False))
     check(packed.x2.larray.data_ptr() == data.data_ptr(), "pack copied the payload")
     model = ht.cluster.KMeans(n_clusters=NS_K, init="kmeans++", max_iter=10, tol=-1.0, random_state=seed).fit(packed)
-    fitted = model.cluster_centers_.larray.float()
-    dist = torch.cdist(fitted, centres)
-    match = dist.argmin(dim=1)
-    check(sorted(match.tolist()) == list(range(NS_K)), "bf16 blob centres are not a permutation of the generating ones")
-    # each coordinate within half a bf16 ulp of its generating value (the
-    # update rounds the f32 mean to bf16) plus 0.05 (the mean of ~1.25e7
-    # samples sits within ~1e-3 of its centre)
-    true = centres[match]
-    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(true.abs(), fitted.abs()).clamp_min(2.0**-14))) - 7)
-    off = (fitted - true).abs() - 0.5 * ulp
-    worst = int(torch.argmax(off))
-    excess = float(off.max()) - 0.05
-    print(f"[e2e] bf16 blobs {tuple(data.shape)}: centre error {float(dist.min(dim=1).values.max()):.4e}, "
-          f"worst coordinate {excess:+.4e} past half a bf16 ulp + 0.05 (fitted {float(fitted.view(-1)[worst]):.6g}, "
-          f"generating {float(true.view(-1)[worst]):.6g}, ulp {float(ulp.view(-1)[worst]):.6g}), matched {match.tolist()}")
-    check(excess <= 0, "bf16 blob centres are off their generating ones")
-    # labels against the plain version where the top-two margin is clear
-    pred = model.labels_.larray
-    disagree = clear_rows = 0
-    for lo in range(0, NS_ROWS, PLAIN_ROWS):
-        xs_ = data[lo : lo + PLAIN_ROWS]
-        d2 = k1.reference_cdist(xs_, model.cluster_centers_.larray, sqrt=False)
-        top2 = d2.topk(2, dim=1, largest=False)
-        margin = top2.values[:, 1] - top2.values[:, 0]
-        scale = (xs_.float() ** 2).sum(1) + (fitted * fitted).sum(1).max()
-        clear = margin > 2 * TOL * scale
-        disagree += int(((pred[lo : lo + PLAIN_ROWS] != top2.indices[:, 0]) & clear).sum())
-        clear_rows += int(clear.sum())
-        del d2, top2, margin, scale, clear
-    agree_truth = float((match[pred.long()] == truth).float().mean())
-    print(f"[e2e] bf16 blobs labels vs plain: {disagree} disagreements over {clear_rows} rows with a clear margin; "
-          f"generating blob recovered on {agree_truth:.6f}")
-    check(disagree == 0, f"{disagree} bf16 labels disagree with the plain version")
-    check(agree_truth > 0.9999, "bf16 blob labels do not recover the blobs")
-    del data, centres, truth, packed, model, pred, fitted
+    bf16_blob_gate(k1, model, [data], centres, truth, f"bf16 blobs {tuple(data.shape)}")
+    del data, centres, truth, packed, model
     torch.cuda.empty_cache()
 
     # small bf16 inputs: the same fits on the card and on the CPU, dense
@@ -2454,6 +2488,272 @@ def linalg_classifier_paths(ht, k1, seed: int, dev, card: str) -> dict:
     return out
 
 
+def gb_per_s(nbytes: int, seconds: float) -> float:
+    return nbytes / seconds / 1e9
+
+
+def io_paths(ht, k1, k6, k7, seed: int, dev, card: str) -> dict:
+    """The I/O phase: (a) ``save_npy`` of the 2e7 x 64 f32 blobs split over
+    MeshComm(4); (b) ``load_npy(split=0)`` over MeshComm(1) and MeshComm(4),
+    bitwise, its rate beside numpy's read of the same slabs alone and a
+    pinned host-to-card copy of one slab, the host's peak (tracemalloc) and
+    the card's above the loaded array; (c) KMeans through K1 on the loaded
+    array, with the Lloyd phase's gates; (d) ``load_hdf5_packed`` in bf16
+    and KMeans through K1 with the north star's blob gate; (e) a split-1
+    load, then ``resplit(0)``, bitwise; (f) CSV at 1e6 x 64 (the native
+    parser against numpy's, bitwise) and NetCDF at 8e6 x 64; (g)
+    ``knn_graph`` on the Spectral cell's data, the new DCSR members on the
+    card, and ``larray @ x`` (cuSPARSE) against K6's ``sparse.matmul``.
+    The files live in a temporary directory removed at the end, whatever
+    happens.  Returns the launches of K1, K6 and K7."""
+    import os
+    import shutil
+    import tempfile
+    import tracemalloc
+
+    from heat_tpu_torch.core import io as io_mod
+    from heat_tpu_torch.core import stream as stream_mod
+
+    t_phase = time.perf_counter()
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    n, f, k = IO_ROWS, IO_F, IO_K
+    data, centres, truth = make_blobs(n, f, k, seed + 16, dev, return_labels=True)
+    x = ht.array(data, split=0, comm=mesh, copy=False)
+    nbytes = data.numel() * data.element_size()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="heat_io_")
+    try:
+        path = os.path.join(tmp, "x.npy")
+        # (a) save, one position's shard at a time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ht.save_npy(x, path)
+        out["save_s"] = time.perf_counter() - t0
+        check(os.path.getsize(path) >= nbytes, "save_npy wrote a short file")
+        print(f"[e2e] io save_npy ({n},{f}) f32 split 0 over MeshComm({mesh.size}): {out['save_s']:.3f} s, "
+              f"{gb_per_s(nbytes, out['save_s']):.4f} GB/s on {card}")
+
+        # (b) loads: timed, then again under tracemalloc for the host's peak
+        loaded = {}
+        for m in (1, mesh.size):
+            comm = ht.MeshComm(m)
+            slab = -(-n // m) * f * 4
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            y = ht.load_npy(path, split=0, comm=comm)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            card_above = torch.cuda.max_memory_allocated() - base - nbytes
+            same = y.split == 0 and y.dtype is ht.float32 and same_shards(y, data, comm)
+            del y
+            tracemalloc.start()
+            y = ht.load_npy(path, split=0, comm=comm)
+            torch.cuda.synchronize()
+            host_peak = tracemalloc.get_traced_memory()[1]
+            tracemalloc.stop()
+            print(f"[e2e] io load_npy split 0 over MeshComm({m}): {load_s:.3f} s, {gb_per_s(nbytes, load_s):.4f} GB/s, "
+                  f"every shard bitwise {same}, host peak {host_peak / 1e9:.4f} GB (a slab {slab / 1e9:.4f} GB + "
+                  f"{IO_HOST_MARGIN >> 20} MiB allowed), card peak above the loaded array {card_above / 1e9:.4f} GB on {card}")
+            check(same, f"load_npy over MeshComm({m}) differs from the saved array")
+            check(host_peak <= slab + IO_HOST_MARGIN, f"load_npy over MeshComm({m}): host peak {host_peak} > a slab")
+            out[f"load_s_mesh{m}"], out[f"load_gbs_mesh{m}"] = load_s, gb_per_s(nbytes, load_s)
+            out[f"host_peak_gb_mesh{m}"], out[f"card_above_gb_mesh{m}"] = host_peak / 1e9, card_above / 1e9
+            loaded[m] = y
+        del loaded[1]
+        # the two ceilings at MeshComm(4)'s slabs: numpy's read of the slabs
+        # alone, and a pinned host-to-card copy of one slab
+        mm = np.load(path, mmap_mode="r")
+        t0 = time.perf_counter()
+        for r in range(mesh.size):
+            lo, lshape, _ = mesh.chunk((n, f), 0, rank=r)
+            part = stream_mod.read_rows(mm, lo, lo + lshape[0], copy=True)
+        read_s = time.perf_counter() - t0
+        del mm
+        pinned = torch.from_numpy(part).pin_memory()
+        dst = torch.empty_like(pinned, device=dev)
+        h2d_ms = time_ms(lambda: dst.copy_(pinned, non_blocking=True), reps=3, warmup=1)
+        slab_bytes = pinned.numel() * 4
+        out["numpy_read_gbs"] = gb_per_s(nbytes, read_s)
+        out["pinned_h2d_gbs"] = slab_bytes / (h2d_ms / 1e3) / 1e9
+        print(f"[e2e] io ceilings at MeshComm({mesh.size})'s slabs: numpy's read alone {read_s:.3f} s, "
+              f"{out['numpy_read_gbs']:.4f} GB/s; a pinned host-to-card copy of one {slab_bytes / 1e9:.2f} GB slab "
+              f"{h2d_ms:.2f} ms, {out['pinned_h2d_gbs']:.4f} GB/s; the load at MeshComm({mesh.size}) "
+              f"{out[f'load_gbs_mesh{mesh.size}']:.4f} GB/s (the file in the page cache) on {card}")
+        del part, pinned, dst
+
+        # (c) KMeans through K1 on the loaded array
+        y = loaded.pop(mesh.size)
+        k1.launches = 0
+        t0 = time.perf_counter()
+        model = ht.cluster.KMeans(n_clusters=k, init="kmeans++", max_iter=IO_ITERS, tol=-1, random_state=seed).fit(y)
+        labels = model.predict(y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        dense_k1 = k1.launches
+        expected = mesh.size * (k + IO_ITERS + 2)  # kmeans++, Lloyd, labels_, predict, each position
+        fitted = model.cluster_centers_.larray.float()
+        dist = torch.cdist(fitted, centres)
+        match = dist.argmin(dim=1)
+        centre_err = float(dist.min(dim=1).values.max())
+        pred = labels.larray.reshape(-1)
+        d2 = k1.reference_cdist(data, fitted, sqrt=False)
+        top2 = d2.topk(2, dim=1, largest=False)
+        scale = (data * data).sum(1) + (fitted * fitted).sum(1).max()
+        clear = top2.values[:, 1] - top2.values[:, 0] > 2 * TOL * scale
+        disagree = int(((pred != top2.indices[:, 0]) & clear).sum())
+        print(f"[e2e] io KMeans(k={k}, kmeans++, {IO_ITERS} iterations) on the loaded array over MeshComm({mesh.size}): "
+              f"fit + predict {fit_s:.3f} s, cdist launches {dense_k1} (expected {expected}), centre error "
+              f"{centre_err:.4e} (tolerance 0.05), {disagree} labels disagree with the plain version over "
+              f"{int(clear.sum())} rows with a clear margin on {card}")
+        check(dense_k1 == expected, f"io KMeans: cdist launches {dense_k1} != {expected}")
+        check(sorted(match.tolist()) == list(range(k)) and centre_err <= 0.05, "io KMeans: centres off the blobs")
+        check(disagree == 0, f"io KMeans: {disagree} labels disagree with the plain version")
+        del y, model, labels, fitted, pred, d2, top2, scale, clear
+        torch.cuda.empty_cache()
+
+        # (d) the packed bf16 load and KMeans through K1 on 16-bit input
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        packed = ht.cluster.load_hdf5_packed(path, "x", dtype=ht.bfloat16, comm=mesh)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+        packed_above = torch.cuda.max_memory_allocated() - base - nbytes // 2
+        check(packed.dtype is ht.bfloat16 and packed.shape == (n, f) and packed.x2.shape == (n // 2, 2 * f),
+              f"load_hdf5_packed gave {packed}")
+        blocks = packed.sample_blocks()
+        starts = np.cumsum([0] + [b.shape[0] for b in blocks])
+        rounded = starts[-1] == n and all(torch.equal(b, data[lo : lo + b.shape[0]].bfloat16())
+                                          for b, lo in zip(blocks, starts.tolist()))
+        print(f"[e2e] io load_hdf5_packed bf16 over MeshComm({mesh.size}): {packed_s:.3f} s, "
+              f"{gb_per_s(nbytes, packed_s):.4f} GB/s of the file, samples the f32 values rounded {rounded}, card peak "
+              f"above the packed array {packed_above / 1e9:.4f} GB on {card}")
+        check(rounded, "load_hdf5_packed: the samples are not the file's values rounded to bf16")
+        k1.launches = 0
+        model = ht.cluster.KMeans(n_clusters=k, init="kmeans++", max_iter=IO_ITERS, tol=-1.0, random_state=seed).fit(packed)
+        packed_k1 = k1.launches
+        # kmeans++ on the first 2^18 samples (position 0's), then Lloyd and
+        # labels_ on each position
+        expected16 = k + mesh.size * (IO_ITERS + 1)
+        print(f"[e2e] io KMeans on the packed bf16 load: cdist launches {packed_k1} (expected {expected16})")
+        check(packed_k1 == expected16, f"io packed KMeans: cdist launches {packed_k1} != {expected16}")
+        bf16_blob_gate(k1, model, blocks, centres, truth, f"io packed bf16 load {(n, f)}")
+        out["packed_s"] = packed_s
+        del packed, blocks, model
+        torch.cuda.empty_cache()
+
+        # (e) a split-1 load, then resplit(0)
+        k7.launches = 0
+        t0 = time.perf_counter()
+        y1 = ht.load_npy(path, split=1, comm=mesh)
+        torch.cuda.synchronize()
+        load1_s = time.perf_counter() - t0
+        same1 = y1.split == 1 and same_shards(y1, data, mesh)
+        t0 = time.perf_counter()
+        y0 = y1.resplit(0)
+        torch.cuda.synchronize()
+        resplit_ms = 1e3 * (time.perf_counter() - t0)
+        resplit_k7 = k7.launches
+        same0 = y0.split == 0 and same_shards(y0, data, mesh)
+        print(f"[e2e] io load_npy split 1 over MeshComm({mesh.size}): {load1_s:.3f} s, bitwise {same1}; resplit(0) "
+              f"{resplit_ms:.2f} ms, bitwise equal to the split-0 load {same0}, repack launches {resplit_k7} (a resplit "
+              f"between two split axes joins views of the shards, transport.tiled_resplit) on {card}")
+        check(same1 and same0, "io: the split-1 load or its resplit differs")
+        check(resplit_k7 == 0, f"io: resplit launched repack {resplit_k7} times")
+        out.update(load1_s=load1_s, resplit_ms=resplit_ms)
+        del y1, y0
+        torch.cuda.empty_cache()
+
+        # (f) CSV: the native parser against numpy's, bitwise; NetCDF
+        csv = os.path.join(tmp, "x.csv")
+        xc = ht.array(data[:IO_CSV_ROWS], split=0, comm=mesh, copy=False)
+        t0 = time.perf_counter()
+        ht.save_csv(xc, csv)
+        csv_save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zc = ht.load_csv(csv, split=0, comm=mesh)
+        torch.cuda.synchronize()
+        csv_load_s = time.perf_counter() - t0
+        same_c = same_shards(zc, data[:IO_CSV_ROWS], mesh)
+        bounds, rows = ht.native.csv_row_bounds(csv, 0, mesh.size)
+        t0 = time.perf_counter()
+        py = [io_mod._csv_parse_byte_range(csv, bounds[r], bounds[r + 1], ",", np.dtype(np.float32), "utf-8", False)
+              for r in range(mesh.size)]
+        py_s = time.perf_counter() - t0
+        same_py = rows == IO_CSV_ROWS and all(
+            np.array_equal(p.view(np.uint32), s.cpu().numpy().view(np.uint32)) for p, s in zip(py, zc.shards))
+        print(f"[e2e] io CSV ({IO_CSV_ROWS},{f}) over MeshComm({mesh.size}): save_csv {csv_save_s:.3f} s, load_csv "
+              f"(native parser) {csv_load_s:.3f} s, bitwise equal to the saved f32 values {same_c}; numpy's parser "
+              f"{py_s:.3f} s, bitwise equal to the native one {same_py} on {card}")
+        check(same_c and same_py, "io: CSV values differ between the routes or from the saved ones")
+        out.update(csv_save_s=csv_save_s, csv_load_s=csv_load_s, csv_numpy_s=py_s)
+        del zc, py, xc
+        os.remove(csv)
+        nc = os.path.join(tmp, "x.nc")
+        xn = ht.array(data[:IO_NC_ROWS], split=0, comm=mesh, copy=False)
+        t0 = time.perf_counter()
+        ht.save_netcdf(xn, nc, "x")
+        nc_save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zn = ht.load_netcdf(nc, "x", split=0, comm=mesh)
+        torch.cuda.synchronize()
+        nc_load_s = time.perf_counter() - t0
+        same_n = same_shards(zn, data[:IO_NC_ROWS], mesh)
+        nc_bytes = IO_NC_ROWS * f * 4
+        print(f"[e2e] io NetCDF ({IO_NC_ROWS},{f}) f32 (scipy's classic format) over MeshComm({mesh.size}): save "
+              f"{nc_save_s:.3f} s, load {nc_load_s:.3f} s ({gb_per_s(nc_bytes, nc_load_s):.4f} GB/s), bitwise {same_n} "
+              f"on {card}")
+        check(same_n, "io: the NetCDF load differs from the saved array")
+        out.update(nc_save_s=nc_save_s, nc_load_s=nc_load_s)
+        del zn, xn
+    finally:
+        shutil.rmtree(tmp)
+    del x, data, centres, truth
+    torch.cuda.empty_cache()
+
+    # (g) the DCSR members on the card, and larray @ x against K6
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    blobs, _ = two_blobs(KNNG_N, KNNG_F, gen, dev)
+    a = ht.sparse.knn_graph(ht.array(blobs, split=0, comm=mesh), KNNG_K, sigma=0.5**0.5)
+    d, i, p = a.data, a.indices, a.indptr
+    triples = a._shards
+    gathered = (torch.equal(d, torch.cat([t[0] for t in triples])) and torch.equal(i, torch.cat([t[1] for t in triples]))
+                and p.dtype == torch.int32 and i.dtype == torch.int32 and tuple(p.shape) == (KNNG_N + 1,)
+                and int(p[-1]) == a.nnz and d.device.type == dev.type and torch.equal(a.gdata, d)
+                and torch.equal(a.gindptr, p))
+    local = (torch.equal(a.ldata, triples[0][0]) and torch.equal(a.lindices, triples[0][1])
+             and torch.equal(a.lindptr, triples[0][2]) and a.lshape == mesh.chunk(a.shape, 0)[1])
+    gptr = a.global_indptr
+    meta = gptr.split is None and gptr.dtype is ht.int32 and torch.equal(gptr.larray, p) and a.balanced and a.trim() is a
+    xv = torch.randn(KNNG_N, 1, generator=gen, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch marks its sparse CSR tensors as beta
+        lib = a.larray
+        want = lib @ xv
+        absum = torch.sparse_csr_tensor(p, i, d.abs(), a.shape) @ xv.abs()
+    k6.launches = 0
+    y = ht.sparse.matmul(a, ht.array(xv, comm=mesh))
+    torch.cuda.synchronize()
+    dcsr_k6 = k6.launches
+    rel = float(((y.larray - want).abs() / absum.clamp_min(1e-30)).max())
+    print(f"[e2e] io DCSR members of knn_graph ({KNNG_N},{KNNG_F}) k={KNNG_K} over MeshComm({mesh.size}), nnz {a.nnz}: "
+          f"gathered triple on the card {gathered}, the position's triple {local}, global_indptr/balanced/trim {meta}; "
+          f"larray @ x (cuSPARSE) against sparse.matmul (K6): max |dy| / sum|vals x| {rel:.3e} (tolerance {TOL_SPMV:g}), "
+          f"spmv launches {dcsr_k6} (expected {mesh.size}) on {card}")
+    check(gathered and local and meta, "io: the DCSR members differ from the triples")
+    check(rel <= TOL_SPMV, f"io: larray @ x differs from sparse.matmul by {rel:.3e}")
+    check(dcsr_k6 == mesh.size, f"io: spmv launches {dcsr_k6} != {mesh.size}")
+    del a, lib, blobs, d, i, p, y, want, absum
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out.update(k1=dense_k1 + packed_k1, k6=dcsr_k6, k7=resplit_k7)
+    print(f"[e2e] io phase {out['wall_s']:.1f} s wall: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3106,6 +3406,9 @@ def main() -> int:
     # det/inv, convolve, pad and tiles
     la = linalg_classifier_paths(ht, k1, args.seed, dev, card)
 
+    # I/O: files to the card and back, KMeans on what was loaded, DCSR members
+    io = io_paths(ht, k1, k6, k7, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -3113,7 +3416,7 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"],
+            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -3126,6 +3429,7 @@ def main() -> int:
             "launches_cluster_benchmark": cb["launches"],
             "launches_runtime_core": rt["k1"],
             "launches_linalg_classifiers": la["knn"]["k1"],
+            "launches_io": io["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
@@ -3173,7 +3477,8 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/spmv.cu",
             "replaces": "heat_tpu/ops/spmv.py:117",
-            "launches": matmul_launches + spectral_launches,
+            "launches": matmul_launches + spectral_launches + io["k6"],
+            "launches_io": io["k6"],
             "max_abs_err": k6_abs,
             "ms": k6_times[1][0],
             "plain_ms": k6_times[1][1],
@@ -3232,9 +3537,10 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/repack.cu",
             "replaces": "heat_tpu/ops/repack.py:75",
-            "launches": tr["launches"] + rt["k7"],
+            "launches": tr["launches"] + rt["k7"] + io["k7"],
             "launches_transport": tr["launches"],
             "launches_runtime_core": rt["k7"],
+            "launches_io": io["k7"],
             "max_abs_err": k7_abs,
             "bitwise_equal": k7_equal,
             "ms": k7_times[REPACK_OUT][0],

@@ -18,7 +18,9 @@ sparse Spectral path (``sparse``, ``graph``, ``linalg.lanczos``,
 ``ops.pallas_matmul`` entry point, and the transport engine under every
 layout change (``reshape`` across the split, ``resplit``, advanced
 indexing, the other manipulations and ``sort``; ``parallel.transport``,
-``parallel.select``, ``parallel.sort``, ``ops.repack``).
+``parallel.select``, ``parallel.sort``, ``ops.repack``), and files to the
+card and back (``io``, ``load``/``save`` and the format functions,
+``native``, ``datasets``, ``utils.data``).
 """
 
 from .core import *
@@ -30,6 +32,7 @@ from .core import (
     devices,
     exponential,
     factories,
+    io,
     linalg,
     logical,
     manipulations,
@@ -43,7 +46,9 @@ from .core import (
     tiling,
     trigonometrics,
     types,
+    version,
 )
+from .core.version import __version__
 from . import parallel
 from . import ops
 from . import spatial
@@ -55,5 +60,5 @@ from . import regression
 from . import models
 from . import naive_bayes
 from . import utils
-
-__version__ = "0.1.0"
+from . import datasets
+from . import native

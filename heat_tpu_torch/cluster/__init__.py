@@ -5,7 +5,7 @@ from .convert import kmeans_from_state, spectral_from_state
 from .kmeans import KMeans
 from .kmedians import KMedians
 from .kmedoids import KMedoids
-from .packing import PackedSamples, pack, rand_packed, randn_packed
+from .packing import PackedSamples, load_hdf5_packed, pack, rand_packed, randn_packed
 from .spectral import Spectral
 
 __all__ = [
@@ -15,6 +15,7 @@ __all__ = [
     "PackedSamples",
     "Spectral",
     "kmeans_from_state",
+    "load_hdf5_packed",
     "pack",
     "packing",
     "rand_packed",

@@ -12,8 +12,9 @@ through a view (:meth:`PackedSamples.sample_blocks`), never a relayout.
 :func:`randn_packed` and :func:`rand_packed` draw the packed shape directly
 (through :mod:`heat_tpu_torch.core.random`, which draws large 16-bit arrays
 in chunks: no full-size f32 intermediate); :func:`pack` copies an existing
-(n, f) array into the layout.  ``KMeans.fit``/``predict`` take a
-:class:`PackedSamples`.  ``load_hdf5_packed`` waits for ``core/io.py``.
+(n, f) array into the layout; :func:`load_hdf5_packed` reads an HDF5
+dataset straight into it, one block of whole packed rows a position.
+``KMeans.fit``/``predict`` take a :class:`PackedSamples`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..core import random as ht_random
 from ..core import types
 from ..core.dndarray import DNDarray, _wrap
 
-__all__ = ["PackedSamples", "pack", "packable", "rand_packed", "randn_packed"]
+__all__ = ["PackedSamples", "load_hdf5_packed", "pack", "packable", "rand_packed", "randn_packed"]
 
 
 def packable(f: int, dtype) -> bool:
@@ -157,3 +158,35 @@ def pack(x: DNDarray) -> PackedSamples:
         buf[:n] = flat
         x2 = buf.view(rows, p * f)
     return PackedSamples(_wrap(x2, x.split, x.device, x.comm), n, f)
+
+
+def load_hdf5_packed(path: str, dataset: str, dtype=types.bfloat16, device=None, comm=None, split: Optional[int] = 0) -> PackedSamples:
+    """A sharded HDF5 load of an (n, f) dataset straight into the packed
+    layout: each position's packed rows [lo, hi) are the samples [lo·p,
+    min(hi·p, n)), read as one slab, zero-filled to whole rows and placed
+    on its device in ``dtype``; no (n, f) copy exists."""
+    import numpy as np
+
+    from ..core import io as ht_io
+    from ..core import stream
+    from ..core.devices import sanitize_device
+    from ..parallel.mesh import sanitize_comm
+
+    if split != 0:
+        raise ValueError("packed loads are row-sharded: split must be 0")
+    with stream.open_source(path, dataset=dataset) as src:
+        n, f = src.shape
+        if not packable(f, dtype):
+            raise ValueError(f"cannot lane-pack f={f}, dtype={types.canonical_heat_type(dtype).__name__}")
+        p = 128 // f
+        rows = -(-n // p)
+
+        def read_packed_slab(lo: int, hi: int) -> np.ndarray:
+            chunk = src.read(lo * p, min(hi * p, n))
+            short = (hi - lo) * p - chunk.shape[0]
+            if short:  # the last row's slots past sample n
+                chunk = np.concatenate([chunk, np.zeros((short, f), chunk.dtype)])
+            return chunk.reshape(hi - lo, p * f)
+
+        x2 = ht_io._assemble_sharded(read_packed_slab, (rows, p * f), dtype, 0, sanitize_device(device), sanitize_comm(comm))
+    return PackedSamples(x2, n, f)

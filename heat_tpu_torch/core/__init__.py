@@ -1,9 +1,11 @@
 """heat_tpu_torch core: runtime (communication, devices, the dtype lattice,
 factories, the DNDarray, sanitation, memory, printing, the estimator base,
-random) and the op surface (arithmetic, exponential, trigonometric,
+random, I/O) and the op surface (arithmetic, exponential, trigonometric,
 rounding, logical, complex, relational, statistics, manipulations, linalg),
 exported flat as in heat_tpu.core."""
 
+from . import version
+from .version import __version__
 from . import communication
 from .communication import Communication, MeshComm, MPICommunication, MPIRequest, get_comm, sanitize_comm, use_comm
 from . import types
@@ -48,6 +50,8 @@ from . import manipulations
 from .manipulations import *
 from . import indexing
 from .indexing import *
+from . import io
+from .io import *
 from . import random
 from . import linalg
 from .linalg import *

@@ -15,8 +15,11 @@ def nonzero(x: DNDarray) -> DNDarray:
     """Indices of the nonzero elements (heat_tpu/core/indexing.py:14): an
     (nnz, ndim) int64 array, (nnz,) for a 1-D input, replicated, since nnz
     depends on the data.  Each position's indices are found in its own
-    shard and offset by its chunk's start."""
+    shard and offset by its chunk's start.  A 0-d array raises, as in
+    numpy and the JAX package."""
     sanitation.sanitize_in(x)
+    if x.ndim == 0:
+        raise ValueError("Calling nonzero on 0d arrays is not allowed. Use atleast_1d(scalar).nonzero() instead.")
     if x.split is None or x.comm.size == 1:
         idx = torch.nonzero(x.larray)
     else:

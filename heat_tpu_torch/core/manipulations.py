@@ -524,6 +524,8 @@ class _PadPlan:
         ax = self.axis
         shape = list(like.shape)
         shape[ax] = hi - lo
+        if hi <= lo:
+            return like.new_empty(shape)
         if self.mode in ("constant", "empty"):
             c = self.const[0] if lo < self.before else self.const[1]
             return like.new_empty(shape).fill_(torch.tensor(c).to(like.dtype))
@@ -813,6 +815,8 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     last ascending and first descending, and complex values in NumPy's
     lexicographic order."""
     sanitation.sanitize_in(a)
+    if a.ndim == 0:
+        raise ValueError(f"axis {axis} is out of bounds for array of dimension 0")
     axis = stride_tricks.sanitize_axis(a.shape, axis)
     if a.split == axis and a.is_distributed():
         values, indices, _ = distributed_sort(a.shards, axis, descending)

@@ -29,7 +29,8 @@ last_halo_bytes = 0
 def convolve(a: DNDarray, v, mode: str = "full") -> DNDarray:
     """Discrete linear convolution of the 1-D ``a`` with the 1-D ``v``
     (heat_tpu/core/signal.py:21) in mode ``full`` (length n + k − 1),
-    ``same`` (n, centred left-heavy for an even k) or ``valid`` (n − k + 1).
+    ``same`` (n, centred left-heavy for an even k) or ``valid`` (n − k + 1,
+    empty where the filter is longer than ``a``).
     Integer inputs are convolved in float32 and rounded back; the result is
     split as ``a``.  :data:`last_halo_bytes` is what the call read from
     other positions' shards."""
@@ -49,10 +50,13 @@ def convolve(a: DNDarray, v, mode: str = "full") -> DNDarray:
     n, k = a.shape[0], kernel.shape[0]
     shift = {"full": 0, "same": (k - 1) // 2, "valid": k - 1}[mode]
     length = {"full": n + k - 1, "same": n, "valid": n - k + 1}[mode]
-    if length < 0:
-        raise ValueError(f"valid convolution of {n} samples with a {k}-tap filter")
     comm = a.comm
     split = a.split
+    if length < 0:
+        # the JAX package's unpadded convolution of a filter longer than
+        # the signal is empty; numpy would swap the two inputs instead
+        empty = a.shards[0].new_empty(0, dtype=tt)
+        return DNDarray([empty] * comm.size, (0,), promoted, split, a.device, comm)
     shards = a.shards if split is not None else a.shards[:1]
     src = transport.RowSource(0, n, shards=shards)
     w = kernel.to(device=shards[0].device, dtype=compute).flip(0).reshape(1, 1, k)

@@ -169,6 +169,17 @@ def _sq_dev(t: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     return c.real * c.real + c.imag * c.imag if c.is_complex() else c * c
 
 
+def _keep_split(result: DNDarray, x: DNDarray, axes, keepdims: bool) -> DNDarray:
+    """``result`` of a reduction of ``x`` over ``axes``, split as the JAX
+    package splits it: along ``x``'s split axis when that axis is kept.
+    The deviations ``x − mean`` drop a split axis of length 1 in the
+    binary-op rule, which the reduction would otherwise carry on."""
+    if x.split is None or x.split in axes:
+        return result
+    split = x.split if keepdims else x.split - sum(a < x.split for a in axes)
+    return result if result.split == split else result.resplit(split)
+
+
 def _var(x: DNDarray, axis, ddof: int, keepdims: bool) -> DNDarray:
     """The variance in the moments' working type: integers, bools and
     16-bit floats in float32 (the JAX package accumulates 16-bit input in
@@ -183,7 +194,7 @@ def _var(x: DNDarray, axis, ddof: int, keepdims: bool) -> DNDarray:
     total = _operations._reduce_op(
         lambda t, dim, keepdim: torch.sum(t, dim=dim, keepdim=keepdim), dev, axis=axis, keepdims=keepdims
     )
-    return _operations._local_op(lambda t: t / (count - ddof), total)
+    return _keep_split(_operations._local_op(lambda t: t / (count - ddof), total), x, axes, keepdims)
 
 
 def _cast_back(result: DNDarray, x: DNDarray) -> DNDarray:
@@ -224,7 +235,7 @@ def _moment_stat(x, axis, order: int, unbiased: bool, fischer: bool = True) -> D
             g = _operations._local_op(lambda t: ((n**2 - 1) * t - 3 * (n - 1) ** 2) / ((n - 2) * (n - 3)) + 3, g)
         if fischer:
             g = _operations._local_op(lambda t: t - 3, g)
-    return g
+    return _keep_split(g, x, tuple(range(x.ndim)) if axis_s is None else (axis_s,), False)
 
 
 def kurtosis(x, axis=None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .dndarray import DNDarray
+from ..parallel import transport
 
 __all__ = ["SplitTiles", "SquareDiagTiles"]
 
@@ -84,10 +85,22 @@ class SplitTiles:
         return arr.comm.chunk(arr.shape, arr.split, rank=rank)[2]
 
     def __getitem__(self, key) -> torch.Tensor:
-        """Position ``key``'s tile: its shard (a view)."""
+        """Position ``key``'s tile: its shard (a view).  Any other rank reads
+        what the JAX package's chunk slice selects: nothing for a rank past
+        the mesh, and Python's negative-bound slicing for a negative rank
+        (rank −1 nothing; rank −4 of 7 rows at 4 positions, slice(−8, −6),
+        row 0).  A slice key raises ``TypeError``."""
+        if isinstance(key, slice):
+            raise TypeError("tiles are read by rank, not by slice")
         rank = key if isinstance(key, int) else key[0]
         arr = self.__arr
-        return arr.shards[0] if arr.split is None else arr.shards[rank]
+        if arr.split is None:
+            return arr.shards[0]
+        if 0 <= rank < arr.comm.size:
+            return arr.shards[rank]
+        n = arr.shape[arr.split]
+        rows = range(n)[self.tile_ranges(rank)[arr.split]]
+        return transport.RowSource(arr.split, n, shards=arr.shards).range(rows.start, rows.stop)
 
 
 class SquareDiagTiles:

@@ -114,20 +114,86 @@ class DCSR_matrix:
         d, i, p = self.__shards[rank if self.is_distributed() else 0]
         return d.cpu().numpy(), i.cpu().numpy(), p.cpu().numpy()
 
+    def trim(self) -> "DCSR_matrix":
+        """This matrix.  The JAX package shrinks its slabs' common capacity
+        to the largest position's nnz; the port keeps each triple at its
+        own length, so there is no slack to shrink."""
+        return self
+
+    @property
+    def ldata(self) -> torch.Tensor:
+        """The calling position's values, on its device (the whole
+        matrix's when it is not distributed)."""
+        return self.__shards[0][0]
+
+    @property
+    def lindices(self) -> torch.Tensor:
+        """The calling position's column ids (int32)."""
+        return self.__shards[0][1]
+
+    @property
+    def lindptr(self) -> torch.Tensor:
+        """The calling position's row pointers over its rows (int32)."""
+        return self.__shards[0][2]
+
     # -------------------------------------------------------- global views
+    def _gathered(self) -> Triple:
+        """The global (data, indices, indptr) on the matrix's device: the
+        triples joined, each position's row pointers offset by the entries
+        before it."""
+        if self.nshards == 1:
+            return self.__shards[0]
+        ptrs, displ = [], 0
+        for d, _, p in self.__shards:
+            ptrs.append(p[:-1] + displ)
+            displ += int(d.numel())
+        last = self.__shards[-1][2]
+        ptrs.append(torch.full((1,), displ, dtype=last.dtype, device=last.device))
+        return (
+            torch.cat([s[0] for s in self.__shards]),
+            torch.cat([s[1] for s in self.__shards]),
+            torch.cat(ptrs),
+        )
+
     def _assemble(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The global (data, indices, indptr) on the host: an export path
         (``to_scipy``, tests), not the compute path."""
-        datas, idxs, ptrs = [], [], []
-        displ = 0
-        for r in range(self.nshards):
-            d, i, p = self.shard_csr(r)
-            datas.append(d)
-            idxs.append(i)
-            ptrs.append(p[:-1].astype(np.int64) + displ)
-            displ += len(d)
-        ptrs.append(np.asarray([displ]))
-        return np.concatenate(datas), np.concatenate(idxs), np.concatenate(ptrs).astype(np.int32)
+        return tuple(t.cpu().numpy() for t in self._gathered())
+
+    @property
+    def data(self) -> torch.Tensor:
+        """The global values, gathered on the matrix's device."""
+        return self._gathered()[0]
+
+    gdata = data
+
+    @property
+    def indices(self) -> torch.Tensor:
+        """The global column ids (int32)."""
+        return self._gathered()[1]
+
+    gindices = indices
+
+    @property
+    def indptr(self) -> torch.Tensor:
+        """The global row pointers (int32)."""
+        return self._gathered()[2]
+
+    gindptr = indptr
+
+    @property
+    def larray(self) -> torch.Tensor:
+        """The gathered matrix as a ``torch.sparse_csr_tensor`` on the
+        matrix's device (the JAX package gives a ``jax.experimental.sparse``
+        BCSR); an export view, not the compute path."""
+        d, i, p = self._gathered()
+        return torch.sparse_csr_tensor(p, i, d, size=self.__gshape)
+
+    @property
+    def global_indptr(self) -> DNDarray:
+        """The global row pointers as a replicated int32 DNDarray."""
+        ptr = self._gathered()[2]
+        return DNDarray([ptr] * self.__comm.size, tuple(ptr.shape), types.int32, None, self.__device, self.__comm)
 
     def to_scipy(self):
         """The matrix as a ``scipy.sparse.csr_matrix`` (a host gather)."""
@@ -169,6 +235,17 @@ class DCSR_matrix:
         return self.__gshape
 
     gshape = shape
+
+    @property
+    def lshape(self) -> Tuple[int, int]:
+        """The calling position's rows by every column when split, else the
+        global shape."""
+        return self.__comm.chunk(self.__gshape, 0, rank=self.__comm.rank)[1] if self.__split == 0 else self.__gshape
+
+    @property
+    def balanced(self) -> bool:
+        """Always: the chunk rule's layout is the balanced one."""
+        return True
 
     @property
     def dtype(self):

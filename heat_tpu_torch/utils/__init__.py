@@ -1,5 +1,4 @@
-"""Utilities (counterpart of heat_tpu/utils/): the synthetic data of the
-cluster benchmark so far."""
+"""Utilities (counterpart of heat_tpu/utils/): the data layer so far."""
 
 from . import data
 

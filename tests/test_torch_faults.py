@@ -216,3 +216,31 @@ def test_complex_argmin_raises_as_in_jax(ht):
         ht.argmin(a).numpy()
     with pytest.raises(RuntimeError):
         htt.argmin(b).numpy()
+
+
+# -------------------------------------------------------------- F12, F13
+@pytest.mark.parametrize("n", MESHES)
+@pytest.mark.parametrize("fname", ["var", "std", "skew", "kurtosis"])
+def test_moments_keep_a_length_one_split(ht, n, fname):
+    """F12: a moment along another axis than a split axis of length ≤ 1
+    keeps the split, as heat_tpu does; the values stay (within rounding of
+    the sums)."""
+    rng = np.random.default_rng(3)
+    for shape, split, axis in (((1, 4), 0, 1), ((3, 1), 1, 0), ((1, 4, 2), 0, 2)):
+        x = rng.normal(size=shape).astype(np.float32)
+        a, b = _pair(ht, x, n, split)
+        want, got = getattr(ht, fname)(a, axis=axis), getattr(htt, fname)(b, axis=axis)
+        assert got.split == want.split == 0 and got.shape == want.shape, (shape, split, axis)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.larray), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_sort_and_nonzero_of_a_0d_array_raise(ht, n):
+    """F13: ``sort`` and ``nonzero`` of a 0-d array raise ``ValueError``, as
+    numpy and heat_tpu do."""
+    a, b = _pair(ht, np.float32(3.0), n, None)
+    for fname in ("sort", "nonzero"):
+        with pytest.raises(ValueError):
+            getattr(ht, fname)(a)
+        with pytest.raises(ValueError):
+            getattr(htt, fname)(b)

@@ -3,7 +3,9 @@ anything of heat_tpu.  A fresh interpreter imports the port and runs a tiny
 KMeans fit, QR, Lasso fit, sparse product, sparse Spectral fit, the
 TransformerLM forward (dense and sequence-parallel), ``pallas_matmul`` and
 the transport engine (a split-crossing reshape, resplit, a mask getitem and
-an int-array take), one split assignment and one ``shuffle_rows``; a scan of every import statement in the port backs it
+an int-array take), one split assignment and one ``shuffle_rows``, an HDF5
+round trip and a CSV load through the native parser (built by g++ from
+``native/src/``); a scan of every import statement in the port backs it
 up."""
 
 import ast
@@ -54,6 +56,13 @@ w[5:25] = x[10:30]
 assert np.array_equal(w.numpy()[5:25], x.numpy()[10:30])
 xs, labels = ht.random.shuffle_rows([x, ht.arange(40, split=0, comm=x.comm)])
 assert np.array_equal(xs.numpy(), x.numpy()[labels.numpy()])
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    ht.save_hdf5(x, os.path.join(tmp, "x.h5"), "x")
+    assert np.array_equal(ht.load_hdf5(os.path.join(tmp, "x.h5"), "x", split=0, comm=x.comm).numpy(), x.numpy())
+    ht.save_csv(x, os.path.join(tmp, "x.csv"))
+    assert np.array_equal(ht.load_csv(os.path.join(tmp, "x.csv"), split=0, comm=x.comm).numpy(), x.numpy())
+assert ht.native.lib() is not None
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """

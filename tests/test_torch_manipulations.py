@@ -182,3 +182,16 @@ def test_errors():
     # every mode of jnp.pad is ported; an unknown one raises as jnp.pad does
     with pytest.raises(NotImplementedError):
         htt.pad(b, 1, mode="bogus")
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_linear_ramp_pad_on_one_side(ht, n):
+    """F10: an axis padded only after (or only before) in ``linear_ramp``
+    mode gives ``np.pad``'s values, as heat_tpu does, on every route: the
+    whole axis in one tensor (split None, another axis than the split, one
+    position) and the split axis over several."""
+    x = _x((9, 5), seed=11)
+    for pw in (((0, 4), (2, 1)), ((1, 0), (0, 1))):
+        for split in SPLITS:
+            a, b = _pair(ht, n, x, split)
+            _same(ht.pad(a, pw, mode="linear_ramp"), htt.pad(b, pw, mode="linear_ramp"))

@@ -157,6 +157,21 @@ def test_convolve(ht, n, split, k):
         _bitwise(np.asarray(want.larray), got.numpy())
 
 
+@pytest.mark.parametrize("n", MESHES)
+def test_convolve_valid_with_a_longer_filter_is_empty(ht, n):
+    """F9: ``valid`` with a filter longer than ``a`` gives heat_tpu's empty
+    array, split as ``a`` (numpy would swap the inputs: reference fault
+    (g)), in the promoted type."""
+    for a, v in ((np.arange(1, 6, dtype=np.float32), np.arange(1, 10, dtype=np.float32)),
+                 (np.arange(1, 6), np.arange(1, 10))):
+        for split in (0, None):
+            ja, ta = _arrays(ht, n, a, split)
+            want, got = ht.convolve(ja, v, mode="valid"), htt.convolve(ta, v, mode="valid")
+            assert got.shape == want.shape == (0,) and got.split == want.split == split
+            assert got.dtype.__name__ == want.dtype.__name__
+            assert [s.shape for s in got.lshards()] == [(0,)] * (n if split is not None else 1)
+
+
 def test_convolve_float64_halo_bytes_and_errors(ht):
     a, v = _rand(40, seed=5, dtype=np.float64), _rand(7, seed=6, dtype=np.float64)
     ja, ta = _arrays(ht, 4, a, 0)
@@ -246,6 +261,23 @@ def test_split_tiles(ht, n, split):
         assert tt.tile_ranges(r) == jt.tile_ranges(r)
         _bitwise(np.asarray(jt[r]), tt[r].numpy())
     assert tt.arr is ta
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_split_tiles_off_the_mesh(ht, n):
+    """F11: a rank at or past the mesh size, or a negative one, reads an
+    empty tile, as heat_tpu's chunk slice gives it; a slice key raises
+    ``TypeError`` in both."""
+    x = _rand(7, 13, seed=12)
+    for split in (0, 1):
+        ja, ta = _arrays(ht, n, x, split)
+        jt, tt = ht.SplitTiles(ja), htt.SplitTiles(ta)
+        for r in (n, n + 3, -1, -n):
+            _bitwise(np.asarray(jt[r]), tt[r].numpy())
+        with pytest.raises(TypeError):
+            jt[0:1]
+        with pytest.raises(TypeError):
+            tt[0:1]
 
 
 @pytest.mark.parametrize("n", MESHES)
