@@ -20,7 +20,10 @@ layout change (``reshape`` across the split, ``resplit``, advanced
 indexing, the other manipulations and ``sort``; ``parallel.transport``,
 ``parallel.select``, ``parallel.sort``, ``ops.repack``), and files to the
 card and back (``io``, ``load``/``save`` and the format functions,
-``native``, ``datasets``, ``utils.data``).
+``native``, ``datasets``, ``utils.data``), random numbers on
+``heat_tpu``'s Threefry streams (``random``, ``ops.threefry``), and
+data-parallel training (``nn``, ``optim``, ``models``,
+``utils.checkpointing``).
 """
 
 from .core import *
@@ -58,6 +61,8 @@ from . import classification
 from . import cluster
 from . import regression
 from . import models
+from . import nn
+from . import optim
 from . import naive_bayes
 from . import utils
 from . import datasets

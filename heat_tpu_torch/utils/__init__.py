@@ -1,5 +1,7 @@
-"""Utilities (counterpart of heat_tpu/utils/): the data layer so far."""
+"""Utilities (counterpart of heat_tpu/utils/): the data layer and
+checkpointing."""
 
-from . import data
+from . import checkpointing, data
+from .checkpointing import Checkpointer, load_checkpoint, save_checkpoint
 
-__all__ = ["data"]
+__all__ = ["Checkpointer", "checkpointing", "data", "load_checkpoint", "save_checkpoint"]

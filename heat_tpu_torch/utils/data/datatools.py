@@ -6,8 +6,8 @@ end of an epoch by exchanging permuted samples between ranks.  Under the
 single controller the arrays are global: an epoch shuffle takes every
 array's rows in one shared random order (split 0 through the transport
 engine's take, as ``random.shuffle_rows``), and a batch is a slice of the
-global arrays.  The order is torch's Philox stream, not the JAX package's
-Threefry, so it differs from heat_tpu's for one seed.
+global arrays.  The order is heat_tpu's for one seed: ``shuffle_rows``
+when every array is split 0, else one ``randperm``.
 """
 
 from __future__ import annotations
@@ -63,7 +63,10 @@ class Dataset:
         as it is."""
         if self.test_set:
             return
-        perm = ht_random._perm(len(self), self.arrays[0].shards[0].device)
+        if self.arrays and all(a.split == 0 for a in self.arrays):
+            self.arrays = tuple(ht_random.shuffle_rows(list(self.arrays)))
+            return
+        perm = ht_random.randperm(len(self), device=self.arrays[0].device).larray
         self.arrays = tuple(ht_random._shuffled(a, perm) for a in self.arrays)
 
     def Shuffle(self) -> None:

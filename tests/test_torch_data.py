@@ -3,10 +3,10 @@ DataLoader and the shuffles, PartialH5Dataset, MNIST, parter, the TFRecord
 index helper) of heat_tpu_torch against heat_tpu on the CPU at meshes 1, 4
 and 8.
 
-Loads and generators must agree bitwise.  The shuffles draw from the
-port's torch Philox stream, not heat_tpu's Threefry, so their order
-differs: what is checked is exact all the same, every row present once and
-each row with its labels across the arrays.
+Loads and generators must agree bitwise.  What is checked of the
+shuffles here is exact: every row present once and each row with its
+labels across the arrays; that their order is heat_tpu's for one seed is
+tests/test_torch_threefry.py's.
 """
 
 import struct

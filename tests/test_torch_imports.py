@@ -5,7 +5,8 @@ TransformerLM forward (dense and sequence-parallel), ``pallas_matmul`` and
 the transport engine (a split-crossing reshape, resplit, a mask getitem and
 an int-array take), one split assignment and one ``shuffle_rows``, an HDF5
 round trip and a CSV load through the native parser (built by g++ from
-``native/src/``); a scan of every import statement in the port backs it
+``native/src/``), one ``random.randn`` on the Threefry streams and one MLP
+``train_step``; a scan of every import statement in the port backs it
 up."""
 
 import ast
@@ -63,6 +64,13 @@ with tempfile.TemporaryDirectory() as tmp:
     ht.save_csv(x, os.path.join(tmp, "x.csv"))
     assert np.array_equal(ht.load_csv(os.path.join(tmp, "x.csv"), split=0, comm=x.comm).numpy(), x.numpy())
 assert ht.native.lib() is not None
+ht.random.seed(0)
+z = ht.random.randn(4, 3, split=0, comm=x.comm)
+assert z.shape == (4, 3) and ht.random.get_state() == ("Threefry", 0, 1, 0, 0.0)
+dp = ht.nn.DataParallel(ht.models.MLP((8, 2)), comm=x.comm,
+                        optimizer=ht.optim.DataParallelOptimizer(ht.optim.adam(1e-2))).init(0, x)
+loss = dp.train_step(x, ht.zeros(40, dtype=ht.int64, split=0, comm=x.comm))
+assert loss.ndim == 0 and bool(torch.isfinite(loss))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
 print("LOADED", bad)
 """

@@ -2,11 +2,11 @@
 
 ``PackedSamples`` keeps heat_tpu's attributes and its (ceil(n/p), p*f)
 payload with a zero tail, so ``pack`` must give heat_tpu's bytes exactly and
-the same shard layout.  The random factories draw from torch's Philox
-streams, not JAX's Threefry ones, so they are held to the same shape, dtype,
-layout and zero tail, and to the moments of their distributions: over
-4·10^4 samples a mean is within 0.03 of its value (some 6 standard errors)
-and a standard deviation within 0.02.
+the same shard layout.  The random factories are held to the same shape,
+dtype, layout and zero tail, and to the moments of their distributions:
+over 4·10^4 samples a mean is within 0.03 of its value (some 6 standard
+errors) and a standard deviation within 0.02 (their values against
+heat_tpu's streams are tests/test_torch_threefry.py's).
 """
 
 import numpy as np
@@ -117,17 +117,18 @@ def test_random_factories(ht, n, kind, mean, std, samples, f):
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_large_16bit_draws_come_in_f32_chunks(monkeypatch, n, dtype):
-    # a 16-bit draw above the chunk size never makes its whole f32 draw:
-    # every torch draw is at most one chunk, the result is deterministic and
+    # a 16-bit draw above the chunk size is drawn in the JAX package's row
+    # blocks (rows = ceil(301 / ceil(f32 bytes / chunk)) = 16, one block key
+    # each), never as its whole f32 draw; the result is deterministic and
     # mesh-invariant and has the distribution's moments
     monkeypatch.setattr(htt_random, "_CHUNK_F32_BYTES", 4 * 1000)
     sizes = []
-    real = torch.randn
-    monkeypatch.setattr(torch, "randn", lambda *a, **kw: sizes.append(a[0]) or real(*a, **kw))
+    real = htt_random.t1.threefry
+    monkeypatch.setattr(htt_random.t1, "threefry", lambda key, n_, **kw: sizes.append(n_) or real(key, n_, **kw))
     htt.random.seed(5)
     x = htt.random.randn(301, 64, dtype=getattr(htt, dtype), split=0, comm=htt.MeshComm(n), device="cpu")
     assert x.dtype is getattr(htt, dtype) and x.shape == (301, 64)
-    assert sizes == [1000] * 19 + [264]
+    assert sizes == [16 * 64] * 18 + [13 * 64]
     vals = x.numpy().astype(np.float64)
     assert abs(vals.mean()) <= 0.03 and abs(vals.std() - 1.0) <= 0.02
     htt.random.seed(5)
@@ -135,4 +136,4 @@ def test_large_16bit_draws_come_in_f32_chunks(monkeypatch, n, dtype):
     np.testing.assert_array_equal(again.numpy().astype(np.float32), vals.astype(np.float32))
     sizes.clear()
     htt.random.randn(301, 64, device="cpu")
-    assert sizes == [(301, 64)]
+    assert sizes == [301 * 64]

@@ -1,13 +1,13 @@
 """``utils.data.spherical.create_spherical_dataset``: heat_tpu_torch against
 heat_tpu on the CPU.
 
-The two packages draw from different generators (torch Philox, jax
-Threefry), so both spherical modules' ``random.rand`` are replaced, inside
-the test, by one that returns the same numpy draws as each package's split
-array.  The construction (sin/cos of the angles, the four shifted copies,
-the concatenation and resplit) must then agree: 4·n rows at every mesh
-size, split 0, values to 2 f32 ulps (CPU sin/cos in the two libraries may
-round differently)."""
+Both spherical modules' ``random.rand`` are replaced, inside the test, by
+one that returns the same numpy draws as each package's split array, so the
+construction is checked apart from the draws (that the draws themselves
+are heat_tpu's is tests/test_torch_threefry.py's).  The construction (sin/cos
+of the angles, the four shifted copies, the concatenation and resplit)
+must agree: 4·n rows at every mesh size, split 0, values to 2 f32 ulps (CPU
+sin/cos in the two libraries may round differently)."""
 
 import numpy as np
 import pytest
