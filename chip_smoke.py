@@ -532,6 +532,10 @@ def northstar_paths(ht, k1, km_mod, seed: int, dev, card: str) -> dict:
 # ±4·(1,1,1) and ±8·(1,1,1), fitted by KMeans, KMedians and KMedoids at k = 4
 CLUSTER_N, CLUSTER_K = 250_000, 4
 CLUSTER_TRUTH = [(4.0,) * 3, (8.0,) * 3, (-4.0,) * 3, (-8.0,) * 3]
+# a fit that misses a ball is held to the CPU's fit from the same random
+# state: centres within WITNESS_TOL (f32 sums in other orders), labels equal
+# but at ties
+WITNESS_TOL = 1e-4
 # KMedians/KMedoids at the Lloyd shape (2e7 x 64 f32, k = 8, config.py:163):
 # iterations a fit; the gate on the peak above the input is one (n, k, f)
 # f32 buffer, which the eager broadcast |x - c| would allocate
@@ -665,6 +669,24 @@ def card_vs_cpu_ops(ht, dev) -> int:
     return len(cases) + 1
 
 
+def witness_gate(x, centres, labels, w_centres, w_labels, l1: bool):
+    """The card's fit against the CPU's from the same random state: the
+    largest centre difference, the rows whose labels differ, and how many
+    of those are not ties (the two centres' f64 distances, L1 or squared
+    Euclidean, apart by more than 1e-4 of the distance plus 1e-4)."""
+    cerr = float((centres.cpu().double() - w_centres.double()).abs().max())
+    diff = (labels.cpu() != w_labels).nonzero().reshape(-1)
+    xs = x[diff.to(x.device)].cpu().double()
+
+    def dist(c):
+        return (xs - c).abs().sum(1) if l1 else ((xs - c) ** 2).sum(1)
+
+    c64 = w_centres.double()
+    near, mine = dist(c64[w_labels[diff]]), dist(c64[labels.cpu()[diff]])
+    bad = int(((mine - near).abs() > 1e-4 * (1 + near)).sum())
+    return cerr, int(diff.numel()), bad
+
+
 def cluster_benchmark_paths(ht, k1, seed: int, dev, card: str) -> dict:
     """The repo's cluster benchmark through the entry points: (a)
     ``benchmarks/cb/cluster.py::run()``'s three fits at its own size, one
@@ -715,22 +737,24 @@ def cluster_benchmark_paths(ht, k1, seed: int, dev, card: str) -> dict:
               f"(tolerance 0.05), matched {match.tolist()} on {card}")
         check(got == per * positions, f"{name}: cdist launches {got} != {per * positions}")
         if not (sorted(match.tolist()) == list(range(CLUSTER_K)) and err <= 0.05):
-            # the fit's ++ seeds again, from the same random state: a seeding
-            # that leaves a ball without a seed (about 1 draw in 4 on these
-            # balls, in both packages) can end in a local optimum with two
-            # centres in one ball; that is the only way a fit may miss a
-            # ball.  The fit is then held to the gates that follow: exact
-            # labels and, for KMedoids, the converged medoids' fixed point
+            # a ++ seeding that leaves a ball without a seed can end in a
+            # local optimum with two centres in one ball.  Such a fit must be
+            # the one the CPU gives: the same estimator from the same random
+            # state on a CPU copy of the data (plain versions, no kernel)
             after = ht.random.get_state()
             ht.random.set_state(state)
-            seeder = cls(n_clusters=CLUSTER_K, init=init)
-            seeder._initialize_cluster_centers(data)
+            witness = cls(n_clusters=CLUSTER_K, init=init).fit(ht.array(x.cpu(), split=0, comm=data.comm, device="cpu"))
             ht.random.set_state(after)
-            seed_balls = torch.cdist(seeder._cluster_centers.larray.float(), truth).argmin(dim=1)
-            missed = sorted(set(range(CLUSTER_K)) - set(seed_balls.tolist()))
-            print(f"[e2e] cluster benchmark {name}: the {init} seeds {seed_balls.tolist()} left ball(s) {missed} "
-                  f"without a seed; the fit's centres are nearest to balls {match.tolist()}")
-            check(bool(missed), f"{name}: fitted centres are not the four generating ones")
+            cerr, n_diff, bad = witness_gate(x, centres, labels, witness.cluster_centers_.larray.float(),
+                                             witness.labels_.larray.reshape(-1), l1=name != "KMeans")
+            w_match = torch.cdist(witness.cluster_centers_.larray.float(), truth.cpu()).argmin(dim=1)
+            print(f"[e2e] cluster benchmark {name}: the fit's centres are nearest to balls {match.tolist()}; the CPU "
+                  f"fit from the same random state: balls {w_match.tolist()}, n_iter {witness.n_iter_}, centres within "
+                  f"{cerr:.3e} (tolerance {WITNESS_TOL:g}), labels differ on {n_diff} rows, {bad} of them off a tie "
+                  f"(tolerance 0)")
+            check(cerr <= WITNESS_TOL and bad == 0,
+                  f"{name}: fitted centres are not the four generating ones, nor the CPU's fit from the same state")
+            del witness
         if name == "KMeans":
             d2 = k1.reference_cdist(x, centres, sqrt=False)
             top2 = d2.topk(2, dim=1, largest=False)
@@ -2790,9 +2814,10 @@ TOL_RESNET = 1e-4
 # DASO over 2 x 2 slices on the tutorial's MLP widths (784 -> 128 -> 64 -> 10)
 DASO_BATCH, DASO_IN, DASO_STEPS = 256, 784, 7
 # random: T1 across 2^32 (a 2^21-element window), the draws at the Lloyd
-# shape, randperm(1e8, split=0) on the Feistel route over MeshComm(4), and a
-# 16-bit draw past the 2 GiB f32 chunk limit (9e6 x 64 bf16: 2.30 GB of f32,
-# two row blocks)
+# shape (T1's uniform, normal and randint held to the plain version over all
+# 1.28e9 counters), randperm(1e8, split=0) on the Feistel route over
+# MeshComm(4), and a 16-bit draw past the 2 GiB f32 chunk limit (9e6 x 64
+# bf16: 2.30 GB of f32, two row blocks)
 RANDOM_WINDOW = 1 << 21
 RANDOM_PERM = 100_000_000
 CHUNK_ROWS = 9_000_000
@@ -2987,15 +3012,17 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
     key = t1.fold_in((0, seed & 0xFFFFFFFF), 12345)
     start = 2**32 - RANDOM_WINDOW // 2
     equal = True
-    for kind, dtype in (("bits32", None), ("bits64", None), ("uniform", torch.float32), ("uniform", torch.float64),
-                        ("uniform", torch.bfloat16), ("uniform", torch.float16)):
-        got = t1.threefry(key, RANDOM_WINDOW, start=start, kind=kind, dtype=dtype, device=dev)
-        want = t1.reference_threefry(key, RANDOM_WINDOW, start=start, kind=kind, dtype=dtype, device=dev)
+    for kind, dtype, bounds in (("bits32", None, None), ("bits64", None, None), ("uniform", torch.float32, None),
+                                ("uniform", torch.float64, None), ("uniform", torch.bfloat16, None),
+                                ("uniform", torch.float16, None), ("randint", torch.int32, (-5, 1000)),
+                                ("randint", torch.int64, (-(2**63), 2**63 - 1)), ("randint", torch.int8, (-128, 128))):
+        got = t1.threefry(key, RANDOM_WINDOW, start=start, kind=kind, dtype=dtype, bounds=bounds, device=dev)
+        want = t1.reference_threefry(key, RANDOM_WINDOW, start=start, kind=kind, dtype=dtype, bounds=bounds, device=dev)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         equal = equal and same
-        print(f"[random] T1 {kind} {dtype} counters [2^32 - {RANDOM_WINDOW // 2}, 2^32 + {RANDOM_WINDOW // 2}): "
-              f"bitwise equal to the plain version {same} on {card}")
+        print(f"[random] T1 {kind} {dtype}{'' if bounds is None else f' in {bounds}'} counters [2^32 - "
+              f"{RANDOM_WINDOW // 2}, 2^32 + {RANDOM_WINDOW // 2}): bitwise equal to the plain version {same} on {card}")
     check(equal, "T1 differs from its plain version across 2^32")
     nerr = {}
     for dtype in (torch.float32, torch.float64):
@@ -3036,7 +3063,7 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
         del a, v
         torch.cuda.empty_cache()
     path_launches = t1.launches
-    check(path_launches == 4, f"T1 launches {path_launches} != 4 (rand 1, randn 1, randint 2)")
+    check(path_launches == 3, f"T1 launches {path_launches} != 3 (rand, randn, randint: 1 each)")
     # the same draws at a small size on the card and on the CPU
     ht.random.seed(seed + 1)
     a = ht.random.randn(1000, 7, split=0, comm=mesh).larray.cpu()
@@ -3046,31 +3073,58 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
     c = ht.random.randint(-50, 50, (999,), split=0, comm=mesh).larray.cpu()
     ht.random.seed(seed + 1)
     d = ht.random.randint(-50, 50, (999,), split=0, comm=mesh, device="cpu").larray
+    wide = []
+    for d_ in ("gpu", "cpu"):
+        ht.random.seed(seed + 1)
+        wide.append(ht.random.randint(-(2**62), 2**62, (999,), dtype=ht.int64, split=0, comm=mesh, device=d_).larray.cpu())
     small_ulps = ulps(a, b)
+    same_int = torch.equal(c, d) and torch.equal(*wide)
     print(f"[random] randn (1000, 7) card vs cpu: {small_ulps:.1f} ulp (tolerance {CARD_CPU_ULPS}); randint (999,) "
-          f"card vs cpu equal {torch.equal(c, d)} on {card}")
-    check(small_ulps <= CARD_CPU_ULPS and torch.equal(c, d), "random draws differ between card and CPU")
-    # T1 alone at the Lloyd shape, f32 uniform: kernel, plain (in 2^27-element
-    # chunks: a whole-size int64 plain draw exceeds the card), torch.rand
+          f"int32 and int64 card vs cpu equal {same_int} on {card}")
+    check(small_ulps <= CARD_CPU_ULPS and same_int, "random draws differ between card and CPU")
+    # T1 alone at the Lloyd shape: f32 uniform, normal and int32 randint,
+    # each held to its plain version over the whole range, chunk by chunk
+    # (a whole-size int64 plain draw exceeds the card); times of the kernel,
+    # the plain version and torch.rand
+    step = 1 << 27
     buf = torch.empty(n, device=dev)
+    ibuf = torch.empty(n, dtype=torch.int32, device=dev)
+    draws = (("uniform", buf, None), ("normal", buf, None), ("randint", ibuf, (0, 1000)))
+    whole = {}
+    for kind, dst, bounds in draws:
+        t1.threefry(key, n, kind=kind, dtype=dst.dtype, bounds=bounds, device=dev, out=dst)
+        worst = 0.0
+        for o in range(0, n, step):
+            want = t1.reference_threefry(key, min(step, n - o), start=o, kind=kind, dtype=dst.dtype, bounds=bounds,
+                                         device=dev)
+            got = dst[o:o + want.numel()]
+            worst = max(worst, ulps(got, want) if kind == "normal" else float(not torch.equal(got, want)))
+            del want
+        whole[kind] = worst
+        tol = NORMAL_ULPS if kind == "normal" else 0
+        print(f"[random] T1 {kind} {dst.dtype} over all {n} counters of ({ROWS}, 64): "
+              + (f"max {worst:.1f} ulp from the plain version (tolerance {tol})" if kind == "normal"
+                 else f"bitwise equal to the plain version {worst == 0}") + f" on {card}")
+        check(worst <= tol, f"T1 {kind} at ({ROWS}, 64) differs from its plain version")
     ms = time_ms(lambda: t1.threefry(key, n, kind="uniform", device=dev, out=buf), reps=5)
     ms_normal = time_ms(lambda: t1.threefry(key, n, kind="normal", device=dev, out=buf), reps=5)
-    step = 1 << 27
+    ms_randint = time_ms(lambda: t1.threefry(key, n, kind="randint", dtype=torch.int32, bounds=(0, 1000), device=dev,
+                                             out=ibuf), reps=5)
     plain_ms = time_ms(lambda: [buf[o:o + step].copy_(t1.reference_threefry(key, min(step, n - o), start=o, kind="uniform",
                                                                               device=dev)) for o in range(0, n, step)],
                        reps=1, warmup=0)
     rand_ms = time_ms(lambda: torch.rand(n, device=dev, out=buf), reps=5)
     ms_2 = time_ms(lambda: t1.threefry(key, n, kind="uniform", device=dev, out=buf), reps=5)
     bound_ms = 4 * n / HBM_BYTES_PER_S * 1e3
-    print(f"[time] threefry uniform f32 ({ROWS}, 64): kernel_ms={ms:.4f} (again {ms_2:.4f}; normal {ms_normal:.4f}) "
-          f"plain_ms={plain_ms:.4f} torch.rand (Philox, not the same function) {rand_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"(bytes: {4 * n / 1e9:.2f} GB written) on {card}")
+    print(f"[time] threefry uniform f32 ({ROWS}, 64): kernel_ms={ms:.4f} (again {ms_2:.4f}; normal {ms_normal:.4f}; "
+          f"randint int32 {ms_randint:.4f}) plain_ms={plain_ms:.4f} torch.rand (Philox, not the same function) "
+          f"{rand_ms:.4f} bound_ms={bound_ms:.4f} (bytes: {4 * n / 1e9:.2f} GB written, each draw) on {card}")
     print(f"[e2e] random at ({ROWS}, 64) over MeshComm(4): " + ", ".join(f"{k} {v:.3f} ms" for k, v in calls.items())
           + f" (first calls), T1 launches {path_launches} on {card}")
-    del buf
+    del buf, ibuf, draws, dst, got
     torch.cuda.empty_cache()
-    out.update(ms=ms, ms_normal=ms_normal, plain_ms=plain_ms, torch_rand_ms=rand_ms, bound_ms=bound_ms,
-               calls=calls, launches=path_launches)
+    out.update(ms=ms, ms_normal=ms_normal, ms_randint=ms_randint, plain_ms=plain_ms, torch_rand_ms=rand_ms,
+               bound_ms=bound_ms, calls=calls, launches=path_launches, normal_ulps_whole=whole["normal"])
 
     # ---- randperm(1e8, split=0) on the Feistel route
     torch.cuda.synchronize()
@@ -3954,7 +4008,8 @@ def main() -> int:
             "library_note": "no PyTorch call computes Threefry-2x32; torch.rand (Philox) beside it as torch_rand_ms",
             "torch_rand_ms": rnd["torch_rand_ms"],
             "ms_normal": rnd["ms_normal"],
-            "at": f"({ROWS}, 64) f32 uniform, 5.12 GB written",
+            "ms_randint": rnd["ms_randint"],
+            "at": f"({ROWS}, 64) f32 uniform, 5.12 GB written; randint int32 in [0, 1000), the same bytes",
         },
     ]
     print(f"[summary] training: TransformerLM {trn['lm_step_ms']:.4f} ms/step ({trn['lm_tokens_s']:.4e} tokens/s, "

@@ -15,7 +15,7 @@ its global shape by T1 (:func:`heat_tpu_torch.ops.threefry.threefry`, the
 CUDA kernel on the card, its plain version on the CPU) and then cut into
 shards.  The samplers follow ``jax.random``: ``uniform``'s mantissa bits,
 ``normal`` as ``sqrt(2) * erf_inv(u)`` (16-bit types drawn in f32 and
-rounded), ``randint``'s two-draw span arithmetic, and ``permutation``'s
+rounded), ``randint``'s two-draw span arithmetic (in the same kernel), and ``permutation``'s
 rounds of sorting by fresh 32-bit keys.  A 16-bit array whose float32
 draw would exceed ``_CHUNK_F32_BYTES`` is drawn in row blocks of key
 ``fold_in(key, block)`` at the rows the JAX package cuts
@@ -119,67 +119,19 @@ def _next_key() -> t1.Key:
     return key
 
 
-def _randint_block(key: t1.Key, n: int, tt: torch.dtype, low: int, high: int, tdev) -> torch.Tensor:
-    """``jax.random.randint``'s n values of ``tt`` in [low, high): two
-    draws of the dtype's width (keys ``fold_in(key, 0)`` and ``(key, 1)``),
-    combined modulo the span in unsigned arithmetic of that width.  The
-    bounds are clipped to the dtype; ``high`` above its maximum widens the
-    span by one (uint8's 256).  8- and 16-bit types are drawn as int32 with
-    the bounds clipped to the type (``high`` to its maximum + 1) and cast."""
-    if torch.iinfo(tt).bits < 32:
-        small = torch.iinfo(tt)
-
-        def wrap32(v):
-            return ((int(v) + 2**31) % 2**32) - 2**31
-
-        low = min(max(wrap32(low), small.min), small.max)
-        high = min(max(wrap32(high), small.min), small.max + 1)
-        return _randint_block(key, n, torch.int32, low, high, tdev).to(tt)
-    info = torch.iinfo(tt)
-    nbits = info.bits
-    umask = (1 << nbits) - 1
-    oor = high > info.max
-    lo_c, hi_c = min(max(low, info.min), info.max), min(max(high, info.min), info.max)
-    span = (hi_c - lo_c) & umask
-    if hi_c <= lo_c:
-        span = 1
-    if oor and hi_c > lo_c:
-        span = (span + 1) & umask
-
-    def rem(v, m):  # XLA's unsigned remainder: x % 0 is x
-        return v if m == 0 else v % m
-
-    mult = rem(1 << (nbits // 2), span)
-    mult = rem((mult * mult) & umask, span)
-    kind = "bits64" if nbits == 64 else "bits32"
-    words = [t1.threefry(t1.fold_in(key, j), n, kind=kind, device=tdev) for j in (0, 1)]
-    if nbits == 64:
-        # unsigned 64-bit arithmetic, which torch lacks, on the host
-        hi_b, lo_b = (w.cpu().numpy().view(np.uint64).astype(object) for w in words)
-        off = [rem(((rem(h, span) * mult) + rem(l, span)) & umask, span) for h, l in zip(hi_b, lo_b)]
-        vals = [((lo_c + o - info.min) & umask) + info.min for o in off]
-        return torch.tensor(np.array(vals, dtype=np.int64), device=tdev).to(tt)
-    hi_b, lo_b = ((w.to(torch.int64) & t1.MASK) & umask for w in words)
-    off = rem((((rem(hi_b, span) * mult) & umask) + rem(lo_b, span)) & umask, span)
-    vals = ((lo_c + off - info.min) & umask) + info.min if info.min < 0 else (lo_c + off) & umask
-    return vals.to(tt)
-
-
 def _draw(kind: str, key: t1.Key, shape, tt: torch.dtype, tdev, params, out: Optional[torch.Tensor] = None):
     """One block of ``shape`` (written into ``out`` when given): flat
     counters from 0 under ``key``."""
     n = math.prod(shape)
-    if kind in ("uniform", "normal") and not tt.is_complex:
+    if not tt.is_complex:
         # 16-bit normals are drawn in f32 and rounded (T1 rounds as it writes)
-        flat = t1.threefry(key, n, kind=kind, dtype=tt, device=tdev, out=None if out is None else out.view(-1))
+        flat = t1.threefry(key, n, kind=kind, dtype=tt, bounds=params or None, device=tdev,
+                           out=None if out is None else out.view(-1))
         return flat.reshape(shape)
-    if kind == "randint":
-        flat = _randint_block(key, n, tt, *params, tdev)
-    else:
-        # jax's complex normal: two real draws of split keys, over sqrt(2)
-        real = torch.float64 if tt == torch.complex128 else torch.float32
-        re, im = (t1.threefry(t1.fold_in(key, j), n, kind="normal", dtype=real, device=tdev) for j in (0, 1))
-        flat = torch.complex(re, im) / math.sqrt(2.0)
+    # jax's complex normal: two real draws of split keys, over sqrt(2)
+    real = torch.float64 if tt == torch.complex128 else torch.float32
+    re, im = (t1.threefry(t1.fold_in(key, j), n, kind="normal", dtype=real, device=tdev) for j in (0, 1))
+    flat = torch.complex(re, im) / math.sqrt(2.0)
     if out is None:
         return flat.reshape(shape)
     out.copy_(flat.reshape(shape))

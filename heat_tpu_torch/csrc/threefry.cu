@@ -1,5 +1,5 @@
-// T1: Threefry-2x32 counter streams with the uniform and normal transforms
-// fused in (heat_tpu_torch/ops/threefry.py).
+// T1: Threefry-2x32 counter streams with the uniform, normal and randint
+// transforms fused in (heat_tpu_torch/ops/threefry.py).
 //
 // Replaces no Pallas kernel: the JAX package draws through jax.random, whose
 // partitionable Threefry-2x32 XLA lowers to element-wise integer code.  This
@@ -15,9 +15,11 @@
 // stores are coalesced; the grid walks the range in tiles.
 //
 // Rounding follows XLA's CPU code, which contracts a multiply and an add into
-// one fused multiply-add: the uniform's scale and each Horner step of the f32
-// erf_inv polynomial are fmaf.  The f64 erf_inv polynomial is evaluated with
-// separate multiplies and adds, as the plain version does.
+// one fused multiply-add: the f32 normal's scale to (nextafter(-1, 0), 1) and
+// each Horner step of the f32 erf_inv polynomial are fmaf.  The f64 scale and
+// erf_inv polynomial take separate multiplies and adds, as the plain version
+// does.  A randint element hashes its counter under two keys and combines the
+// words modulo the span in unsigned 32- or 64-bit arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -29,8 +31,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPer = 4;
 
-enum Kind { kBits32 = 0, kBits64 = 1, kUniform = 2, kNormal = 3 };
-enum Out { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3, kI32 = 4, kI64 = 5 };
+enum Kind { kBits32 = 0, kBits64 = 1, kUniform = 2, kNormal = 3, kRandint = 4 };
+enum Out { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3, kI32 = 4, kI64 = 5, kI8 = 6, kU8 = 7, kI16 = 8 };
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 
@@ -99,6 +101,30 @@ __device__ double erfinv_f64(double x) {
   return fabs(x) == 1.0 ? __dmul_rn(x, 1.7976931348623157e308) : __dmul_rn(p, x);
 }
 
+// XLA's unsigned remainder: a remainder by 0 leaves its operand
+template <typename U>
+__device__ __forceinline__ U urem(U x, U m) {
+  return m == 0 ? x : x % m;
+}
+
+// jax.random.randint's offset: ((h % span) * mult + l % span) % span, wrapping
+template <typename U>
+__device__ __forceinline__ U randint_offset(U h, U l, U span, U mult) {
+  return urem(U(urem(h, span) * mult + urem(l, span)), span);
+}
+
+__device__ __forceinline__ void store_int(void* out, int64_t i, int type, int32_t v) {
+  if (type == kI32) {
+    static_cast<int32_t*>(out)[i] = v;
+  } else if (type == kI16) {
+    static_cast<int16_t*>(out)[i] = int16_t(v);
+  } else if (type == kI8) {
+    static_cast<int8_t*>(out)[i] = int8_t(v);
+  } else {
+    static_cast<uint8_t*>(out)[i] = uint8_t(v);
+  }
+}
+
 __device__ __forceinline__ void store_float(void* out, int64_t i, int type, float v) {
   if (type == kF32) {
     static_cast<float*>(out)[i] = v;
@@ -109,11 +135,13 @@ __device__ __forceinline__ void store_float(void* out, int64_t i, int type, floa
   }
 }
 
-__global__ void __launch_bounds__(kThreads) threefry_kernel(uint32_t k0, uint32_t k1, uint64_t start, int64_t n,
-                                                            int kind, int type, double lo, double hi, void* out) {
+__global__ void __launch_bounds__(kThreads)
+    threefry_kernel(uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3, uint64_t start, int64_t n, int kind, int type,
+                    uint64_t span, uint64_t mult, uint64_t lo, void* out) {
   const int64_t tile = int64_t(kThreads) * kPer;
-  const float lo32 = float(lo), span32 = __fsub_rn(float(hi), float(lo));
-  const double span64 = __dsub_rn(hi, lo);
+  // a normal's uniform u lies on (nextafter(-1, 0), 1)
+  const float lo32 = -0.99999994039535522461f, span32 = __fsub_rn(1.0f, lo32);
+  const double lo64 = -0.99999999999999988898, span64 = __dsub_rn(1.0, lo64);
   for (int64_t base = int64_t(blockIdx.x) * tile; base < n; base += int64_t(gridDim.x) * tile) {
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
@@ -121,6 +149,19 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(uint32_t k0, uint32_
       if (i >= n) break;
       const uint64_t c = start + uint64_t(i);
       uint32_t x0 = uint32_t(c >> 32), x1 = uint32_t(c);
+      if (kind == kRandint) {
+        uint32_t z0 = x0, z1 = x1;
+        threefry2x32(k0, k1, x0, x1);
+        threefry2x32(k2, k3, z0, z1);
+        if (type == kI64) {
+          const uint64_t off = randint_offset<uint64_t>((uint64_t(x0) << 32) | x1, (uint64_t(z0) << 32) | z1, span, mult);
+          static_cast<uint64_t*>(out)[i] = lo + off;
+        } else {
+          const uint32_t off = randint_offset<uint32_t>(x0 ^ x1, z0 ^ z1, uint32_t(span), uint32_t(mult));
+          store_int(out, i, type, int32_t(uint32_t(lo) + off));
+        }
+        continue;
+      }
       threefry2x32(k0, k1, x0, x1);
       const uint32_t b32 = x0 ^ x1;
       if (kind == kBits32) {
@@ -130,22 +171,26 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(uint32_t k0, uint32_
       } else if (type == kF64) {
         const uint64_t bits = (((uint64_t(x0) << 32) | x1) >> 12) | 0x3FF0000000000000ull;
         const double f = __dsub_rn(__longlong_as_double(int64_t(bits)), 1.0);
-        const double u = fmax(lo, fma(f, span64, lo));
-        static_cast<double*>(out)[i] = kind == kUniform ? u : __dmul_rn(1.4142135623730951, erfinv_f64(u));
+        if (kind == kUniform) {
+          static_cast<double*>(out)[i] = f;
+        } else {
+          const double u = fmax(lo64, __dadd_rn(__dmul_rn(f, span64), lo64));
+          static_cast<double*>(out)[i] = __dmul_rn(1.4142135623730951, erfinv_f64(u));
+        }
       } else if (kind == kUniform && type == kBF16) {
         const uint16_t h = uint16_t(((b32 & 0xFFu) >> 1) | 0x3F80u);
-        const float f = __fsub_rn(__uint_as_float(uint32_t(h) << 16), 1.0f);
-        const float u = fmaxf(lo32, fmaf(f, span32, lo32));
-        static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(u);
+        static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(__fsub_rn(__uint_as_float(uint32_t(h) << 16), 1.0f));
       } else if (kind == kUniform && type == kF16) {
         const uint16_t h = uint16_t(((b32 & 0xFFFFu) >> 6) | 0x3C00u);
-        const float f = __fsub_rn(__half2float(__ushort_as_half(h)), 1.0f);
-        const float u = fmaxf(lo32, fmaf(f, span32, lo32));
-        static_cast<__half*>(out)[i] = __float2half_rn(u);
+        static_cast<__half*>(out)[i] = __float2half_rn(__fsub_rn(__half2float(__ushort_as_half(h)), 1.0f));
       } else {
         const float f = __fsub_rn(__uint_as_float((b32 >> 9) | 0x3F800000u), 1.0f);
-        const float u = fmaxf(lo32, fmaf(f, span32, lo32));
-        store_float(out, i, type, kind == kUniform ? u : __fmul_rn(1.41421353816986083984375f, erfinv_f32(u)));
+        if (kind == kUniform) {
+          store_float(out, i, type, f);
+        } else {
+          const float u = fmaxf(lo32, fmaf(f, span32, lo32));
+          store_float(out, i, type, __fmul_rn(1.41421353816986083984375f, erfinv_f32(u)));
+        }
       }
     }
   }
@@ -153,8 +198,10 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(uint32_t k0, uint32_
 
 }  // namespace
 
-extern "C" int heat_threefry(uint32_t k0, uint32_t k1, uint64_t start, int64_t n, int kind, int type, double lo,
-                             double hi, void* out, void* stream) {
+// kind and type: the enums above; k2, k3, span, mult and lo (the lower bound's
+// bits) serve randint only
+extern "C" int heat_threefry(uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3, uint64_t start, int64_t n, int kind,
+                             int type, uint64_t span, uint64_t mult, uint64_t lo, void* out, void* stream) {
   if (n <= 0) return 0;
   const int64_t tiles = (n + int64_t(kThreads) * kPer - 1) / (int64_t(kThreads) * kPer);
   int sms = 132;
@@ -162,7 +209,7 @@ extern "C" int heat_threefry(uint32_t k0, uint32_t k1, uint64_t start, int64_t n
   if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t cap = int64_t(sms) * 16;
   const unsigned grid = unsigned(tiles < cap ? tiles : cap);
-  threefry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(k0, k1, start, n, kind, type, lo, hi,
-                                                                            out);
+  threefry_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(k0, k1, k2, k3, start, n, kind, type,
+                                                                            span, mult, lo, out);
   return int(cudaGetLastError());
 }

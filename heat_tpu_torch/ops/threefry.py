@@ -15,15 +15,20 @@ split into its high and low words (x0, x1); Threefry-2x32 maps them to
 
 * ``"bits32"``: ``y0 ^ y1`` (int32 holding the uint32 pattern);
 * ``"bits64"``: ``y0 << 32 | y1`` (int64 holding the uint64 pattern);
-* ``"uniform"``: ``jax.random.uniform``'s mantissa construction in the
-  output type (f32 and f16 from the 32-bit word, bf16 from its low 8 bits,
-  f64 from the 64-bit word), scaled to [minval, maxval) and raised to
-  ``minval``;
+* ``"uniform"``: ``jax.random.uniform``'s mantissa construction on
+  [0, 1) in the output type (f32 and f16 from the 32-bit word, bf16 from
+  its low 8 bits, f64 from the 64-bit word);
 * ``"normal"``: ``sqrt(2) * erf_inv(u)`` of an f32 (or f64) uniform u on
   (nextafter(-1, 0), 1), f32 rounded to the output type.  ``erf_inv`` is
   XLA's polynomial of ``log1p`` (:func:`erfinv_f32`, :func:`erfinv_f64`);
   ``log1p`` itself is the platform's, so normals agree with XLA's CPU
-  results within a few ulp, not bit for bit.
+  results within a few ulp, not bit for bit;
+* ``"randint"``: ``jax.random.randint``'s integers in [low, high): the
+  32-bit (64-bit for int64) words h of key ``fold_in(key, 0)`` and l of
+  ``fold_in(key, 1)`` at the same counter, ``low + ((h % span) * mult +
+  l % span) % span`` in unsigned arithmetic of that width
+  (:func:`randint_params`); 8- and 16-bit types are drawn as int32 with
+  their bounds clipped to the type, as jax draws them.
 
 :func:`threefry` launches the kernel for a CUDA device and computes
 :func:`reference_threefry` (int64 torch ops under a 32-bit mask) for the
@@ -40,7 +45,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["erfinv_f32", "erfinv_f64", "fold_in", "reference_threefry", "threefry", "threefry2x32"]
+__all__ = ["erfinv_f32", "erfinv_f64", "fold_in", "randint_params", "reference_threefry", "threefry", "threefry2x32"]
 
 #: kernel launches so far; :func:`threefry` adds one per launch and nowhere else
 launches = 0
@@ -49,8 +54,11 @@ MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 _SOURCES = ("threefry.cu",)
-_KINDS = {"bits32": 0, "bits64": 1, "uniform": 2, "normal": 3}
-_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3, torch.int32: 4, torch.int64: 5}
+_KINDS = {"bits32": 0, "bits64": 1, "uniform": 2, "normal": 3, "randint": 4}
+_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3, torch.int32: 4, torch.int64: 5,
+          torch.int8: 6, torch.uint8: 7, torch.int16: 8}
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+_INTS = (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64)
 _fn = None
 
 # XLA's f32 erf_inv (Giles' single-precision approximation): one polynomial
@@ -155,8 +163,9 @@ def erfinv_f64(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float64).max, p * x)
 
 
-def _uniform(y0: torch.Tensor, y1: torch.Tensor, dtype: torch.dtype, minval: float, maxval: float) -> torch.Tensor:
-    """``jax.random.uniform``'s construction from the words of each element."""
+def _uniform(y0: torch.Tensor, y1: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.uniform``'s construction on [0, 1) from the words of
+    each element (its scale to [0, 1) changes no value)."""
     if dtype == torch.float64:
         bits = ((_signed32(y0).to(torch.int64) << 32) | y1) >> 12
         one = (bits & ((1 << 52) - 1)) | 0x3FF0000000000000
@@ -168,41 +177,123 @@ def _uniform(y0: torch.Tensor, y1: torch.Tensor, dtype: torch.dtype, minval: flo
         one = (((y0 ^ y1) & 0xFF) >> 1 | 0x3F80).to(torch.int16)
     else:
         raise TypeError(f"uniform only accepts floating point dtypes, got {dtype}")
-    floats = one.view(dtype) - torch.ones((), dtype=dtype, device=one.device)
-    lo = torch.tensor(minval, dtype=dtype, device=one.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=one.device)
-    scaled = _fma32(floats, hi - lo, float(lo)) if dtype == torch.float32 else floats * (hi - lo) + lo
-    return torch.maximum(lo, scaled)
+    return one.view(dtype) - torch.ones((), dtype=dtype, device=one.device)
 
 
-def _normal_bounds(dtype: torch.dtype) -> Tuple[float, float]:
-    """(nextafter(-1, 0), 1) in ``dtype``, as ``_normal_real`` draws u."""
-    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
-    return float(lo), 1.0
+def _normal(y0: torch.Tensor, y1: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.normal``: u uniform on (nextafter(-1, 0), 1) in f32 (f64
+    for f64), ``sqrt(2) * erf_inv(u)`` rounded to ``dtype``.  The f32 scale
+    is one fused multiply-add, as XLA's CPU code computes it."""
+    base = torch.float64 if dtype == torch.float64 else torch.float32
+    floats = _uniform(y0, y1, base)
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=base), torch.tensor(0.0, dtype=base)).to(floats.device)
+    span = 1.0 - lo
+    scaled = _fma32(floats, span, float(lo)) if base == torch.float32 else floats * span + lo
+    u = torch.maximum(lo, scaled)
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=base, device=u.device)
+    return (sqrt2 * (erfinv_f32(u) if base == torch.float32 else erfinv_f64(u))).to(dtype)
+
+
+def randint_params(dtype: torch.dtype, low: int, high: int) -> Tuple[int, int, int, int]:
+    """``jax.random.randint``'s scalars for integers of ``dtype`` in [low,
+    high): ``(nbits, lo, span, mult)``, the width of the arithmetic, the
+    lower bound clipped to the type, and the span and multiplier as
+    unsigned ``nbits``-bit numbers (span 0 is the whole range: a remainder
+    by 0 leaves its operand, as XLA's).  The bounds are clipped to the
+    type; ``high`` above its maximum widens the span by one.  8- and 16-bit
+    types take int32's arithmetic with bounds wrapped to 32 bits and
+    clipped to the type (``high`` to its maximum + 1)."""
+    if dtype not in _INTS:
+        raise TypeError(f"randint only accepts integer dtypes, got {dtype}")
+    if torch.iinfo(dtype).bits < 32:
+        small = torch.iinfo(dtype)
+
+        def wrap32(v):
+            return ((int(v) + 2**31) % 2**32) - 2**31
+
+        low = min(max(wrap32(low), small.min), small.max)
+        high = min(max(wrap32(high), small.min), small.max + 1)
+        dtype = torch.int32
+    info = torch.iinfo(dtype)
+    nbits = info.bits
+    umask = (1 << nbits) - 1
+    lo_c, hi_c = min(max(low, info.min), info.max), min(max(high, info.min), info.max)
+    span = (hi_c - lo_c) & umask
+    if hi_c <= lo_c:
+        span = 1
+    elif high > info.max:
+        span = (span + 1) & umask
+
+    def rem(v, m):
+        return v if m == 0 else v % m
+
+    mult = rem(1 << (nbits // 2), span)
+    mult = rem((mult * mult) & umask, span)
+    return nbits, lo_c, span, mult
+
+
+def _signed64(v: int) -> int:
+    """A 64-bit unsigned number as the int64 of the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _umod64(v: torch.Tensor, m: int) -> torch.Tensor:
+    """``v % m`` for int64 ``v`` holding unsigned 64-bit numbers and a
+    python int ``m`` below 2**64, in int64 ops (a remainder by 0 leaves
+    ``v``)."""
+    if m == 0:
+        return v
+    if m >= 1 << 63:
+        # v < 2m: one subtraction where v >= m, compared with the sign bit flipped
+        return torch.where((v ^ -(1 << 63)) >= m - (1 << 63), v - _signed64(m), v)
+    # (v >> 1) is below 2**63: its remainder, doubled and with v's low bit added
+    r = ((v >> 1) & ((1 << 63) - 1)) % m
+    r = torch.where(r >= m - r, r - (m - r), r + r) + (v & 1)
+    return torch.where(r >= m, r - m, r)
+
+
+def _randint(key: Key, x0: torch.Tensor, x1: torch.Tensor, dtype: torch.dtype, bounds: Tuple[int, int]) -> torch.Tensor:
+    """``jax.random.randint`` at the counter words ``(x0, x1)`` in int64
+    torch ops."""
+    nbits, lo_c, span, mult = randint_params(dtype, *bounds)
+    words = [threefry2x32(fold_in(key, j), x0, x1) for j in (0, 1)]
+    if nbits == 32:
+        hi_b, lo_b = (y0 ^ y1 for y0, y1 in words)
+
+        def rem(v):
+            return v if span == 0 else v % span
+
+        off = rem((((rem(hi_b) * mult) & MASK) + rem(lo_b)) & MASK)
+        return (((lo_c + off + 2**31) & MASK) - 2**31).to(dtype)
+    hi_b, lo_b = ((_signed32(y0).to(torch.int64) << 32) | y1 for y0, y1 in words)
+    # int64 products and sums wrap modulo 2**64, as uint64's do
+    off = _umod64(_umod64(hi_b, span) * _signed64(mult) + _umod64(lo_b, span), span)
+    return (off + lo_c).to(dtype)
 
 
 def reference_threefry(
     key: Key, n: int, *, start: int = 0, kind: str = "bits32", dtype: torch.dtype = None,
-    minval: float = 0.0, maxval: float = 1.0, device: Union[str, torch.device] = "cpu",
+    bounds: Tuple[int, int] = None, device: Union[str, torch.device] = "cpu",
 ) -> torch.Tensor:
     """The plain version: the same function in int64 torch ops under a
     32-bit mask, on ``device``."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}: use one of {tuple(_KINDS)}")
-    c = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(key, c >> 32, c & MASK)
+    if start < 0 or start + n > 2**64:
+        raise ValueError(f"counters [{start}, {start + n}) leave the 64-bit range")
+    # the counters as int64 of the same bits (the sum wraps past 2**63)
+    c = torch.arange(n, dtype=torch.int64, device=device) + _signed64(start)
+    x0, x1 = (c >> 32) & MASK, c & MASK
+    del c
+    if kind == "randint":
+        return _randint(key, x0, x1, dtype, bounds)
+    y0, y1 = threefry2x32(key, x0, x1)
     if kind == "bits32":
         return _signed32(y0 ^ y1)
     if kind == "bits64":
         return (_signed32(y0).to(torch.int64) << 32) | y1
     dtype = torch.float32 if dtype is None else dtype
-    if kind == "uniform":
-        return _uniform(y0, y1, dtype, minval, maxval)
-    base = torch.float64 if dtype == torch.float64 else torch.float32
-    u = _uniform(y0, y1, base, *_normal_bounds(base))
-    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=base, device=u.device)
-    z = sqrt2 * (erfinv_f32(u) if base == torch.float32 else erfinv_f64(u))
-    return z.to(dtype)
+    return _uniform(y0, y1, dtype) if kind == "uniform" else _normal(y0, y1, dtype)
 
 
 def _kernel():
@@ -211,8 +302,9 @@ def _kernel():
         from ._build import load
 
         fn = load("heat_threefry", _SOURCES).heat_threefry
-        fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -220,43 +312,53 @@ def _kernel():
 
 def threefry(
     key: Key, n: int, *, start: int = 0, kind: str = "bits32", dtype: torch.dtype = None,
-    minval: float = 0.0, maxval: float = 1.0, device: Union[str, torch.device] = "cpu",
-    out: torch.Tensor = None,
+    bounds: Tuple[int, int] = None, device: Union[str, torch.device] = "cpu", out: torch.Tensor = None,
 ) -> torch.Tensor:
     """The ``n`` elements of the stream of ``key`` from counter ``start``,
     transformed as ``kind`` says, as a flat tensor on ``device`` (into
     ``out``, a contiguous tensor of n elements, when given).  ``dtype`` is
-    the output type of a uniform or normal draw (default f32); bits come
-    as int32 (``"bits32"``) or int64 (``"bits64"``)."""
+    the output type of a uniform or normal draw (default f32) or of a
+    randint draw in ``bounds`` = (low, high); bits come as int32
+    (``"bits32"``) or int64 (``"bits64"``)."""
     global launches
     device = torch.device(device)
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}: use one of {tuple(_KINDS)}")
     if start < 0 or start + n > 2**64:
         raise ValueError(f"counters [{start}, {start + n}) leave the 64-bit range")
+    if kind == "randint":
+        otype = dtype
+        if otype not in _INTS or bounds is None:
+            raise TypeError(f"a randint draw needs an integer dtype and bounds, got {dtype} and {bounds}")
+    else:
+        otype = {"bits32": torch.int32, "bits64": torch.int64}.get(kind, torch.float32 if dtype is None else dtype)
+        if kind in ("uniform", "normal") and otype not in _FLOATS:
+            raise TypeError(f"the threefry kernel does not write {kind} draws of {otype}")
     if device.type == "cpu":
-        res = reference_threefry(key, n, start=start, kind=kind, dtype=dtype, minval=minval, maxval=maxval)
+        res = reference_threefry(key, n, start=start, kind=kind, dtype=dtype, bounds=bounds)
         if out is None:
             return res
         out.copy_(res.view(-1))
         return out
     if device.type != "cuda":
         raise ValueError(f"threefry runs on the CPU or a CUDA device, got {device}")
-    otype = {"bits32": torch.int32, "bits64": torch.int64}.get(kind, torch.float32 if dtype is None else dtype)
-    if otype not in _TYPES or (kind == "normal" and otype not in (torch.float32, torch.bfloat16, torch.float16, torch.float64)):
-        raise TypeError(f"the threefry kernel does not write {kind} draws of {otype}")
     if out is None:
         out = torch.empty(n, dtype=otype, device=device)
     elif out.dtype != otype or out.numel() != n or not out.is_contiguous() or out.device.type != "cuda":
         raise ValueError(f"out must be a contiguous CUDA tensor of {n} {otype}, got {out.dtype} {tuple(out.shape)}")
     if n == 0:
         return out
-    if kind == "normal":
-        minval, maxval = _normal_bounds(torch.float64 if otype == torch.float64 else torch.float32)
+    span = mult = lo = 0
+    k2 = k3 = 0
+    if kind == "randint":
+        _, lo, span, mult = randint_params(otype, *bounds)
+        (k0, k1), (k2, k3) = fold_in(key, 0), fold_in(key, 1)
+    else:
+        k0, k1 = int(key[0]) & MASK, int(key[1]) & MASK
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _kernel()(int(key[0]) & MASK, int(key[1]) & MASK, start, n, _KINDS[kind], _TYPES[otype],
-                        float(minval), float(maxval), out.data_ptr(), stream)
+        err = _kernel()(k0, k1, k2, k3, start, n, _KINDS[kind], _TYPES[otype], span, mult, lo & (2**64 - 1),
+                        out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed with cudaError_t {err}")
     launches += 1

@@ -101,11 +101,6 @@ def test_bits_and_uniforms_match_jax(jax_random):
         want = np.asarray(jax_random.uniform(key, shape, jd).astype(jnp.float32)).ravel()
         got = t1.reference_threefry(kd, n, kind="uniform", dtype=td).float().numpy()
         np.testing.assert_array_equal(got, want)
-    # a range other than [0, 1): XLA fuses the scale into one multiply-add
-    for jd, td in ((jnp.float32, torch.float32), (jnp.float64, torch.float64), (jnp.bfloat16, torch.bfloat16)):
-        want = np.asarray(jax_random.uniform(key, shape, jd, -3.5, 2.25).astype(jnp.float32)).ravel()
-        got = t1.reference_threefry(kd, n, kind="uniform", dtype=td, minval=-3.5, maxval=2.25).float().numpy()
-        np.testing.assert_array_equal(got, want)
 
 
 def test_counters_across_two_to_the_32(jax_random):
@@ -147,6 +142,46 @@ def test_normals_within_the_stated_ulps(jax_random):
             want = np.asarray(jax_random.normal(key, (n,), jnp.float32).astype(jd)).view(np.int16).astype(np.int64)
             got = t1.reference_threefry(kd, n, kind="normal", dtype=td).view(torch.int16).numpy().astype(np.int64)
             assert np.abs(got - want).max() <= 1
+
+
+LIMIT_DRAWS = [
+    (-(2**63), 2**63 - 1, "int64"),
+    (2**62, 2**63 - 1, "int64"),
+    (-5, 2**63 - 7, "int64"),
+    (0, 1, "int64"),
+    (7, 2**31 + 5, "int32"),
+    (-3, 300, "uint8"),
+    (-300, 20, "int8"),
+]
+
+
+@pytest.mark.parametrize("low, high, dtype", LIMIT_DRAWS)
+def test_randint_at_the_dtype_limits(ht, low, high, dtype):
+    # spans past 2**63 take the unsigned remainder's one-subtraction branch
+    ht.random.seed(9)
+    htt.random.seed(9)
+    a = ht.random.randint(low, high, (5, 7), dtype=getattr(ht, dtype))
+    b = htt.random.randint(low, high, (5, 7), dtype=getattr(htt, dtype), device="cpu")
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a.numpy()))
+
+
+def test_unsigned_remainder_of_int64_words():
+    rng = np.random.default_rng(0)
+    vals = [int(v) for v in rng.integers(0, 2**64, 500, dtype=np.uint64)] + [0, 1, 2**63 - 1, 2**63, 2**64 - 1]
+    v = torch.tensor(vals, dtype=torch.uint64).view(torch.int64)
+    for m in (0, 1, 3, 2**32, 2**62 + 3, 2**63 - 1, 2**63, 2**63 + 5, 2**64 - 1, 12345678901234567890):
+        got = [x % 2**64 for x in t1._umod64(v, m).tolist()]
+        assert got == [x if m == 0 else x % m for x in vals], m
+
+
+def test_randint_windows_are_the_streams_tail():
+    kd = t1.fold_in((0, 5), 2)
+    for dtype, bounds in ((torch.int32, (-7, 1000)), (torch.int64, (-(2**40), 2**50)), (torch.int16, (-9, 9))):
+        whole = t1.threefry(kd, 3000, kind="randint", dtype=dtype, bounds=bounds)
+        tail = t1.threefry(kd, 2000, start=1000, kind="randint", dtype=dtype, bounds=bounds)
+        assert whole.dtype == dtype and torch.equal(whole[1000:], tail)
+    with pytest.raises(TypeError):
+        t1.threefry(kd, 3, kind="randint", dtype=torch.float32, bounds=(0, 3))
 
 
 # ------------------------------------------------------------- the samplers
@@ -367,12 +402,28 @@ def test_kernel_normals_on_card(cuda):
 
 
 @pytest.mark.gpu
+def test_kernel_randint_on_card(cuda):
+    kd = t1.fold_in((0, 42), 4)
+    bounds = [(torch.int32, (-5, 17)), (torch.int32, (-(2**31), 2**31)), (torch.int64, (-100, 2**40)),
+              (torch.int64, (-(2**63), 2**63 - 1)), (torch.int64, (2**62, 2**63 - 1)), (torch.int16, (-(2**15), 2**15)),
+              (torch.int8, (-128, 128)), (torch.uint8, (0, 256)), (torch.int32, (3, 3))]
+    for start, n in ((0, 100_003), (2**32 - 5000, 10_000)):
+        before = t1.launches
+        for dtype, (low, high) in bounds:
+            got = t1.threefry(kd, n, start=start, kind="randint", dtype=dtype, bounds=(low, high), device=cuda)
+            want = t1.reference_threefry(kd, n, start=start, kind="randint", dtype=dtype, bounds=(low, high), device=cuda)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want), (start, dtype, low, high)
+        assert t1.launches == before + len(bounds)
+
+
+@pytest.mark.gpu
 def test_random_on_card_launches_the_kernel(cuda):
     htt.random.seed(4)
     before = t1.launches
     a = htt.random.randn(1000, 8, split=0, comm=htt.MeshComm(4), device="gpu")
     b = htt.random.randint(0, 10, (100,), device="gpu")
-    assert t1.launches == before + 3  # one normal draw, two for randint
+    assert t1.launches == before + 2  # one normal draw, one randint draw
     htt.random.seed(4)
     c = htt.random.randn(1000, 8, split=0, comm=htt.MeshComm(4), device="cpu")
     # the card's log1pf and the CPU's log1p differ by an ulp or two
@@ -380,3 +431,8 @@ def test_random_on_card_launches_the_kernel(cuda):
     htt.random.seed(4)
     htt.random.rand(1, device="gpu")
     assert bool((b.larray >= 0).all()) and bool((b.larray < 10).all())
+    # a 64-bit randint is drawn on the card, equal to the CPU's
+    htt.random.seed(5)
+    d = htt.random.randint(-(2**62), 2**62, (999,), dtype=htt.int64, device="gpu").larray
+    htt.random.seed(5)
+    assert torch.equal(d.cpu(), htt.random.randint(-(2**62), 2**62, (999,), dtype=htt.int64, device="cpu").larray)
