@@ -3,8 +3,9 @@ benchmark), QR, Lasso, sparse Spectral, TransformerLM, transport
 (reshape, resplit, advanced getitem), runtime-core (assignment, random,
 factories, printing), linear-algebra and classifier (KNN, GaussianNB,
 svd, det/inv, convolve, pad, tiles), I/O (files to the card and back),
-training (TransformerLM, ResNet, DASO) and random (the Threefry streams)
-paths on one CUDA card and check them.
+training (TransformerLM, ResNet, DASO), random (the Threefry streams),
+mixture-of-experts training, pipeline and runtime-plane paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -72,7 +73,17 @@ KMeans through K1 on the loaded array, ``cluster.load_hdf5_packed`` in
 bf16 and KMeans on it, a split-1 load and ``resplit(0)``, CSV at 1e6 x 64
 (the native parser against numpy's) and NetCDF at 8e6 x 64, and the
 DCSR members of the Spectral cell's k-NN graph against K6 (files in a
-temporary directory removed at the end);
+temporary directory removed at the end); training (the TransformerLM
+with adam, ResNet-50, DASO) and random (T1 across 2^32 and at 2e7 x 64,
+beside its bytes and integer-operations bounds); the mixture-of-experts
+TransformerLM (the LM's widths, 8 experts, top-2) trained expert-parallel
+over ``MeshComm(4)`` with adamw for 5 steps (step 1 against the plain
+attention and rerun bitwise, the first MoE layer against the plain version
+of its path), its 4 blocks as a 4-stage pipeline of 8 microbatches against
+the blocks in order, and the runtime planes (a KMeans fit's host syncs at
+the ``off`` and ``counters`` telemetry levels, its spans and ledger rows,
+the roofline's peaks, memtrack against the allocator, a vision-transform
+chain on a 128 x 224^2 batch against the CPU);
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -2827,6 +2838,16 @@ CHUNK_ROWS = 9_000_000
 # the CPU tests' bound against heat_tpu)
 NORMAL_ULPS = 2
 CARD_CPU_ULPS = 4
+# T1's operations bound for an f32 uniform, counted from csrc/threefry.cu:
+# the hash's 20 rounds of add, funnel-shift rotate and xor (60) and its 12
+# key additions, then the element's index, its bound check and 64-bit
+# counter (5), x0 ^ x1, the shift and or to a float's bits (3) and the
+# store's address (2); the fsub is a float operation.  Hopper issues 64
+# 32-bit integer results (add, shift, logic) a clock per SM (the CUDA
+# programming guide's throughput table, compute capability 9.0), at the
+# card's maximum SM clock as nvidia-smi reports it
+T1_UNIFORM_OPS = 82
+INT32_LANES_PER_SM = 64
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3115,16 +3136,24 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
                        reps=1, warmup=0)
     rand_ms = time_ms(lambda: torch.rand(n, device=dev, out=buf), reps=5)
     ms_2 = time_ms(lambda: t1.threefry(key, n, kind="uniform", device=dev, out=buf), reps=5)
-    bound_ms = 4 * n / HBM_BYTES_PER_S * 1e3
+    bytes_ms = 4 * n / HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]).splitlines()[0])
+    int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    ops_ms = T1_UNIFORM_OPS * n / int_rate * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
     print(f"[time] threefry uniform f32 ({ROWS}, 64): kernel_ms={ms:.4f} (again {ms_2:.4f}; normal {ms_normal:.4f}; "
           f"randint int32 {ms_randint:.4f}) plain_ms={plain_ms:.4f} torch.rand (Philox, not the same function) "
-          f"{rand_ms:.4f} bound_ms={bound_ms:.4f} (bytes: {4 * n / 1e9:.2f} GB written, each draw) on {card}")
+          f"{rand_ms:.4f} bound_ms={bound_ms:.4f} by {bound_by} (bytes: {4 * n / 1e9:.2f} GB written, {bytes_ms:.4f} "
+          f"ms; operations: {T1_UNIFORM_OPS} 32-bit integer operations an element at {sms} SMs x "
+          f"{INT32_LANES_PER_SM} lanes x {clock_mhz:.0f} MHz = {int_rate:.4e}/s, {ops_ms:.4f} ms; the kernel at "
+          f"{ops_ms / ms:.4f} of it) on {card}")
     print(f"[e2e] random at ({ROWS}, 64) over MeshComm(4): " + ", ".join(f"{k} {v:.3f} ms" for k, v in calls.items())
           + f" (first calls), T1 launches {path_launches} on {card}")
     del buf, ibuf, draws, dst, got
     torch.cuda.empty_cache()
     out.update(ms=ms, ms_normal=ms_normal, ms_randint=ms_randint, plain_ms=plain_ms, torch_rand_ms=rand_ms,
-               bound_ms=bound_ms, calls=calls, launches=path_launches, normal_ulps_whole=whole["normal"])
+               bound_ms=bound_ms, bound_by=bound_by, bound_ms_bytes=bytes_ms, bound_ms_ops=ops_ms, calls=calls, launches=path_launches, normal_ulps_whole=whole["normal"])
 
     # ---- randperm(1e8, split=0) on the Feistel route
     torch.cuda.synchronize()
@@ -3175,6 +3204,337 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
         del x
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------- MoE, pipeline and planes
+# the MoE TransformerLM: the LM config's widths with examples/nn/moe_lm.py's
+# mixture of experts (8 experts, top-2, capacity factor 2), expert-parallel
+# over MeshComm(4), trained by DataParallel with adamw(3e-4) on the loss plus
+# 0.01 x the routers' load-balancing losses (moe_lm.py:91-96)
+MOE = dict(moe_experts=8, moe_k=2, moe_capacity_factor=2.0)
+MOE_AUX = 0.01
+# the MoE layer against the plain version of its expert-parallel path and
+# its mesh=None path: max|Δ| <= TOL_MOE * max|y| (f32 products in other
+# batchings)
+TOL_MOE = 1e-5
+# the pipeline: the LM's 4 blocks as 4 stages over MeshComm(4), 8
+# microbatches of one 2048-token sequence; forward max|Δ| <= TOL_PIPE * max|y|
+# and gradients max|Δ| <= TOL_TRAIN * max|grad| against the blocks in order
+PIPE_MICRO = 8
+TOL_PIPE = 1e-5
+# the planes: an f32 KMeans fit at 2e6 x 64 for the host-sync count; the
+# transforms on a 128 x 224 x 224 x 3 uint8 batch, Resize/Normalize within
+# TOL_TRANSFORM * max|x| of the CPU's (the GEMMs of Resize sum in other
+# orders), crops and flips bitwise
+PLANE_ROWS = 2_000_000
+TRANSFORM_BATCH, TRANSFORM_HW, TRANSFORM_TO = 128, 224, 256
+TOL_TRANSFORM = 1e-5
+
+
+def plain_moe(x, gate, w_in, w_out, k: int, capacity_factor: float, shards: int):
+    """The expert-parallel MoE FFN written plainly: per shard, the JAX
+    package's routing (capacity per shard), then for each expert its kept
+    tokens through its FFN, added back with their router weights."""
+    emod = importlib.import_module("heat_tpu_torch.parallel.expert")
+    act = emod._gelu
+    out = []
+    for xs in x.reshape(-1, x.shape[-1]).chunk(shards):
+        cap = emod.expert_capacity(xs.shape[0], gate.shape[1], k, capacity_factor)
+        top_w, top_idx, _, kept, _ = emod._route(xs @ gate, k, cap)
+        y = torch.zeros_like(xs)
+        for e in range(gate.shape[1]):
+            rows, slot = torch.nonzero((top_idx == e) & kept, as_tuple=True)
+            h = act(xs[rows] @ w_in[e]) @ w_out[e]
+            y.index_add_(0, rows, h * top_w[rows, slot, None])
+        out.append(y)
+    return torch.cat(out).reshape(x.shape)
+
+
+def moe_step_parts(model, tokens, targets, k3, tmod, plain: bool):
+    """Step 1 without its update: the loss (cross-entropy plus MOE_AUX x the
+    aux losses) and every parameter's gradient, with K3 or with the plain
+    attention."""
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+
+    orig = tmod.flash_attention
+    if plain:
+        tmod.flash_attention = k3.reference_flash_attention
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = _default_loss(model(tokens), targets) + MOE_AUX * sum(model.moe_aux_losses())
+        loss.backward()
+    finally:
+        tmod.flash_attention = orig
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def moe_paths(ht, k3, seed: int, dev, card: str) -> dict:
+    """The mixture-of-experts TransformerLM at the LM config's widths,
+    expert-parallel over MeshComm(4), trained by DataParallel: step 1
+    against the plain attention and rerun bitwise, the MoE layer against the
+    plain version of its path, 5 steps.  Returns K3's launches."""
+    tmod = importlib.import_module("heat_tpu_torch.models.transformer")
+    mesh = ht.MeshComm(4)
+    t_phase = time.perf_counter()
+    model = ht.models.TransformerLM(**LM, **MOE, ep_mesh=mesh, device="gpu",
+                                    generator=torch.Generator(device=dev).manual_seed(seed + 19))
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]), generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    loss_k, grads_k = moe_step_parts(model, tokens, targets, k3, tmod, plain=False)
+    loss_r, grads_r = moe_step_parts(model, tokens, targets, k3, tmod, plain=False)
+    rerun = bool(torch.equal(loss_k, loss_r)) and all(torch.equal(a, b) for a, b in zip(grads_k, grads_r))
+    del grads_r
+    loss_p, grads_p = moe_step_parts(model, tokens, targets, k3, tmod, plain=True)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    gscale = max(float(g.abs().max()) for g in grads_p)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
+    print(f"[moe] step 1 against the plain attention: loss {loss_k:.6f} vs {loss_p:.6f} (|Δ| {abs(loss_k - loss_p):.3e}, "
+          f"tolerance {TOL_TRAIN:g} * loss), max|Δgrad| {gerr:.3e} (tolerance {TOL_TRAIN:g} * {gscale:.4e}); a rerun "
+          f"bitwise equal {rerun} on {card}")
+    check(abs(loss_k - loss_p) <= TOL_TRAIN * loss_p, "MoE step 1: loss differs from the plain attention's")
+    check(gerr <= TOL_TRAIN * gscale, "MoE step 1: gradients differ from the plain attention's")
+    check(rerun, "MoE step 1: a rerun is not bitwise equal")
+    del grads_k, grads_p
+    # the first MoE layer on its own input: the expert-parallel path against
+    # its plain version, and against mesh=None where nothing is dropped
+    seen = {}
+    hook = model.blocks[0].moe.register_forward_hook(lambda m, a, y: seen.update(x=a[0].detach(), y=y.detach()))
+    with torch.no_grad():
+        model(tokens)
+    hook.remove()
+    moe0 = model.blocks[0].moe
+    dropped = [float(b.moe.aux["fraction_dropped"]) for b in model.blocks]
+    with torch.no_grad():
+        want = plain_moe(seen["x"], moe0.gate, moe0.w_in, moe0.w_out, MOE["moe_k"], MOE["moe_capacity_factor"], mesh.size)
+        y_none, aux_none = ht.parallel.moe_ffn(seen["x"], moe0.gate, moe0.w_in, moe0.w_out, k=MOE["moe_k"],
+                                               capacity_factor=MOE["moe_capacity_factor"], mesh=None)
+    yscale = float(want.abs().max())
+    err_plain = float((seen["y"] - want).abs().max())
+    err_none = float((seen["y"] - y_none).abs().max())
+    print(f"[moe] layer 0 over MeshComm(4), {seen['x'].shape[0] * seen['x'].shape[1]} tokens: max|Δ| against the plain "
+          f"version of the expert-parallel path {err_plain:.3e}, against mesh=None {err_none:.3e} (tolerance "
+          f"{TOL_MOE:g} * {yscale:.4e}; fraction dropped {dropped[0]:.6f}, mesh=None "
+          f"{float(aux_none['fraction_dropped']):.6f}) on {card}")
+    check(err_plain <= TOL_MOE * yscale, "MoE layer 0 differs from the plain version of its path")
+    if dropped[0] == 0 and float(aux_none["fraction_dropped"]) == 0:
+        check(err_none <= TOL_MOE * yscale, "MoE layer 0 differs from its mesh=None path with nothing dropped")
+    del seen, want, y_none
+    # training, 5 steps
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+
+    dp = ht.nn.DataParallel(model, comm=mesh, optimizer=ht.optim.DataParallelOptimizer(ht.optim.adamw(3e-4)),
+                            loss_fn=lambda logits, t: _default_loss(logits, t) + MOE_AUX * sum(model.moe_aux_losses()))
+    dp.init(seed, tokens)
+    tok_d, tgt_d = ht.array(tokens, split=0, comm=mesh), ht.array(targets, split=0, comm=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3.launches = 0
+    t0 = time.perf_counter()
+    losses = [dp.train_step(tok_d, tgt_d) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k3.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    dropped = [round(float(b.moe.aux["fraction_dropped"]), 6) for b in model.blocks]
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dp.train_step(tok_d, tgt_d)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / reps
+    n_tok = tokens.numel()
+    print(f"[moe] TransformerLM {LM} {MOE} ep_mesh=MeshComm(4), DataParallel adamw(3e-4) + {MOE_AUX} x aux, "
+          f"{TRAIN_STEPS} steps of {LM_BATCH}x{LM['max_seq_len']} tokens: losses {[round(v, 6) for v in losses]}, "
+          f"K3 launches {launches} (expected {LM['num_layers'] * TRAIN_STEPS}), fraction dropped per layer {dropped}, "
+          f"{1e3 * wall / TRAIN_STEPS:.4f} ms/step (first included), {step_ms:.4f} ms/step steady, "
+          f"{n_tok / step_ms * 1e3:.4e} tokens/s, peak {peak_gb:.3f} GB on {card}")
+    check(launches == LM["num_layers"] * TRAIN_STEPS, f"MoE training K3 launches {launches}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], "MoE training loss is not finite and falling")
+    rows = trace("MoE TransformerLM train step", lambda: dp.train_step(tok_d, tgt_d), 1)
+    k3_ms = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2]) / 1e3
+    gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower()) / 1e3
+    print(f"[moe] step by kind: K3 forward {k3_ms:.4f} ms, GEMM kernels {gemm_ms:.4f} ms of "
+          f"{sum(r[0] for r in rows) / 1e3:.4f} ms busy on {card}")
+    del dp, model, tok_d, tgt_d, tokens, targets
+    torch.cuda.empty_cache()
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return dict(launches=launches, step_ms=step_ms, tokens_s=n_tok / step_ms * 1e3, peak_gb=peak_gb, dropped=dropped)
+
+
+def pipeline_paths(ht, k3, seed: int, dev, card: str) -> dict:
+    """The LM's 4 blocks as 4 pipeline stages over MeshComm(4) with 8
+    microbatches: forward and gradients against the blocks in order, K3's
+    launches a forward, ms a forward and backward."""
+    from torch.func import functional_call
+
+    t_phase = time.perf_counter()
+    mesh = ht.MeshComm(LM["num_layers"])  # one block a stage: MeshComm(4)
+    dim = LM["num_heads"] * LM["head_dim"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    blocks = [ht.models.TransformerBlock(LM["num_heads"], LM["head_dim"], LM["mlp_ratio"], device="gpu", generator=gen)
+              for _ in range(LM["num_layers"])]
+    stacked = {n: p.detach().clone().requires_grad_() for n, p in
+               ht.parallel.stack_stage_params([dict(b.named_parameters()) for b in blocks], mesh).items()}
+    x = torch.randn(PIPE_MICRO, LM["max_seq_len"], dim, generator=gen, device=dev)
+    g_out = torch.randn(PIPE_MICRO, LM["max_seq_len"], dim, generator=gen, device=dev)
+
+    def stage(p, a):
+        return functional_call(blocks[0], p, (a,))
+
+    def pipe():
+        return ht.parallel.pipeline_apply(stage, stacked, x, mesh=mesh, n_micro=PIPE_MICRO)
+
+    k3.launches = 0
+    y = pipe()
+    fwd_launches = k3.launches
+    (y * g_out).sum().backward()
+    want = x
+    for b in blocks:
+        want = b(want)
+    (want * g_out).sum().backward()
+    want, y = want.detach(), y.detach()
+    yscale = float(want.abs().max())
+    ferr = float((y - want).abs().max())
+    gseq = {n: torch.stack([dict(b.named_parameters())[n].grad for b in blocks]) for n in stacked}
+    gscale = max(float(g.abs().max()) for g in gseq.values())
+    gerr = max(float((stacked[n].grad - gseq[n]).abs().max()) for n in stacked)
+    print(f"[pipeline] {LM['num_layers']} TransformerBlocks ({LM['num_heads']}x{LM['head_dim']}, mlp_ratio "
+          f"{LM['mlp_ratio']}) as stages over MeshComm(4), n_micro {PIPE_MICRO} of 1x{LM['max_seq_len']} tokens: "
+          f"forward max|Δ| {ferr:.3e} (tolerance {TOL_PIPE:g} * {yscale:.4e}), gradients max|Δ| {gerr:.3e} "
+          f"(tolerance {TOL_TRAIN:g} * {gscale:.4e}) against the blocks in order; K3 launches a forward {fwd_launches} "
+          f"(expected {PIPE_MICRO * LM['num_layers']}: bubble ticks are skipped) on {card}")
+    check(ferr <= TOL_PIPE * yscale, "pipeline forward differs from the sequential blocks")
+    check(gerr <= TOL_TRAIN * gscale, "pipeline gradients differ from the sequential blocks")
+    check(fwd_launches == PIPE_MICRO * LM["num_layers"], f"pipeline K3 launches {fwd_launches}")
+    del want, gseq
+
+    def fwd_bwd():
+        for p in stacked.values():
+            p.grad = None
+        (pipe() * g_out).sum().backward()
+
+    ms = time_ms(fwd_bwd, reps=3, warmup=1)
+    k3.launches = 0
+    fwd_bwd()
+    torch.cuda.synchronize()
+    launches = k3.launches
+    print(f"[pipeline] {ms:.4f} ms a forward and backward, K3 launches {launches}, phase "
+          f"{time.perf_counter() - t_phase:.1f} s wall on {card}")
+    del blocks, stacked, x, g_out, y
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms)
+
+
+def span_tree(events) -> list:
+    """The recorded spans as indented lines, in order of entry."""
+    depth, lines = {}, []
+    for e in events:
+        if e["kind"] == "span_begin":
+            depth[e["id"]] = depth.get(e["parent"], -1) + 1
+        elif e["kind"] == "span_end":
+            lines.append((e["seq"], depth.get(e["id"], 0), e["name"], e["dur_s"]))
+    return [f"{'  ' * d}{name} {1e3 * dur:.3f} ms" for _, d, name, dur in sorted(lines, key=lambda r: r[0])]
+
+
+def plane_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """The telemetry, roofline and memtrack planes on the card, and the
+    vision transforms on a training batch against the CPU.  Returns K1's
+    launches in the KMeans fits."""
+    t_phase = time.perf_counter()
+    tel = ht.telemetry
+    mesh = ht.MeshComm(4)
+    data, _ = make_blobs(PLANE_ROWS, 64, 8, seed + 22, dev)
+    x = ht.array(data, split=0, comm=mesh)
+
+    def fit():
+        return ht.cluster.KMeans(n_clusters=8, init="random", max_iter=10, tol=-1.0, random_state=seed).fit(x)
+
+    k1.launches = 0
+    fit()  # warm
+    syncs = {}
+    for lvl in ("off", "counters"):
+        with tel.telemetry_level(lvl):
+            syncs[lvl] = host_syncs(fit)
+    print(f"[planes] f32 KMeans fit ({PLANE_ROWS}, 64) k=8, 10 iterations over MeshComm(4): host syncs at off "
+          f"{len(syncs['off'])}, at counters {len(syncs['counters'])} on {card}")
+    check(len(syncs["off"]) == len(syncs["counters"]), "telemetry at the counters level adds host syncs")
+    with tel.telemetry_level("events"):
+        tel.clear_events()
+        tel.reset_programs()
+        fit()
+        for line in span_tree(tel.events()):
+            print(f"[planes] span {line}")
+        rows = tel.roofline_report()["rows"]
+        for r in rows:
+            print(f"[planes] ledger {r['kind']} calls {r['calls']} min {1e3 * r['min_s']:.4f} ms, "
+                  f"{r['achieved_gbps']:.1f} GB/s, compute share {r['frac_compute_roofline']}, memory share "
+                  f"{r['frac_hbm_roofline']}, {r['verdict']} (work counted for K1 alone: the step's argmin and "
+                  f"sums ride along)")
+        tel.clear_events()
+        tel.reset_programs()
+    check(any(r["kind"] == "kernel_cdist" and r["calls"] == 10 for r in rows), "the Lloyd steps are not in the ledger")
+    k1_launches = k1.launches
+    # four fits, each 10 Lloyd steps and the labels, one launch a position
+    want = 4 * (10 + 1) * mesh.size
+    print(f"[planes] K1 launches in the four fits {k1_launches} (expected {want}) on {card}")
+    check(k1_launches == want, f"plane phase K1 launches {k1_launches} != {want}")
+    peaks = ht.roofline.detect_peaks()
+    print(f"[planes] roofline peaks: {peaks}")
+    check(peaks["device"] == torch.cuda.get_device_name(0), "roofline names another device")
+    torch.cuda.synchronize()
+    per, worst = ht.memtrack.device_bytes_in_use()
+    allocated = torch.cuda.memory_allocated()
+    print(f"[planes] memtrack bytes in use {worst} ({per}), torch.cuda.memory_allocated {allocated}, free budget "
+          f"{ht.memtrack.min_free_bytes()} on {card}")
+    check(worst == allocated, "memtrack's bytes in use differ from torch.cuda.memory_allocated")
+    del x, data
+    torch.cuda.empty_cache()
+
+    # ---- the vision transforms on a training batch, card against CPU
+    T = ht.utils.vision_transforms
+    batch = torch.randint(0, 256, (TRANSFORM_BATCH, TRANSFORM_HW, TRANSFORM_HW, 3), dtype=torch.uint8,
+                          generator=torch.Generator(device=dev).manual_seed(seed + 23), device=dev)
+    gen = torch.Generator().manual_seed(seed + 24)
+    state = gen.get_state()
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+    def chain(images):
+        crop = T.RandomCrop(TRANSFORM_HW, padding=4, generator=gen)
+        flip = T.RandomHorizontalFlip(generator=gen)
+        rest = T.Compose([T.ToTensor(), T.Normalize(mean, std), T.Resize(TRANSFORM_TO)])
+        cropped = [flip(crop(img)) for img in images]
+        return torch.stack(cropped), torch.stack([rest(c) for c in cropped])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    crops_card, out_card = chain(batch)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    gen.set_state(state)
+    t0 = time.perf_counter()
+    crops_cpu, out_cpu = chain(batch.cpu())
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    same_crops = bool(torch.equal(crops_card.cpu(), crops_cpu))
+    terr = float((out_card.cpu() - out_cpu).abs().max())
+    tscale = float(out_cpu.abs().max())
+    print(f"[planes] transforms RandomCrop({TRANSFORM_HW}, padding=4), RandomHorizontalFlip, ToTensor, Normalize, "
+          f"Resize({TRANSFORM_TO}) on {TRANSFORM_BATCH} x {TRANSFORM_HW}^2 x 3 uint8: crops and flips bitwise equal "
+          f"to the CPU's {same_crops}, output {tuple(out_card.shape)} max|Δ| {terr:.3e} (tolerance {TOL_TRANSFORM:g} * "
+          f"{tscale:.4f}); {card_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU, on {card}")
+    check(same_crops, "transforms: crops or flips differ between card and CPU")
+    check(terr <= TOL_TRANSFORM * tscale, "transforms: Resize/Normalize differ between card and CPU")
+    check(tuple(out_card.shape) == (TRANSFORM_BATCH, TRANSFORM_TO, TRANSFORM_TO, 3), "transforms: bad output shape")
+    del batch, crops_card, out_card, crops_cpu, out_cpu
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[planes] phase {wall:.1f} s wall")
+    return dict(syncs_off=len(syncs["off"]), syncs_counters=len(syncs["counters"]), transforms_ms=card_ms,
+                k1=k1_launches)
 
 
 def main() -> int:
@@ -3840,6 +4200,13 @@ def main() -> int:
     # random numbers on the Threefry streams through T1
     rnd = random_paths(ht, t1, args.seed, dev, card)
 
+    # the mixture-of-experts TransformerLM trained expert-parallel through
+    # K3, the blocks as a pipeline through K3, and the runtime planes with
+    # the vision transforms
+    moe = moe_paths(ht, k3, args.seed, dev, card)
+    pipe = pipeline_paths(ht, k3, args.seed, dev, card)
+    planes = plane_paths(ht, k1, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -3847,7 +4214,7 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"],
+            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -3861,6 +4228,7 @@ def main() -> int:
             "launches_runtime_core": rt["k1"],
             "launches_linalg_classifiers": la["knn"]["k1"],
             "launches_io": io["k1"],
+            "launches_planes": planes["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
@@ -3929,9 +4297,11 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/attention.cu",
             "replaces": "heat_tpu/ops/attention.py:37",
-            "launches": lm["attention"] + trn["lm_launches"],
+            "launches": lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"],
             "launches_forward_and_ulysses": lm["attention"],
             "launches_training": trn["lm_launches"],
+            "launches_moe_training": moe["launches"],
+            "launches_pipeline": pipe["launches"],
             "max_abs_err": k3_abs,
             "ms": att_times[(64, 2048, 64, "float32", True)][0],
             "plain_ms": att_times[(64, 2048, 64, "float32", True)][1],
@@ -4003,7 +4373,9 @@ def main() -> int:
             "ms": rnd["ms"],
             "plain_ms": rnd["plain_ms"],
             "bound_ms": rnd["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": rnd["bound_by"],
+            "bound_ms_bytes": rnd["bound_ms_bytes"],
+            "bound_ms_operations": rnd["bound_ms_ops"],
             "library_ms": None,
             "library_note": "no PyTorch call computes Threefry-2x32; torch.rand (Philox) beside it as torch_rand_ms",
             "torch_rand_ms": rnd["torch_rand_ms"],
@@ -4012,6 +4384,9 @@ def main() -> int:
             "at": f"({ROWS}, 64) f32 uniform, 5.12 GB written; randint int32 in [0, 1000), the same bytes",
         },
     ]
+    print(f"[summary] MoE TransformerLM {moe['step_ms']:.4f} ms/step ({moe['tokens_s']:.4e} tokens/s, peak "
+          f"{moe['peak_gb']:.3f} GB, dropped {moe['dropped']}); pipeline {pipe['ms']:.4f} ms a forward and backward; "
+          f"host syncs of a KMeans fit at off / counters {planes['syncs_off']} / {planes['syncs_counters']} on {card}")
     print(f"[summary] training: TransformerLM {trn['lm_step_ms']:.4f} ms/step ({trn['lm_tokens_s']:.4e} tokens/s, "
           f"peak {trn['lm_peak_gb']:.3f} GB), ResNet-50 {trn['resnet_ms']:.4f} ms/step ({trn['resnet_images_s']:.2f} "
           f"images/s, peak {trn['resnet_peak_gb']:.3f} GB); random: randperm(1e8) {rnd['perm_ms']:.3f} ms on {card}")

@@ -21,9 +21,11 @@ indexing, the other manipulations and ``sort``; ``parallel.transport``,
 ``parallel.select``, ``parallel.sort``, ``ops.repack``), and files to the
 card and back (``io``, ``load``/``save`` and the format functions,
 ``native``, ``datasets``, ``utils.data``), random numbers on
-``heat_tpu``'s Threefry streams (``random``, ``ops.threefry``), and
-data-parallel training (``nn``, ``optim``, ``models``,
-``utils.checkpointing``).
+``heat_tpu``'s Threefry streams (``random``, ``ops.threefry``),
+data-parallel, expert-parallel and pipeline training (``nn``, ``optim``,
+``models``, ``parallel.expert``, ``parallel.pipeline``,
+``utils.checkpointing``, ``utils.vision_transforms``), and the runtime
+planes ``telemetry``, ``memtrack``, ``roofline`` and ``guard``.
 """
 
 from .core import *
@@ -35,17 +37,21 @@ from .core import (
     devices,
     exponential,
     factories,
+    guard,
     io,
     linalg,
     logical,
     manipulations,
+    memtrack,
     random,
     relational,
+    roofline,
     rounding,
     sanitation,
     signal,
     statistics,
     stride_tricks,
+    telemetry,
     tiling,
     trigonometrics,
     types,

@@ -27,7 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core import factories, sanitation, statistics, types
+from ..core import factories, sanitation, statistics, telemetry, types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray, _wrap
 from ..parallel.sort import topk_order, topk_select
@@ -117,12 +117,23 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         parts = [topk_select(d[lo : lo + _SELECT_ROWS], k, largest=False) for lo in range(0, d.shape[0], _SELECT_ROWS)]
         return torch.cat(parts) if parts else d.new_zeros((0, k), dtype=torch.int64)
 
+    @telemetry.span("knn.predict")
     def predict(self, x: DNDarray) -> DNDarray:
         """Majority vote of the ``n_neighbors`` nearest training samples
         (kneighborsclassifier.py:218), split as ``x``."""
         if self.x is None:
             raise RuntimeError("fit the model first")
-        d = self.effective_metric_(x, self.x)
+        nq, n, f = x.shape[0], self.x.shape[0], self.x.shape[1]
+        fp = telemetry.fingerprint(("knn_distances", nq, n, f, str(x.dtype), x.comm.size))
+        if self.effective_metric_ is distance.cdist:
+            # K1's work: 2·nq·n·f operations; both operands read once, the
+            # distances written once
+            telemetry.ensure_program(fp, kind="kernel_cdist", ops=1, flops=2.0 * nq * n * f,
+                                     hbm_bytes=float((nq + n) * f * x.dtype.torch_type().itemsize + nq * n * 4),
+                                     mesh={"devices": x.comm.size}, dtype=str(x.dtype))
+        else:
+            telemetry.ensure_program(fp, kind="knn_distances", mesh={"devices": x.comm.size}, dtype=str(x.dtype))
+        d = telemetry.timed_call(fp, self.effective_metric_, x, self.x, device=x.device.torch_device)
         onehot = self.y.larray
         k = self.n_neighbors
         if d.split == 0 and d.comm.size > 1:

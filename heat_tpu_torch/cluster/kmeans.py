@@ -22,7 +22,7 @@ from typing import List, Optional, Union
 
 import torch
 
-from ..core import sanitation, types
+from ..core import sanitation, telemetry, types
 from ..core.dndarray import DNDarray, _wrap
 from ..ops import cdist as _k1
 from ..parallel import collectives
@@ -94,21 +94,37 @@ def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_
     return new_centers, shift, inertia
 
 
+def _step_program(blocks: List[torch.Tensor], k: int, positions: int) -> str:
+    """The ledger entry of one Lloyd step over ``blocks``, with the work of
+    its K1 launches: 2·n·k·f operations; the samples and the centres read
+    once, the (n, k) distances written once."""
+    n = sum(int(b.shape[0]) for b in blocks)
+    f = int(blocks[0].shape[1])
+    dt = str(blocks[0].dtype)
+    fp = telemetry.fingerprint(("kmeans_lloyd_step", n, f, k, dt, positions))
+    telemetry.ensure_program(fp, kind="kernel_cdist", ops=1, flops=2.0 * n * k * f,
+                             hbm_bytes=float(n * f * blocks[0].element_size() + k * f * 4 + n * k * 4),
+                             mesh={"devices": positions}, dtype=dt)
+    return fp
+
+
 def _lloyd_loop(
-    blocks: List[torch.Tensor], centers: torch.Tensor, k: int, max_iter: int, tol: float, with_inertia: bool = True
+    blocks: List[torch.Tensor], centers: torch.Tensor, k: int, max_iter: int, tol: float, with_inertia: bool = True,
+    fp: Optional[str] = None,
 ):
     """Iterate :func:`_lloyd_step` while ``it < max_iter`` and
     ``shift² > tol``, from ``shift = inf`` (so ``tol=-1`` runs exactly
     ``max_iter`` steps).  The test reads shift back to the host once per
-    iteration; the JAX package keeps the whole loop on the device.  Returns
-    (centers, shift, inertia, n_iter) with f32 shift and inertia."""
+    iteration; the JAX package keeps the whole loop on the device.  Each
+    step is timed under the ledger entry ``fp`` when telemetry samples it.
+    Returns (centers, shift, inertia, n_iter) with f32 shift and inertia."""
     dev = centers.device
     shift = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     inertia = torch.tensor(0.0, dtype=torch.float32, device=dev)
     it = 0
     # shift > tol compares in f32, as the JAX loop's carry does
     while it < max_iter and bool(shift > tol):
-        centers, shift, inertia = _lloyd_step(blocks, centers, k, with_inertia)
+        centers, shift, inertia = telemetry.timed_call(fp, _lloyd_step, blocks, centers, k, with_inertia, device=dev)
         it += 1
     return centers, shift, inertia, it
 
@@ -175,6 +191,7 @@ class KMeans(_KCluster):
             None, x.device, x.comm,
         )
 
+    @telemetry.span("kmeans.fit")
     def fit(self, x: Union[DNDarray, PackedSamples]) -> "KMeans":
         """Lloyd iterations until the squared centroid shift is at most
         ``tol``, or ``max_iter``.  Also takes :class:`PackedSamples`."""
@@ -187,7 +204,8 @@ class KMeans(_KCluster):
         blocks = _row_blocks(x)
         centers = self._cluster_centers.larray.to(blocks[0].dtype)
         centers, _, inertia, n_iter = _lloyd_loop(
-            blocks, centers, self.n_clusters, self.max_iter, self.tol
+            blocks, centers, self.n_clusters, self.max_iter, self.tol,
+            fp=_step_program(blocks, self.n_clusters, x.comm.size),
         )
         self._n_iter = n_iter
         self._cluster_centers = DNDarray(
@@ -218,7 +236,8 @@ class KMeans(_KCluster):
         blocks = packed.sample_blocks()
         centers = self._init_centers_packed(packed, blocks).to(blocks[0].dtype)
         centers, _, _, n_iter = _lloyd_loop(
-            blocks, centers, self.n_clusters, self.max_iter, self.tol, with_inertia=False
+            blocks, centers, self.n_clusters, self.max_iter, self.tol, with_inertia=False,
+            fp=_step_program(blocks, self.n_clusters, packed.comm.size),
         )
         self._n_iter = n_iter
         self._cluster_centers = DNDarray(

@@ -1,6 +1,6 @@
 """heat_tpu_torch core: runtime (communication, devices, the dtype lattice,
 factories, the DNDarray, sanitation, memory, printing, the estimator base,
-random, I/O) and the op surface (arithmetic, exponential, trigonometric,
+random, I/O, the telemetry/memtrack/roofline/guard planes) and the op surface (arithmetic, exponential, trigonometric,
 rounding, logical, complex, relational, statistics, manipulations, linalg),
 exported flat as in heat_tpu.core."""
 
@@ -17,6 +17,7 @@ from .constants import *
 from .dndarray import DNDarray, LocalIndex
 from . import envparse
 from .envparse import env_int
+from . import guard, telemetry, memtrack, roofline
 from . import factories
 from .factories import *
 from . import _operations

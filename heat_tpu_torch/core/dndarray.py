@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import types
+from . import memtrack, types
 from .devices import Device
 from .stride_tricks import sanitize_axis
 from ..parallel import transport
@@ -121,6 +121,9 @@ class DNDarray:
         self.__device = device
         self.__comm = comm
         self.__halos = None
+        # every factory funnels here; the ledger's site walk names the
+        # user's call (a shard wrapped again counts a rebind)
+        memtrack.register_shards(self.__shards, tag="leaf", split=split)
 
     # ------------------------------------------------------------ properties
     @property
@@ -440,6 +443,7 @@ class DNDarray:
             self.__shards = shards
             self.__dtype = dtype
             self._invalidate_halos()
+            memtrack.register_shards(shards, tag="leaf", split=self.__split)
             return self
         return DNDarray(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 
@@ -453,6 +457,7 @@ class DNDarray:
             self.__shards = [s.to(tt) for s in result.shards]
         self.__split = result.split
         self._invalidate_halos()
+        memtrack.register_shards(self.__shards, tag="leaf", split=self.__split)
         return self
 
     def item(self):
@@ -485,12 +490,15 @@ class DNDarray:
         if axis == self.__split:
             return self
         if transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
+            # the old shards are dropped below: the port's donation
+            memtrack.tag_shards(self.__shards, "donated")
             shards = transport.tiled_resplit(self.__shards, self.__gshape, self.__split, axis, self.__comm)
         else:
             shards = _shard(self.larray, axis, self.__comm)
         self.__shards = shards
         self.__split = axis
         self._invalidate_halos()
+        memtrack.register_shards(shards, tag="output", split=axis)
         return self
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":

@@ -27,7 +27,7 @@ import collections
 
 import torch
 
-from .. import sanitation, types
+from .. import sanitation, telemetry, types
 from ..dndarray import DNDarray, _wrap
 from ...ops import qr_panel
 from ...parallel import collectives
@@ -93,7 +93,13 @@ def _panel(x: torch.Tensor):
     """One panel pass's ``(r, rinv)``: K4 for float32, the plain chain for
     other dtypes."""
     if x.dtype == torch.float32:
-        return qr_panel.fused_gram_chol(x.contiguous())
+        m, n = x.shape
+        fp = telemetry.fingerprint(("qr_panel", m, n, str(x.dtype)))
+        # K4's work: the Gram's upper triangle, m·n·(n+1) operations, and
+        # the panel read once
+        telemetry.ensure_program(fp, kind="kernel_qr_panel", ops=1, flops=float(m * n * (n + 1)),
+                                 hbm_bytes=float(m * n * x.element_size()), dtype=str(x.dtype))
+        return telemetry.timed_call(fp, qr_panel.fused_gram_chol, x.contiguous(), device=x.device)
     return qr_panel.reference_fused_gram_chol(x)
 
 

@@ -21,7 +21,28 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import telemetry
+
 __all__ = ["ChunkSource", "open_source", "read_rows"]
+
+
+# heat_tpu's "stream" counter group, with its keys; only ``sources`` moves
+# until the streaming pass (StreamPass, its slabs, reader and back-off) is
+# ported with item 13
+_STATS = telemetry.register_group(
+    "stream",
+    {
+        "sources": 0,  # chunk sources opened
+        "passes": 0,  # completed streaming passes
+        "slabs": 0,  # device slabs produced
+        "bytes_read": 0,  # host bytes read off disk or memory
+        "oom_retries": 0,  # slab transfers retried after OOM
+        "slab_shrinks": 0,  # slab-row halvings (OOM back-off)
+        "io_s": 0.0,  # reader-thread seconds on host reads
+        "stall_s": 0.0,  # consumer seconds blocked on the queue
+        "fill_s": 0.0,  # the first fetch's pipeline fill
+    },
+)
 
 
 def read_rows(source, lo: int, hi: int, *, split_axis: int = 0, base: Optional[tuple] = None, copy: bool = False) -> np.ndarray:
@@ -138,6 +159,7 @@ def open_source(source, dataset: Optional[str] = None, *, np_dtype=None) -> Chun
     :class:`ChunkSource`, returned as it is (its caller keeps it)."""
     if isinstance(source, ChunkSource):
         return source
+    _STATS["sources"] += 1
     if isinstance(source, str):
         ext = os.path.splitext(source)[-1].lower().strip()
         if ext in (".h5", ".hdf5"):

@@ -6,7 +6,8 @@ and the ResNets.
 ``final_norm/scale`` and, per layer i, ``block_i/{LayerNorm_0,LayerNorm_1}/scale``,
 ``block_i/attn/qkv/kernel`` (D, 3, h, d), ``block_i/attn/out/kernel``
 (h·d, D), ``block_i/mlp_in/kernel`` (D, 4D) and ``block_i/mlp_out/kernel``
-(4D, D).  The converter takes that tree with numpy leaves, so it needs
+(4D, D), or for a mixture-of-experts model ``block_i/moe/{gate, w_in,
+w_out}`` ((D, E), (E, D, 4D), (E, 4D, D)).  The converter takes that tree with numpy leaves, so it needs
 neither jax nor flax, and keeps every kernel in flax's (in, out)
 layout, which the port applies as ``x @ W``.
 """
@@ -35,9 +36,11 @@ def transformer_from_flax(params: Mapping[str, Any], *, device=None, **config) -
     ``device`` (the card by default).
 
     The widths (``vocab_size``, ``num_layers``, ``num_heads``, ``head_dim``,
-    ``mlp_ratio``, ``max_seq_len``) are read from the tree's shapes; a
-    width given in ``config`` must agree with them.  The other fields of
-    ``config`` (``attention``, ``sp_mesh``, ``remat``, ...) pass through."""
+    ``mlp_ratio``, ``max_seq_len``, and ``moe_experts`` for a tree with
+    ``block_i/moe``) are read from the tree's shapes; a width given in
+    ``config`` must agree with them.  The other fields of ``config``
+    (``attention``, ``sp_mesh``, ``moe_k``, ``ep_mesh``, ``remat``, ...)
+    pass through."""
     p = params["params"] if set(params) == {"params"} else params
     vocab, dim = np.shape(p["embed"]["embedding"])
     layers = sorted(int(key.split("_")[1]) for key in p if key.startswith("block_"))
@@ -53,8 +56,12 @@ def transformer_from_flax(params: Mapping[str, Any], *, device=None, **config) -
         _, three, heads, head_dim = np.shape(first["attn"]["qkv"]["kernel"])
         if three != 3:
             raise ValueError(f"block_0/attn/qkv/kernel has shape {np.shape(first['attn']['qkv']['kernel'])}, not (D, 3, h, d)")
-        shapes.update(num_heads=int(heads), head_dim=int(head_dim),
-                      mlp_ratio=int(np.shape(first["mlp_in"]["kernel"])[1]) // int(dim))
+        if "moe" in first:
+            experts, _, hidden = np.shape(first["moe"]["w_in"])
+            shapes.update(moe_experts=int(experts))
+        else:
+            hidden = np.shape(first["mlp_in"]["kernel"])[1]
+        shapes.update(num_heads=int(heads), head_dim=int(head_dim), mlp_ratio=int(hidden) // int(dim))
     for key, value in shapes.items():
         if key in config and config[key] != value:
             raise ValueError(f"{key}={config[key]} disagrees with the parameters' {value}")
@@ -70,8 +77,12 @@ def transformer_from_flax(params: Mapping[str, Any], *, device=None, **config) -
             block.norm2.scale.copy_(_tensor(src["LayerNorm_1"]["scale"], dev))
             block.attn.qkv.copy_(_tensor(src["attn"]["qkv"]["kernel"], dev))
             block.attn.out.copy_(_tensor(src["attn"]["out"]["kernel"], dev))
-            block.mlp_in.copy_(_tensor(src["mlp_in"]["kernel"], dev))
-            block.mlp_out.copy_(_tensor(src["mlp_out"]["kernel"], dev))
+            if block.moe is not None:
+                for name in ("gate", "w_in", "w_out"):
+                    getattr(block.moe, name).copy_(_tensor(src["moe"][name], dev))
+            else:
+                block.mlp_in.copy_(_tensor(src["mlp_in"]["kernel"], dev))
+                block.mlp_out.copy_(_tensor(src["mlp_out"]["kernel"], dev))
     return model
 
 

@@ -19,8 +19,15 @@ one launch per layer, or sequence-parallel over ``sp_mesh`` (a
 device from an explicit ``torch.Generator`` with flax's initialisers
 (truncated-normal LeCun kernels, normal embeddings of std 1/sqrt(D), unit
 scales); :func:`~heat_tpu_torch.models.convert.transformer_from_flax` loads
-a flax parameter tree instead.  The mixture-of-experts MLP is not ported
-yet (ROADMAP item 12, ``parallel/expert.py``).
+a flax parameter tree instead.
+
+``moe_experts > 0`` replaces each block's MLP by :class:`MoEMlp`, the
+mixture-of-experts FFN of :func:`~heat_tpu_torch.parallel.expert.moe_ffn`,
+expert-parallel over ``ep_mesh``.  heat_tpu sows each router's
+load-balancing loss under ``intermediates/moe_aux_loss``; here each
+:class:`MoEMlp` keeps its last forward's loss (``aux_loss``) and
+:meth:`TransformerLM.moe_aux_losses` returns them all, to be added to the
+objective as ``alpha * sum(losses)``.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.devices import Device, sanitize_device
 from ..ops.attention import flash_attention
+from ..parallel.expert import moe_ffn
 from ..parallel.sequence import sequence_parallel_attention
 
-__all__ = ["LayerNorm", "MultiHeadAttention", "TransformerBlock", "TransformerLM"]
+__all__ = ["LayerNorm", "MoEMlp", "MultiHeadAttention", "TransformerBlock", "TransformerLM"]
 
 # flax's truncated normal cuts at two standard deviations of the unscaled
 # normal and divides by that distribution's std, so the result has std 1
@@ -115,6 +123,58 @@ class MultiHeadAttention(nn.Module):
         return out.transpose(1, 2).reshape(b, s, h * d) @ self.out
 
 
+class MoEMlp(nn.Module):
+    """Mixture-of-experts FFN (heat_tpu/models/transformer.py:61),
+    expert-parallel over ``ep_mesh`` (a :class:`MeshComm`) when it is given,
+    the single-shard path otherwise.
+
+    Parameters keep flax's names and layouts: ``gate`` (D, E), ``w_in``
+    (E, D, hidden) and ``w_out`` (E, hidden, D), LeCun-normal with flax's
+    fan-in (the product of every axis but the last).  After each forward
+    ``aux_loss`` holds the router's load-balancing loss and ``aux`` the
+    whole aux dict (with ``fraction_dropped``).  ``quantize`` ("int8",
+    "fp8") waits for the port of ``core/quantize.py``."""
+
+    def __init__(
+        self,
+        num_experts: int,
+        hidden: int,
+        k: int = 2,
+        capacity_factor: float = 2.0,
+        ep_mesh=None,
+        ep_axis: str = "ep",
+        quantize: Optional[str] = None,
+        *,
+        dim: int,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if quantize is not None:
+            raise NotImplementedError(
+                f"MoEMlp(quantize={quantize!r}) needs core/quantize.py, which is not ported yet: ROADMAP item 13"
+            )
+        self.num_experts, self.hidden, self.k = num_experts, hidden, k
+        self.capacity_factor, self.ep_mesh, self.ep_axis = capacity_factor, ep_mesh, ep_axis
+        dev = _torch_device(device)
+        self.gate = nn.Parameter(torch.empty(dim, num_experts, device=dev))
+        self.w_in = nn.Parameter(torch.empty(num_experts, dim, hidden, device=dev))
+        self.w_out = nn.Parameter(torch.empty(num_experts, hidden, dim, device=dev))
+        _lecun_normal_(self.gate, dim, generator)
+        _lecun_normal_(self.w_in, num_experts * dim, generator)
+        _lecun_normal_(self.w_out, num_experts * hidden, generator)
+        self.aux = None
+        self.aux_loss = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, aux = moe_ffn(
+            x, self.gate, self.w_in, self.w_out, k=self.k, capacity_factor=self.capacity_factor,
+            mesh=self.ep_mesh, axis=self.ep_axis,
+        )
+        self.aux, self.aux_loss = aux, aux["load_balance_loss"]
+        return y
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(LN(x)), then x + MLP(LN(x))
     (heat_tpu/models/transformer.py:113)."""
@@ -138,10 +198,6 @@ class TransformerBlock(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "the mixture-of-experts MLP (moe_experts > 0) is not ported yet: ROADMAP item 12, parallel/expert.py"
-            )
         dim = num_heads * head_dim if dim is None else dim
         hidden = dim * mlp_ratio
         dev = _torch_device(device)
@@ -150,13 +206,20 @@ class TransformerBlock(nn.Module):
             num_heads, head_dim, attention, sp_mesh, sp_axis, dim=dim, device=dev, generator=generator
         )
         self.norm2 = LayerNorm(dim, device=dev)
-        self.mlp_in = nn.Parameter(torch.empty(dim, hidden, device=dev))
-        self.mlp_out = nn.Parameter(torch.empty(hidden, dim, device=dev))
-        _lecun_normal_(self.mlp_in, dim, generator)
-        _lecun_normal_(self.mlp_out, hidden, generator)
+        self.moe = None
+        if moe_experts:
+            self.moe = MoEMlp(moe_experts, hidden, moe_k, moe_capacity_factor, ep_mesh, ep_axis, dim=dim,
+                              device=dev, generator=generator)
+        else:
+            self.mlp_in = nn.Parameter(torch.empty(dim, hidden, device=dev))
+            self.mlp_out = nn.Parameter(torch.empty(hidden, dim, device=dev))
+            _lecun_normal_(self.mlp_in, dim, generator)
+            _lecun_normal_(self.mlp_out, hidden, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
+        if self.moe is not None:
+            return x + self.moe(self.norm2(x))
         y = F.gelu(self.norm2(x) @ self.mlp_in, approximate="tanh")
         return x + y @ self.mlp_out
 
@@ -168,7 +231,9 @@ class TransformerLM(nn.Module):
 
     ``remat=True`` checkpoints each block (``torch.utils.checkpoint``) when
     gradients are being recorded, trading recomputation for memory as
-    ``nn.remat`` does.  ``device`` defaults to the card."""
+    ``nn.remat`` does.  ``device`` defaults to the card.  With
+    ``moe_experts > 0``, :meth:`moe_aux_losses` returns the routers'
+    load-balancing losses of the last forward."""
 
     def __init__(
         self,
@@ -223,3 +288,10 @@ class TransformerLM(nn.Module):
             else:
                 x = block(x)
         return self.final_norm(x) @ self.embed.T
+
+    def moe_aux_losses(self) -> list:
+        """The load-balancing loss of each mixture-of-experts block from the
+        last forward, in block order (heat_tpu's sowed
+        ``intermediates/.../moe_aux_loss``); empty for a dense model.  Add
+        ``alpha * sum(model.moe_aux_losses())`` to the training loss."""
+        return [b.moe.aux_loss for b in self.blocks if b.moe is not None]

@@ -23,7 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import factories, sanitation, types
+from ..core import factories, sanitation, telemetry, types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray, _wrap
 from ..parallel import collectives
@@ -113,6 +113,7 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
             parts.append(acc)
         return collectives.psum(parts)[0] / n
 
+    @telemetry.span("gaussiannb.fit")
     def fit(self, x: DNDarray, y: DNDarray, sample_weight: Optional[DNDarray] = None) -> "GaussianNB":
         """Fit from scratch (gaussianNB.py:51)."""
         self.classes_ = None
@@ -129,6 +130,9 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         sanitation.sanitize_in(y)
         if x.ndim != 2:
             raise ValueError(f"expected x to be 2-D, but was {x.ndim}-D")
+        # no port kernel on this path: the entry has no work count
+        telemetry.ensure_program(telemetry.fingerprint(("gaussiannb_partial_fit", x.shape, str(x.dtype), x.comm.size)),
+                                 kind="gaussiannb_fit", mesh={"devices": x.comm.size}, dtype=str(x.dtype))
         xs = self._blocks(x)
         dt = xs[0].dtype
         ys = self._rows(x, y, y.dtype.torch_type())
@@ -251,6 +255,7 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         """Per-class probabilities (gaussianNB.py:290), split as x."""
         return self._result(x, [torch.exp_(t) for t in self._log_proba(x)])
 
+    @telemetry.span("gaussiannb.predict")
     def predict(self, x: DNDarray) -> DNDarray:
         """The most probable class of each sample (gaussianNB.py:297), the
         lower class on a tie, split as x."""

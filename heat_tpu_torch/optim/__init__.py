@@ -4,10 +4,11 @@
 ``torch.optim``, the port's substrate (the JAX package's fall through to
 optax).  The lowercase optax names of ``heat_tpu.optim`` compute optax's
 update with optax's defaults (:mod:`.optimizers`): ``sgd``, ``adam``,
-``adamw``, ``rmsprop`` and ``adagrad`` each return a factory of the
-optimizer, bound to the parameters by :class:`DataParallelOptimizer`
-(``nn.DataParallel.init``).  ``adadelta``, ``lamb`` and ``lars`` are not
-ported yet (ROADMAP item 12).
+``adamw``, ``rmsprop``, ``adagrad``, ``adadelta``, ``lamb`` and ``lars``
+each return a factory of the optimizer, bound to the parameters by
+:class:`DataParallelOptimizer` (``nn.DataParallel.init``).  ``Adadelta``,
+``LAMB`` and ``LARS`` name those three, as heat_tpu maps them to optax's
+(torch has no LAMB or LARS).
 """
 
 from functools import partial
@@ -22,9 +23,12 @@ __all__ = [
     "DASO",
     "DataParallelOptimizer",
     "DetectMetricPlateau",
+    "adadelta",
     "adagrad",
     "adam",
     "adamw",
+    "lamb",
+    "lars",
     "lr_scheduler",
     "optimizers",
     "rmsprop",
@@ -60,17 +64,35 @@ def adagrad(learning_rate, initial_accumulator_value=0.1, eps=1e-7):
     return partial(optimizers.Adagrad, lr=learning_rate, initial_accumulator_value=initial_accumulator_value, eps=eps)
 
 
-_NOT_PORTED = ("adadelta", "lamb", "lars")
+def adadelta(learning_rate=None, rho=0.9, eps=1e-6, weight_decay=0.0, weight_decay_mask=None):
+    """``optax.adadelta``'s update (:class:`~.optimizers.Adadelta`), unbound."""
+    return partial(optimizers.Adadelta, lr=learning_rate, rho=rho, eps=eps, weight_decay=weight_decay,
+                   weight_decay_mask=weight_decay_mask)
+
+
+def lamb(learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0, mask=None):
+    """``optax.lamb``'s update (:class:`~.optimizers.Lamb`), unbound."""
+    return partial(optimizers.Lamb, lr=learning_rate, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                   weight_decay=weight_decay, mask=mask)
+
+
+def lars(learning_rate, weight_decay=0.0, weight_decay_mask=True, trust_coefficient=0.001, eps=0.0,
+         trust_ratio_mask=True, momentum=0.9, nesterov=False):
+    """``optax.lars``'s update (:class:`~.optimizers.Lars`), unbound."""
+    return partial(optimizers.Lars, lr=learning_rate, weight_decay=weight_decay,
+                   weight_decay_mask=weight_decay_mask, trust_coefficient=trust_coefficient, eps=eps,
+                   trust_ratio_mask=trust_ratio_mask, momentum=momentum, nesterov=nesterov)
+
+
+# heat_tpu/optim/__init__.py:20-22 maps these torch-style names to optax's
+_OPTAX_NAMES = {"Adadelta": adadelta, "LAMB": lamb, "LARS": lars}
 
 
 def __getattr__(name):
-    """Fall through to ``torch.optim``; optax's ``adadelta``, ``lamb`` and
-    ``lars`` raise until they are ported."""
-    if name in _NOT_PORTED:
-        def missing(*args, **kwargs):
-            raise NotImplementedError(f"optax's {name} is not ported yet: ROADMAP item 12")
-
-        return missing
+    """``Adadelta``, ``LAMB`` and ``LARS`` are the optax factories above;
+    every other name falls through to ``torch.optim``."""
+    if name in _OPTAX_NAMES:
+        return _OPTAX_NAMES[name]
     try:
         return getattr(_torch_optim, name)
     except AttributeError:

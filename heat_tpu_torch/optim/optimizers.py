@@ -16,9 +16,21 @@ Each class computes optax's update with optax's defaults, which are not
   then ``-lr``, then an optional ``trace`` momentum.
 * :class:`Adagrad` — ``optax.adagrad``: accumulator from 0.1,
   ``g · rsqrt(s + eps)`` with eps 1e-7, then ``-lr``.
+* :class:`Adadelta` — ``optax.adadelta``: ``g + wd·p``, then
+  ``sqrt(E[Δ²] + eps) / sqrt(E[g²] + eps) · g`` with rho 0.9 and eps 1e-6,
+  then ``-lr``; ``lr=None`` (optax's default) scales by nothing, so the
+  update is not negated either.
+* :class:`Lamb` — ``optax.lamb``: Adam's direction with eps 1e-6, plus
+  ``weight_decay · p``, times the trust ratio ``‖p‖ / ‖u‖`` (1 where a
+  norm is 0), then ``-lr``.
+* :class:`Lars` — ``optax.lars``: ``g + wd·p``, times the trust ratio
+  ``0.001 · ‖p‖ / (‖u‖ + eps)`` (1 where a norm is 0), then ``-lr``, then
+  a ``trace`` momentum of 0.9.
 
 ``lr`` may be a schedule (a callable of the update count, as optax's
-``ScalarOrSchedule``), read at the count before the update.
+``ScalarOrSchedule``), read at the count before the update.  Norms are
+over each parameter tensor, as optax's are over each leaf.  The masks of
+``lamb``/``lars`` take a bool (every parameter or none).
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["Adagrad", "Adam", "AdamW", "RMSprop", "Sgd"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Lamb", "Lars", "RMSprop", "Sgd"]
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -51,8 +63,10 @@ class _Optax(torch.optim.Optimizer):
         self.count = int(state_dict.pop("count", 0))
         super().load_state_dict(state_dict)
 
-    def _lr(self, group) -> float:
+    def _lr(self, group) -> Optional[float]:
         lr = group["lr"]
+        if lr is None:
+            return None
         return float(lr(self.count)) if callable(lr) else float(lr)
 
     def _direction(self, p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> torch.Tensor:
@@ -74,7 +88,8 @@ class _Optax(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                p.add_(self._after_lr(self._direction(p, p.grad, state, group) * -lr, state, group))
+                u = self._direction(p, p.grad, state, group)
+                p.add_(self._after_lr(u if lr is None else u * -lr, state, group))
         self.count += 1
         return loss
 
@@ -166,3 +181,75 @@ class Adagrad(_Optax):
         state["sum_of_squares"] = s
         inv = torch.where(s > 0, torch.rsqrt(s + group["eps"]), torch.zeros((), dtype=s.dtype, device=s.device))
         return inv * g
+
+
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor, coefficient: float, eps: float) -> torch.Tensor:
+    """``optax.scale_by_trust_ratio``'s factor: ``coefficient·‖p‖ / (‖u‖ +
+    eps)``, 1 where either norm is 0."""
+    p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    ratio = coefficient * p_norm / (u_norm + eps)
+    zero = torch.logical_or(p_norm == 0.0, u_norm == 0.0)
+    return torch.where(zero, torch.ones((), dtype=p.dtype, device=p.device), ratio)
+
+
+def _mask(mask, name: str) -> bool:
+    if mask is None or isinstance(mask, bool):
+        return mask is not False
+    raise TypeError(f"{name} takes a bool in the port (a tree of masks is not supported), got {type(mask).__name__}")
+
+
+class Adadelta(_Optax):
+    """``optax.adadelta(learning_rate=None, rho=0.9, eps=1e-6, weight_decay=0.0)``."""
+
+    def __init__(self, params, lr: Optional[Schedule] = None, rho: float = 0.9, eps: float = 1e-6,
+                 weight_decay: float = 0.0, weight_decay_mask=None):
+        super().__init__(params, lr, rho=rho, eps=eps, weight_decay=weight_decay,
+                         weight_decay_mask=_mask(weight_decay_mask, "weight_decay_mask"))
+
+    def _direction(self, p, g, state, group):
+        rho, eps = group["rho"], group["eps"]
+        if group["weight_decay"] and group["weight_decay_mask"]:
+            g = g + group["weight_decay"] * p
+        e_g = (1 - rho) * (g * g) + rho * state.get("e_g", torch.zeros_like(g))
+        u = torch.sqrt(state.get("e_x", torch.zeros_like(g)) + eps) / torch.sqrt(e_g + eps) * g
+        state["e_x"] = (1 - rho) * (u * u) + rho * state.get("e_x", torch.zeros_like(g))
+        state["e_g"] = e_g
+        return u
+
+
+class Lamb(Adam):
+    """``optax.lamb(learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
+    weight_decay=0.0)``."""
+
+    def __init__(self, params, lr: Schedule = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 eps_root: float = 0.0, weight_decay: float = 0.0, mask=None):
+        super().__init__(params, lr, b1, b2, eps, eps_root, weight_decay if _mask(mask, "mask") else 0.0)
+
+    def _direction(self, p, g, state, group):
+        u = super()._direction(p, g, state, group)
+        return u * _trust_ratio(p, u, 1.0, 0.0)
+
+
+class Lars(_Optax):
+    """``optax.lars(learning_rate, weight_decay=0.0, weight_decay_mask=True,
+    trust_coefficient=0.001, eps=0.0, trust_ratio_mask=True, momentum=0.9,
+    nesterov=False)``."""
+
+    def __init__(self, params, lr: Schedule = 1e-3, weight_decay: float = 0.0, weight_decay_mask=True,
+                 trust_coefficient: float = 0.001, eps: float = 0.0, trust_ratio_mask=True, momentum: float = 0.9,
+                 nesterov: bool = False):
+        super().__init__(params, lr, weight_decay=weight_decay,
+                         weight_decay_mask=_mask(weight_decay_mask, "weight_decay_mask"),
+                         trust_coefficient=trust_coefficient, eps=eps,
+                         trust_ratio_mask=_mask(trust_ratio_mask, "trust_ratio_mask"), momentum=momentum,
+                         nesterov=nesterov)
+
+    def _direction(self, p, g, state, group):
+        if group["weight_decay"] and group["weight_decay_mask"]:
+            g = g + group["weight_decay"] * p
+        if group["trust_ratio_mask"]:
+            g = g * _trust_ratio(p, g, group["trust_coefficient"], group["eps"])
+        return g
+
+    def _after_lr(self, u, state, group):
+        return _trace(state, u, group["momentum"], group["nesterov"])

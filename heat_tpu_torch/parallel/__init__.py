@@ -1,18 +1,27 @@
 """Mesh context, collectives over shard lists, the transport engine,
-distributed selection, and sequence parallelism."""
+distributed selection, and sequence, expert and pipeline parallelism."""
 
-from . import collectives, mesh, select, sequence, transport
+# transport is imported with the package, so its "transport" counter group
+# is in telemetry.snapshot() before any traffic
+from . import collectives, expert, mesh, pipeline, select, sequence, transport
+from .expert import moe_ffn
 from .mesh import Communication, MeshComm, get_comm, sanitize_comm, use_comm, world
+from .pipeline import pipeline_apply, stack_stage_params
 
 __all__ = [
     "Communication",
     "MeshComm",
     "collectives",
+    "expert",
     "get_comm",
     "mesh",
+    "moe_ffn",
+    "pipeline",
+    "pipeline_apply",
     "select",
     "sequence",
     "sanitize_comm",
+    "stack_stage_params",
     "use_comm",
     "transport",
     "world",

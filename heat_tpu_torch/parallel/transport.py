@@ -36,10 +36,18 @@ array:
     or by index, each from the value shard that holds it (``RowSource``,
     the reverse of ``tiled_take``).
 
+Each of the four runs as heat_tpu's transport kernels do: inside a
+``transport.<kind>`` span, after the ``guard.fire`` injection hook and
+before ``guard.corrupt``, as a program of the ledger (timed by
+``telemetry.timed_call`` when sampled; a split-crossing reshape carries
+K7's bytes, the other moves no work count), with its output shards
+ledgered as ``output`` (:mod:`~heat_tpu_torch.core.memtrack`).  The
+``transport`` counter group keeps heat_tpu's keys.
+
 Not ported (ROADMAP queue 1, item 13): the wire formats, the autotune arms,
-telemetry and memory tracking, the OOM back-off, fused split tails, and
-``tile_plan``/``TILE_BYTES``: under one controller on one card nothing is
-staged, and tiling returns with several processes (item 14).
+the OOM back-off (its counters stay at their defaults), fused split tails,
+and ``tile_plan``/``TILE_BYTES``: under one controller on one card nothing
+is staged, and tiling returns with several processes (item 14).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..core import guard, memtrack, telemetry
 from ..ops import repack as _repack
 
 __all__ = [
@@ -167,6 +176,44 @@ def reshape_applicable(gin, si, gout, so, comm) -> bool:
     return rechunk_plan(int(gin[0]), rowsz_in, int(gout[0]), rowsz_out, comm.size) is not None
 
 
+# heat_tpu's "transport" counter group, with its keys (read through
+# telemetry.snapshot()); the OOM back-off and fused tails that move them
+# come with item 13
+telemetry.register_group(
+    "transport",
+    {
+        "oom_retries": 0,
+        "oom_exhausted": 0,
+        "last_tile_bytes": None,
+        "retries_by_kind": {},
+        "informed_retries": 0,
+        "last_retry_informed": None,
+        "fused_tails": 0,
+    },
+)
+
+
+def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, kernel_bytes=None):
+    """Run ``fn(*args)`` as the transport program ``kind``: ledgered under
+    ``key`` (with K7's bytes where ``kernel_bytes`` is given, else no work
+    count), in a span, between the guard's hooks, its output shards
+    ledgered."""
+    fp = None
+    if telemetry.ledger_enabled():
+        fp = telemetry.fingerprint((kind,) + key + (comm.size, str(like.dtype)))
+        if kernel_bytes is None:
+            telemetry.ensure_program(fp, kind=f"transport_{kind}", ops=1, mesh={"devices": comm.size},
+                                     dtype=str(like.dtype))
+        else:
+            telemetry.ensure_program(fp, kind="kernel_repack", ops=1, flops=0.0, hbm_bytes=float(kernel_bytes),
+                                     mesh={"devices": comm.size}, dtype=str(like.dtype))
+    with telemetry.span(f"transport.{kind}"):
+        guard.fire(f"transport.{kind}")
+        out = telemetry.timed_call(fp, fn, *args, device=like.device)
+    memtrack.register_shards([o for o in out if o is not None], tag="output", split=split)
+    return guard.corrupt(f"transport.{kind}", out)
+
+
 def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm) -> List[torch.Tensor]:
     """The shards of a ``gshape`` array split along ``sa``, moved to split
     ``sb`` (heat_tpu/parallel/transport.py:574): destination shard d joins,
@@ -174,6 +221,15 @@ def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int
     result's shards are new contiguous tensors; the sources are untouched."""
     if len(shards) != comm.size:
         raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
+    key = (tuple(int(d) for d in gshape), int(sa), int(sb))
+    return _engine("resplit", key, shards[0], comm, sb, _resplit, shards, gshape, sa, sb, comm)
+
+
+def _resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm) -> List[torch.Tensor]:
+    """The shards of a ``gshape`` array split along ``sa``, moved to split
+    ``sb`` (heat_tpu/parallel/transport.py:574): destination shard d joins,
+    along ``sa``, each source shard's view of d's chunk of ``sb``.  The
+    result's shards are new contiguous tensors; the sources are untouched."""
     return [
         torch.cat([s.narrow(sb, lo, hi - lo) for s in shards], dim=sa)
         for lo, hi in _bounds(int(gshape[sb]), comm.size)
@@ -233,6 +289,14 @@ def rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> 
     or into a new tensor; destinations without rows give ``None``.  Bit
     for bit; no other copy of the array exists."""
     m = sum(int(s.shape[0]) for s in shards)
+    nbytes = m * math.prod(shards[0].shape[1:]) * shards[0].element_size()
+    key = (m, tuple(shards[0].shape[1:]), tuple(dst_bounds))
+    return _engine("rechunk", key, shards[0], comm, 0, _rechunk_rows, shards, dst_bounds, comm, out,
+                   kernel_bytes=2 * nbytes)
+
+
+def _rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> List:
+    m = sum(int(s.shape[0]) for s in shards)
     tail = tuple(shards[0].shape[1:])
     rowsz = math.prod(tail)
     if m == 0 or rowsz == 0:
@@ -248,9 +312,16 @@ def tiled_reshape(
     """The shards of the reshape of a ``gin`` array split along ``si`` to
     ``gout`` split along ``so`` (heat_tpu/parallel/transport.py:1224).
     Callers check :func:`reshape_applicable` first."""
-    S = comm.size
     gin = tuple(int(d) for d in gin)
     gout = tuple(int(d) for d in gout)
+    crossing = not (_prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so])
+    nbytes = math.prod(gin) * shards[0].element_size()
+    return _engine("reshape", (gin, int(si), gout, int(so)), shards[0], comm, so, _reshape, shards, gin, si, gout,
+                   so, comm, kernel_bytes=2 * nbytes if crossing else None)
+
+
+def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm) -> List[torch.Tensor]:
+    S = comm.size
     if _prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so]:
         # split-preserving: chunk boundaries never crossed, each position
         # reshapes its own block
@@ -261,7 +332,7 @@ def tiled_reshape(
             out.append(s.reshape(local))
         return out
     if si != 0:
-        shards = tiled_resplit(shards, gin, si, 0, comm)
+        shards = _resplit(shards, gin, si, 0, comm)
     rowsz_in = _prefix_prod(gin, len(gin)) // gin[0]
     rowsz_out = _prefix_prod(gout, len(gout)) // gout[0]
     plan = rechunk_plan(gin[0], rowsz_in, gout[0], rowsz_out, S)
@@ -274,7 +345,7 @@ def tiled_reshape(
     out = _rechunk(flat, plan, gout, comm)
     del flat
     if so != 0:
-        out = tiled_resplit(out, gout, 0, so, comm)
+        out = _resplit(out, gout, 0, so, comm)
     return out
 
 
@@ -290,6 +361,11 @@ def tiled_take(
     copies them into place, so every output row moves once, at most
     ``_TAKE_BYTES`` of them at a time beside the output.  The host reads
     one (destination, owner) table of row counts per call."""
+    key = (tuple(shards[0].shape), int(rows.numel()), int(n), int(split))
+    return _engine("take", key, shards[0], comm, split, _take, shards, rows, n, split, comm)
+
+
+def _take(shards: Sequence[torch.Tensor], rows: torch.Tensor, n: int, split: int, comm) -> List[torch.Tensor]:
     S = comm.size
     src_b = _bounds(int(n), S)
     dst_b = _bounds(int(rows.numel()), S)

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..core import _operations, sanitation, types
+from ..core import _operations, sanitation, telemetry, types
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray, _wrap
 from ..ops import lasso_sweep
@@ -40,12 +40,23 @@ def _augmented_t(x: torch.Tensor) -> torch.Tensor:
 def _cd_fit(xt: torch.Tensor, y: torch.Tensor, theta: torch.Tensor, lam: float, max_iter: int, tol: float):
     """Sweeps until ``max|Δθ| < tol`` or ``max_iter``
     (heat_tpu/regression/lasso.py:53).  Returns ``(theta, diff, n_iter)``."""
-    sweep = lasso_sweep.sweep if xt.dtype == torch.float32 and xt.shape[0] >= 2 else lasso_sweep.reference_sweep
+    na, ma = xt.shape
+    dt = str(xt.dtype)
+    if xt.dtype == torch.float32 and na >= 2:
+        sweep = lasso_sweep.sweep
+        fp = telemetry.fingerprint(("lasso_sweep", ma, na, dt))
+        # K5's work a sweep: four operations an element of X, read once
+        telemetry.ensure_program(fp, kind="kernel_lasso_sweep", ops=1, flops=4.0 * ma * na,
+                                 hbm_bytes=float(ma * na * xt.element_size()), dtype=dt)
+    else:
+        sweep = lasso_sweep.reference_sweep
+        fp = telemetry.fingerprint(("lasso_sweep_plain", ma, na, dt))
+        telemetry.ensure_program(fp, kind="lasso_sweep", ops=1, dtype=dt)
     diff = torch.tensor(float("inf"), dtype=xt.dtype, device=xt.device)
     it = 0
     # diff >= tol compares in the data's dtype, as the JAX loop's carry does
     while it < max_iter and bool(diff >= tol):
-        new = sweep(xt, y, theta, lam)
+        new = telemetry.timed_call(fp, sweep, xt, y, theta, lam, device=xt.device)
         diff = torch.max(torch.abs(new - theta))
         theta = new
         it += 1
@@ -101,6 +112,7 @@ class Lasso(RegressionMixin, BaseEstimator):
         g, e = gt.larray, yest.larray
         return float(torch.sqrt(torch.mean((g - e.to(g.device)) ** 2)))
 
+    @telemetry.span("lasso.fit")
     def fit(self, x: DNDarray, y: DNDarray) -> "Lasso":
         """Coordinate descent until the largest coefficient change is below
         ``tol``, or ``max_iter`` sweeps."""

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core import devices as ht_devices
-from ..core import types
+from ..core import memtrack, types
 from ..core.dndarray import DNDarray
 from ..parallel.mesh import MeshComm
 
@@ -77,6 +77,8 @@ class DCSR_matrix:
             raise ValueError(f"expected {self.nshards} CSR triples, got {len(self.__shards)}")
         if int(gnnz) != self.nnz:
             raise ValueError(f"gnnz {gnnz} does not match the triples' counts {self.nnz}")
+        # the triples enter the ledger beside the dense arrays
+        memtrack.register_shards([t for triple in self.__shards for t in triple], tag="leaf", split=split)
         # derived on first use: the SpMV kernel's repacking of each triple
         self._spmv_panels = None
 
@@ -274,6 +276,7 @@ class DCSR_matrix:
             self.__shards = shards
             self.__dtype = dtype
             self._spmv_panels = None  # the repacking holds the old values
+            memtrack.register_shards([d for d, _, _ in shards], tag="leaf", split=self.__split)
             return self
         return DCSR_matrix._from_shards(shards, self.__gshape, dtype, self.__split, self.__device, self.__comm)
 

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import telemetry
 from ..core.dndarray import DNDarray
 from .dcsr_matrix import DCSR_matrix
 from .factories import sparse_csr_matrix
@@ -113,6 +114,10 @@ def knn_graph(
             (np.concatenate([Wc.row, np.arange(n)]), np.concatenate([Wc.col, np.arange(n)])),
         ),
         shape=(n, n),
+    )
+    telemetry.record_event(
+        "knn_graph", n=n, k=kk, nnz=int(W.nnz), density=round(W.nnz / max(n * n, 1), 6), weights=weights,
+        symmetrize=bool(symmetrize),
     )
     out = sparse_csr_matrix(
         W, split=split, device=device, comm=comm,

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..core import sanitation
+from ..core import sanitation, telemetry
 from ..core.dndarray import DNDarray
 from ._operations import _expand_rows
 from .dcsr_matrix import DCSR_matrix
@@ -30,6 +30,9 @@ def todense(sparse_matrix: DCSR_matrix, order: str = "C", out: Optional[DNDarray
     """The matrix as a dense DNDarray with its split."""
     A = sparse_matrix
     ncols = A.shape[1]
+    # every densification is an event: a sparse end-to-end path (the knn
+    # Spectral fit) shows none of them
+    telemetry.record_event("sparse_densify", shape=tuple(A.shape), nnz=A.nnz, split=A.split)
     blocks = [_scatter_block(d, i, p, ncols) for d, i, p in A._shards]
     if not A.is_distributed():
         blocks = blocks * A.comm.size

@@ -15,7 +15,10 @@ kernel:
   ``gather`` arm, ``_gather_block``).
 
 Each position's repacking (``ops.spmv.csr_panels``) is built from its CSR
-triple on the matrix's device at first use and cached on the matrix.
+triple on the matrix's device at first use, cached on the matrix and
+ledgered as ``staging`` (:mod:`~heat_tpu_torch.core.memtrack`).  Each
+product is a ledger entry (:mod:`~heat_tpu_torch.core.telemetry`): the
+kernel path's with K6's work count, the gather's without one.
 The JAX package's autotune (dense/gather/kernel arms, the
 ``HEAT_TPU_SPMV`` override) is not ported: the kernel is the one f32 path.
 """
@@ -27,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import sanitation, types
+from ..core import memtrack, sanitation, telemetry, types
 from ..core.dndarray import DNDarray
 from ..ops import spmv as _k6
 from ._operations import _expand_rows
@@ -41,6 +44,8 @@ def _panels(A: DCSR_matrix) -> List[_k6.Panels]:
     the matrix."""
     if A._spmv_panels is None:
         A._spmv_panels = [_k6.csr_panels(d, i, p, A.shape[1]) for d, i, p in A._shards]
+        for panels in A._spmv_panels:
+            memtrack.register_shards([panels.vals, panels.cols, panels.off], tag="staging", split=A.split)
     return A._spmv_panels
 
 
@@ -80,10 +85,22 @@ def matmul(A: DCSR_matrix, x, out: Optional[DNDarray] = None) -> DNDarray:
         cdt = types.float32
     vec = xv.ndim == 1
     x2 = (xv[:, None] if vec else xv).to(cdt.torch_type())
+    n, ncols = A.shape
+    k = x2.shape[1]
     if _uses_kernel(A, cdt):
-        blocks = [_k6.spmv(panels, x2) for panels in _panels(A)]
+        fp = telemetry.fingerprint(("spmv_kernel", n, ncols, k, A.nnz, str(x2.dtype)))
+        # K6's work: two operations an entry and column; each value, column
+        # index and x read once, y written once
+        telemetry.ensure_program(fp, kind="kernel_spmv", ops=1, flops=2.0 * A.nnz * k,
+                                 hbm_bytes=float(A.nnz * 8 + (ncols + n) * k * 4),
+                                 mesh={"devices": A.comm.size}, dtype=str(x2.dtype))
+        blocks = telemetry.timed_call(fp, lambda: [_k6.spmv(panels, x2) for panels in _panels(A)],
+                                      device=x2.device)
     else:
-        blocks = [_gather_block(d, i, p, x2) for d, i, p in A._shards]
+        fp = telemetry.fingerprint(("spmv_gather", n, ncols, k, A.nnz, str(x2.dtype)))
+        telemetry.ensure_program(fp, kind="spmv_gather", ops=1, mesh={"devices": A.comm.size}, dtype=str(x2.dtype))
+        blocks = telemetry.timed_call(fp, lambda: [_gather_block(d, i, p, x2) for d, i, p in A._shards],
+                                      device=x2.device)
     if vec:
         blocks = [b.reshape(-1) for b in blocks]
     if not A.is_distributed():

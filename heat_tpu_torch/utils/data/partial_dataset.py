@@ -16,7 +16,7 @@ import queue
 import threading
 from typing import List, Optional
 
-from ...core import factories, stream
+from ...core import factories, memtrack, stream
 
 __all__ = ["PartialH5Dataset", "PartialH5DataLoaderIter", "queue_thread"]
 
@@ -194,6 +194,8 @@ class PartialH5DataLoaderIter:
                 raise RuntimeError(f"background reader failed for {self.dataset.file!r}") from errors[0]
             raise StopIteration
         out = tuple(factories.array(host, split=0, comm=self.dataset.comm) for _, host in items)
+        for x in out:
+            memtrack.tag_shards(x.shards, "staging")
         if self.dataset.transforms is not None:
             out = self.dataset.transforms(*out)
         return out[0] if len(out) == 1 else out

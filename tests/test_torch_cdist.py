@@ -51,10 +51,12 @@ def _data16(m, n, d, x_type, y_type, seed=0):
 
 
 def _np16(t):
-    """A 16-bit CPU tensor as numpy (bf16 as ml_dtypes', for the JAX package)."""
+    """A copy of a 16-bit CPU tensor as numpy (bf16 as ml_dtypes', for the JAX
+    package).  A copy, not a view of the tensor's memory: JAX's CPU client may
+    alias an aligned host buffer and read it on its own threads later."""
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(pytest.importorskip("ml_dtypes").bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(pytest.importorskip("ml_dtypes").bfloat16).copy()
+    return t.numpy().copy()
 
 
 def _f32(t):
@@ -98,9 +100,10 @@ def test_reference_against_pallas_interpret(ht, shape, sqrt):
 @pytest.mark.parametrize("shape", [(300, 128, 64), (37, 129, 20), (9, 257, 3)])
 @pytest.mark.parametrize("sqrt", [False, True])
 def test_reference_against_pallas_interpret_16bit(ht, x_type, shape, sqrt):
-    # the TPU kernel widens each 16-bit tile to f32 (heat_tpu/ops/cdist.py:41-42)
+    # the TPU kernel widens each 16-bit tile to f32 (heat_tpu/ops/cdist.py:41-42);
+    # the JAX result is read back before the port runs
     x, y = _data16(*shape, x_type, x_type, seed=3)
-    want = ht.ops.cdist._cdist_pallas(_np16(x), _np16(y), sqrt=sqrt, interpret=True)
+    want = np.asarray(ht.ops.cdist._cdist_pallas(_np16(x), _np16(y), sqrt=sqrt, interpret=True))
     got = k1.reference_cdist(x, y, sqrt=sqrt)
     assert got.dtype == torch.float32
     _check_d2(got.numpy(), want, _f32(x), _f32(y), sqrt)

@@ -1,0 +1,214 @@
+"""``heat_tpu_torch.parallel.expert`` and the mixture-of-experts
+TransformerLM against heat_tpu on the CPU: the same numpy tokens and
+weights through heat_tpu's ``moe_ffn`` (``shard_map`` with real
+``all_to_all``s over an "ep" mesh of n CPU devices, or its ``mesh=None``
+path) and the port's (shard-list collectives over ``MeshComm(n)``), at
+meshes 1, 4 and 8.  The mirror is ``tests/test_expert.py``.
+
+Tolerance: routing is held exactly (expert choices, slot positions, the
+kept mask, so the same choices are dropped); ``fraction_dropped`` is equal;
+outputs and the load-balancing loss agree to 1e-5 relative (f32 products
+and softmax summed in other orders); gradients through router and experts
+to 1e-5 relative of their largest entry; the MoE LM's logits to 1e-4 of
+their largest entry, as the dense LM's test holds them.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu_torch as htt
+from heat_tpu_torch.parallel import expert as tex
+
+MESHES = (1, 4, 8)
+D, H, E = 16, 32, 8
+
+
+@pytest.fixture(scope="module")
+def jex():
+    pytest.importorskip("heat_tpu", reason="the parity tests need the JAX package")
+    from heat_tpu.parallel import expert
+
+    return expert
+
+
+def _mesh(n):
+    if n is None:
+        return None, None
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:n]), ("ep",)), htt.MeshComm(n)
+
+
+def _params(seed, d=D, h=H, e=E):
+    rng = np.random.default_rng(seed)
+    gate = (rng.standard_normal((d, e)) * 0.5).astype(np.float32)
+    w_in = (rng.standard_normal((e, d, h)) / np.sqrt(d)).astype(np.float32)
+    w_out = (rng.standard_normal((e, h, d)) / np.sqrt(h)).astype(np.float32)
+    return gate, w_in, w_out
+
+
+def _both(jex, x, params, n, **kw):
+    import jax.numpy as jnp
+
+    jm, tm = _mesh(n)
+    yj, aj = jex.moe_ffn(jnp.asarray(x), *map(jnp.asarray, params), mesh=jm, axis="ep", **kw)
+    yt, at = tex.moe_ffn(torch.from_numpy(x), *map(torch.from_numpy, params), mesh=tm, axis="ep", **kw)
+    return (np.asarray(yj), {k: float(v) for k, v in aj.items()}), (yt.numpy(), {k: float(v) for k, v in at.items()})
+
+
+def _close(got, want, rtol=1e-5):
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * max(float(np.abs(want).max()), 1e-30))
+
+
+# (mesh, k, capacity factor): meshes None, 1, 4 and 8, two with nothing
+# dropped and two that drop (heat_tpu traces and compiles each expert-parallel
+# call anew, ~5 s of CPU, so the cases are few)
+CASES = [(None, 2, 16.0), (1, 2, 1.0), (4, 1, 0.5), (8, 2, 16.0)]
+
+
+@pytest.mark.parametrize("n, k, cf", CASES)
+def test_moe_ffn_matches_heat_tpu_and_drops_the_same_choices(jex, n, k, cf):
+    x = np.random.default_rng(2).standard_normal((64, D)).astype(np.float32)
+    params = _params(3)
+    (yj, aj), (yt, at) = _both(jex, x, params, n, k=k, capacity_factor=cf)
+    assert at["fraction_dropped"] == aj["fraction_dropped"]
+    assert (at["fraction_dropped"] > 0) == (cf < 2)
+    np.testing.assert_allclose(at["load_balance_loss"], aj["load_balance_loss"], rtol=1e-5)
+    _close(yt, yj)
+    # the drop pattern itself, shard by shard, from the same logits
+    import jax.numpy as jnp
+
+    shards = 1 if n is None else n
+    cap = tex.expert_capacity(x.shape[0] // shards, E, k, cf)
+    for xs in np.split(x, shards):
+        logits = xs @ params[0]
+        rj = jex._route(jnp.asarray(logits), k, cap)
+        rt = tex._route(torch.from_numpy(logits), k, cap)
+        for a, b in zip(rj[1:4], rt[1:4]):  # top_idx, pos_in_expert, kept
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def test_router_ties_break_as_lax_top_k(jex):
+    import jax.numpy as jnp
+
+    # every expert equally likely on some rows, pairwise ties on others
+    logits = np.zeros((6, E), np.float32)
+    logits[1, [3, 5]] = 2.0
+    logits[2, [7, 0, 4]] = 1.0
+    logits[3] = np.repeat([0.5, -0.5], E // 2)
+    rj = jex._route(jnp.asarray(logits), 3, 4)
+    rt = tex._route(torch.from_numpy(logits), 3, 4)
+    for a, b in zip(rj[:4], rt[:4]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    dj = jex.top_k_routing(jnp.asarray(logits), 2, 2)
+    dt = tex.top_k_routing(torch.from_numpy(logits), 2, 2)
+    for a, b in zip(dj[:2], dt[:2]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("n", [None])
+def test_leading_dims_are_flattened(jex, n):
+    x = np.random.default_rng(4).standard_normal((2, 16, D)).astype(np.float32)
+    (yj, _), (yt, _) = _both(jex, x, _params(5), n, k=1, capacity_factor=8.0)
+    assert yt.shape == x.shape
+    _close(yt, yj)
+
+
+def test_errors_match_heat_tpu(jex):
+    import jax.numpy as jnp
+
+    gate, w_in, w_out = _params(0)
+    jm, tm = _mesh(8)
+    for fn, mesh, conv in ((jex.moe_ffn, jm, jnp.asarray), (tex.moe_ffn, tm, torch.from_numpy)):
+        with pytest.raises(ValueError, match="token count 12"):
+            fn(conv(np.zeros((12, D), np.float32)), conv(gate), conv(w_in), conv(w_out), mesh=mesh)
+        g6 = np.zeros((D, 6), np.float32)
+        with pytest.raises(ValueError, match="num_experts 6"):
+            fn(conv(np.zeros((16, D), np.float32)), conv(g6), conv(w_in[:6]), conv(w_out[:6]), mesh=mesh)
+
+    class Quantized:  # heat_tpu's QuantizedTensor form: a buffer and its scales
+        q, scale = torch.from_numpy(w_in), torch.ones(E, H)
+
+    x = torch.zeros(16, D)
+    with pytest.raises(ValueError, match="both"):
+        tex.moe_ffn(x, torch.from_numpy(gate), Quantized(), torch.from_numpy(w_out))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tex.moe_ffn(x, torch.from_numpy(gate), Quantized(), Quantized())
+
+
+@pytest.mark.parametrize("n", [None, 4])
+def test_gradients_match_jax_grad(jex, n):
+    import jax
+    import jax.numpy as jnp
+
+    x = np.random.default_rng(6).standard_normal((32, D)).astype(np.float32)
+    params = _params(7)
+    jm, tm = _mesh(n)
+
+    def loss_j(a, g, wi, wo):
+        y, aux = jex.moe_ffn(a, g, wi, wo, k=2, capacity_factor=1.0, mesh=jm, axis="ep")
+        return jnp.mean(y * y) + 0.01 * aux["load_balance_loss"]
+
+    gj = jax.grad(loss_j, argnums=(0, 1, 2, 3))(jnp.asarray(x), *map(jnp.asarray, params))
+    ts = [torch.tensor(a, requires_grad=True) for a in (x,) + params]
+    y, aux = tex.moe_ffn(*ts, k=2, capacity_factor=1.0, mesh=tm)
+    assert float(aux["fraction_dropped"]) > 0  # gradients through a drop too
+    (torch.mean(y * y) + 0.01 * aux["load_balance_loss"]).backward()
+    for name, a, b in zip(("x", "gate", "w_in", "w_out"), gj, ts):
+        assert np.abs(np.asarray(a)).max() > 0, name
+        _close(b.grad.numpy(), np.asarray(a), rtol=1e-5)
+
+
+def test_reruns_are_bitwise_equal():
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((64, D)).astype(np.float32))
+    params = [torch.from_numpy(p) for p in _params(9)]
+    y1, _ = tex.moe_ffn(x, *params, capacity_factor=1.0, mesh=htt.MeshComm(4))
+    y2, _ = tex.moe_ffn(x, *params, capacity_factor=1.0, mesh=htt.MeshComm(4))
+    assert torch.equal(y1, y2)
+
+
+LM = dict(vocab_size=64, num_layers=2, num_heads=4, head_dim=8, max_seq_len=32, moe_experts=8, moe_k=2)
+
+
+# the LM on the single-shard path in both packages (heat_tpu traces its
+# expert-parallel model twice, init and apply, ~20 s of CPU; the ffn cases
+# above hold that path)
+@pytest.mark.parametrize("n", [None])
+def test_moe_lm_forward_and_aux_losses_from_flax(jex, n):
+    import jax
+    import jax.numpy as jnp
+
+    import heat_tpu as ht
+
+    jm, tm = _mesh(n)
+    tokens = np.random.default_rng(0).integers(0, 64, (2, 16))
+    lm = ht.models.TransformerLM(**LM, ep_mesh=jm)
+    variables = lm.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    logits, state = lm.apply(variables, jnp.asarray(tokens), mutable=["intermediates"])
+    want_aux = [float(v) for v in jax.tree.leaves(state["intermediates"])]
+    params = jax.tree_util.tree_map(np.asarray, variables)
+
+    model = htt.models.transformer_from_flax(params, device="cpu", moe_k=2, ep_mesh=tm)
+    assert model.blocks[0].moe.num_experts == 8 and model.mlp_ratio == 4
+    assert isinstance(model.blocks[0].moe, htt.models.MoEMlp)
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens)).numpy()
+    want = np.asarray(logits)
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(), rtol=0)
+    got_aux = [float(a) for a in model.moe_aux_losses()]
+    assert len(got_aux) == len(want_aux) == 2
+    np.testing.assert_allclose(got_aux, want_aux, rtol=1e-5)
+
+
+def test_moe_lm_trains_through_remat_and_the_aux_losses():
+    gen = torch.Generator().manual_seed(0)
+    model = htt.models.TransformerLM(**LM, ep_mesh=htt.MeshComm(4), remat=True, device="cpu", generator=gen)
+    tokens = torch.randint(0, 64, (2, 16), generator=gen)
+    logits = model(tokens)
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, 64), tokens.reshape(-1))
+    (loss + 0.01 * sum(model.moe_aux_losses())).backward()
+    gate = model.blocks[0].moe.gate.grad
+    assert gate is not None and bool(torch.isfinite(gate).all()) and float(gate.abs().max()) > 0
+    assert htt.models.TransformerLM(**{**LM, "moe_experts": 0}, device="cpu").moe_aux_losses() == []

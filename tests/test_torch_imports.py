@@ -5,9 +5,12 @@ TransformerLM forward (dense and sequence-parallel), ``pallas_matmul`` and
 the transport engine (a split-crossing reshape, resplit, a mask getitem and
 an int-array take), one split assignment and one ``shuffle_rows``, an HDF5
 round trip and a CSV load through the native parser (built by g++ from
-``native/src/``), one ``random.randn`` on the Threefry streams and one MLP
-``train_step``; a scan of every import statement in the port backs it
-up."""
+``native/src/``), one ``random.randn`` on the Threefry streams, one MLP ``train_step``, one
+expert-parallel MoE TransformerLM step with ``lamb``, a pipeline of two
+stages, a vision-transform chain and the telemetry, memtrack, roofline
+and guard planes; a scan of every import statement in the port (no jax,
+flax, optax or heat_tpu) backs it up, and the new modules export
+heat_tpu's names."""
 
 import ast
 import os
@@ -18,7 +21,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "heat_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "heat_tpu"}
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "heat_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
 
 FIT = """
@@ -71,7 +74,25 @@ dp = ht.nn.DataParallel(ht.models.MLP((8, 2)), comm=x.comm,
                         optimizer=ht.optim.DataParallelOptimizer(ht.optim.adam(1e-2))).init(0, x)
 loss = dp.train_step(x, ht.zeros(40, dtype=ht.int64, split=0, comm=x.comm))
 assert loss.ndim == 0 and bool(torch.isfinite(loss))
-bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "heat_tpu"})
+moe = ht.models.TransformerLM(vocab_size=20, num_layers=1, num_heads=2, head_dim=4, max_seq_len=8, moe_experts=4,
+                              ep_mesh=ht.MeshComm(2), device="cpu")
+opt = ht.optim.lamb(1e-3)(list(moe.parameters()))
+logits = moe(tok)
+(torch.nn.functional.cross_entropy(logits.reshape(-1, 20), tok.reshape(-1)) + 0.01 * sum(moe.moe_aux_losses())).backward()
+opt.step()
+stages = ht.parallel.stack_stage_params([{"w": torch.eye(3)}, {"w": 2 * torch.eye(3)}], ht.MeshComm(2))
+assert torch.equal(ht.parallel.pipeline_apply(lambda p, a: a @ p["w"], stages, torch.ones(4, 3), mesh=ht.MeshComm(2),
+                                              n_micro=2), 2 * torch.ones(4, 3))
+T = ht.utils.vision_transforms
+img = T.Compose([T.RandomCrop(6, padding=1, seed=0), T.RandomHorizontalFlip(seed=0), T.ToTensor(),
+                 T.Normalize([0.5] * 3, [0.25] * 3), T.Resize(8)])(torch.zeros(6, 6, 3, dtype=torch.uint8))
+assert img.shape == (8, 8, 3)
+ht.telemetry.set_level("events")
+with ht.telemetry.span("probe"):
+    kept = ht.zeros((4,), split=0, comm=x.comm)
+assert ht.memtrack.summary()["live_buffers"] >= 1 and ht.telemetry.events("span_end")
+assert ht.roofline.detect_peaks()["known"] is False and ht.guard.mode() == "warn"
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "heat_tpu"})
 print("LOADED", bad)
 """
 
@@ -100,3 +121,26 @@ def _imported_roots(path: Path):
 def test_no_jax_or_heat_tpu_import(rel):
     found = set(_imported_roots(ROOT / rel)) & FORBIDDEN
     assert not found, f"{rel} imports {sorted(found)}"
+
+
+NEW_MODULES = [
+    ("parallel.expert", "parallel.expert"),
+    ("parallel.pipeline", "parallel.pipeline"),
+    ("utils.vision_transforms", "utils.vision_transforms"),
+    ("core.telemetry", "core.telemetry"),
+    ("core.memtrack", "core.memtrack"),
+    ("core.roofline", "core.roofline"),
+    ("core.guard", "core.guard"),
+]
+
+
+@pytest.mark.parametrize("port, ref", NEW_MODULES)
+def test_new_modules_export_heat_tpus_names(port, ref):
+    import importlib
+
+    pytest.importorskip("heat_tpu", reason="the parity tests need the JAX package")
+    theirs = importlib.import_module(f"heat_tpu.{ref}")
+    ours = importlib.import_module(f"heat_tpu_torch.{port}")
+    assert set(theirs.__all__) <= set(ours.__all__), sorted(set(theirs.__all__) - set(ours.__all__))
+    for name in ours.__all__:
+        assert hasattr(ours, name), name

@@ -23,8 +23,7 @@ from heat_tpu_torch.core import io as tio
 MESHES = (1, 4, 8)
 FORMATS = ("h5", "nc", "npy", "csv")
 # the 12 public names of heat_tpu that the port still lacks (tpu by design)
-MISSING = {"analysis", "autotune", "fusion", "guard", "materialize", "materialize_all", "memtrack", "quantize",
-           "stream", "telemetry", "tpu", "wire"}
+MISSING = {"analysis", "autotune", "fusion", "materialize", "materialize_all", "quantize", "stream", "tpu", "wire"}
 
 
 @pytest.fixture(scope="module")

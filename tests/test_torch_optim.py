@@ -1,7 +1,7 @@
 """``heat_tpu_torch.optim``: optax's optimizers and schedules, the plateau
 detector and the optimizer wrappers against heat_tpu and optax on the CPU.
 
-Each of the five ported optimizers takes 3 steps from the same parameters
+Each of the eight ported optimizers takes 3 steps from the same parameters
 and gradients as optax's at optax's defaults; parameters must agree within
 1e-6 relative (f32, the two round the moment updates in other orders).  The
 schedules are compared at steps 0..20 within 1e-6 relative (optax computes
@@ -31,6 +31,13 @@ CASES = [
     ("rmsprop", {"centered": True, "momentum": 0.5}),
     ("rmsprop", {"eps_in_sqrt": False, "initial_scale": 0.5}),
     ("adagrad", {}),
+    ("adadelta", {}),
+    ("adadelta", {"rho": 0.5, "weight_decay": 0.1}),
+    ("lamb", {}),
+    ("lamb", {"weight_decay": 0.1}),
+    ("lars", {}),
+    ("lars", {"weight_decay": 0.1, "nesterov": True}),
+    ("lars", {"trust_ratio_mask": False, "momentum": 0.5, "eps": 1e-3}),
 ]
 
 
@@ -55,6 +62,27 @@ def test_optimizers_follow_optax(ht, name, kw):
         opt.step()
     for k in params:
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7, err_msg=f"{name} {kw} {k}")
+
+
+def test_adadelta_without_a_learning_rate_follows_optax(ht):
+    # optax.adadelta's default learning_rate=None scales by nothing, so its
+    # update is not negated either; the port follows it
+    import jax.numpy as jnp
+    import optax
+
+    g = np.array([0.5, -1.0, 2.0], np.float32)
+    tx = optax.adadelta()
+    p = jnp.ones(3, jnp.float32)
+    state = tx.init(p)
+    t = torch.nn.Parameter(torch.ones(3))
+    opt = htt.optim.adadelta()([t])
+    for _ in range(4):
+        u, state = tx.update(jnp.asarray(g), state, p)
+        p = optax.apply_updates(p, u)
+        t.grad = torch.from_numpy(g)
+        opt.step()
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(p), rtol=1e-6)
+    assert float(t.detach()[0]) > 1.0  # moved with the gradient, as optax's does
 
 
 def test_optax_defaults_are_not_torchs():
@@ -107,9 +135,13 @@ def test_optax_schedules_match(ht):
 
 def test_names_fall_through_to_torch_optim_and_missing_ones_raise():
     assert htt.optim.SGD is torch.optim.SGD and htt.optim.Adam is torch.optim.Adam
+    # heat_tpu maps these three to optax's (heat_tpu/optim/__init__.py:20-22);
+    # none of the optax names raises any more
+    assert htt.optim.Adadelta is htt.optim.adadelta
+    assert htt.optim.LAMB is htt.optim.lamb and htt.optim.LARS is htt.optim.lars
+    p = [torch.nn.Parameter(torch.ones(2))]
     for name in ("adadelta", "lamb", "lars"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            getattr(htt.optim, name)(0.1)
+        assert isinstance(getattr(htt.optim, name)(0.1)(p), torch.optim.Optimizer)
     with pytest.raises(AttributeError):
         htt.optim.no_such_optimizer
 
