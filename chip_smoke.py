@@ -97,12 +97,14 @@ import argparse
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2838,16 +2840,98 @@ CHUNK_ROWS = 9_000_000
 # the CPU tests' bound against heat_tpu)
 NORMAL_ULPS = 2
 CARD_CPU_ULPS = 4
-# T1's operations bound for an f32 uniform, counted from csrc/threefry.cu:
-# the hash's 20 rounds of add, funnel-shift rotate and xor (60) and its 12
-# key additions, then the element's index, its bound check and 64-bit
-# counter (5), x0 ^ x1, the shift and or to a float's bits (3) and the
-# store's address (2); the fsub is a float operation.  Hopper issues 64
-# 32-bit integer results (add, shift, logic) a clock per SM (the CUDA
-# programming guide's throughput table, compute capability 9.0), at the
-# card's maximum SM clock as nvidia-smi reports it
-T1_UNIFORM_OPS = 82
-INT32_LANES_PER_SM = 64
+# T1's operations bound for an f32 uniform element, counted in the SASS that
+# the card's compiler emits for csrc/threefry.cu (t1_sass_ops): the hash and
+# the conversion to f32, each instruction on the pipe that runs it.  Hopper
+# issues, a clock per SM, 64 results on the ALU pipe (IADD3, LOP3, SHF,
+# LEA), 64 IMADs on the FMA pipe (the compiler moves two-input adds there as
+# IMAD.IADD), 128 f32 adds and one warp instruction per sub-partition, so
+# 128 in all (the CUDA programming guide's throughput table, compute
+# capability 9.0), at the card's maximum SM clock as nvidia-smi reports it.
+# The element's index, bound check, the dispatch on kind and type, the
+# store and its address are left out, so the bound is a lower one
+T1_RATES = {"alu": 64, "imad": 64, "fp32": 128, "issue": 128}
+
+
+def t1_sass_ops(sass: str, source: str) -> dict:
+    """The instructions of one f32 uniform element of T1, by pipe, from
+    ``nvdisasm -g`` of a ``-lineinfo`` build of csrc/threefry.cu (the
+    same code as the library's build: -lineinfo adds only line tables).
+    The hash is every instruction attributed to ``threefry2x32``'s lines
+    or to the funnel-shift intrinsic; its copies lie apart, one for each
+    unrolled element, and a copy that hashes once holds 20 funnel shifts
+    (randint's copies interleave two hashes).  The conversion is the
+    instructions of the ``(b32 >> 9) | 0x3F800000u`` line a copy, and the
+    one xor ``b32 = x0 ^ x1``.  Returns the counts and the hash's
+    instructions as listed."""
+    lines = source.splitlines()
+    start = next(i for i, t in enumerate(lines) if "void threefry2x32(" in t) + 1
+    end = next(i for i in range(start, len(lines)) if lines[i - 1] == "}")
+    conv = next(i for i, t in enumerate(lines) if "(b32 >> 9) | 0x3F800000u" in t) + 1
+    rows, where = [], None
+    for text in sass.splitlines():
+        m = re.match(r'\s*//## File "([^"]+)", line (\d+)', text)
+        if m:
+            where = (m.group(1).rsplit("/", 1)[-1], int(m.group(2)))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", text)
+        if m:
+            rows.append((where, m.group(1), m.group(1) + m.group(2).rstrip(" ;")))
+    check(rows and rows[0][0] is not None, "T1's SASS has no line information")
+    copies, run_, gap = [], [], 0
+    for (name, line), op, text in rows:
+        if (name == "threefry.cu" and start <= line <= end) or name.startswith("sm_32_intrinsics"):
+            if run_ and gap > 6:
+                copies.append(run_)
+                run_ = []
+            run_.append((op, text))
+            gap = 0
+        else:
+            gap += 1
+    copies.append(run_)
+
+    def pipe(op: str):
+        if op.startswith(("LDC", "ULDC", "ISETP", "BRA", "S2R", "STG")):
+            return None  # key loads and the dispatch, attributed to the hash's lines
+        if op.startswith("IMAD"):
+            return "imad"
+        if op.startswith(("FADD", "FMUL", "FFMA")):
+            return "fp32"
+        return "alu"
+
+    def count(ops) -> dict:
+        out = {"alu": 0, "imad": 0, "fp32": 0}
+        for op in ops:
+            if pipe(op) is not None:
+                out[pipe(op)] += 1
+        return out
+
+    single = [c for c in copies if sum(op.startswith("SHF.L.W") for op, _ in c) == 20]
+    check(len(single) >= 1, "T1's SASS has no copy of the hash with 20 funnel shifts")
+    hashes = [count(op for op, _ in c) for c in single]
+    check(all(h == hashes[0] for h in hashes), f"T1's hash copies differ in their instructions: {hashes}")
+    conv_ops = [op for (name, line), op, _ in rows if name == "threefry.cu" and line == conv]
+    check(len(conv_ops) % len(single) == 0, "T1's f32 conversion is not one per element")
+    total = dict(hashes[0])
+    for key, v in count(conv_ops).items():
+        total[key] += v // len(single)
+    total["alu"] += 1  # b32 = x0 ^ x1
+    return dict(total, hash=hashes[0], copies=len(single), listing=[t for _, t in single[0]])
+
+
+def t1_sass(build_dir) -> str:
+    """``nvdisasm -g`` of csrc/threefry.cu built for sm_90a with the
+    library's flags and -lineinfo, into ``build_dir``."""
+    from heat_tpu_torch.ops import _build
+
+    nvcc = _build.nvcc_path()
+    cubin = build_dir / "threefry-lineinfo.cubin"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([nvcc, *flags, "-lineinfo", "-cubin", "-o", str(cubin), str(_build.CSRC / "threefry.cu")],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"building T1's cubin failed: {proc.stderr}")
+    return run([str(Path(nvcc).parent / "nvdisasm"), "-g", "-c", str(cubin)])
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3022,7 +3106,7 @@ def training_paths(ht, k3, seed: int, dev, card: str) -> dict:
     return out
 
 
-def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
+def random_paths(ht, t1, seed: int, dev, card: str, t1_ops: dict) -> dict:
     """Random numbers on the Threefry streams: T1 against its plain version
     across 2^32, the draws at the Lloyd shape timed against T1's bound,
     randperm(1e8, split=0) on the Feistel route, and a chunked 16-bit draw.
@@ -3139,15 +3223,18 @@ def random_paths(ht, t1, seed: int, dev, card: str) -> dict:
     bytes_ms = 4 * n / HBM_BYTES_PER_S * 1e3
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]).splitlines()[0])
-    int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
-    ops_ms = T1_UNIFORM_OPS * n / int_rate * 1e3
+    # clocks an element on one SM lane set: the busiest pipe, or the issue
+    clocks = max(t1_ops["alu"] / T1_RATES["alu"], t1_ops["imad"] / T1_RATES["imad"], t1_ops["fp32"] / T1_RATES["fp32"],
+                 (t1_ops["alu"] + t1_ops["imad"] + t1_ops["fp32"]) / T1_RATES["issue"])
+    ops_ms = n * clocks / (sms * clock_mhz * 1e6) * 1e3
     bound_ms, bound_by = (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
     print(f"[time] threefry uniform f32 ({ROWS}, 64): kernel_ms={ms:.4f} (again {ms_2:.4f}; normal {ms_normal:.4f}; "
           f"randint int32 {ms_randint:.4f}) plain_ms={plain_ms:.4f} torch.rand (Philox, not the same function) "
           f"{rand_ms:.4f} bound_ms={bound_ms:.4f} by {bound_by} (bytes: {4 * n / 1e9:.2f} GB written, {bytes_ms:.4f} "
-          f"ms; operations: {T1_UNIFORM_OPS} 32-bit integer operations an element at {sms} SMs x "
-          f"{INT32_LANES_PER_SM} lanes x {clock_mhz:.0f} MHz = {int_rate:.4e}/s, {ops_ms:.4f} ms; the kernel at "
-          f"{ops_ms / ms:.4f} of it) on {card}")
+          f"ms; operations: {t1_ops['alu']} ALU, {t1_ops['imad']} IMAD and {t1_ops['fp32']} f32 instructions an "
+          f"element from the SASS, {clocks:.6f} clocks an element at {T1_RATES} a clock per SM, {sms} SMs x "
+          f"{clock_mhz:.0f} MHz: {ops_ms:.4f} ms; the kernel at {bound_ms / ms:.4f} of its bound) on {card}")
+    check(min(ms, ms_2) >= bound_ms, f"T1 at {min(ms, ms_2):.4f} ms beats its bound {bound_ms:.4f} ms: the bound is wrong")
     print(f"[e2e] random at ({ROWS}, 64) over MeshComm(4): " + ", ".join(f"{k} {v:.3f} ms" for k, v in calls.items())
           + f" (first calls), T1 launches {path_launches} on {card}")
     del buf, ibuf, draws, dst, got
@@ -3232,22 +3319,65 @@ TOL_TRANSFORM = 1e-5
 
 
 def plain_moe(x, gate, w_in, w_out, k: int, capacity_factor: float, shards: int):
-    """The expert-parallel MoE FFN written plainly: per shard, the JAX
-    package's routing (capacity per shard), then for each expert its kept
-    tokens through its FFN, added back with their router weights."""
-    emod = importlib.import_module("heat_tpu_torch.parallel.expert")
-    act = emod._gelu
-    out = []
+    """The expert-parallel MoE FFN written plainly, independent of the
+    port's routing: per shard, the f32 softmax of ``x @ gate``, the k
+    largest by a stable descending sort (ties to the lower expert, as
+    lax.top_k), GShard's capacity ceil(capacity_factor * k * tokens / E),
+    slot positions counted token by token in Python, then each expert's
+    kept tokens through its FFN, added back with their router weights.
+    Returns the output and the fraction of choices dropped."""
+    out, dropped, choices = [], 0, 0
     for xs in x.reshape(-1, x.shape[-1]).chunk(shards):
-        cap = emod.expert_capacity(xs.shape[0], gate.shape[1], k, capacity_factor)
-        top_w, top_idx, _, kept, _ = emod._route(xs @ gate, k, cap)
+        t, n_exp = xs.shape[0], gate.shape[1]
+        cap = max(1, math.ceil(capacity_factor * k * t / n_exp))
+        probs = torch.softmax((xs @ gate).float(), dim=-1)
+        top_idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+        top_p = probs.gather(-1, top_idx)
+        top_w = top_p / top_p.sum(dim=-1, keepdim=True)
+        filled = [0] * n_exp
+        kept = []
+        for e in top_idx.reshape(-1).tolist():  # token-major
+            kept.append(filled[e] < cap)
+            filled[e] += 1
+        kept = torch.tensor(kept, device=xs.device).reshape(t, k)
+        dropped += int((~kept).sum())
+        choices += kept.numel()
         y = torch.zeros_like(xs)
-        for e in range(gate.shape[1]):
+        for e in range(n_exp):
             rows, slot = torch.nonzero((top_idx == e) & kept, as_tuple=True)
-            h = act(xs[rows] @ w_in[e]) @ w_out[e]
+            h = torch.nn.functional.gelu(xs[rows] @ w_in[e], approximate="tanh") @ w_out[e]  # jax.nn.gelu's
             y.index_add_(0, rows, h * top_w[rows, slot, None])
         out.append(y)
-    return torch.cat(out).reshape(x.shape)
+    return torch.cat(out).reshape(x.shape), dropped / choices
+
+
+def moe_layers_against_plain(model, tokens, shards: int, card: str, when: str) -> list:
+    """Every MoE layer of ``model`` on its own input in one forward: the
+    expert-parallel path's output against :func:`plain_moe`, and its
+    fraction dropped against the plain count, exactly.  Returns the
+    fractions dropped."""
+    seen = {}
+    hooks = [b.moe.register_forward_hook(lambda m, a, y, i=i: seen.update({i: (a[0].detach(), y.detach())}))
+             for i, b in enumerate(model.blocks)]
+    with torch.no_grad():
+        model(tokens)
+    for h in hooks:
+        h.remove()
+    fractions = []
+    for i, b in enumerate(model.blocks):
+        x, y = seen.pop(i)
+        with torch.no_grad():
+            want, frac_plain = plain_moe(x, b.moe.gate, b.moe.w_in, b.moe.w_out, MOE["moe_k"],
+                                         MOE["moe_capacity_factor"], shards)
+        frac = float(b.moe.aux["fraction_dropped"])
+        yscale = float(want.abs().max())
+        err = float((y - want).abs().max())
+        print(f"[moe] {when}, layer {i}: max|Δ| against the plain version of the expert-parallel path {err:.3e} "
+              f"(tolerance {TOL_MOE:g} * {yscale:.4e}), fraction dropped {frac:.6f}, plain {frac_plain:.6f} on {card}")
+        check(err <= TOL_MOE * yscale, f"MoE layer {i} {when} differs from the plain version of its path")
+        check(abs(frac - frac_plain) <= 1e-6, f"MoE layer {i} {when} drops another share than the plain version")
+        fractions.append(frac)
+    return fractions
 
 
 def moe_step_parts(model, tokens, targets, k3, tmod, plain: bool):
@@ -3298,30 +3428,25 @@ def moe_paths(ht, k3, seed: int, dev, card: str) -> dict:
     check(gerr <= TOL_TRAIN * gscale, "MoE step 1: gradients differ from the plain attention's")
     check(rerun, "MoE step 1: a rerun is not bitwise equal")
     del grads_k, grads_p
-    # the first MoE layer on its own input: the expert-parallel path against
-    # its plain version, and against mesh=None where nothing is dropped
+    # each MoE layer on its own input: the expert-parallel path against its
+    # plain version, and layer 0 against mesh=None where nothing is dropped
+    dropped = moe_layers_against_plain(model, tokens, mesh.size, card, "before training")
+    moe0 = model.blocks[0].moe
     seen = {}
-    hook = model.blocks[0].moe.register_forward_hook(lambda m, a, y: seen.update(x=a[0].detach(), y=y.detach()))
+    hook = moe0.register_forward_hook(lambda m, a, y: seen.update(x=a[0].detach(), y=y.detach()))
     with torch.no_grad():
         model(tokens)
-    hook.remove()
-    moe0 = model.blocks[0].moe
-    dropped = [float(b.moe.aux["fraction_dropped"]) for b in model.blocks]
-    with torch.no_grad():
-        want = plain_moe(seen["x"], moe0.gate, moe0.w_in, moe0.w_out, MOE["moe_k"], MOE["moe_capacity_factor"], mesh.size)
+        hook.remove()
         y_none, aux_none = ht.parallel.moe_ffn(seen["x"], moe0.gate, moe0.w_in, moe0.w_out, k=MOE["moe_k"],
                                                capacity_factor=MOE["moe_capacity_factor"], mesh=None)
-    yscale = float(want.abs().max())
-    err_plain = float((seen["y"] - want).abs().max())
+    yscale = float(seen["y"].abs().max())
     err_none = float((seen["y"] - y_none).abs().max())
-    print(f"[moe] layer 0 over MeshComm(4), {seen['x'].shape[0] * seen['x'].shape[1]} tokens: max|Δ| against the plain "
-          f"version of the expert-parallel path {err_plain:.3e}, against mesh=None {err_none:.3e} (tolerance "
-          f"{TOL_MOE:g} * {yscale:.4e}; fraction dropped {dropped[0]:.6f}, mesh=None "
-          f"{float(aux_none['fraction_dropped']):.6f}) on {card}")
-    check(err_plain <= TOL_MOE * yscale, "MoE layer 0 differs from the plain version of its path")
+    print(f"[moe] layer 0 over MeshComm(4), {seen['x'].shape[0] * seen['x'].shape[1]} tokens: max|Δ| against "
+          f"mesh=None {err_none:.3e} (tolerance {TOL_MOE:g} * {yscale:.4e}; fraction dropped {dropped[0]:.6f}, "
+          f"mesh=None {float(aux_none['fraction_dropped']):.6f}) on {card}")
     if dropped[0] == 0 and float(aux_none["fraction_dropped"]) == 0:
         check(err_none <= TOL_MOE * yscale, "MoE layer 0 differs from its mesh=None path with nothing dropped")
-    del seen, want, y_none
+    del seen, y_none
     # training, 5 steps
     from heat_tpu_torch.nn.data_parallel import _default_loss
 
@@ -3360,6 +3485,10 @@ def moe_paths(ht, k3, seed: int, dev, card: str) -> dict:
     gemm_ms = sum(r[0] for r in rows if "gemm" in r[2].lower()) / 1e3
     print(f"[moe] step by kind: K3 forward {k3_ms:.4f} ms, GEMM kernels {gemm_ms:.4f} ms of "
           f"{sum(r[0] for r in rows) / 1e3:.4f} ms busy on {card}")
+    # after training the routers drop choices: the drop path (the trash row
+    # of the slot copy, the zero row of the gather) against the plain count
+    dropped_after = moe_layers_against_plain(model, tokens, mesh.size, card, f"after {TRAIN_STEPS + reps + 1} steps")
+    check(any(f > 0 for f in dropped_after), "no MoE layer dropped a choice after training: the drop path went unchecked")
     del dp, model, tok_d, tgt_d, tokens, targets
     torch.cuda.empty_cache()
     print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s wall")
@@ -3456,12 +3585,23 @@ def plane_paths(ht, k1, seed: int, dev, card: str) -> dict:
 
     k1.launches = 0
     fit()  # warm
+    # at counters every call of timed_call samples here, so the fit's Lloyd
+    # steps all take the sampled branch (CUDA events, the allocator reading)
     syncs = {}
     for lvl in ("off", "counters"):
-        with tel.telemetry_level(lvl):
-            syncs[lvl] = host_syncs(fit)
-    print(f"[planes] f32 KMeans fit ({PLANE_ROWS}, 64) k=8, 10 iterations over MeshComm(4): host syncs at off "
-          f"{len(syncs['off'])}, at counters {len(syncs['counters'])} on {card}")
+        tel.reset_programs()
+        period = tel.set_sample_every(1)
+        try:
+            with tel.telemetry_level(lvl):
+                syncs[lvl] = host_syncs(fit)
+        finally:
+            tel.set_sample_every(period)
+    timed = [p.get("calls", 0) for p in tel.programs() if p["kind"] == "kernel_cdist"]
+    tel.reset_programs()
+    print(f"[planes] f32 KMeans fit ({PLANE_ROWS}, 64) k=8, 10 iterations over MeshComm(4), every call sampled: "
+          f"host syncs at off {len(syncs['off'])}, at counters {len(syncs['counters'])}; Lloyd steps timed at "
+          f"counters {timed} on {card}")
+    check(timed == [10], "at counters with sampling every call, the ledger lacks the fit's 10 Lloyd step timings")
     check(len(syncs["off"]) == len(syncs["counters"]), "telemetry at the counters level adds host syncs")
     with tel.telemetry_level("events"):
         tel.clear_events()
@@ -3580,9 +3720,12 @@ def main() -> int:
     libs = {"heat_cdist": k1, "heat_qr_panel": k4, "heat_lasso_sweep": k5, "heat_spmv": k6,
             "heat_attention": k3, "heat_matmul": k2, "heat_repack": k7, "heat_threefry": t1}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        for fut in [pool.submit(mod._kernel) for mod in libs.values()]:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        futs = [pool.submit(mod._kernel) for mod in libs.values()]
+        sass = pool.submit(t1_sass, _build.BUILD_DIR)  # T1's instructions, for its operations bound
+        for fut in futs:
             fut.result()
+        t1_ops = t1_sass_ops(sass.result(), (_build.CSRC / "threefry.cu").read_text())
     print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f} s wall (with load)")
     for name in libs:
         info = _build.BUILD_INFO[name]
@@ -3590,6 +3733,10 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build]   {line.strip()}")
+    print(f"[build] T1's SASS for sm_90a: an f32 uniform element issues {t1_ops['alu']} ALU, {t1_ops['imad']} IMAD "
+          f"and {t1_ops['fp32']} f32 instructions (the hash {t1_ops['hash']}, in each of {t1_ops['copies']} "
+          f"unrolled copies; the conversion the rest)")
+    print("[build] T1's hash: " + "; ".join(t1_ops["listing"]))
 
     # --------------------------------------------------- 3. kernel vs plain
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -4198,7 +4345,7 @@ def main() -> int:
     trn = training_paths(ht, k3, args.seed, dev, card)
 
     # random numbers on the Threefry streams through T1
-    rnd = random_paths(ht, t1, args.seed, dev, card)
+    rnd = random_paths(ht, t1, args.seed, dev, card, t1_ops)
 
     # the mixture-of-experts TransformerLM trained expert-parallel through
     # K3, the blocks as a pipeline through K3, and the runtime planes with

@@ -176,9 +176,9 @@ def reshape_applicable(gin, si, gout, so, comm) -> bool:
     return rechunk_plan(int(gin[0]), rowsz_in, int(gout[0]), rowsz_out, comm.size) is not None
 
 
-# heat_tpu's "transport" counter group, with its keys (read through
-# telemetry.snapshot()); the OOM back-off and fused tails that move them
-# come with item 13
+# heat_tpu's "transport" counter group.  Its keys are kept only so that
+# telemetry.snapshot() has heat_tpu's keys: nothing in the port moves them
+# until the OOM back-off and the fused tails are ported
 telemetry.register_group(
     "transport",
     {
