@@ -83,7 +83,16 @@ of its path), its 4 blocks as a 4-stage pipeline of 8 microbatches against
 the blocks in order, and the runtime planes (a KMeans fit's host syncs at
 the ``off`` and ``counters`` telemetry levels, its spans and ledger rows,
 the roofline's peaks, memtrack against the allocator, a vision-transform
-chain on a 128 x 224^2 batch against the CPU);
+chain on a 128 x 224^2 batch against the CPU); the tuning and
+quantization planes: the MoE TransformerLM served with int8 and fp8
+experts over ``MeshComm(4)`` (each arm against the other and the bf16 arm
+bitwise against the dequantized model, the explored winner, the expert
+residency) and the quantized linear at 8192^3 (config.py:201), the int8
+KNN corpus of 65536 x 64 (config.py:210) through K1, resplit and reshape
+of 16384 x 4096 f32 (config.py:207) under each wire format against a
+plain encode/decode, and the tuning table (the kernel sites' rows, a warm
+start in a child process, host syncs); the earlier phases run with the
+wire off;
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -97,6 +106,7 @@ import argparse
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3677,6 +3687,551 @@ def plane_paths(ht, k1, seed: int, dev, card: str) -> dict:
                 k1=k1_launches)
 
 
+# ------------------------------------------- tuning and quantization planes
+# (a) the MoE TransformerLM (the LM's widths, 8 experts, top-2) served with
+# its expert weights int8 and fp8 over MeshComm(4); the quantized linear at
+# 8192^3 f32 (benchmarks/cb/config.py:201); (b) the quantized KNN corpus,
+# 65536 x 64 f32 (config.py:210); (c) the wire formats at 16384 x 4096 f32
+# (config.py:207); (d) the tuning table: the kernel rows, a warm start
+QLINEAR_N = 8192
+QKNN_N, QKNN_F, QKNN_Q = 65_536, 64, 16_384
+WIRE_SHAPE = (16_384, 4_096)
+# a split-crossing reshape of the wire data whose rechunk carries shifted
+# segments: every shape of these 2^26 elements into rows that divide over 4
+# positions cuts at the input's bounds, two rows do not
+WIRE_RESHAPE = (2, WIRE_SHAPE[0] * WIRE_SHAPE[1] // 2)
+WIRE_TILE_BYTES = 8 << 20  # heat_tpu's TILE_BYTES: the wire's grain
+QMAX = {"int8": 127.0, "fp8": 448.0}
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def plain_absmax(blocks: torch.Tensor, mode: str) -> torch.Tensor:
+    """Each row of ``blocks`` through an absmax grid and back: one f32 scale
+    a row, ``absmax x f32(1/qmax)`` (1 for a zero row), the row over its
+    scale rounded half to even and clipped (int8) or clipped and cast
+    (fp8), then times its scale.  Written here apart from the port."""
+    qmax = QMAX[mode]
+    absmax = blocks.abs().amax(dim=1, keepdim=True)
+    rcp = float(np.float32(1.0) / np.float32(qmax))
+    scale = torch.where(absmax > 0, absmax * rcp, torch.ones_like(absmax))
+    grid = blocks / scale
+    if mode == "int8":
+        q = torch.clamp(torch.round(grid), -qmax, qmax).to(torch.int8)
+    else:
+        q = torch.clamp(grid, -qmax, qmax).to(torch.float8_e4m3fn)
+    return q.to(torch.float32) * scale
+
+
+def plain_wire_resplit(a: torch.Tensor, positions: int, mode: str, tile_bytes: int) -> torch.Tensor:
+    """A 2-D split-0 array moved to split 1 through the quantized wire, as
+    values: each row of each destination's column tile (the tile plan of a
+    budget of ``tile_bytes`` for the staging unit of one destination column
+    across a source's rows) has one scale."""
+    n_a, n_b = a.shape
+    pa, pb = -(-n_a // positions), -(-n_b // positions)
+    unit = pa * positions * a.element_size()
+    per = max(1, tile_bytes // unit)
+    n_tiles = 1 if per >= pb else -(-pb // per)
+    tile = -(-pb // n_tiles)
+    out = torch.empty_like(a)
+    for d in range(positions):
+        for t in range(n_tiles):
+            lo, hi = min(d * pb + t * tile, n_b, (d + 1) * pb), min(d * pb + (t + 1) * tile, n_b, (d + 1) * pb)
+            if lo < hi:
+                out[:, lo:hi] = plain_absmax(a[:, lo:hi], mode)
+    return out
+
+
+def plain_wire_rechunk(flat: torch.Tensor, m_in: int, m_out: int, positions: int, mode: str, chunk: int):
+    """A flat split-0 stream re-cut from ``m_in`` to ``m_out`` rows through
+    the quantized wire, as values: every (source, destination) overlap whose
+    positions differ travels in chunks of ``min(chunk, its shift's longest
+    overlap)`` elements from its start, one scale a chunk (past the overlap
+    the chunk reads the source's next elements, and zeros past the
+    source's end); overlaps kept by a position stay exact."""
+    total = flat.numel()
+    ri, ro = total // m_in, total // m_out
+    pa, pb = -(-m_in // positions), -(-m_out // positions)
+    b_in = [min(r * pa, m_in) * ri for r in range(positions + 1)]
+    b_out = [min(d * pb, m_out) * ro for d in range(positions + 1)]
+    shifts = {}
+    for r in range(positions):
+        for d in range(positions):
+            lo, hi = max(b_in[r], b_out[d]), min(b_in[r + 1], b_out[d + 1])
+            if lo < hi:
+                shifts.setdefault((d - r) % positions, []).append((r, lo, hi))
+    out = flat.clone()
+    for s, segs in shifts.items():
+        if s == 0:
+            continue
+        ch = min(chunk, max(hi - lo for _, lo, hi in segs))
+        for r, lo, hi in segs:
+            n = -(-(hi - lo) // ch)
+            blk = torch.zeros(n * ch, dtype=flat.dtype, device=flat.device)
+            end = min(lo + n * ch, b_in[r + 1])
+            blk[: end - lo] = flat[lo:end]
+            out[lo:hi] = plain_absmax(blk.view(n, ch), mode).view(-1)[: hi - lo]
+    return out, shifts
+
+
+def force_quant_arm(ht, key, arm: str) -> None:
+    """Resolve the tuning entry ``key`` to ``arm`` by the samples it is
+    given (no wall clock involved)."""
+    at = ht.autotune
+    at.decide(key, "bf16", arms=at.QUANT_ARMS)
+    for _ in range(at.explore_k()):
+        at.observe(key, "bf16", 1.0 if arm == "int8" else 1e-3)
+        at.observe(key, "int8", 1e-3 if arm == "int8" else 1.0)
+
+
+def quant_model(ht, seed: int, dev):
+    """The LM's widths with 8 experts over MeshComm(4), weights from
+    ``seed``, and 8 x 2048 tokens."""
+    mesh = ht.MeshComm(4)
+    model = ht.models.TransformerLM(**LM, **MOE, ep_mesh=mesh, device="gpu",
+                                    generator=torch.Generator(device=dev).manual_seed(seed + 40))
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]),
+                           generator=torch.Generator(device=dev).manual_seed(seed + 41), device=dev)
+    return model, tokens, mesh
+
+
+def quant_geometry(ht, tokens, dtype: str):
+    """The moe_ffn tuning key every layer of the quantized LM shares."""
+    qd = {"int8": "int8", "fp8": "float8_e4m3fn"}[dtype]
+    return ht.autotune.quant_key("moe_ffn", tokens.numel(), LM["num_heads"] * LM["head_dim"],
+                                 LM["num_heads"] * LM["head_dim"] * LM["mlp_ratio"], MOE["moe_experts"], 4,
+                                 MOE["moe_k"], qd)
+
+
+def set_quantize(model, dtype) -> None:
+    for b in model.blocks:
+        b.moe.quantize = dtype
+
+
+def forward_ms(model, tokens, reps: int = 3):
+    """(logits of one no-grad forward, ms a forward over ``reps`` more)."""
+    with torch.no_grad():
+        out = model(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(tokens)
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def quant_paths(ht, k3, seed: int, dev, card: str) -> dict:
+    """(a) The MoE TransformerLM served with quantized experts: for int8
+    and fp8, the bf16 arm bitwise against the model over the dequantized
+    weights, the int8 arm against the bf16 arm layer by layer, the explore
+    calls returning the bf16 arm's output, the winner's reruns bitwise, the
+    residency; then the quantized linear at 8192^3.  Returns K3's launches
+    and the figures."""
+    t_phase = time.perf_counter()
+    at, quantize = ht.autotune, ht.quantize
+    at.set_enabled(True)
+    model, tokens, mesh = quant_model(ht, seed, dev)
+    n_tok = tokens.numel()
+    forwards = []
+    model.register_forward_hook(lambda *_: forwards.append(1))
+    k3.launches = 0
+    set_quantize(model, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref, ms_plain = forward_ms(model, tokens)
+    peak_plain = torch.cuda.max_memory_allocated() / 1e9
+    # each MoE layer's input, for the layer-level checks
+    seen = {}
+    hooks = [b.moe.register_forward_hook(lambda m, a, y, i=i: seen.update({i: a[0].detach()}))
+             for i, b in enumerate(model.blocks)]
+    with torch.no_grad():
+        model(tokens)
+    for h in hooks:
+        h.remove()
+    out = {"ms_plain": ms_plain, "peak_plain_gb": peak_plain}
+    masters = {i: (b.moe.w_in.detach().clone(), b.moe.w_out.detach().clone()) for i, b in enumerate(model.blocks)}
+    kw = dict(k=MOE["moe_k"], capacity_factor=MOE["moe_capacity_factor"], mesh=mesh)
+    for dtype in ("int8", "fp8"):
+        key = quant_geometry(ht, tokens, dtype)
+        qw = {i: [quantize.quantize_tensor(w, dtype, axis=(0, 2)) for w in ws] for i, ws in masters.items()}
+        # the unquantized model over the dequantized weights
+        set_quantize(model, None)
+        with torch.no_grad():
+            for i, b in enumerate(model.blocks):
+                b.moe.w_in.copy_(quantize.dequantize_tensor(qw[i][0]))
+                b.moe.w_out.copy_(quantize.dequantize_tensor(qw[i][1]))
+            deq_logits = model(tokens)
+            for i, b in enumerate(model.blocks):
+                b.moe.w_in.copy_(masters[i][0])
+                b.moe.w_out.copy_(masters[i][1])
+        set_quantize(model, dtype)
+        logits, ms = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for arm in ("bf16", "int8"):
+            at.reset()
+            force_quant_arm(ht, key, arm)
+            logits[arm], ms[arm] = forward_ms(model, tokens)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        same_bf16 = bool(torch.equal(logits["bf16"], deq_logits))
+        # the int8 arm against the bf16 arm, each layer on the same input
+        # (the same routing): f32 products over contractions of D and
+        # 4D, the scale applied before or after; bound K eps of the output
+        tol = EPS32 * LM["num_heads"] * LM["head_dim"] * LM["mlp_ratio"]
+        layer_err = []
+        with torch.no_grad():
+            for i, b in enumerate(model.blocks):
+                ys = {}
+                for arm in ("bf16", "int8"):
+                    at.reset()
+                    force_quant_arm(ht, key, arm)
+                    ys[arm], _ = ht.parallel.moe_ffn(seen[i], b.moe.gate, *qw[i], **kw)
+                scale = float(ys["bf16"].abs().max())
+                layer_err.append(float((ys["int8"] - ys["bf16"]).abs().max()) / scale)
+        lscale = float(logits["bf16"].abs().max())
+        logit_err = float((logits["int8"] - logits["bf16"]).abs().max()) / lscale
+        print(f"[quant] {dtype} experts: the bf16 arm's logits bitwise equal to the model over the dequantized "
+              f"weights {same_bf16}; the int8 arm against the bf16 arm per layer max|Δ|/max|y| "
+              f"{[f'{e:.3e}' for e in layer_err]} (tolerance {tol:.3e} = eps x {LM['num_heads'] * LM['head_dim'] * LM['mlp_ratio']}), "
+              f"logits {logit_err:.3e} (no gate: a routing near-tie may flip) on {card}")
+        check(same_bf16, f"{dtype}: the bf16 arm is not bitwise the model over the dequantized weights")
+        check(max(layer_err) <= tol, f"{dtype}: the int8 arm differs from the bf16 arm beyond {tol:.3e}")
+        check(bool(torch.isfinite(logits["int8"]).all()) and logits["int8"].shape == ref.shape, f"{dtype}: bad logits")
+        # the tuning plane from a reset table: the explore calls return the
+        # bf16 arm's output bitwise
+        at.reset()
+        explored = []
+        with torch.no_grad():
+            want, _ = ht.parallel.moe_ffn(seen[0], model.blocks[0].moe.gate,
+                                           *[quantize.dequantize_tensor(q) for q in qw[0]], **kw)
+            for _ in range(at.explore_k()):
+                y, _ = ht.parallel.moe_ffn(seen[0], model.blocks[0].moe.gate, *qw[0], **kw)
+                explored.append(bool(torch.equal(y, want)))
+        row = at.table()[key]
+        times = {a: min(d) for a, d in row["arms"].items()}
+        print(f"[quant] {dtype} moe_ffn from a reset table: {at.explore_k()} explore calls bitwise the bf16 arm "
+              f"{explored}; bf16_min_s {times['bf16']:.6f} int8_min_s {times['int8']:.6f}, winner {row['winner']} "
+              f"on {card}")
+        check(all(explored) and row["winner"] in ("bf16", "int8"), f"{dtype}: explore did not return the bf16 arm")
+        win, ms_win = forward_ms(model, tokens)
+        again, _ = forward_ms(model, tokens, reps=1)
+        rerun = bool(torch.equal(win, again)) and bool(torch.equal(win, logits[row["winner"]]))
+        print(f"[quant] {dtype} TransformerLM {LM} {MOE} ep_mesh=MeshComm(4), a no-grad forward of "
+              f"{LM_BATCH}x{LM['max_seq_len']} tokens: unquantized {ms_plain:.4f} ms ({n_tok / ms_plain * 1e3:.4e} "
+              f"tokens/s, peak {peak_plain:.3f} GB), bf16 arm {ms['bf16']:.4f} ms ({n_tok / ms['bf16'] * 1e3:.4e} "
+              f"tokens/s), int8 arm {ms['int8']:.4f} ms ({n_tok / ms['int8'] * 1e3:.4e} tokens/s), the winner "
+              f"{row['winner']} {ms_win:.4f} ms, peak {peak:.3f} GB; the winner's reruns bitwise equal (and equal "
+              f"to its forced arm) {rerun} on {card}")
+        check(rerun, f"{dtype}: the winner's reruns differ")
+        # residency: the experts quantized once, as a server keeps them
+        with ht.telemetry.telemetry_level("events"):
+            ht.memtrack.reset()
+            params = quantize.quantize_params(
+                {f"block_{i}": {"w_in": ws[0], "w_out": ws[1]} for i, ws in masters.items()}, dtype)
+            by_dtype = ht.memtrack.census()["bytes_by_dtype"]
+            resident = sum(by_dtype.values())
+            master_bytes = sum(w.numel() * 4 for ws in masters.values() for w in ws)
+            ratio = master_bytes / resident
+            print(f"[quant] {dtype} expert weights resident {resident} bytes ({by_dtype}) against the f32 master's "
+                  f"{master_bytes}: {ratio:.4f}x below (bar 3x) on {card}")
+            check(ratio >= 3.0, f"{dtype}: expert residency only {ratio:.3f}x below f32")
+            del params
+            ht.memtrack.reset()
+        out[dtype] = dict(ms_bf16=ms["bf16"], ms_int8=ms["int8"], ms_winner=ms_win, winner=row["winner"],
+                          bf16_min_s=times["bf16"], int8_min_s=times["int8"], residency=ratio, peak_gb=peak,
+                          layer_err=max(layer_err))
+        del qw, logits, win, again, deq_logits
+    # the tables the natural explores leave, for the warm start
+    at.reset()
+    with torch.no_grad():
+        for dtype in ("int8", "fp8"):
+            set_quantize(model, dtype)
+            for _ in range(at.explore_k()):
+                model(tokens)
+    torch.cuda.synchronize()
+    out["table"] = {dtype: at.table()[quant_geometry(ht, tokens, dtype)]["winner"] for dtype in ("int8", "fp8")}
+    set_quantize(model, None)
+    launches = k3.launches
+    print(f"[quant] K3 launches {launches} over the phase's {len(forwards)} forwards (expected "
+          f"{LM['num_layers'] * len(forwards)}: 4 a forward) on {card}")
+    check(launches == LM["num_layers"] * len(forwards), f"quant: K3 launches {launches}")
+    del model, tokens, seen, masters, ref
+    torch.cuda.empty_cache()
+
+    # the quantized linear at 8192^3 f32: linalg.matmul with a weight
+    # quantized per output column
+    gen = torch.Generator(device=dev).manual_seed(seed + 42)
+    n = QLINEAR_N
+    x = ht.array(torch.randn(n, n, generator=gen, device=dev), copy=False)
+    qw = quantize.quantize_weights(ht.array(torch.randn(n, n, generator=gen, device=dev), copy=False), "int8", axis=1)
+    at.reset()
+    deq = qw.dequantize()
+    want = ht.linalg.matmul(x, deq).larray
+    explored = []
+    for _ in range(at.explore_k()):
+        explored.append(bool(torch.equal(ht.linalg.matmul(x, qw).larray, want)))
+    (row,) = at.table().values()
+    ms_arm = {arm: time_ms(lambda arm=arm: quantize.matmul_quantized(x, qw, arm=arm), reps=5) for arm in ("bf16", "int8")}
+    y8 = quantize.matmul_quantized(x, qw, arm="int8").larray
+    y16 = quantize.matmul_quantized(x, qw, arm="bf16").larray
+    err = float((y8 - y16).abs().max()) / float(y16.abs().max())
+    tol = EPS32 * n
+    b_ms, b_by = bound(4.0 * 3 * n * n, 2.0 * n * n * n)
+    lib_ms = time_ms(lambda: torch.matmul(x.larray, deq.larray), reps=5)
+    print(f"[quant] linear {n}^3 f32, int8 weight per output column: bf16 arm {ms_arm['bf16']:.4f} ms (dequantize, "
+          f"then the matmul), int8 arm {ms_arm['int8']:.4f} ms ((x @ q) x scale), torch.matmul of the dequantized "
+          f"weight {lib_ms:.4f} ms, bound_ms {b_ms:.4f} ({b_by}); the bf16 arm bitwise linalg.matmul of the "
+          f"dequantized weight {bool(torch.equal(y16, want))}, the int8 arm against it max|Δ|/max|y| {err:.3e} "
+          f"(tolerance {tol:.3e} = eps x {n}); explore calls bitwise the bf16 arm {explored}, bf16_min_s "
+          f"{min(row['arms']['bf16']):.6f} int8_min_s {min(row['arms']['int8']):.6f} winner {row['winner']} on {card}")
+    check(bool(torch.equal(y16, want)) and all(explored), "quantized linear: the bf16 arm or explore differs")
+    check(err <= tol, f"quantized linear: the int8 arm differs from the bf16 arm by {err:.3e}")
+    out.update(linear_ms_bf16=ms_arm["bf16"], linear_ms_int8=ms_arm["int8"], linear_bound_ms=b_ms,
+               linear_library_ms=lib_ms, linear_winner=row["winner"])
+    del x, qw, deq, want, y8, y16
+    torch.cuda.empty_cache()
+    print(f"[quant] phase {time.perf_counter() - t_phase:.1f} s wall")
+    out["launches"] = launches
+    return out
+
+
+def qknn_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """(b) KNeighborsClassifier(5) fitted on 65536 x 64 f32 split 0 over
+    MeshComm(4), quantized to int8, predicting 16384 split-0 queries through
+    cdist_quantized (K1 a position and rotating block); the labels against
+    the f32 predict over the dequantized corpus where the 5th/6th gap is
+    clear; the master's bytes released.  Returns K1's launches."""
+    t_phase = time.perf_counter()
+    mesh = ht.MeshComm(4)
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    X = torch.randn(QKNN_N, QKNN_F, generator=gen, device=dev)
+    labels = (X[:, 0] > 0).to(torch.int32)
+    Q = torch.randn(QKNN_Q, QKNN_F, generator=gen, device=dev)
+    q_ht = ht.array(Q, split=0, comm=mesh, copy=False)
+    y_ht = ht.array(labels, split=0, comm=mesh, copy=False)
+    f32 = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(ht.array(X.clone(), split=0, comm=mesh), y_ht)
+    f32.predict(q_ht)
+    f32_labels, f32_ms, _ = timed_call(lambda: f32.predict(q_ht))
+    del f32
+    model = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(ht.array(X.clone(), split=0, comm=mesh), y_ht)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model.quantize_("int8")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    corpus = QKNN_N * QKNN_F * 4
+    print(f"[qknn] quantize_('int8') of the ({QKNN_N},{QKNN_F}) f32 corpus: card bytes {before} -> {after} "
+          f"(the f32 master {corpus} bytes, the int8 corpus and scales {model._qx.nbytes}) on {card}")
+    # the allocator rounds each block up to 512 bytes
+    check(abs((before - after) - (corpus - model._qx.nbytes)) <= 8 * 512, "qknn: the master's bytes were not released")
+    model.predict(ht.array(Q[:4096], split=0, comm=mesh, copy=False))  # warm-up
+    k1.launches = 0
+    pred, ms, peak = timed_call(lambda: model.predict(q_ht))
+    launches = k1.launches
+    got = pred.larray
+    again = model.predict(q_ht).larray
+    deq = model._qx.dequantize()
+    ref = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(deq, y_ht)
+    k1.launches = 0
+    ref_labels = ref.predict(q_ht).larray
+    want, clear = knn_reference(Q, deq.larray, labels, KNN_K)
+    agree = bool(torch.equal(got[clear], ref_labels[clear])) and bool(torch.equal(got[clear], want[clear]))
+    share = float(clear.float().mean())
+    n_pos = mesh.size
+    print(f"[qknn] predict of ({QKNN_Q},{QKNN_F}) split 0 against the int8 corpus over MeshComm({n_pos}), k={KNN_K}: "
+          f"{ms:.4f} ms ({f32_ms:.4f} ms the f32 predict of the same queries), cdist launches {launches} (expected "
+          f"{n_pos * n_pos}: a position and rotating block), peak above corpus and queries {peak / 1e9:.3f} GB; labels "
+          f"equal the f32 predict over the dequantized corpus and its f64 vote on the {share:.5f} of queries with a "
+          f"clear 5th/6th gap {agree}, rerun bitwise {bool(torch.equal(got, again))}, f32-corpus labels agree on "
+          f"{float((got == f32_labels.larray).float().mean()):.5f} on {card}")
+    check(launches == n_pos * n_pos, f"qknn: cdist launches {launches} != {n_pos * n_pos}")
+    check(agree and share > 0.99 and bool(torch.equal(got, again)), "qknn: labels differ from the dequantized predict")
+    del model, ref, deq, X, Q, q_ht, pred, got, again
+    torch.cuda.empty_cache()
+    print(f"[qknn] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return dict(k1=launches, ms=ms, f32_ms=f32_ms)
+
+
+def wire_paths(ht, k7, seed: int, dev, card: str) -> dict:
+    """(c) The wire formats: resplit 0 -> 1 of 16384 x 4096 f32 over
+    MeshComm(4) and a split-crossing reshape of the same data through K7,
+    for off, int8 and fp8, each bitwise against a plain encode/decode of
+    the same grain; exact=True; the tuned wire from a reset table.  Returns
+    K7's launches."""
+    t_phase = time.perf_counter()
+    wire, at = ht.wire, ht.autotune
+    transport = ht.parallel.transport
+    mesh = ht.MeshComm(4)
+    gen = torch.Generator(device=dev).manual_seed(seed + 44)
+    a = torch.randn(*WIRE_SHAPE, generator=gen, device=dev) * torch.exp(
+        torch.randn(WIRE_SHAPE[0], 1, generator=gen, device=dev))
+    a[7] = 0  # an all-zero row: scale 1, exact zeros
+    x = ht.array(a, split=0, comm=mesh, copy=False)
+    flat = a.reshape(-1)
+    k7.launches = 0
+    out = {}
+    prev = wire.set_mode("off")
+    try:
+        for mode in ("off", "int8", "fp8"):
+            wire.set_mode(mode)
+            s0 = wire.stats()
+            r = ht.resplit(x, 1)
+            z = ht.reshape(x, WIRE_RESHAPE, new_split=0)
+            torch.cuda.synchronize()
+            s1 = wire.stats()
+            ms_r = time_ms(lambda: ht.resplit(x, 1), reps=5)
+            ms_z = time_ms(lambda: ht.reshape(x, WIRE_RESHAPE, new_split=0), reps=5)
+            if mode == "off":
+                want_r, want_z, shifts = a, flat.view(WIRE_RESHAPE), {}
+            else:
+                want_r = plain_wire_resplit(a, mesh.size, mode, WIRE_TILE_BYTES)
+                want_z, shifts = plain_wire_rechunk(flat, WIRE_SHAPE[0], WIRE_RESHAPE[0], mesh.size, mode,
+                                                    WIRE_TILE_BYTES // 4)
+                want_z = want_z.view(WIRE_RESHAPE)
+            same_r = bool(torch.equal(r.larray, want_r)) and r.split == 1
+            same_z = bool(torch.equal(z.larray, want_z)) and z.split == 0
+            logical = s1["bytes_logical"] - s0["bytes_logical"]
+            on_wire = s1["bytes_wire"] - s0["bytes_wire"]
+            ratio = logical / on_wire if on_wire else float("nan")
+            err = float((r.larray - a).abs().max() / a.abs().max())
+            print(f"[wire] {mode}: resplit {WIRE_SHAPE} 0->1 over MeshComm(4) {ms_r:.4f} ms, reshape -> {WIRE_RESHAPE} "
+                  f"(shifted segments {sorted(s for s in shifts if s)}) {ms_z:.4f} ms; bitwise the plain encode/decode "
+                  f"of the same grain: resplit {same_r}, reshape {same_z}; bytes_logical {logical} bytes_wire "
+                  f"{on_wire} ({ratio:.4f}x); resplit max|Δ|/max|a| {err:.3e} on {card}")
+            check(same_r and same_z, f"wire {mode}: the result differs from the plain encode/decode")
+            if mode == "int8":
+                check(ratio >= 3.0, f"wire int8: only {ratio:.3f}x fewer bytes on the wire")
+            if mode == "off":
+                check(logical == 0 and err == 0.0, "wire off: not bitwise the input")
+            out[mode] = dict(resplit_ms=ms_r, reshape_ms=ms_z, ratio=ratio)
+            del r, z, want_r, want_z
+        # exact=True pins the f32 wire under a forced mode
+        wire.set_mode("int8")
+        shards = transport.tiled_resplit(x.shards, x.shape, 0, 1, mesh, exact=True)
+        zs = transport.tiled_reshape(x.shards, x.shape, 0, WIRE_RESHAPE, 0, mesh, exact=True)
+        exact = bool(torch.equal(torch.cat(shards, dim=1), a)) and bool(torch.equal(torch.cat(zs), flat.view(WIRE_RESHAPE)))
+        print(f"[wire] exact=True under int8: resplit and reshape bitwise the input {exact} on {card}")
+        check(exact, "wire: exact=True is not bitwise")
+        del shards, zs
+        # the tuned wire from a reset table: the explore calls return the
+        # f32 result bitwise, then the winner serves
+        wire.set_mode("on")
+        at.reset()
+        explored = [bool(torch.equal(ht.resplit(x, 1).larray, a)) for _ in range(at.explore_k())]
+        key = at.wire_key("resplit", tuple(WIRE_SHAPE), 0, 1, mesh.size, "float32")
+        row = at.table()[key]
+        mins = {arm: min(d) for arm, d in row["arms"].items()}
+        served = ht.resplit(x, 1).larray
+        want = a if row["winner"] == "wire_f32" else plain_wire_resplit(a, mesh.size, row["winner"][5:], WIRE_TILE_BYTES)
+        print(f"[wire] on, from a reset table: {at.explore_k()} explore calls bitwise the f32 resplit {explored}; "
+              f"wire_f32_min_s {mins['wire_f32']:.6f} wire_int8_min_s {mins['wire_int8']:.6f} wire_fp8_min_s "
+              f"{mins['wire_fp8']:.6f}, winner {row['winner']}, served bitwise its format {bool(torch.equal(served, want))} "
+              f"on {card}")
+        check(all(explored) and bool(torch.equal(served, want)), "wire on: explore or the served winner differs")
+        out["winner"], out["mins"] = row["winner"], mins
+        del served, want
+    finally:
+        wire.set_mode(prev if prev is not None else "off")
+        at.reset()
+    launches = k7.launches
+    del x, a, flat
+    torch.cuda.empty_cache()
+    print(f"[wire] K7 launches {launches} (2 destinations with rows a reshape) on {card}")
+    check(launches > 0 and launches % 2 == 0, f"wire: K7 launches {launches}")
+    print(f"[wire] phase {time.perf_counter() - t_phase:.1f} s wall")
+    out["k7"] = launches
+    return out
+
+
+def warm_start_child(cache: str, device: str = "cuda:0") -> None:
+    """The quantized LM's forward in a fresh process that loads the tuning
+    table from ``cache`` (``HEAT_TPU_AUTOTUNE_CACHE``): prints one JSON line
+    of the explores and the winners it served."""
+    import heat_tpu_torch as ht
+
+    dev = torch.device(device)
+    model, tokens, _ = quant_model(ht, 0, dev)
+    loaded = ht.autotune.stats()["cache_loads"]
+    winners = {}
+    with torch.no_grad():
+        for dtype in ("int8", "fp8"):
+            set_quantize(model, dtype)
+            model(tokens)
+            winners[dtype] = ht.autotune.table()[quant_geometry(ht, tokens, dtype)]["winner"]
+    torch.cuda.synchronize()
+    s = ht.autotune.stats()
+    print(json.dumps({"explores": s["explores"], "cache_hits": s["cache_hits"], "cache_loads": loaded,
+                      "winners": winners}))
+
+
+def autotune_paths(ht, k1, seed: int, dev, card: str, kernel_rows: list, kernel_launches: dict, quant: dict) -> dict:
+    """(d) The kernel sites' one-arm rows after the QR, Lasso, SpMV and
+    reshape phases; a warm start in a child process (zero explores, the
+    same winners); a KMeans fit's host syncs at off and counters with the
+    tuning plane on."""
+    t_phase = time.perf_counter()
+    sites = {"qr": "K4", "lasso": "K5", "spmv": "K6", "reshape": "K7"}
+    seen = set()
+    for r in kernel_rows:
+        kind = r["desc"].split()[0]
+        seen.add(kind)
+        print(f"[autotune] kernel row {sites.get(kind, '?')} {r['desc']}: kernel_min_s {r['kernel_min_s']} over "
+              f"{r['kernel_samples']} timed calls, winner {r['winner']} ({sites.get(kind)} launches on its phase's path "
+              f"{kernel_launches.get(sites.get(kind))}) on {card}")
+    check(set(sites) <= seen, f"autotune: kernel rows for {sorted(set(sites) - seen)} missing")
+    check(all(r["arms"] == ("kernel",) and r["kernel_min_s"] for r in kernel_rows), "autotune: a kernel row without times")
+    # warm start: the table the quant phase left, loaded by a child process
+    at = ht.autotune
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="heat_autotune_") as tmp:
+        at.reset()
+        for dtype, winner in quant["table"].items():
+            force_quant_arm(ht, quant_geometry(ht, torch.empty(LM_BATCH, LM["max_seq_len"]), dtype), winner)
+        path = str(Path(tmp) / "table.json")
+        saved = at.save(path)
+        env = dict(os.environ, HEAT_TPU_AUTOTUNE_CACHE=path, HEAT_TPU_AUTOTUNE="on")
+        here = str(Path(__file__).resolve().parent)
+        env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.warm_start_child({path!r})"],
+                              cwd=here, env=env, capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"autotune warm start: the child failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[autotune] warm start: {saved} entries saved; a child process with HEAT_TPU_AUTOTUNE_CACHE ran the "
+          f"quantized forwards in {child_s:.1f} s: explores {got['explores']}, cache hits {got['cache_hits']}, "
+          f"winners {got['winners']} (saved {quant['table']}) on {card}")
+    check(got["explores"] == 0 and got["winners"] == quant["table"] and got["cache_hits"] >= 2 * LM["num_layers"],
+          "autotune warm start: the child explored or served other winners")
+    at.reset()
+    # a KMeans fit's host syncs at off and counters, the tuning plane on
+    tel = ht.telemetry
+    mesh = ht.MeshComm(4)
+    data, _ = make_blobs(PLANE_ROWS, 64, 8, seed + 45, dev)
+    x = ht.array(data, split=0, comm=mesh)
+
+    def fit():
+        return ht.cluster.KMeans(n_clusters=8, init="random", max_iter=10, tol=-1.0, random_state=seed).fit(x)
+
+    k1.launches = 0
+    fit()
+    syncs = {}
+    for lvl in ("off", "counters"):
+        with tel.telemetry_level(lvl):
+            syncs[lvl] = len(host_syncs(fit))
+    k1_launches = k1.launches
+    print(f"[autotune] f32 KMeans fit ({PLANE_ROWS}, 64) with the tuning plane {'on' if at.enabled() else 'off'}: "
+          f"host syncs at off {syncs['off']}, at counters {syncs['counters']}; K1 launches in the three fits "
+          f"{k1_launches} (expected {3 * 11 * mesh.size}) on {card}")
+    check(syncs["off"] == syncs["counters"], "the counters level adds host syncs with the tuning plane on")
+    check(k1_launches == 3 * 11 * mesh.size, f"autotune: K1 launches {k1_launches}")
+    del x, data
+    torch.cuda.empty_cache()
+    print(f"[autotune] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return dict(k1=k1_launches, warm_explores=got["explores"], syncs=syncs)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3714,6 +4269,14 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
     )
     dev = torch.device("cuda", 0)
+    # the earlier phases check transport bit for bit: they run with the
+    # wire plane off (heat_tpu's callers of the same transfers pass no
+    # exact=True, and under the default "on" a quantized arm that wins makes
+    # them lossy); wire_paths sets each mode itself.  The tuning plane stays
+    # on, so the kernel sites keep their one-arm rows
+    ht.wire.set_mode("off")
+    print(f"[identity] wire mode {ht.wire.mode()} for the earlier phases, autotune enabled {ht.autotune.enabled()}, "
+          f"device kind {ht.autotune.device_kind()}")
 
     # ------------------------------------------------------------- 2. build
     # one nvcc per library, all started together
@@ -4354,6 +4917,17 @@ def main() -> int:
     pipe = pipeline_paths(ht, k3, args.seed, dev, card)
     planes = plane_paths(ht, k1, args.seed, dev, card)
 
+    # the tuning and quantization planes: the kernel sites' rows of the
+    # phases above, the quantized MoE LM through K3 and linear, the
+    # quantized KNN corpus through K1, the wire formats through K7, a warm
+    # start
+    kernel_rows = [r for r in ht.autotune.report()["rows"] if r["arms"] == ("kernel",)]
+    quant = quant_paths(ht, k3, args.seed, dev, card)
+    qknn = qknn_paths(ht, k1, args.seed, dev, card)
+    wire = wire_paths(ht, k7, args.seed, dev, card)
+    tune = autotune_paths(ht, k1, args.seed, dev, card, kernel_rows,
+                          {"K4": qr_launches, "K5": lasso_launches, "K6": matmul_launches, "K7": tr["launches"]}, quant)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -4361,7 +4935,8 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
-            "launches": launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"],
+            "launches": (launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"]
+                         + qknn["k1"] + tune["k1"]),
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -4376,6 +4951,8 @@ def main() -> int:
             "launches_linalg_classifiers": la["knn"]["k1"],
             "launches_io": io["k1"],
             "launches_planes": planes["k1"],
+            "launches_qknn": qknn["k1"],
+            "launches_autotune": tune["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
@@ -4444,11 +5021,12 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/attention.cu",
             "replaces": "heat_tpu/ops/attention.py:37",
-            "launches": lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"],
+            "launches": lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"] + quant["launches"],
             "launches_forward_and_ulysses": lm["attention"],
             "launches_training": trn["lm_launches"],
             "launches_moe_training": moe["launches"],
             "launches_pipeline": pipe["launches"],
+            "launches_quant": quant["launches"],
             "max_abs_err": k3_abs,
             "ms": att_times[(64, 2048, 64, "float32", True)][0],
             "plain_ms": att_times[(64, 2048, 64, "float32", True)][1],
@@ -4487,8 +5065,9 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/repack.cu",
             "replaces": "heat_tpu/ops/repack.py:75",
-            "launches": tr["launches"] + rt["k7"] + io["k7"],
+            "launches": tr["launches"] + rt["k7"] + io["k7"] + wire["k7"],
             "launches_transport": tr["launches"],
+            "launches_wire": wire["k7"],
             "launches_runtime_core": rt["k7"],
             "launches_io": io["k7"],
             "max_abs_err": k7_abs,
@@ -4537,6 +5116,13 @@ def main() -> int:
     print(f"[summary] training: TransformerLM {trn['lm_step_ms']:.4f} ms/step ({trn['lm_tokens_s']:.4e} tokens/s, "
           f"peak {trn['lm_peak_gb']:.3f} GB), ResNet-50 {trn['resnet_ms']:.4f} ms/step ({trn['resnet_images_s']:.2f} "
           f"images/s, peak {trn['resnet_peak_gb']:.3f} GB); random: randperm(1e8) {rnd['perm_ms']:.3f} ms on {card}")
+    print(f"[summary] quantized MoE TransformerLM forward (8x2048 tokens): unquantized {quant['ms_plain']:.4f} ms, "
+          + ", ".join(f"{d} bf16 arm {quant[d]['ms_bf16']:.4f} / int8 arm {quant[d]['ms_int8']:.4f} ms (winner "
+                      f"{quant[d]['winner']}, residency {quant[d]['residency']:.3f}x)" for d in ("int8", "fp8"))
+          + f"; quantized linear 8192^3 bf16 / int8 arm {quant['linear_ms_bf16']:.4f} / {quant['linear_ms_int8']:.4f} "
+          f"ms; quantized KNN predict {qknn['ms']:.4f} ms (f32 {qknn['f32_ms']:.4f}); resplit wire off / int8 / fp8 "
+          + " / ".join(f"{wire[m]['resplit_ms']:.4f}" for m in ("off", "int8", "fp8"))
+          + f" ms (winner {wire['winner']}); warm start explores {tune['warm_explores']} on {card}")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,12 +25,15 @@ card and back (``io``, ``load``/``save`` and the format functions,
 data-parallel, expert-parallel and pipeline training (``nn``, ``optim``,
 ``models``, ``parallel.expert``, ``parallel.pipeline``,
 ``utils.checkpointing``, ``utils.vision_transforms``), and the runtime
-planes ``telemetry``, ``memtrack``, ``roofline`` and ``guard``.
+planes ``telemetry``, ``memtrack``, ``roofline``, ``guard``, ``autotune``,
+``wire`` and ``quantize`` (with the quantized MoE TransformerLM and the
+quantized KNN corpus).
 """
 
 from .core import *
 from .core import (
     arithmetics,
+    autotune,
     base,
     complex_math,
     constants,
@@ -43,6 +46,7 @@ from .core import (
     logical,
     manipulations,
     memtrack,
+    quantize,
     random,
     relational,
     roofline,
@@ -56,6 +60,7 @@ from .core import (
     trigonometrics,
     types,
     version,
+    wire,
 )
 from .core.version import __version__
 from . import parallel
@@ -73,3 +78,8 @@ from . import naive_bayes
 from . import utils
 from . import datasets
 from . import native
+
+# the analysis subpackage holds only the runtime sanitizer so far
+# (core.quantize imports it); ``ht.analysis`` joins the public names with
+# the lint rules and the program auditor (ROADMAP item 13)
+del analysis

@@ -41,7 +41,7 @@ _SELECT_ROWS = 4096
 
 def _not_ported(name: str):
     raise NotImplementedError(
-        f"{name} needs core/quantize.py and core/stream.py, which are not ported yet (ROADMAP queue 1, item 13)"
+        f"{name} needs core/stream.py's streaming pass, which is not ported yet (ROADMAP queue 1, item 13)"
     )
 
 
@@ -64,6 +64,7 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         self.x = None
         self.y = None
         self.classes_ = None
+        self._qx = None
 
     @staticmethod
     def one_hot_encoding(x: DNDarray) -> DNDarray:
@@ -95,7 +96,21 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         return self
 
     def quantize_(self, dtype: str = "int8", *, donate: bool = False) -> "KNeighborsClassifier":
-        _not_ported("KNeighborsClassifier.quantize_")
+        """Quantize the fitted corpus in place (int8/fp8, absmax scales per
+        feature, axis 1 of the (n_train, d) corpus) and drop the
+        full-precision master (kneighborsclassifier.py:80): ``predict`` then
+        runs through :func:`spatial.cdist_quantized`.  ``donate=True`` also
+        tags the master's shards ``donated`` and poisons them for the
+        sanitizer."""
+        from ..core import quantize
+
+        if self.x is None:
+            raise RuntimeError("fit the model first" if self._qx is None else "corpus is already quantized")
+        if self.effective_metric_ is not distance.cdist:
+            raise ValueError("quantize_ supports the default euclidean metric only")
+        self._qx = quantize.quantize_weights(self.x, dtype, axis=1, donate=donate)
+        self.x = None  # release the master: the residency win
+        return self
 
     def fit_stream(self, source, y, dataset: Optional[str] = None, *, comm=None, budget=None) -> "KNeighborsClassifier":
         _not_ported("KNeighborsClassifier.fit_stream")
@@ -117,13 +132,24 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         parts = [topk_select(d[lo : lo + _SELECT_ROWS], k, largest=False) for lo in range(0, d.shape[0], _SELECT_ROWS)]
         return torch.cat(parts) if parts else d.new_zeros((0, k), dtype=torch.int64)
 
+    def _distances(self, x: DNDarray) -> DNDarray:
+        """The queries' distances to the corpus: through the quantized ring
+        for a quantized corpus (kneighborsclassifier.py:225-232), and where
+        its layout does not fit, through the metric on the corpus
+        dequantized for this call."""
+        if self._qx is None:
+            return self.effective_metric_(x, self.x)
+        d = distance.cdist_quantized(x, self._qx)
+        return d if d is not None else self.effective_metric_(x, self._qx.dequantize())
+
     @telemetry.span("knn.predict")
     def predict(self, x: DNDarray) -> DNDarray:
         """Majority vote of the ``n_neighbors`` nearest training samples
         (kneighborsclassifier.py:218), split as ``x``."""
-        if self.x is None:
+        if self.x is None and self._qx is None:
             raise RuntimeError("fit the model first")
-        nq, n, f = x.shape[0], self.x.shape[0], self.x.shape[1]
+        corpus = self.x if self._qx is None else self._qx
+        nq, n, f = x.shape[0], corpus.shape[0], corpus.shape[1]
         fp = telemetry.fingerprint(("knn_distances", nq, n, f, str(x.dtype), x.comm.size))
         if self.effective_metric_ is distance.cdist:
             # K1's work: 2·nq·n·f operations; both operands read once, the
@@ -133,7 +159,7 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
                                      mesh={"devices": x.comm.size}, dtype=str(x.dtype))
         else:
             telemetry.ensure_program(fp, kind="knn_distances", mesh={"devices": x.comm.size}, dtype=str(x.dtype))
-        d = telemetry.timed_call(fp, self.effective_metric_, x, self.x, device=x.device.torch_device)
+        d = telemetry.timed_call(fp, self._distances, x, device=x.device.torch_device)
         onehot = self.y.larray
         k = self.n_neighbors
         if d.split == 0 and d.comm.size > 1:

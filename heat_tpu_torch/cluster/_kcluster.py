@@ -41,7 +41,7 @@ def _row_blocks(x: DNDarray) -> List[torch.Tensor]:
     if x.split is None:
         blocks = [x.shards[0]]
     else:
-        blocks = (x if x.split == 0 else x.resplit(0)).shards
+        blocks = (x if x.split == 0 else x._resplit(0, exact=True)).shards
     return [b if b.is_floating_point() else b.to(torch.float32) for b in blocks]
 
 

@@ -81,7 +81,7 @@ class PackedSamples:
         """The samples as (count, f) views, one per position (one when
         ``x2`` is replicated): position r's packed rows, reshaped, up to
         sample n."""
-        x2 = self.x2 if self.x2.split in (None, 0) else self.x2.resplit(0)
+        x2 = self.x2 if self.x2.split in (None, 0) else self.x2._resplit(0, exact=True)
         shards = x2.shards[:1] if x2.split is None else x2.shards
         blocks, start = [], 0
         for s in shards:

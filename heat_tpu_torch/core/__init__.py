@@ -1,6 +1,7 @@
 """heat_tpu_torch core: runtime (communication, devices, the dtype lattice,
 factories, the DNDarray, sanitation, memory, printing, the estimator base,
-random, I/O, the telemetry/memtrack/roofline/guard planes) and the op surface (arithmetic, exponential, trigonometric,
+random, I/O, the telemetry/memtrack/roofline/guard planes, autotune, the
+wire formats and quantization) and the op surface (arithmetic, exponential, trigonometric,
 rounding, logical, complex, relational, statistics, manipulations, linalg),
 exported flat as in heat_tpu.core."""
 
@@ -18,6 +19,7 @@ from .dndarray import DNDarray, LocalIndex
 from . import envparse
 from .envparse import env_int
 from . import guard, telemetry, memtrack, roofline
+from . import autotune
 from . import factories
 from .factories import *
 from . import _operations
@@ -60,3 +62,5 @@ from . import signal
 from .signal import *
 from . import tiling
 from .tiling import *
+from . import wire
+from . import quantize

@@ -485,14 +485,22 @@ class DNDarray:
         shard is assembled from views of the old ones, which are then
         released, so no gathered copy exists.  Moves to or from
         ``split=None`` gather and cut anew, as the JAX package keeps its
-        ``device_put`` route for them."""
+        ``device_put`` route for them.  A large floating array may cross on
+        a quantized wire (:mod:`~heat_tpu_torch.core.wire`), as in the JAX
+        package."""
+        return self._resplit_(axis, exact=False)
+
+    def _resplit_(self, axis: Optional[int], exact: bool) -> "DNDarray":
+        """:meth:`resplit_`; ``exact=True`` pins the f32 wire (the port's
+        library callers whose JAX counterpart moves bit for bit)."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
         if transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
             # the old shards are dropped below: the port's donation
             memtrack.tag_shards(self.__shards, "donated")
-            shards = transport.tiled_resplit(self.__shards, self.__gshape, self.__split, axis, self.__comm)
+            shards = transport.tiled_resplit(self.__shards, self.__gshape, self.__split, axis, self.__comm,
+                                             exact=exact)
         else:
             shards = _shard(self.larray, axis, self.__comm)
         self.__shards = shards
@@ -503,10 +511,14 @@ class DNDarray:
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """A copy of this array split along ``axis``."""
+        return self._resplit(axis, exact=False)
+
+    def _resplit(self, axis: Optional[int], exact: bool) -> "DNDarray":
+        """:meth:`resplit`; ``exact`` as in :meth:`_resplit_`."""
         out = DNDarray(
             self.__shards, self.__gshape, self.__dtype, self.__split, self.__device, self.__comm
         )
-        return out.resplit_(axis)
+        return out._resplit_(axis, exact)
 
     # ------------------------------------------------------------- indexing
     def __len__(self) -> int:
@@ -1423,7 +1435,7 @@ def _value_source(value, full_shape, full_labels, core_labels, dim_label, flips,
         vd = target - (nd - value.ndim) if target is not None else -1
         if merge <= 1 and 0 <= vd < value.ndim and value.shape[vd] == full_shape[target]:
             if value.split != vd:
-                value = value.resplit(vd)
+                value = value._resplit(vd, exact=True)
             shards = [to_core(sh, sh.shape[vd], flip_dim=False) for sh in value.shards]
             return transport.RowSource(core_labels.index(dim_label), full_shape[target], shards=shards,
                                        reverse=dim_label in flips)

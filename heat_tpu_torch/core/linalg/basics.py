@@ -108,7 +108,13 @@ def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
 
 def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     """Matrix product (heat_tpu/core/linalg/basics.py:50).
-    ``allow_resplit`` is accepted for parity; operands are never resplit."""
+    ``allow_resplit`` is accepted for parity; operands are never resplit.
+    A quantized right operand (``quantize.quantize_weights``) takes
+    :func:`~heat_tpu_torch.core.quantize.matmul_quantized`."""
+    from .. import quantize
+
+    if isinstance(b, quantize.QuantizedDNDarray):
+        return quantize.matmul_quantized(a, b)
     sanitation.sanitize_in(a)
     sanitation.sanitize_in(b)
     if a.ndim == 0 or b.ndim == 0:
@@ -262,7 +268,7 @@ def _into(out: Optional[DNDarray], ret: DNDarray) -> DNDarray:
     if out is None:
         return ret
     if ret.split != out.split:
-        ret = ret.resplit(out.split)
+        ret = ret._resplit(out.split, exact=True)
     return sanitation.sanitize_out(out, ret)
 
 

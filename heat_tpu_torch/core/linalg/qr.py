@@ -27,7 +27,7 @@ import collections
 
 import torch
 
-from .. import sanitation, telemetry, types
+from .. import autotune, sanitation, telemetry, types
 from ..dndarray import DNDarray, _wrap
 from ...ops import qr_panel
 from ...parallel import collectives
@@ -129,7 +129,7 @@ def _cholesky_qr2(arr: torch.Tensor, calc_q: bool = True, mixed: bool = False):
     return q, r2 @ r1
 
 
-def _blocked_qr(arr: torch.Tensor, mixed: bool = False, calc_q: bool = True):
+def _blocked_qr(arr: torch.Tensor, calc_q: bool = True, mixed: bool = False):
     """Blocked BCGS2 over CholeskyQR2 leaves (heat_tpu/core/linalg/qr.py:211)."""
     m, n = arr.shape
     if m >= 2 * n:
@@ -191,10 +191,20 @@ def qr(
     q = r = None
     if m >= n >= 2 and arr.is_floating_point():
         mixed = precision == "mixed"
-        if m >= 2 * n:
-            q, r = _cholesky_qr2(arr, calc_q=calc_q, mixed=mixed)
+        fact = _cholesky_qr2 if m >= 2 * n else _blocked_qr
+        if arr.dtype == torch.float32 and autotune.site_tunes(arr):
+            # K4's one-arm row under heat_tpu's key (qr.py:349-365): the
+            # kernel launches whatever the table holds
+            dt = autotune.dtype_name(arr.dtype)
+            fp_k = telemetry.fingerprint(("qr_panel_fused", m, n, dt, calc_q))
+            telemetry.ensure_program(fp_k, kind="kernel_qr_panel", ops=1, flops=4.0 * m * n * n,
+                                     hbm_bytes=3.0 * m * n * arr.element_size(), mesh={"devices": a.comm.size},
+                                     dtype=dt)
+            key = autotune.kernel_key("qr_panel", m, n, dt, calc_q, a.comm.size)
+            q, r = autotune.kernel_site(key, f"qr {m}x{n} {dt}", fact, arr, calc_q, mixed, fp=fp_k,
+                                        device=arr.device)
         else:
-            q, r = _blocked_qr(arr, mixed=mixed, calc_q=calc_q)
+            q, r = fact(arr, calc_q, mixed)
         # "eager": one read of a flag per call; a failed Cholesky has
         # NaN-latched R, and the call falls back to Householder
         if check == "eager" and not bool(torch.isfinite(r).all()):

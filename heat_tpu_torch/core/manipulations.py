@@ -663,7 +663,7 @@ def _first(arrays: Sequence, fname: str) -> DNDarray:
 
 
 def _with_split(x: DNDarray, split) -> DNDarray:
-    return x if x.split == split else x.resplit_(split)
+    return x if x.split == split else x._resplit_(split, exact=True)
 
 
 def stack(arrays: Sequence[DNDarray], axis: int = 0, out=None) -> DNDarray:

@@ -177,7 +177,7 @@ def _keep_split(result: DNDarray, x: DNDarray, axes, keepdims: bool) -> DNDarray
     if x.split is None or x.split in axes:
         return result
     split = x.split if keepdims else x.split - sum(a < x.split for a in axes)
-    return result if result.split == split else result.resplit(split)
+    return result if result.split == split else result._resplit(split, exact=True)
 
 
 def _var(x: DNDarray, axis, ddof: int, keepdims: bool) -> DNDarray:

@@ -353,6 +353,37 @@ def _mem_prom_lines(lines: List[str]) -> None:
             lines.append(f'{name}{{dtype="{_label_escape(dt)}"}} {val}')
 
 
+def _wire_prom_lines(lines: List[str]) -> None:
+    """Labeled per-program wire gauges for the ledger entries that ship a
+    quantized wire format: the f32 bytes the program would have moved
+    (``heat_tpu_wire_program_logical_bytes``), what its format moved
+    (``heat_tpu_wire_program_bytes``) and their ratio, keyed by
+    ``{fingerprint=...,arm=...}``."""
+    rows = [e for e in programs() if e.get("wire") and isinstance(e.get("wire_bytes"), (int, float))]
+    if not rows:
+        return
+    for field, metric, help_ in (
+        ("logical_bytes", "heat_tpu_wire_program_logical_bytes",
+         "f32 bytes the program's collective would move uncompressed"),
+        ("wire_bytes", "heat_tpu_wire_program_bytes", "bytes the program's quantized wire format moves"),
+    ):
+        lines.append(f"# HELP {metric} heat_tpu telemetry gauge {help_}")
+        lines.append(f"# TYPE {metric} gauge")
+        for e in rows:
+            labels = f'fingerprint="{_label_escape(e["fingerprint"])}",arm="{_label_escape(e["wire"])}"'
+            lines.append(f"{metric}{{{labels}}} {float(e.get(field) or 0.0)}")
+    metric = "heat_tpu_wire_program_ratio"
+    lines.append(f"# HELP {metric} heat_tpu telemetry gauge logical/wire byte compression ratio")
+    lines.append(f"# TYPE {metric} gauge")
+    for e in rows:
+        wb = float(e.get("wire_bytes") or 0.0)
+        lb = float(e.get("logical_bytes") or 0.0)
+        if wb <= 0.0:
+            continue
+        labels = f'fingerprint="{_label_escape(e["fingerprint"])}",arm="{_label_escape(e["wire"])}"'
+        lines.append(f"{metric}{{{labels}}} {round(lb / wb, 4)}")
+
+
 def export_prometheus() -> str:
     """Text exposition format (``# HELP`` + ``# TYPE gauge`` + one value
     line per numeric leaf): every registered group flattened as
@@ -360,9 +391,9 @@ def export_prometheus() -> str:
     counter names escaped to ``_``; the ``# HELP`` line keeps the
     original dotted path), plus labeled per-program
     ``heat_tpu_program_*`` gauges for the measured roofline rows and the
-    ``heat_tpu_mem_*`` residency gauges (heat_tpu's per-program wire
-    gauges come with the port of ``core/wire.py``).  Non-numeric fields
-    are skipped."""
+    ``heat_tpu_mem_*`` residency gauges and the per-program
+    ``heat_tpu_wire_program_*`` gauges.  Non-numeric fields are
+    skipped."""
     lines: List[str] = []
     for name in _GROUPS:
         _prom_lines(
@@ -371,6 +402,7 @@ def export_prometheus() -> str:
         )
     _program_prom_lines(lines)
     _mem_prom_lines(lines)
+    _wire_prom_lines(lines)
     return "\n".join(lines) + "\n"
 
 
@@ -941,8 +973,10 @@ def _unported(plane: str) -> NotImplementedError:
 
 
 def autotune_report(top: Optional[int] = None) -> dict:
-    """heat_tpu's tuning-plane table; the port has no autotune plane yet."""
-    raise _unported("autotune")
+    """The tuning table (:func:`heat_tpu_torch.core.autotune.report`)."""
+    from . import autotune
+
+    return autotune.report(top=top)
 
 
 def serving_report() -> dict:

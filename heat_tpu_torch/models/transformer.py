@@ -41,6 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.devices import Device, sanitize_device
+from ..core.quantize import quantize_tensor
+from ..core.wire import qdtype
 from ..ops.attention import flash_attention
 from ..parallel.expert import moe_ffn
 from ..parallel.sequence import sequence_parallel_attention
@@ -132,8 +134,10 @@ class MoEMlp(nn.Module):
     (E, D, hidden) and ``w_out`` (E, hidden, D), LeCun-normal with flax's
     fan-in (the product of every axis but the last).  After each forward
     ``aux_loss`` holds the router's load-balancing loss and ``aux`` the
-    whole aux dict (with ``fraction_dropped``).  ``quantize`` ("int8",
-    "fp8") waits for the port of ``core/quantize.py``."""
+    whole aux dict (with ``fraction_dropped``).  ``quantize`` ("int8" or
+    "fp8") quantizes ``w_in``/``w_out`` per (expert, out-channel) at each
+    call (``quantize_tensor(w, axis=(0, 2))``, heat_tpu :98-103) before the
+    FFN, whose ``("bf16", "int8")`` arms the tuning plane dispatches."""
 
     def __init__(
         self,
@@ -151,9 +155,8 @@ class MoEMlp(nn.Module):
     ):
         super().__init__()
         if quantize is not None:
-            raise NotImplementedError(
-                f"MoEMlp(quantize={quantize!r}) needs core/quantize.py, which is not ported yet: ROADMAP item 13"
-            )
+            qdtype(quantize)
+        self.quantize = quantize
         self.num_experts, self.hidden, self.k = num_experts, hidden, k
         self.capacity_factor, self.ep_mesh, self.ep_axis = capacity_factor, ep_mesh, ep_axis
         dev = _torch_device(device)
@@ -167,8 +170,12 @@ class MoEMlp(nn.Module):
         self.aux_loss = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w_in, w_out = self.w_in, self.w_out
+        if self.quantize is not None:
+            w_in = quantize_tensor(w_in, self.quantize, axis=(0, 2))
+            w_out = quantize_tensor(w_out, self.quantize, axis=(0, 2))
         y, aux = moe_ffn(
-            x, self.gate, self.w_in, self.w_out, k=self.k, capacity_factor=self.capacity_factor,
+            x, self.gate, w_in, w_out, k=self.k, capacity_factor=self.capacity_factor,
             mesh=self.ep_mesh, axis=self.ep_axis,
         )
         self.aux, self.aux_loss = aux, aux["load_balance_loss"]
@@ -192,6 +199,7 @@ class TransformerBlock(nn.Module):
         moe_capacity_factor: float = 2.0,
         ep_mesh=None,
         ep_axis: str = "ep",
+        moe_quantize: Optional[str] = None,
         *,
         dim: Optional[int] = None,
         device=None,
@@ -208,8 +216,8 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, device=dev)
         self.moe = None
         if moe_experts:
-            self.moe = MoEMlp(moe_experts, hidden, moe_k, moe_capacity_factor, ep_mesh, ep_axis, dim=dim,
-                              device=dev, generator=generator)
+            self.moe = MoEMlp(moe_experts, hidden, moe_k, moe_capacity_factor, ep_mesh, ep_axis, moe_quantize,
+                              dim=dim, device=dev, generator=generator)
         else:
             self.mlp_in = nn.Parameter(torch.empty(dim, hidden, device=dev))
             self.mlp_out = nn.Parameter(torch.empty(hidden, dim, device=dev))
@@ -233,7 +241,9 @@ class TransformerLM(nn.Module):
     gradients are being recorded, trading recomputation for memory as
     ``nn.remat`` does.  ``device`` defaults to the card.  With
     ``moe_experts > 0``, :meth:`moe_aux_losses` returns the routers'
-    load-balancing losses of the last forward."""
+    load-balancing losses of the last forward, and ``moe_quantize``
+    ("int8" or "fp8") is each :class:`MoEMlp`'s ``quantize`` (heat_tpu's
+    model has no such field: there only ``MoEMlp`` takes it)."""
 
     def __init__(
         self,
@@ -252,6 +262,7 @@ class TransformerLM(nn.Module):
         ep_mesh=None,
         ep_axis: str = "ep",
         remat: bool = False,
+        moe_quantize: Optional[str] = None,
         *,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -270,7 +281,7 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(
                 num_heads, head_dim, mlp_ratio, attention, sp_mesh, sp_axis, moe_experts, moe_k,
-                moe_capacity_factor, ep_mesh, ep_axis, device=dev, generator=generator,
+                moe_capacity_factor, ep_mesh, ep_axis, moe_quantize, device=dev, generator=generator,
             )
             for _ in range(num_layers)
         )

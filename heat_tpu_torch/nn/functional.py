@@ -11,9 +11,13 @@ def linear(input, weight, bias=None):
     """``input @ weight.T + bias`` (torch's ``F.linear`` convention:
     ``weight`` is (out_features, in_features)) through the port's
     ``matmul`` and ``transpose``, so DNDarray operands keep their split
-    rules."""
+    rules.  A quantized weight (``quantize.quantize_weights``) takes
+    :func:`~heat_tpu_torch.core.quantize.linear`."""
+    from ..core import quantize
     from ..core.linalg import basics
 
+    if isinstance(weight, quantize.QuantizedDNDarray):
+        return quantize.linear(input, weight, bias)
     out = basics.matmul(input, basics.transpose(weight))
     if bias is not None:
         out = out + bias

@@ -111,10 +111,21 @@ def _dispatch(x: torch.Tensor, gate_w: torch.Tensor, k: int, capacity: int):
     return slots[:n_slots].reshape(num_experts, capacity, d), dest, top_w, aux
 
 
-def _experts(inputs: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor, activation: Callable) -> torch.Tensor:
+def _experts(inputs: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor, activation: Callable,
+             s_in: Optional[torch.Tensor] = None, s_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The resident experts' FFN, one batched product each way
-    (``einsum("ecd,edh->ech")``, ``einsum("ech,ehd->ecd")``)."""
-    return torch.bmm(activation(torch.bmm(inputs, w_in)), w_out)
+    (``einsum("ecd,edh->ech")``, ``einsum("ech,ehd->ecd")``).  With the
+    per-(expert, out-channel) scales ``s_in`` (E, h) and ``s_out`` (E, d),
+    ``w_in``/``w_out`` are int8/fp8 tensors: each product reads them widened
+    to the f32 accumulator, and its scale multiplies the product
+    (heat_tpu/parallel/expert.py:164-170)."""
+    if s_in is None:
+        return torch.bmm(activation(torch.bmm(inputs, w_in)), w_out)
+    comp = torch.promote_types(inputs.dtype, torch.float32)
+    pre = torch.bmm(inputs.to(comp), w_in.to(comp))
+    hidden = activation(pre * s_in[:, None, :].to(comp)).to(inputs.dtype)
+    pre = torch.bmm(hidden.to(comp), w_out.to(comp))
+    return (pre * s_out[:, None, :].to(comp)).to(inputs.dtype)
 
 
 def _combine(outputs: torch.Tensor, dest: torch.Tensor, top_w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -157,8 +168,15 @@ def moe_ffn(
 
     Returns ``(y, aux)``: y shaped like x; aux holds ``load_balance_loss``
     (add ``alpha·loss`` to the objective) and ``fraction_dropped``,
-    averaged over the positions.  Quantized expert weights (heat_tpu's
-    ``QuantizedTensor``) wait for the port of ``core/quantize.py``."""
+    averaged over the positions.
+
+    ``w_in``/``w_out`` may also be a pair of
+    :class:`~heat_tpu_torch.core.quantize.QuantizedTensor`
+    (``quantize_tensor(w, axis=(0, 2))`` or ``quantize_params``): the
+    expert products then read the int8/fp8 tensors with the per-(expert,
+    channel) scales applied after each product, dispatched per geometry
+    over the ``("bf16", "int8")`` autotune arms, an explore call returning
+    the bf16 (dequantized) arm's result."""
     q_in, q_out = _is_quantized(w_in), _is_quantized(w_out)
     if q_in != q_out:
         raise ValueError(
@@ -166,15 +184,50 @@ def moe_ffn(
             f"(got {type(w_in).__name__} / {type(w_out).__name__})"
         )
     if q_in:
-        raise NotImplementedError(
-            "moe_ffn with quantized expert weights needs core/quantize.py, which is not ported yet: ROADMAP item 13"
-        )
-    return _moe_run(x, gate_w, w_in, w_out, k=k, capacity_factor=capacity_factor, activation=activation,
-                    mesh=mesh, axis=axis)
+        return _moe_ffn_quantized(x, gate_w, w_in, w_out, k=k, capacity_factor=capacity_factor,
+                                  activation=activation, mesh=mesh, axis=axis)
+    return _moe_run(x, gate_w, w_in, w_out, None, None, k=k, capacity_factor=capacity_factor,
+                    activation=activation, mesh=mesh, axis=axis)
 
 
-def _moe_run(x, gate_w, w_in, w_out, *, k, capacity_factor, activation, mesh, axis):
-    """The step body behind :func:`moe_ffn` (heat_tpu :248)."""
+def _moe_ffn_quantized(x, gate_w, qw_in, qw_out, *, k, capacity_factor, activation, mesh, axis):
+    """The arm-dispatched quantized MoE FFN (heat_tpu :304): bf16 runs the
+    master-dtype path over both weights dequantized (bitwise the
+    unquantized flow over the same values), int8 the expert products over
+    the low-precision tensors.  Under autograd (grad mode and an input that
+    requires grad) the bf16 arm runs untimed, with no table write."""
+    from ..core import autotune, quantize as _quantize
+
+    for name, qt in (("w_in", qw_in), ("w_out", qw_out)):
+        if qt.axes != (0, 2):
+            raise ValueError(
+                f"moe_ffn: quantized {name} needs per-(expert, out-channel) scales — quantize with axis=(0, 2), "
+                f"got axes {qt.axes}"
+            )
+
+    def _bf16():
+        return _moe_run(x, gate_w, _quantize.dequantize_tensor(qw_in), _quantize.dequantize_tensor(qw_out), None,
+                        None, k=k, capacity_factor=capacity_factor, activation=activation, mesh=mesh, axis=axis)
+
+    def _int8():
+        return _moe_run(x, gate_w, qw_in.q, qw_out.q, qw_in.scale, qw_out.scale, k=k,
+                        capacity_factor=capacity_factor, activation=activation, mesh=mesh, axis=axis)
+
+    if _quantize.declines_to_reference(x, gate_w):
+        return _bf16()
+    tokens = math.prod(x.shape[:-1])
+    d = x.shape[-1]
+    n = 1 if mesh is None else mesh.size
+    geometry = (tokens, d, qw_in.shape[2], gate_w.shape[1], n, k, autotune.dtype_name(qw_in.q.dtype))
+    return _quantize.tuned_arm(
+        "moe_ffn", geometry, _bf16, _int8,
+        desc=f"moe_ffn t={tokens} d={d} h={qw_in.shape[2]} E={gate_w.shape[1]} S={n}",
+    )
+
+
+def _moe_run(x, gate_w, w_in, w_out, s_in, s_out, *, k, capacity_factor, activation, mesh, axis):
+    """The step body behind :func:`moe_ffn` (heat_tpu :248); ``s_in`` and
+    ``s_out`` as in :func:`_experts`."""
     orig_shape = x.shape
     d = orig_shape[-1]
     x2 = x.reshape(-1, d)
@@ -184,7 +237,7 @@ def _moe_run(x, gate_w, w_in, w_out, *, k, capacity_factor, activation, mesh, ax
     if mesh is None:
         cap = expert_capacity(tokens, num_experts, k, capacity_factor)
         slots, dest, top_w, aux = _dispatch(x2, gate_w, k, cap)
-        y = _combine(_experts(slots, w_in, w_out, activation), dest, top_w, x.dtype)
+        y = _combine(_experts(slots, w_in, w_out, activation, s_in, s_out), dest, top_w, x.dtype)
         return y.reshape(orig_shape), aux
 
     n = mesh.size
@@ -197,8 +250,11 @@ def _moe_run(x, gate_w, w_in, w_out, *, k, capacity_factor, activation, mesh, ax
     # (E, C, d) per position -> (E/N, N·C, d): every shard's tokens for the
     # resident experts
     inputs = all_to_all([r[0] for r in routed], split_axis=0, concat_axis=1)
+    # the scales shard with their experts, as the weights do
+    scales = zip(s_in.chunk(n), s_out.chunk(n)) if s_in is not None else [(None, None)] * n
     outputs = [
-        _experts(inp, wi, wo, activation) for inp, wi, wo in zip(inputs, w_in.chunk(n), w_out.chunk(n))
+        _experts(inp, wi, wo, activation, si, so)
+        for inp, wi, wo, (si, so) in zip(inputs, w_in.chunk(n), w_out.chunk(n), scales)
     ]
     # inverse exchange: (E/N, N·C, d) -> (E, C, d), back token-resident
     outputs = all_to_all(outputs, split_axis=1, concat_axis=0)

@@ -44,23 +44,44 @@ K7's bytes, the other moves no work count), with its output shards
 ledgered as ``output`` (:mod:`~heat_tpu_torch.core.memtrack`).  The
 ``transport`` counter group keeps heat_tpu's keys.
 
-Not ported (ROADMAP queue 1, item 13): the wire formats, the autotune arms,
-the OOM back-off (its counters stay at their defaults), fused split tails,
-and ``tile_plan``/``TILE_BYTES``: under one controller on one card nothing
-is staged, and tiling returns with several processes (item 14).
+Wire formats (:mod:`~heat_tpu_torch.core.wire`): a resplit and a
+split-crossing reshape of a floating payload of ``HEAT_TPU_WIRE_MIN_BYTES``
+or more consult the wire arms (``wire.eligible``/``choose``/``explore``/
+``account``), as heat_tpu's engine does.  A quantized resplit encodes each
+row of each column tile of each (source, destination) block with one scale
+(heat_tpu's ``(pa, S)`` rows of a tile, :506-526) and decodes it on
+landing; a quantized rechunk encodes each chunk of each shifted segment with
+one scalar scale (:1128-1137) and K7 writes the destination from the
+decoded segments; the unshifted segments stay exact.  The values of a lossy
+wire depend on where the blocks are cut, so the grain is heat_tpu's:
+:func:`tile_plan` over ``TILE_BYTES`` (``HEAT_TPU_TILE_BYTES``, 8 MiB) for
+a resplit's column tiles, ``TILE_BYTES`` over the item size for a rechunk's
+chunk, a pure function of shape and budget (nothing is staged).  A device
+that reports its memory may shrink the budget from its free bytes
+(``memtrack.suggest_budget``), as in heat_tpu.  ``exact=True`` pins the
+f32 wire.  A take never quantizes (``wire.decline("take")``).  On a CUDA
+tensor with the tuning plane on, the rechunk keeps K7's one-arm row under
+heat_tpu's ``reshape_repack`` key (``autotune.kernel_site``).
+
+Not ported (ROADMAP queue 1, item 13): the OOM back-off (its counters stay
+at their defaults) and the fused split tails.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core import guard, memtrack, telemetry
+from ..analysis import sanitize
+from ..core import autotune, guard, memtrack, telemetry
+from ..core import wire as _wire
 from ..ops import repack as _repack
 
 __all__ = [
+    "TILE_BYTES",
+    "TILE_FLOOR_BYTES",
     "RowSource",
     "rechunk_plan",
     "rechunk_rows",
@@ -69,6 +90,7 @@ __all__ = [
     "tiled_reshape",
     "tiled_resplit",
     "tiled_take",
+    "tile_plan",
 ]
 
 # Beyond this many distinct ring shifts the rechunk degenerates toward a
@@ -78,6 +100,42 @@ _MAX_SHIFTS = 4
 
 # bytes of rows a take gathers at a time into a destination shard
 _TAKE_BYTES = 64 << 20
+
+# the staging budget of a tile (heat_tpu/parallel/transport.py:93-110):
+# it sets where a lossy wire cuts its blocks
+TILE_BYTES = autotune.env_bytes("HEAT_TPU_TILE_BYTES", 8 << 20)
+# the smallest budget a memory-seeded plan may give
+TILE_FLOOR_BYTES = 64 << 10
+# the fraction of measured free memory a seeded tile may claim
+_FREE_TILE_FRACTION = 0.25
+
+
+def tile_plan(n_units, unit_bytes, tile_bytes=None) -> Tuple[int, int]:
+    """Cut ``n_units`` units of ``unit_bytes`` each into even tiles within
+    the budget (heat_tpu/parallel/transport.py:301): ``(units_per_tile,
+    n_tiles)`` with ``units_per_tile * n_tiles >= n_units``."""
+    tb = TILE_BYTES if tile_bytes is None else int(tile_bytes)
+    n_units = max(int(n_units), 1)
+    per = max(1, tb // max(int(unit_bytes), 1))
+    if per >= n_units:
+        return n_units, 1
+    n_tiles = -(-n_units // per)
+    return -(-n_units // n_tiles), n_tiles
+
+
+def _plan_tile_budget(kind: str, tile_bytes=None) -> int:
+    """The tile budget of one transfer (heat_tpu :181): the caller's, else
+    with the tuning plane on a budget seeded from the measured free memory
+    where the device reports it, else ``TILE_BYTES``."""
+    if tile_bytes is not None:
+        return int(tile_bytes)
+    if not autotune.enabled():
+        return TILE_BYTES
+    got = memtrack.suggest_budget(TILE_BYTES, fraction=_FREE_TILE_FRACTION, floor=TILE_FLOOR_BYTES)
+    if got is None or got >= TILE_BYTES:
+        return TILE_BYTES
+    autotune.note_budget_seed("transport." + kind, got, TILE_BYTES)
+    return got
 
 
 def _bounds(n: int, S: int) -> List[Tuple[int, int]]:
@@ -193,57 +251,192 @@ telemetry.register_group(
 )
 
 
-def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, kernel_bytes=None):
+def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, kernel_bytes=None, wire=None,
+            observer=None, chain=True):
     """Run ``fn(*args)`` as the transport program ``kind``: ledgered under
     ``key`` (with K7's bytes where ``kernel_bytes`` is given, else no work
-    count), in a span, between the guard's hooks, its output shards
-    ledgered."""
+    count; a quantized wire ``(mode, logical_bytes, wire_bytes)`` makes it
+    heat_tpu's ``<kind>_wire`` row), in a span, between the guard's hooks,
+    its output shards ledgered.  ``observer`` sees its sampled times.
+    ``chain`` appends the dispatch to the sanitizer's collective chain (a
+    reshape appends its stages itself, in heat_tpu's order)."""
     fp = None
     if telemetry.ledger_enabled():
-        fp = telemetry.fingerprint((kind,) + key + (comm.size, str(like.dtype)))
+        extra = {}
+        name = (kind,) + key + (comm.size, str(like.dtype))
+        if wire is not None:
+            name += (wire[0],)
+            extra = {"wire": wire[0], "logical_bytes": float(wire[1]), "wire_bytes": float(wire[2])}
+        fp = telemetry.fingerprint(name)
         if kernel_bytes is None:
             telemetry.ensure_program(fp, kind=f"transport_{kind}", ops=1, mesh={"devices": comm.size},
-                                     dtype=str(like.dtype))
+                                     dtype=str(like.dtype), **extra)
         else:
             telemetry.ensure_program(fp, kind="kernel_repack", ops=1, flops=0.0, hbm_bytes=float(kernel_bytes),
-                                     mesh={"devices": comm.size}, dtype=str(like.dtype))
+                                     mesh={"devices": comm.size}, dtype=str(like.dtype), **extra)
     with telemetry.span(f"transport.{kind}"):
         guard.fire(f"transport.{kind}")
-        out = telemetry.timed_call(fp, fn, *args, device=like.device)
+        out = telemetry.timed_call(fp, fn, *args, device=like.device, observer=observer)
+    if chain:
+        _link(kind)
     memtrack.register_shards([o for o in out if o is not None], tag="output", split=split)
     return guard.corrupt(f"transport.{kind}", out)
 
 
-def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm) -> List[torch.Tensor]:
+def _link(kind: str) -> None:
+    """One link of the sanitizer's collective chain for a dispatch that
+    moves data between positions (heat_tpu :293): the lockstep fingerprint
+    every rank must share."""
+    sanitize.collective_event(kind, site=f"transport.{kind}")
+
+
+def _wired(site: str, geometry: tuple, desc: str, dtype, logical_bytes: int, wire_bytes, exact: bool, run):
+    """One transfer under its wire decision (heat_tpu :668-706,
+    :1356-1394): ``run(mode, observer)`` with ``mode`` in ``""`` (f32),
+    ``"int8"``, ``"fp8"``.  An explore runs all three and returns the f32
+    result; a quantized arm is accounted, and a table-decided one feeds the
+    degradation watch through ``observer``.  ``wire_bytes(mode)`` is the
+    format's on-wire byte count."""
+    arm, d = "wire_f32", None
+    if logical_bytes and _wire.eligible(dtype, logical_bytes, exact=exact):
+        arm, d = _wire.choose(site, geometry, desc=desc)
+    if d is not None and d.explore:
+        return _wire.explore(d, lambda wm: run(wm, None))
+    if arm == "wire_f32":
+        return run("", None)
+    wm = arm[len("wire_"):]
+    _wire.account(site, arm, logical_bytes, wire_bytes(wm))
+    observer = None if d is None else (lambda dur: autotune.observe(d.key, arm, dur))
+    return run(wm, observer)
+
+
+def _resplit_wire_model(gshape, sa: int, sb: int, S: int, itemsize: int, tile_bytes=None):
+    """(logical bytes, scales) of a resplit's quantized wire (heat_tpu
+    :630-635): every element once, one scale a (row, destination, tile)
+    on each position."""
+    pa = -(-int(gshape[sa]) // S)
+    pb = -(-int(gshape[sb]) // S)
+    rest = math.prod(int(e) for d, e in enumerate(gshape) if d not in (sa, sb))
+    _, n_tiles = tile_plan(pb, pa * S * rest * itemsize, tile_bytes)
+    return math.prod(int(e) for e in gshape) * itemsize, pa * S * n_tiles * S
+
+
+def _resplit_stage(shards, gshape, sa: int, sb: int, comm, exact: bool, tile_bytes, run):
+    """A resplit's wire decision: ``run(mode, observer)`` as in
+    :func:`_wired`, under heat_tpu's ``resplit`` geometry."""
+    gshape_t = tuple(int(d) for d in gshape)
+    S = comm.size
+    dt = shards[0].dtype
+    logical, n_scales = _resplit_wire_model(gshape_t, sa, sb, S, shards[0].element_size(), tile_bytes)
+    nelem = math.prod(gshape_t)
+    return _wired("resplit", (gshape_t, int(sa), int(sb), S, autotune.dtype_name(dt)),
+                  f"resplit {gshape_t} {sa}->{sb} {autotune.dtype_name(dt)} S={S}", dt, logical,
+                  lambda wm: _wire.payload_nbytes(nelem, n_scales, wm), exact, run)
+
+
+def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm, *,
+                  exact: bool = False, tile_bytes=None) -> List[torch.Tensor]:
     """The shards of a ``gshape`` array split along ``sa``, moved to split
     ``sb`` (heat_tpu/parallel/transport.py:574): destination shard d joins,
     along ``sa``, each source shard's view of d's chunk of ``sb``.  The
-    result's shards are new contiguous tensors; the sources are untouched."""
+    result's shards are new contiguous tensors; the sources are untouched.
+    A floating payload may travel on a quantized wire (module docstring);
+    ``exact=True`` pins the f32 wire."""
     if len(shards) != comm.size:
         raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
+    sanitize.check_use(list(shards), "transport.tiled_resplit")
     key = (tuple(int(d) for d in gshape), int(sa), int(sb))
-    return _engine("resplit", key, shards[0], comm, sb, _resplit, shards, gshape, sa, sb, comm)
+
+    def run(wm, observer):
+        wire = None
+        if wm:
+            logical, n_scales = _resplit_wire_model(gshape, sa, sb, comm.size, shards[0].element_size(), tile_bytes)
+            wire = (wm, logical, _wire.payload_nbytes(math.prod(key[0]), n_scales, wm))
+        return _engine("resplit", key, shards[0], comm, sb, _resplit, shards, gshape, sa, sb, comm, wm,
+                       tile_bytes, wire=wire, observer=observer)
+
+    return _resplit_stage(shards, gshape, sa, sb, comm, exact, tile_bytes, run)
 
 
-def _resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm) -> List[torch.Tensor]:
+def _resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm, wm: str = "",
+             tile_bytes=None) -> List[torch.Tensor]:
     """The shards of a ``gshape`` array split along ``sa``, moved to split
-    ``sb`` (heat_tpu/parallel/transport.py:574): destination shard d joins,
-    along ``sa``, each source shard's view of d's chunk of ``sb``.  The
-    result's shards are new contiguous tensors; the sources are untouched."""
-    return [
-        torch.cat([s.narrow(sb, lo, hi - lo) for s in shards], dim=sa)
-        for lo, hi in _bounds(int(gshape[sb]), comm.size)
-    ]
+    ``sb``: destination shard d joins, along ``sa``, each source shard's
+    view of d's chunk of ``sb``, through the wire ``wm`` (``""`` exact)."""
+    bounds = _bounds(int(gshape[sb]), comm.size)
+    if not wm:
+        return [torch.cat([s.narrow(sb, lo, hi - lo) for s in shards], dim=sa) for lo, hi in bounds]
+    S = comm.size
+    pa = -(-int(gshape[sa]) // S)
+    pb = -(-int(gshape[sb]) // S)
+    rest = math.prod(int(e) for d, e in enumerate(gshape) if d not in (sa, sb))
+    tile_cols, n_tiles = tile_plan(pb, pa * S * rest * shards[0].element_size(), _plan_tile_budget("resplit", tile_bytes))
+    return [torch.cat([_wire_block(s.narrow(sb, lo, hi - lo), sa, sb, tile_cols, n_tiles, wm) for s in shards], dim=sa)
+            for lo, hi in bounds]
 
 
-def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, dst_bounds=None, out=None) -> List:
+def _wire_block(blk: torch.Tensor, sa: int, sb: int, tile_cols: int, n_tiles: int, wm: str) -> torch.Tensor:
+    """One (source, destination) block of a resplit through the quantized
+    wire (heat_tpu :506-526): each row along ``sa`` of each tile of
+    ``tile_cols`` columns along ``sb`` (counted from the destination's
+    first column) is encoded with one scale over the tile's columns and
+    every other axis, then decoded.  The zero columns that pad the last
+    tile change no absmax and are cut off again."""
+    if blk.numel() == 0:
+        return blk.clone()
+    v = blk.movedim((sa, sb), (0, 1))
+    rows, cols = v.shape[0], v.shape[1]
+    rest = tuple(v.shape[2:])
+    padded = n_tiles * tile_cols
+    if padded != cols:
+        v = torch.cat([v, v.new_zeros((rows, padded - cols) + rest)], dim=1)
+    v = v.reshape((rows, n_tiles, tile_cols) + rest)
+    q, scale = _wire.absmax_encode(v, wm, (0, 1))
+    out = _wire.absmax_decode(q, scale, (0, 1), blk.dtype).reshape((rows, padded) + rest)[:, :cols]
+    return out.movedim((0, 1), (sa, sb))
+
+
+def _wire_segment(src: torch.Tensor, off: int, length: int, ch: int, wm: str) -> torch.Tensor:
+    """One shifted segment of a rechunk through the quantized wire (heat_tpu
+    :1128-1137): cut into chunks of ``ch`` elements from its start, each
+    encoded with one scalar scale over the whole chunk (past the segment's
+    end the chunk reads the source's next elements, and zeros past the
+    source's end), then decoded; the segment's ``length`` elements."""
+    n_ch = -(-length // ch)
+    blk = src[off : off + n_ch * ch]
+    if blk.numel() < n_ch * ch:
+        blk = torch.cat([blk, blk.new_zeros(n_ch * ch - blk.numel())])
+    q, scale = _wire.absmax_encode(blk.reshape(n_ch, ch), wm, (0,))
+    return _wire.absmax_decode(q, scale, (0,), src.dtype).reshape(-1)[:length]
+
+
+def _rechunk_wire_model(plan, S: int, itemsize: int):
+    """(elements, scales) a quantized rechunk ships (heat_tpu :1324-1338):
+    per nonzero shift, each position sends its chunks, the last one whole,
+    one scale a chunk."""
+    chunk = max(1, TILE_BYTES // itemsize)
+    elems = scales = 0
+    for s, _, _, lens in plan:
+        if s % S == 0:
+            continue
+        ch = min(chunk, max(lens))
+        n_ch = -(-max(lens) // ch)
+        elems += S * n_ch * ch
+        scales += S * n_ch
+    return elems, scales
+
+
+def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, dst_bounds=None, out=None, wm: str = "",
+             chunk: int = 0) -> List:
     """Split-0 shards of ``gout`` from the flat split-0 source shards
     ``flat`` following ``plan``: one K7 call per destination with rows, or
     one per :data:`~heat_tpu_torch.ops.repack.MAX_SEGMENTS` segments where
     more source chunks cover it.  ``dst_bounds`` as in :func:`rechunk_plan`;
     ``out``, one contiguous tensor (or ``None``) per destination, is
     written in place of a new one.  A destination without rows gets an
-    empty tensor, or ``None`` when ``out`` is given."""
+    empty tensor, or ``None`` when ``out`` is given.  With a wire mode
+    ``wm``, every shifted segment arrives through :func:`_wire_segment` in
+    chunks of ``min(chunk, the shift's longest segment)`` elements."""
     S = comm.size
     res = []
     bounds = _bounds(gout[0], S) if dst_bounds is None else dst_bounds
@@ -256,10 +449,14 @@ def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, ds
         for s, src_off, dst_off, lens in plan:
             r = (d - s) % S
             if lens[r]:
-                segs.append((dst_off[r], r, src_off[r], lens[r]))
-        segs.sort()
+                if wm and s % S != 0:
+                    seg = _wire_segment(flat[r], src_off[r], lens[r], min(chunk, max(lens)), wm)
+                    segs.append((dst_off[r], r, seg, 0, lens[r]))
+                else:
+                    segs.append((dst_off[r], r, flat[r], src_off[r], lens[r]))
+        segs.sort(key=lambda e: (e[0], e[1]))
         at = 0
-        for dst, _, _, length in segs:
+        for dst, *_, length in segs:
             if dst != at:
                 raise AssertionError(f"rechunk plan leaves a gap or overlap at element {at} of destination {d}")
             at += length
@@ -267,7 +464,7 @@ def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, ds
             raise AssertionError(f"rechunk plan covers {at} of destination {d}'s {math.prod(shape)} elements")
         dest = out[d] if out is not None and out[d] is not None else None
         if len(segs) <= _repack.MAX_SEGMENTS:
-            res.append(_repack.repack_segments([(flat[r], so, ln) for _, r, so, ln in segs], shape, out=dest))
+            res.append(_repack.repack_segments([(t, so, ln) for _, _, t, so, ln in segs], shape, out=dest))
             continue
         if dest is None:
             dest = flat[0].new_empty(shape)
@@ -275,7 +472,7 @@ def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, ds
         for i in range(0, len(segs), _repack.MAX_SEGMENTS):
             group = segs[i : i + _repack.MAX_SEGMENTS]
             n = sum(length for *_, length in group)
-            _repack.repack_segments([(flat[r], so, ln) for _, r, so, ln in group], (n,), out=whole.narrow(0, group[0][0], n))
+            _repack.repack_segments([(t, so, ln) for _, _, t, so, ln in group], (n,), out=whole.narrow(0, group[0][0], n))
         res.append(dest)
     return res
 
@@ -307,20 +504,58 @@ def _rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) ->
 
 
 def tiled_reshape(
-    shards: Sequence[torch.Tensor], gin: Sequence[int], si: int, gout: Sequence[int], so: int, comm
+    shards: Sequence[torch.Tensor], gin: Sequence[int], si: int, gout: Sequence[int], so: int, comm, *,
+    exact: bool = False, tile_bytes=None,
 ) -> List[torch.Tensor]:
     """The shards of the reshape of a ``gin`` array split along ``si`` to
     ``gout`` split along ``so`` (heat_tpu/parallel/transport.py:1224).
-    Callers check :func:`reshape_applicable` first."""
+    Callers check :func:`reshape_applicable` first.  Each stage of a
+    split-crossing reshape (resplit to split 0, rechunk, resplit to ``so``)
+    takes its own wire decision; ``exact=True`` pins the f32 wire on every
+    stage."""
     gin = tuple(int(d) for d in gin)
     gout = tuple(int(d) for d in gout)
+    sanitize.check_use(list(shards), "transport.tiled_reshape")
     crossing = not (_prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so])
     nbytes = math.prod(gin) * shards[0].element_size()
     return _engine("reshape", (gin, int(si), gout, int(so)), shards[0], comm, so, _reshape, shards, gin, si, gout,
-                   so, comm, kernel_bytes=2 * nbytes if crossing else None)
+                   so, comm, exact, tile_bytes, kernel_bytes=2 * nbytes if crossing else None, chain=False)
 
 
-def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm) -> List[torch.Tensor]:
+def _resplit_inner(shards, gshape, sa: int, sb: int, comm, exact: bool, tile_bytes):
+    """A resplit stage inside a reshape, under its own wire decision; a
+    quantized arm is timed as heat_tpu's ``resplit_wire`` row."""
+    gshape_t = tuple(int(d) for d in gshape)
+
+    def run(wm, observer):
+        _link("resplit")
+        if not wm:
+            return _resplit(shards, gshape_t, sa, sb, comm)
+        fp = _wire_row("resplit", (gshape_t, int(sa), int(sb)), shards[0], comm, wm,
+                       *_resplit_wire_model(gshape_t, sa, sb, comm.size, shards[0].element_size(), tile_bytes))
+        return telemetry.timed_call(fp, _resplit, shards, gshape_t, sa, sb, comm, wm, tile_bytes, observer=observer,
+                                    device=shards[0].device)
+
+    return _resplit_stage(shards, gshape_t, sa, sb, comm, exact, tile_bytes, run)
+
+
+def _wire_row(kind: str, key: tuple, like: torch.Tensor, comm, wm: str, logical: int, n_scales: int,
+              n_elems: Optional[int] = None):
+    """heat_tpu's ``<kind>_wire`` ledger row of one quantized stage, with
+    its logical and on-wire bytes (the Prometheus wire gauges read them)."""
+    if not telemetry.ledger_enabled():
+        return None
+    if n_elems is None:
+        n_elems = logical // like.element_size()
+    fp = telemetry.fingerprint((kind + "_wire",) + key + (comm.size, str(like.dtype), wm))
+    telemetry.ensure_program(fp, kind=f"transport_{kind}", ops=1, mesh={"devices": comm.size},
+                             dtype=str(like.dtype), wire=wm, logical_bytes=float(logical),
+                             wire_bytes=float(_wire.payload_nbytes(n_elems, n_scales, wm)))
+    return fp
+
+
+def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm, exact: bool = False,
+             tile_bytes=None) -> List[torch.Tensor]:
     S = comm.size
     if _prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so]:
         # split-preserving: chunk boundaries never crossed, each position
@@ -332,7 +567,7 @@ def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm) 
             out.append(s.reshape(local))
         return out
     if si != 0:
-        shards = _resplit(shards, gin, si, 0, comm)
+        shards = _resplit_inner(shards, gin, si, 0, comm, exact, tile_bytes)
     rowsz_in = _prefix_prod(gin, len(gin)) // gin[0]
     rowsz_out = _prefix_prod(gout, len(gout)) // gout[0]
     plan = rechunk_plan(gin[0], rowsz_in, gout[0], rowsz_out, S)
@@ -342,10 +577,35 @@ def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm) 
     # (a view a caller built) is copied here, explicitly
     flat = [s.contiguous().view(-1) for s in shards]
     del shards
-    out = _rechunk(flat, plan, gout, comm)
+    like = flat[0]
+    itemsize = like.element_size()
+    chunk = max(1, _plan_tile_budget("reshape", tile_bytes) // itemsize)
+    elems, scales = _rechunk_wire_model(plan, S, itemsize)
+    dt = autotune.dtype_name(like.dtype)
+
+    def run(wm, observer):
+        _link("reshape")
+        if wm:
+            fp = _wire_row("reshape", (gin, int(si), gout, int(so)), like, comm, wm, elems * itemsize, scales, elems)
+            return telemetry.timed_call(fp, _rechunk, flat, plan, gout, comm, None, None, wm, chunk,
+                                        observer=observer, device=like.device)
+        if autotune.site_tunes(like):
+            # K7's one-arm row under heat_tpu's key (transport.py:1396-1434)
+            key = autotune.kernel_key("reshape_repack", gin, int(si), gout, int(so), S, dt)
+            fp_k = None
+            if telemetry.ledger_enabled():
+                fp_k = telemetry.fingerprint(("reshape_repack", gin, int(si), gout, int(so), S, dt))
+                telemetry.ensure_program(fp_k, kind="kernel_repack", ops=1, flops=0.0,
+                                         hbm_bytes=2.0 * math.prod(gin) * itemsize, mesh={"devices": S}, dtype=dt)
+            return autotune.kernel_site(key, f"reshape {gin}->{gout} minor={gout[-1]}", _rechunk, flat, plan, gout,
+                                        comm, fp=fp_k, device=like.device)
+        return _rechunk(flat, plan, gout, comm)
+
+    out = _wired("rechunk", (gin, gout, S, dt), f"rechunk {gin}->{gout} {dt} S={S}", like.dtype, elems * itemsize,
+                 lambda wm: _wire.payload_nbytes(elems, scales, wm), exact, run)
     del flat
     if so != 0:
-        out = _resplit(out, gout, 0, so, comm)
+        out = _resplit_inner(out, gout, 0, so, comm, exact, tile_bytes)
     return out
 
 
@@ -361,6 +621,7 @@ def tiled_take(
     copies them into place, so every output row moves once, at most
     ``_TAKE_BYTES`` of them at a time beside the output.  The host reads
     one (destination, owner) table of row counts per call."""
+    _wire.decline("take")
     key = (tuple(shards[0].shape), int(rows.numel()), int(n), int(split))
     return _engine("take", key, shards[0], comm, split, _take, shards, rows, n, split, comm)
 

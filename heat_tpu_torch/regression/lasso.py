@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..core import _operations, sanitation, telemetry, types
+from ..core import _operations, autotune, sanitation, telemetry, types
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray, _wrap
 from ..ops import lasso_sweep
@@ -124,7 +124,20 @@ class Lasso(RegressionMixin, BaseEstimator):
         yv = y.larray.reshape(-1).to(device=X.device, dtype=X.dtype).contiguous()
         xt = _augmented_t(X)
         theta0 = torch.zeros(xt.shape[0], dtype=X.dtype, device=X.device)
-        theta, _, n_iter = _cd_fit(xt, yv, theta0, self.__lam, self.max_iter, self.tol)
+        na, ma = xt.shape
+        if xt.dtype == torch.float32 and na >= 2 and autotune.site_tunes(xt):
+            # K5's one-arm row under heat_tpu's key (lasso.py:169-184): the
+            # kernel sweeps whatever the table holds
+            dt = autotune.dtype_name(xt.dtype)
+            fp_k = telemetry.fingerprint(("lasso_sweep_fused", ma, na, dt))
+            telemetry.ensure_program(fp_k, kind="kernel_lasso_sweep", ops=1, flops=4.0 * ma * na,
+                                     hbm_bytes=float(ma * na * xt.element_size()),
+                                     mesh={"devices": x.comm.size}, dtype=dt)
+            key = autotune.kernel_key("lasso_sweep", ma, na, dt, x.comm.size)
+            theta, _, n_iter = autotune.kernel_site(key, f"lasso {ma}x{na} {dt}", _cd_fit, xt, yv, theta0,
+                                                    self.__lam, self.max_iter, self.tol, fp=fp_k, device=xt.device)
+        else:
+            theta, _, n_iter = _cd_fit(xt, yv, theta0, self.__lam, self.max_iter, self.tol)
         self.n_iter = n_iter
         self._set_theta(theta, x)
         return self

@@ -19,8 +19,11 @@ triple on the matrix's device at first use, cached on the matrix and
 ledgered as ``staging`` (:mod:`~heat_tpu_torch.core.memtrack`).  Each
 product is a ledger entry (:mod:`~heat_tpu_torch.core.telemetry`): the
 kernel path's with K6's work count, the gather's without one.
-The JAX package's autotune (dense/gather/kernel arms, the
-``HEAT_TPU_SPMV`` override) is not ported: the kernel is the one f32 path.
+On a CUDA tensor with the tuning plane on, the kernel path keeps a one-arm
+``("kernel",)`` row under the JAX package's ``spmv_csr`` key: K6 launches
+whatever the table holds.  The JAX package's dense/gather/kernel arms and
+its ``HEAT_TPU_SPMV`` route switch are not ported, by design: the kernel is
+the one f32 path.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import memtrack, sanitation, telemetry, types
+from ..core import autotune, memtrack, sanitation, telemetry, types
 from ..core.dndarray import DNDarray
 from ..ops import spmv as _k6
 from ._operations import _expand_rows
@@ -47,6 +50,20 @@ def _panels(A: DCSR_matrix) -> List[_k6.Panels]:
         for panels in A._spmv_panels:
             memtrack.register_shards([panels.vals, panels.cols, panels.off], tag="staging", split=A.split)
     return A._spmv_panels
+
+
+def _geometry(A: DCSR_matrix) -> dict:
+    """heat_tpu's spelling of the matrix's sparsity geometry for the tuning
+    key (heat_tpu/sparse/matmul.py:58): its slab capacity (the most entries
+    a position holds, at least 1) and the ELL width of its densest row
+    (rounded up to 128 lanes).  One host read of the row lengths, cached on
+    the matrix."""
+    got = getattr(A, "_spmv_geom", None)
+    if got is None:
+        max_row = max((int(torch.diff(p).max()) for _, _, p in A._shards if p.numel() > 1), default=0)
+        got = {"cap": max(1, max(A.lnnz_all, default=1)), "width": max(128, -(-max(1, max_row) // 128) * 128)}
+        A._spmv_geom = got
+    return got
 
 
 def _gather_block(data: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -94,8 +111,19 @@ def matmul(A: DCSR_matrix, x, out: Optional[DNDarray] = None) -> DNDarray:
         telemetry.ensure_program(fp, kind="kernel_spmv", ops=1, flops=2.0 * A.nnz * k,
                                  hbm_bytes=float(A.nnz * 8 + (ncols + n) * k * 4),
                                  mesh={"devices": A.comm.size}, dtype=str(x2.dtype))
-        blocks = telemetry.timed_call(fp, lambda: [_k6.spmv(panels, x2) for panels in _panels(A)],
-                                      device=x2.device)
+        run = lambda: [_k6.spmv(panels, x2) for panels in _panels(A)]  # noqa: E731
+        if autotune.site_tunes(x2):
+            # K6's one-arm row under heat_tpu's spmv_csr key
+            # (sparse/matmul.py:312-340): the kernel launches whatever the
+            # table holds
+            g = _geometry(A)
+            dt = autotune.dtype_name(x2.dtype)
+            key = autotune.spmv_key("spmv_csr", n, ncols, k, int(A.nnz).bit_length(), g["cap"], g["width"], dt,
+                                    A.comm.size)
+            blocks = autotune.kernel_site(key, f"spmv {n}x{ncols} nnz={A.nnz} k={k} {dt}", run, fp=fp,
+                                          device=x2.device)
+        else:
+            blocks = telemetry.timed_call(fp, run, device=x2.device)
     else:
         fp = telemetry.fingerprint(("spmv_gather", n, ncols, k, A.nnz, str(x2.dtype)))
         telemetry.ensure_program(fp, kind="spmv_gather", ops=1, mesh={"devices": A.comm.size}, dtype=str(x2.dtype))

@@ -1,6 +1,6 @@
 """Pairwise-distance functions."""
 
 from . import distance
-from .distance import cdist, manhattan, rbf
+from .distance import cdist, cdist_quantized, manhattan, rbf
 
-__all__ = ["cdist", "distance", "manhattan", "rbf"]
+__all__ = ["cdist", "cdist_quantized", "distance", "manhattan", "rbf"]

@@ -34,7 +34,7 @@ from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
 from ..parallel import collectives
 
-__all__ = ["cdist", "manhattan", "rbf"]
+__all__ = ["cdist", "cdist_quantized", "manhattan", "rbf"]
 
 
 def _check(x: DNDarray, y: Optional[DNDarray]):
@@ -131,6 +131,47 @@ def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool =
         shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype),
         split, x.device, comm,
     )
+
+
+def cdist_quantized(x: DNDarray, qy, sqrt: bool = True) -> Optional[DNDarray]:
+    """Distances of the rows of ``x`` to a quantized corpus ``qy`` (a
+    :class:`~heat_tpu_torch.core.quantize.QuantizedDNDarray` with
+    per-feature scales, ``axis=1``) in the quantized ring's dataflow
+    (heat_tpu/spatial/distance.py:245, :282): each position keeps its block
+    of x while the int8/fp8 blocks of the corpus pass around the ring, and
+    each block is dequantized with the global per-feature scales just
+    before its distances, which K1 computes (one launch a position and
+    block).  The f32 corpus never exists at rest.  ``None`` where the
+    ring's layout does not fit (one position, a split other than rows, rows
+    that do not divide over the positions): the caller dequantizes and
+    takes :func:`cdist`."""
+    sanitation.sanitize_in(x)
+    if qy.axis != 1:
+        raise ValueError(
+            "cdist_quantized needs per-feature scales (channel axis 1 of "
+            f"the (n, d) corpus), got channel axis {qy.axis}"
+        )
+    if x.shape[-1] != qy.shape[1]:
+        raise ValueError(f"feature dims disagree: {x.shape} vs corpus {qy.shape}")
+    comm = x.comm
+    n_dev = comm.size
+    if not (x.split == 0 and qy.split == 0 and n_dev > 1 and x.shape[0] % n_dev == 0 and qy.shape[0] % n_dev == 0):
+        return None
+    comp = torch.promote_types(x.dtype.torch_type(), torch.float32)
+    mb = qy.shape[0] // n_dev
+    shards = []
+    for me, xs in enumerate(x.shards):
+        xs = xs.to(comp).contiguous()
+        out = xs.new_empty((xs.shape[0], n_dev * mb))
+        scale = qy.scale.to(xs.device)[None, :]
+        for t in range(n_dev):
+            # after t backward shifts this position holds the block that
+            # started on position (me - t) mod n: its column offset
+            src = (me - t) % n_dev
+            ys = (qy.qshards[src].to(xs.device).to(torch.float32) * scale).to(comp)
+            out[:, src * mb : (src + 1) * mb] = _block(xs, ys, types.canonical_heat_type(comp), sqrt)
+        shards.append(out)
+    return DNDarray(shards, (x.shape[0], qy.shape[0]), types.canonical_heat_type(shards[0].dtype), 0, x.device, comm)
 
 
 def rbf(x: DNDarray, y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False) -> DNDarray:

@@ -128,14 +128,16 @@ def test_errors_match_heat_tpu(jex):
         with pytest.raises(ValueError, match="num_experts 6"):
             fn(conv(np.zeros((16, D), np.float32)), conv(g6), conv(w_in[:6]), conv(w_out[:6]), mesh=mesh)
 
-    class Quantized:  # heat_tpu's QuantizedTensor form: a buffer and its scales
-        q, scale = torch.from_numpy(w_in), torch.ones(E, H)
+    from heat_tpu_torch.core import quantize as tq
 
     x = torch.zeros(16, D)
+    qin = tq.quantize_tensor(torch.from_numpy(w_in), "int8", axis=(0, 2))
     with pytest.raises(ValueError, match="both"):
-        tex.moe_ffn(x, torch.from_numpy(gate), Quantized(), torch.from_numpy(w_out))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tex.moe_ffn(x, torch.from_numpy(gate), Quantized(), Quantized())
+        tex.moe_ffn(x, torch.from_numpy(gate), qin, torch.from_numpy(w_out))
+    # quantized experts are ported; scales on other axes are refused
+    wrong = tq.quantize_tensor(torch.from_numpy(w_in), "int8", axis=-1)
+    with pytest.raises(ValueError, match=r"axis=\(0, 2\)"):
+        tex.moe_ffn(x, torch.from_numpy(gate), wrong, wrong)
 
 
 @pytest.mark.parametrize("n", [None, 4])
@@ -212,3 +214,139 @@ def test_moe_lm_trains_through_remat_and_the_aux_losses():
     gate = model.blocks[0].moe.gate.grad
     assert gate is not None and bool(torch.isfinite(gate).all()) and float(gate.abs().max()) > 0
     assert htt.models.TransformerLM(**{**LM, "moe_experts": 0}, device="cpu").moe_aux_losses() == []
+
+
+# ------------------------------------------------------- quantized experts
+# (mesh, k, capacity factor, dtype): the single-shard path and the
+# expert-parallel one, with and without drops
+QCASES = [(None, 2, 16.0, "int8"), (None, 2, 0.5, "fp8"), (4, 1, 0.5, "int8"), (8, 2, 16.0, "fp8")]
+
+
+def _force_arm(mods, geometry, arm):
+    """Drive each autotune module's ``moe_ffn`` entry to resolve to
+    ``arm`` with the same observe sequence (no wall clock involved)."""
+    for a in mods:
+        key = a.quant_key("moe_ffn", *geometry)
+        a.decide(key, "bf16", arms=a.QUANT_ARMS)
+        for _ in range(a.explore_k()):
+            a.observe(key, "bf16", 1.0 if arm == "int8" else 0.1)
+            a.observe(key, "int8", 0.1 if arm == "int8" else 1.0)
+
+
+@pytest.mark.parametrize("arm", ["bf16", "int8"])
+@pytest.mark.parametrize("n, k, cf, dtype", QCASES)
+def test_quantized_moe_ffn_matches_heat_tpu_on_both_arms(jex, n, k, cf, dtype, arm):
+    import jax.numpy as jnp
+    from heat_tpu.core import autotune as JA
+    from heat_tpu.core import quantize as JQ
+
+    from heat_tpu_torch.core import autotune as TA
+    from heat_tpu_torch.core import quantize as TQ
+
+    x = np.random.default_rng(12).standard_normal((64, D)).astype(np.float32)
+    gate, w_in, w_out = _params(13)
+    qj = [JQ.quantize_tensor(jnp.asarray(w), dtype, axis=(0, 2)) for w in (w_in, w_out)]
+    qt = [TQ.quantize_tensor(torch.from_numpy(w), dtype, axis=(0, 2)) for w in (w_in, w_out)]
+    for a, b in zip(qj, qt):
+        # the weights' grid is heat_tpu's, bit for bit
+        assert a.axes == b.axes == (0, 2) and a.orig_dtype == b.orig_dtype == "float32"
+        np.testing.assert_array_equal(np.asarray(a.q).view(np.uint8), b.q.view(torch.uint8).numpy())
+        np.testing.assert_array_equal(np.asarray(a.scale), b.scale.numpy())
+    prev = (TA.set_enabled(True), JA.set_enabled(True))
+    try:
+        TA.reset()
+        JA.reset()
+        hits = (TA.stats()["cache_hits"], JA.stats()["cache_hits"], TQ.stats()["by_arm"][arm])
+        _force_arm((TA, JA), (64, D, H, E, 1 if n is None else n, k, TQ.autotune.dtype_name(qt[0].q.dtype)), arm)
+        jm, tm = _mesh(n)
+        yj, aj = jex.moe_ffn(jnp.asarray(x), jnp.asarray(gate), *qj, k=k, capacity_factor=cf, mesh=jm, axis="ep")
+        with torch.no_grad():
+            yt, at = tex.moe_ffn(torch.from_numpy(x), torch.from_numpy(gate), *qt, k=k, capacity_factor=cf, mesh=tm)
+        # one served decision in each package, for the forced arm
+        assert (TA.stats()["cache_hits"] - hits[0], JA.stats()["cache_hits"] - hits[1]) == (1, 1)
+        assert TQ.stats()["by_arm"][arm] - hits[2] == 1
+    finally:
+        TA.set_enabled(prev[0])
+        JA.set_enabled(prev[1])
+        TA.reset()
+        JA.reset()
+    _close(yt.numpy(), np.asarray(yj))
+    assert float(at["fraction_dropped"]) == float(aj["fraction_dropped"])
+    assert (float(at["fraction_dropped"]) > 0) == (cf < 1)
+    if arm == "bf16":
+        # the reference arm is bitwise the unquantized flow over the
+        # dequantized weights
+        yd, _ = tex.moe_ffn(torch.from_numpy(x), torch.from_numpy(gate), *map(TQ.dequantize_tensor, qt), k=k,
+                            capacity_factor=cf, mesh=tm)
+        np.testing.assert_array_equal(yt.numpy(), yd.numpy())
+
+
+def test_quantized_moe_under_autograd_takes_bf16_untimed():
+    from heat_tpu_torch.core import autotune as TA
+    from heat_tpu_torch.core import quantize as TQ
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((32, D)).astype(np.float32)).requires_grad_()
+    gate, w_in, w_out = (torch.from_numpy(p) for p in _params(4))
+    qw = [TQ.quantize_tensor(w, "int8", axis=(0, 2)) for w in (w_in, w_out)]
+    prev = TA.set_enabled(True)
+    try:
+        TA.reset()
+        assert TQ.declines_to_reference(x) and not TQ.declines_to_reference(x.detach())
+        y, _ = tex.moe_ffn(x, gate, *qw, k=2, mesh=htt.MeshComm(4))
+        assert TA.table() == {}
+        y.sum().backward()
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        with torch.no_grad():
+            tex.moe_ffn(x, gate, *qw, k=2, mesh=htt.MeshComm(4))
+        assert len(TA.table()) == 1
+    finally:
+        TA.set_enabled(prev)
+        TA.reset()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_moemlp_quantize_through_transformer_from_flax(jex, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    import heat_tpu as ht
+    from heat_tpu.core import quantize as JQ
+    from heat_tpu.models.transformer import MoEMlp as JMoE
+
+    from heat_tpu_torch.core import quantize as TQ
+
+    tokens = np.random.default_rng(0).integers(0, 64, (2, 16))
+    lm = ht.models.TransformerLM(**LM)
+    variables = lm.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    params = jax.tree_util.tree_map(np.asarray, variables)
+    # heat_tpu's model serves quantized experts through MoEMlp only: its
+    # reference here is the LM with each expert weight quantized and
+    # dequantized by heat_tpu (the bf16 arm's values)
+    deq = jax.tree_util.tree_map(np.asarray, variables)
+    for name, blk in deq["params"].items():
+        if name.startswith("block_"):
+            for w in ("w_in", "w_out"):
+                blk["moe"][w] = np.asarray(JQ.dequantize_tensor(JQ.quantize_tensor(jnp.asarray(blk["moe"][w]), dtype,
+                                                                                   axis=(0, 2))))
+    want = np.asarray(lm.apply(deq, jnp.asarray(tokens)))
+    model = htt.models.transformer_from_flax(params, device="cpu", moe_quantize=dtype)
+    assert all(b.moe.quantize == dtype for b in model.blocks)
+    plain = htt.models.transformer_from_flax(deq, device="cpu")
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens)).numpy()
+        # the plane is off in the suite: the bf16 arm, bitwise the
+        # unquantized model over the dequantized weights
+        np.testing.assert_array_equal(got, plain(torch.from_numpy(tokens)).numpy())
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(), rtol=0)
+    # the layer alone against heat_tpu's MoEMlp(quantize=)
+    x = np.random.default_rng(3).standard_normal((2, 8, 32)).astype(np.float32)
+    layer = JMoE(num_experts=8, hidden=128, quantize=dtype)
+    lv = layer.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    want = np.asarray(layer.apply(lv, jnp.asarray(x)))
+    port = htt.models.MoEMlp(8, 128, quantize=dtype, dim=32, device="cpu")
+    with torch.no_grad():
+        for name in ("gate", "w_in", "w_out"):
+            getattr(port, name).copy_(torch.from_numpy(np.asarray(lv["params"][name])))
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    assert TQ.stats()["quantized"] > 0

@@ -7,8 +7,9 @@ an int-array take), one split assignment and one ``shuffle_rows``, an HDF5
 round trip and a CSV load through the native parser (built by g++ from
 ``native/src/``), one ``random.randn`` on the Threefry streams, one MLP ``train_step``, one
 expert-parallel MoE TransformerLM step with ``lamb``, a pipeline of two
-stages, a vision-transform chain and the telemetry, memtrack, roofline
-and guard planes; a scan of every import statement in the port (no jax,
+stages, a vision-transform chain, the telemetry, memtrack, roofline
+and guard planes, and a quantized product and KNN corpus through the
+autotune, wire and quantize planes; a scan of every import statement in the port (no jax,
 flax, optax or heat_tpu) backs it up, and the new modules export
 heat_tpu's names."""
 
@@ -92,6 +93,13 @@ with ht.telemetry.span("probe"):
     kept = ht.zeros((4,), split=0, comm=x.comm)
 assert ht.memtrack.summary()["live_buffers"] >= 1 and ht.telemetry.events("span_end")
 assert ht.roofline.detect_peaks()["known"] is False and ht.guard.mode() == "warn"
+qw = ht.quantize.quantize_weights(ht.array(np.ones((3, 2), np.float32), comm=x.comm), axis=1)
+assert ht.matmul(x, qw).shape == (40, 2) and ht.wire.mode() == "on"
+knn = ht.classification.KNeighborsClassifier(3).fit(x, ht.arange(40, split=0, comm=x.comm) % 2)
+assert knn.quantize_("fp8").predict(x).shape == (40,) and knn.x is None
+assert ht.autotune.report()["device_kind"] == "cpu:cpu" and "rows" in ht.telemetry.autotune_report()
+import heat_tpu_torch.analysis.sanitize as sanitize
+assert not sanitize.enabled() and sanitize.collective_fingerprint()["n"] == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "heat_tpu"})
 print("LOADED", bad)
 """
@@ -131,6 +139,9 @@ NEW_MODULES = [
     ("core.memtrack", "core.memtrack"),
     ("core.roofline", "core.roofline"),
     ("core.guard", "core.guard"),
+    ("core.autotune", "core.autotune"),
+    ("core.wire", "core.wire"),
+    ("core.quantize", "core.quantize"),
 ]
 
 

@@ -155,9 +155,12 @@ def test_metric_calls_and_unported_parts(data, monkeypatch):
             votes[i, y[j] // 2] += 1
     np.testing.assert_array_equal(l1.predict(htt.array(q, split=0, comm=mesh, device="cpu")).numpy(),
                                   np.argmax(votes, axis=1) * 2 + 1)
-    for call in (lambda: m.quantize_(), lambda: m.fit_stream(None, None), m.close_stream):
+    for call in (lambda: m.fit_stream(None, None), m.close_stream):
         with pytest.raises(NotImplementedError, match="item 13"):
             call()
+    # quantize_ is ported (tests/test_torch_quantize.py); unfitted it raises
+    with pytest.raises(RuntimeError, match="fit the model first"):
+        htt.classification.KNeighborsClassifier().quantize_()
     with pytest.raises(RuntimeError):
         htt.classification.KNeighborsClassifier().predict(htt.array(q, device="cpu"))
     with pytest.raises(ValueError):

@@ -296,9 +296,13 @@ def test_trace_level_spans_reach_the_torch_profiler():
 
 
 def test_unported_reports_name_item_13():
-    for fn in (PT.autotune_report, PT.serving_report, PT.router_report):
+    for fn in (PT.serving_report, PT.router_report):
         with pytest.raises(NotImplementedError, match="item 13"):
             fn()
+    # the tuning plane is ported: its report is autotune.report()'s
+    rep = PT.autotune_report()
+    assert set(rep) == {"device_kind", "enabled", "generation", "stats", "rows"}
+    assert rep["rows"] == htt.autotune.report()["rows"]
 
 
 # ------------------------------------------------------------ call sites

@@ -146,12 +146,15 @@ def test_layernorm_matches_flax(ht):
 
 
 def test_moe_experts_raise_naming_the_roadmap_item():
-    # the mixture-of-experts MLP is ported (item 12); its quantized form
-    # waits for core/quantize.py (item 13)
+    # the mixture-of-experts MLP is ported (item 12), and so is its
+    # quantized form (item 13, tests/test_torch_expert.py); a quantize
+    # dtype other than int8/fp8 raises
     model = htt.models.TransformerLM(**CONFIG, moe_experts=4, device="cpu")
     assert all(b.moe is not None and b.moe.num_experts == 4 for b in model.blocks)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        htt.models.MoEMlp(4, 8, quantize="int8", dim=CONFIG["num_heads"] * CONFIG["head_dim"], device="cpu")
+    dim = CONFIG["num_heads"] * CONFIG["head_dim"]
+    assert htt.models.MoEMlp(4, 8, quantize="int8", dim=dim, device="cpu").quantize == "int8"
+    with pytest.raises(ValueError, match="int8"):
+        htt.models.MoEMlp(4, 8, quantize="int4", dim=dim, device="cpu")
 
 
 def test_unknown_attention_raises():
