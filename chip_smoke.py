@@ -92,7 +92,17 @@ KNN corpus of 65536 x 64 (config.py:210) through K1, resplit and reshape
 of 16384 x 4096 f32 (config.py:207) under each wire format against a
 plain encode/decode, and the tuning table (the kernel sites' rows, a warm
 start in a child process, host syncs); the earlier phases run with the
-wire off;
+wire off; out-of-core streaming from ``.npy`` files in a temporary
+directory (``KMeans.fit_stream`` of 4194304 x 64 f32 blobs, k = 8, 5 passes
+under a quarter of the file as budget, against ``fit``; ``GaussianNB`` on
+the same file; KNN on a 262144 x 64 corpus with 128 predicts of 1-32 rows
+against the in-memory predict, one out-of-memory error injected mid-pass;
+benchmarks/cb/config.py:225-235, stream.py:72-160); and the fusion engine
+(the census chain at 8e6 fused and eager, the KMeans assignment step at
+2e6 x 64 with one K1 launch for labels and inertia, mean and var at 4e6 as
+one program, the fused split tail of a 4096^2 chain over MeshComm(4), the
+guard naming a NaN's op and line, a KMeans fit's host syncs;
+benchmarks/cb/fusion.py:62-65);
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -1950,6 +1960,7 @@ def runtime_core_paths(ht, k1, k7, seed: int, dev, card: str, card_device: str =
     for c in range(k):
         m = labels == c
         blk = ht.random.randn(int(m.sum()), f, split=0, comm=mesh) + centres[c]
+        ht.materialize(blk)  # the fusion engine's pending value: made before the timed assignment
         k7_want += destinations_with_rows(mesh, n, torch.nonzero(m.larray).reshape(-1))
         _, t_ms, peak = timed_call(lambda: x.__setitem__(m, blk))
         blocks.append(blk)
@@ -2276,6 +2287,16 @@ def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
           f"labels equal the f64 vote on {float(clear.float().mean()):.4f} of rows with a clear gap {agree} on {card}")
     check(set(per_req) == {n_pos} and agree, "knn: served labels or launches differ")
     out.update(served_median_ms=med, served_p99_ms=p99, k1=out["k1"] + sum(per_req))
+    # the fusion engine and the guard (warn, its flag read once it has
+    # landed) add no wait for the card to a served request
+    q1 = ht.array(reqs[1], comm=mesh, copy=False)
+    syncs_on = host_syncs(lambda: model.predict(q1))
+    with ht.fusion.fuse(False):
+        syncs_off = host_syncs(lambda: model.predict(q1))
+    print(f"[e2e] knn served host syncs a request: engine on, guard {ht.guard.mode()} {len(syncs_on)}, engine off "
+          f"{len(syncs_off)} on {card}")
+    check(len(syncs_on) == len(syncs_off), "knn: the fusion engine adds host syncs to a served request")
+    out["served_syncs"] = len(syncs_on)
 
     # small input on the card and on the CPU
     xs, ys, qs = X[:4096], labels[:4096], Q[:512]
@@ -4232,6 +4253,412 @@ def autotune_paths(ht, k1, seed: int, dev, card: str, kernel_rows: list, kernel_
     return dict(k1=k1_launches, warm_explores=got["explores"], syncs=syncs)
 
 
+
+# the repo's streaming cells (benchmarks/cb/config.py:225-235,
+# benchmarks/cb/stream.py:72-160) and fusion cell (benchmarks/cb/fusion.py:62-65)
+STREAM_ROWS = 4_194_304  # x 64 f32: 1.07 GB on disk
+STREAM_F = 64
+STREAM_K = 8
+STREAM_ITERS = 5
+STREAM_KNN_N = 262_144
+STREAM_KNN_REQS = 128
+STREAM_KNN_MAX_ROWS = 32
+TOL_STREAM = 1e-4  # centroids of fit_stream against fit (f32 sums, other order)
+TOL_STREAM_GNB = 1e-3  # theta and var: Chan's merge of slabs against one batch
+TOL_STREAM_RANDOM = 1e-3  # centroids from a random start against an f64 Lloyd
+FUSION_N = 8_000_000
+FUSION_KM = (2_000_000, 64, 8)
+FUSION_MV = 4_000_000
+FUSION_TAIL = 4096
+
+
+class _OOMAt:
+    """A guard injector whose ``stream.slab`` hook raises one
+    ``torch.OutOfMemoryError`` at its ``at``-th call."""
+
+    def __init__(self, at: int):
+        self.at, self.calls, self.fired = at, 0, 0
+
+    def fire_site(self, site):
+        if site == "stream.slab":
+            self.calls += 1
+            if self.calls == self.at:
+                self.fired += 1
+                raise torch.OutOfMemoryError("injected out of memory at stream.slab")
+
+    def corrupt_site(self, site, value):
+        return value
+
+
+class _NaNOut:
+    """A guard injector that puts one NaN into the first output of the
+    next fused program (``fusion.exec``)."""
+
+    def __init__(self):
+        self.fired = 0
+
+    def fire_site(self, site):
+        pass
+
+    def corrupt_site(self, site, value):
+        if site != "fusion.exec" or self.fired:
+            return value
+        self.fired += 1
+        out = value[0]
+        sh = [t.clone() for t in out.shards]
+        sh[0].view(-1)[0] = float("nan")
+        return (type(out)._unledgered(sh, out.gshape, out.dtype, out.split, out.device, out.comm),) + tuple(value[1:])
+
+
+def stream_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """Out-of-core fits from ``.npy`` files on the host: KMeans.fit_stream
+    (k = 8, 5 iterations) on 4194304 x 64 f32 blobs under a budget of a
+    quarter of the file, against ``fit`` on the same data in memory from
+    the generating centres, both inertias against the f64 inertia, and both
+    fits from a random start against an f64 Lloyd from that start;
+    GaussianNB.fit_stream on the same file with its labels against ``fit``;
+    KNN ``fit_stream`` on a 262144 x 64 corpus and 128 predicts of 1-32
+    rows against the in-memory predict; and one out-of-memory error
+    injected mid-pass.  Returns K1's launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"k1": 0}
+    tmp = tempfile.mkdtemp(prefix="heat_stream_")
+    try:
+        data, centres, truth = make_blobs(STREAM_ROWS, STREAM_F, STREAM_K, seed + 40, dev, return_labels=True)
+        path = os.path.join(tmp, "x.npy")
+        np.save(path, data.cpu().numpy())
+        nbytes = STREAM_ROWS * STREAM_F * 4
+        budget = nbytes // 4
+        # from the generating centres the two fits must agree to f32 sums;
+        # from a random start (below) they are held to an f64 Lloyd instead
+        kw = dict(n_clusters=STREAM_K, init=ht.array(centres), max_iter=STREAM_ITERS, tol=-1.0)
+        tel, mt = ht.telemetry, ht.memtrack
+        with tel.telemetry_level("events"):
+            mt.reset()
+            k1.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            km = ht.cluster.KMeans(**kw).fit_stream(path, budget=budget)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            staged = mt.summary()["peak_bytes_by_tag"].get("staging", 0)
+            passes = [e for e in tel.events("stream_pass") if e.get("site") == "kmeans_fit"]
+        launches = k1.launches
+        rep = km.last_stream_report
+        k1.launches = 0
+        mem = ht.cluster.KMeans(**kw).fit(ht.array(data, split=0, copy=False))
+        mem_launches = k1.launches
+        out["k1"] += launches + mem_launches
+        a, b = km.cluster_centers_.larray, mem.cluster_centers_.larray
+        err = float((a - b).abs().max() / b.abs().max())
+        print(f"[stream] KMeans.fit_stream ({STREAM_ROWS}, {STREAM_F}) f32 from .npy ({nbytes / 1e9:.3f} GB), k={STREAM_K}, "
+              f"{km.n_iter_} passes, budget {budget} B: {rep['slabs']} slabs of {rep['slab_rows']} rows a pass, "
+              f"{launches} K1 launches ({launches / max(km.n_iter_, 1):.1f} a pass), overlap_frac of the last pass "
+              f"{rep['overlap_frac']}, pass walls {[round(e['wall_s'], 4) for e in passes]} s, fit {fit_s:.4f} s "
+              f"({nbytes * km.n_iter_ / fit_s / 1e9:.3f} GB/s read), peak staging {staged} B (budget {budget}); "
+              f"centroids against fit in memory: max relative difference {err:.3e} (tolerance {TOL_STREAM}); "
+              f"inertia {km.inertia_:.6e} vs {mem.inertia_:.6e} on {card}")
+        check(km.n_iter_ == STREAM_ITERS and rep["slabs"] >= 4, "fit_stream took fewer passes or slabs than planned")
+        check(launches == rep["slabs"] * km.n_iter_, "fit_stream did not launch K1 once a slab")
+        check(err <= TOL_STREAM, "fit_stream's centroids differ from fit's")
+        check(0 < staged <= budget, "a streaming pass staged more than its budget")
+        check(all(0.0 <= e["overlap_frac"] <= 1.0 for e in passes) and len(passes) == km.n_iter_, "pass reports")
+        out.update(stream_fit_s=fit_s, stream_pass_s=[e["wall_s"] for e in passes], overlap_frac=rep["overlap_frac"],
+                   slabs=rep["slabs"], staging_peak=staged, budget=budget, k1_stream=launches)
+
+        # inertia_ is the last pass's sum of K1's f32 distances |x|^2 + |c|^2
+        # - 2 x.c, whose rounding a row is at most 2^-24 (|x| + |c|)^2: both
+        # fits against the f64 inertia at fit's centres (converged, so they
+        # stand for the last pass's), within that sum
+        x64 = data.double()
+        c64 = b.double()
+        d64 = torch.cdist(x64, c64).square()
+        lab = d64.argmin(1)
+        exact = float(d64.gather(1, lab[:, None]).sum())
+        slack = float(((x64.norm(dim=1) + c64[lab].norm(dim=1)) ** 2).sum()) * 2.0 ** -24
+        e_s, e_m = (km.inertia_ - exact) / exact, (mem.inertia_ - exact) / exact
+        print(f"[stream] inertia against the f64 inertia {exact:.6e} at fit's centres: fit_stream {e_s:+.3e}, fit "
+              f"{e_m:+.3e} (relative; K1's f32 rounding bound {slack / exact:.3e}) on {card}")
+        check(max(abs(e_s), abs(e_m)) * exact <= slack, "an inertia_ is off by more than K1's f32 rounding")
+        del mem, km, d64, lab, c64
+
+        # a random start splits blobs, and rows at a split flip on f32
+        # rounding: both fits are held to an f64 Lloyd from the same start
+        kw_r = dict(n_clusters=STREAM_K, init="random", random_state=seed, max_iter=STREAM_ITERS, tol=-1.0)
+        km_r = ht.cluster.KMeans(**kw_r).fit_stream(path, budget=budget)
+        xa = ht.array(data, split=0, copy=False)
+        mem_r = ht.cluster.KMeans(**kw_r).fit(xa)
+        start = ht.cluster.KMeans(**kw_r)
+        start._initialize_cluster_centers(xa)
+        c64 = start.cluster_centers_.larray.double()
+        for _ in range(STREAM_ITERS):
+            lab = torch.cdist(x64, c64).argmin(1)
+            cnt = torch.bincount(lab, minlength=STREAM_K).double()
+            sums = torch.zeros_like(c64).index_add_(0, lab, x64)
+            c64 = torch.where(cnt[:, None] > 0, sums / cnt.clamp(min=1)[:, None], c64)
+        near = torch.cdist(x64, c64).square().topk(2, dim=1, largest=False).values
+        ties = int(((near[:, 1] - near[:, 0]) <= 1e-4 * near[:, 1]).sum())
+        scale = float(c64.abs().max())
+        dev_s = float((km_r.cluster_centers_.larray.double() - c64).abs().max()) / scale
+        dev_m = float((mem_r.cluster_centers_.larray.double() - c64).abs().max()) / scale
+        print(f"[stream] random start (random_state {seed}), {STREAM_ITERS} passes: centroids against an f64 Lloyd from "
+              f"the same start, max difference over the largest centre: fit_stream {dev_s:.3e}, fit {dev_m:.3e} "
+              f"(tolerance {TOL_STREAM_RANDOM} each, fit_stream at most twice fit's or {TOL_STREAM}); rows within 1e-4 "
+              f"of a tie at the f64 centres {ties}; cluster sizes {cnt.long().tolist()} on {card}")
+        check(dev_m <= TOL_STREAM_RANDOM and dev_s <= max(2.0 * dev_m, TOL_STREAM),
+              "fit_stream from a random start strays further from the f64 Lloyd than fit does")
+        out.update(stream_random_dev=dev_s, fit_random_dev=dev_m, random_ties=ties)
+        del km_r, mem_r, start, xa, x64, c64, near, lab, sums
+
+        # GaussianNB through partial_fit, slab by slab
+        labels = truth.cpu().numpy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = ht.naive_bayes.GaussianNB().fit_stream(path, labels, budget=budget)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        gm = ht.naive_bayes.GaussianNB().fit(ht.array(data, split=0, copy=False), ht.array(truth, split=0, copy=False))
+        th = float((g.theta_.larray - gm.theta_.larray).abs().max() / gm.theta_.larray.abs().max())
+        va = float(((g.var_.larray - gm.var_.larray).abs() / gm.var_.larray).max())
+        print(f"[stream] GaussianNB.fit_stream on the same file, {STREAM_K} classes: {g_s:.4f} s, "
+              f"{g.last_stream_report['slabs']} slabs, theta max relative difference {th:.3e}, var {va:.3e} against "
+              f"fit in memory (tolerance {TOL_STREAM_GNB}) on {card}")
+        check(th <= TOL_STREAM_GNB and va <= TOL_STREAM_GNB, "GaussianNB.fit_stream differs from fit")
+        out["gnb_s"] = g_s
+        del g, gm, data, truth
+        torch.cuda.empty_cache()
+
+        # KNN: a corpus on disk, requests of 1-32 rows
+        corpus, _, clabels = make_blobs(STREAM_KNN_N, STREAM_F, STREAM_K, seed + 41, dev, return_labels=True)
+        cpath = os.path.join(tmp, "corpus.npy")
+        np.save(cpath, corpus.cpu().numpy())
+        cbudget = STREAM_KNN_N * STREAM_F * 4 // 4
+        knn = ht.classification.KNeighborsClassifier(5).fit_stream(cpath, clabels.cpu().numpy(), budget=cbudget)
+        mem = ht.classification.KNeighborsClassifier(5).fit(ht.array(corpus, split=0, copy=False),
+                                                             ht.array(clabels, split=0, copy=False))
+        rng = np.random.default_rng(seed + 42)
+        sizes = rng.integers(1, STREAM_KNN_MAX_ROWS + 1, STREAM_KNN_REQS)
+        starts = rng.integers(0, STREAM_KNN_N, STREAM_KNN_REQS)
+        gen = torch.Generator(device=dev).manual_seed(seed + 43)
+        ms, agree, clear_rows, rows_total, k1_knn = [], 0, 0, 0, 0
+        corpus64 = corpus.double()
+        for r, st in zip(sizes, starts):
+            idx = (torch.arange(int(r), device=dev) + int(st)) % STREAM_KNN_N
+            q = corpus[idx] + 2.0 * torch.randn(int(r), STREAM_F, generator=gen, device=dev)
+            qa = ht.array(q)
+            k1.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = knn.predict(qa).larray
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            k1_knn += k1.launches
+            want = mem.predict(qa).larray
+            d = torch.cdist(q.double(), corpus64).square()
+            srt = torch.topk(d, 6, dim=1, largest=False).values
+            clear = (srt[:, 5] - srt[:, 4]) > 1e-6 * srt[:, 5]
+            agree += int((got[clear] == want[clear]).sum())
+            clear_rows += int(clear.sum())
+            rows_total += int(r)
+        out["k1"] += k1_knn
+        med, p99 = float(np.median(ms)), float(np.percentile(ms, 99))
+        print(f"[stream] KNN fit_stream corpus ({STREAM_KNN_N}, {STREAM_F}) f32 from .npy, budget {cbudget} B, "
+              f"{knn.last_stream_report['slabs']} slabs a predict: {STREAM_KNN_REQS} predicts of 1-{STREAM_KNN_MAX_ROWS} rows "
+              f"({rows_total} rows), median {med:.4f} ms, p99 {p99:.4f} ms a predict, {k1_knn} K1 launches; labels equal "
+              f"to the in-memory predict on {agree} of {clear_rows} rows with a clear 5th gap ({rows_total} rows) on {card}")
+        check(agree == clear_rows and clear_rows >= rows_total // 2, "streamed KNN labels differ from the in-memory ones")
+        out.update(knn_ms_median=med, knn_ms_p99=p99, k1_knn=k1_knn)
+
+        # one out-of-memory error mid-pass: the slab halves, the labels stay
+        q = corpus[:32] + 2.0 * torch.randn(32, STREAM_F, generator=gen, device=dev)
+        qa = ht.array(q)
+        clean = knn.predict(qa).larray
+        inj = _OOMAt(2)
+        ht.guard._INJECTOR = inj
+        try:
+            hurt = knn.predict(qa).larray
+        finally:
+            ht.guard._INJECTOR = None
+        rep = knn.last_stream_report
+        print(f"[stream] KNN predict with one out-of-memory error injected at the 2nd slab: oom_retries "
+              f"{rep['oom_retries']}, slab rows {rep['slab_rows']}, labels equal to the clean predict "
+              f"{bool(torch.equal(hurt, clean))} on {card}")
+        check(inj.fired == 1 and rep["oom_retries"] == 1 and torch.equal(hurt, clean), "the OOM back-off changed the result")
+        knn.close_stream()
+        del knn, mem, corpus, corpus64
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[stream] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
+def fusion_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """The fusion engine on the card: the census chain at 8e6, the KMeans
+    assignment step (labels and inertia as one program) at 2e6 x 64, mean
+    and var as one two-root program at 4e6, the fused split tail of a
+    4096^2 chain over MeshComm(4), the guard's check, and a KMeans fit's
+    host syncs at the off and counters telemetry levels.  Returns K1's
+    launches."""
+    t_phase = time.perf_counter()
+    F = ht.fusion
+    out = {"k1": 0}
+    check(F.enabled(), "the fusion engine is off")
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    xs, ys = (torch.randn(FUSION_N, generator=gen, device=dev) for _ in range(2))
+    x, y = ht.array(xs, split=0, copy=False), ht.array(ys, split=0, copy=False)
+
+    def census():
+        return ht.exp((x - y) / 2.0 * x + 0.5).sum().larray
+
+    F.reset_cache()
+    fused1 = census()
+    fused2 = census()
+    st = F.cache_stats()
+    with F.fuse(False):
+        eager = census()
+    ms_f = time_ms(census, 20)
+    with F.fuse(False):
+        ms_e = time_ms(census, 20)
+    print(f"[fusion] census chain exp((x - y) / 2 * x + 0.5).sum() at {FUSION_N}: fused {ms_f:.4f} ms, fuse(False) "
+          f"{ms_e:.4f} ms a call (CUDA events around 20 calls, the host's work between them included), bitwise equal {bool(torch.equal(fused1, eager))}, "
+          f"second call a hit: misses {st['misses']} hits {st['hits']} on {card}")
+    check(torch.equal(fused1, eager) and torch.equal(fused2, eager), "fused census chain differs from eager")
+    check(st["misses"] == 1 and st["hits"] == 1, "the census chain's second call was not a cache hit")
+    out.update(census_ms=ms_f, census_eager_ms=ms_e)
+    del x, y, xs, ys
+
+    # the KMeans assignment step: one program, one K1 launch
+    n, f, k = FUSION_KM
+    data, centres = make_blobs(n, f, k, seed + 51, dev)
+    xa = ht.array(data, split=0, copy=False)
+    km = ht.cluster.KMeans(n_clusters=k, init=ht.array(centres), max_iter=1)
+    km._cluster_centers = ht.array(centres)
+    launches = []
+    for _ in range(3):
+        k1.launches = 0
+        labels, inertia = km._assign_to_cluster(xa, return_inertia=True)
+        launches.append(k1.launches)
+    out["k1"] += sum(launches)
+    k1.launches = 0
+    with F.fuse(False):
+        l2, i2 = km._assign_to_cluster(xa, return_inertia=True)
+    same = bool(torch.equal(labels.larray, l2.larray))
+    ms_f = time_ms(lambda: km._assign_to_cluster(xa, return_inertia=True), 10)
+    with F.fuse(False):
+        ms_e = time_ms(lambda: km._assign_to_cluster(xa, return_inertia=True), 10)
+    out["k1"] += k1.launches
+    print(f"[fusion] KMeans assignment step ({n}, {f}) k={k}: K1 launches a call {launches}, labels equal to the eager "
+          f"step {same}, inertia {inertia:.6e} vs {i2:.6e}; {ms_f:.4f} ms fused, {ms_e:.4f} ms eager a call on {card}")
+    check(launches == [1, 1, 1], "the fused assignment step did not launch K1 exactly once")
+    check(same and inertia == i2, "the fused assignment step differs from the eager one")
+    out.update(assign_ms=ms_f, assign_eager_ms=ms_e)
+    del xa, data, km, labels, l2
+
+    # mean + var: one program, the shared chain once
+    v = ht.array(torch.randn(FUSION_MV, generator=gen, device=dev), split=0, copy=False)
+    F.reset_cache()
+    w = (v - 3.0) * 2.0
+    m, var = w.mean(), w.var()
+    ht.materialize(m, var)
+    st = F.cache_stats()
+    with F.fuse(False):
+        w2 = (v - 3.0) * 2.0
+        m2, var2 = w2.mean(), w2.var()
+    print(f"[fusion] mean + var at {FUSION_MV}: roots_per_program {st['roots_per_program']}, cse_hits {st['cse_hits']}, "
+          f"misses {st['misses']}, values bitwise the eager ones "
+          f"{bool(torch.equal(m.larray, m2.larray) and torch.equal(var.larray, var2.larray))} on {card}")
+    check(st["roots_per_program"] == {2: 1} and st["cse_hits"] >= 1, "mean + var did not run as one program")
+    check(torch.equal(m.larray, m2.larray) and torch.equal(var.larray, var2.larray), "fused mean/var differ")
+    del v, w, w2
+
+    # the fused split tail: the chain evaluated into the resplit's tiles
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    src = torch.randn(FUSION_TAIL, FUSION_TAIL, generator=gen, device=dev)
+    a = ht.array(src, split=0, comm=mesh, copy=False)
+    ht.parallel.transport.reset_stats()
+    chain = ht.exp(a * 0.1) - 1.0
+    runs = []
+    orig = F._run_many
+    F._run_many = lambda exprs, _o=orig: runs.append(1) or _o(exprs)
+    try:
+        moved, tail_ms, tail_peak = timed_call(lambda: chain.resplit(1))
+    finally:
+        F._run_many = orig
+    fused_tails = ht.parallel.transport.stats()["fused_tails"]
+    with F.fuse(False):
+        ref = (ht.exp(a * 0.1) - 1.0).resplit(1)
+    # the route it replaces: the chain materialized in the old split, then moved
+    ms_tail = time_ms(lambda: (ht.exp(a * 0.1) - 1.0).resplit(1), 10)
+    ms_mat = time_ms(lambda: ht.materialize(ht.exp(a * 0.1) - 1.0).resplit(1), 10)
+    same = all(torch.equal(p, q) for p, q in zip(moved.shards, ref.shards))
+    one = FUSION_TAIL * FUSION_TAIL * 4
+    print(f"[fusion] fused split tail (exp(x * 0.1) - 1).resplit(1) of ({FUSION_TAIL}, {FUSION_TAIL}) f32 over "
+          f"MeshComm({TRANSPORT_MESH}): {tail_ms:.4f} ms, bitwise the materialize-then-resplit result {same}, "
+          f"old-split materializations {len(runs)}, fused_tails {fused_tails}, peak above the input {tail_peak} B "
+          f"beside one input + one output {2 * one} B; {ms_tail:.4f} ms fused against {ms_mat:.4f} ms materialized "
+          f"first (CUDA events around 10 calls) on {card}")
+    check(same and not runs and fused_tails == 1 and moved.split == 1, "the fused split tail did not fuse or differs")
+    check(bool(torch.equal(chain.larray, ht.exp(a * 0.1).larray - 1.0)), "the pending chain's own value changed")
+    out.update(tail_ms=tail_ms, tail_peak=tail_peak, tail_fused_ms=ms_tail, tail_materialized_ms=ms_mat)
+    del a, chain, moved, ref, src
+
+    # the guard: a chain that makes one NaN names its op and line; a NaN
+    # put into the program's output through guard.corrupt is caught too
+    g = torch.arange(1024, dtype=torch.float32, device=dev) / 512.0
+    gx = ht.array(g, split=0)
+    with ht.guard.guarded(True):
+        try:
+            ((gx - 1.0) / (gx - 1.0)).larray  # 0/0 at one element
+            raised = None
+        except ht.guard.NonFiniteError as e:
+            raised = e
+        inj = _NaNOut()
+        ht.guard._INJECTOR = inj
+        try:
+            (gx * 2.0 + 1.0).larray
+            corrupt = None
+        except ht.guard.NonFiniteError as e:
+            corrupt = e
+        finally:
+            ht.guard._INJECTOR = None
+    print(f"[fusion] guard: one NaN from 0/0 raised NonFiniteError naming op {raised and raised.op!r} at "
+          f"{raised and ht.guard.format_site(raised.site)}; a NaN injected through guard.corrupt raised "
+          f"{type(corrupt).__name__} (op {corrupt and corrupt.op}) on {card}")
+    check(raised is not None and raised.op == "div" and raised.site is not None
+          and os.path.abspath(raised.site[0]) == os.path.abspath(__file__), "the guard did not name the op and line")
+    check(corrupt is not None and corrupt.op is None and inj.fired == 1, "the guard missed an injected NaN")
+
+    # a KMeans fit's host syncs at off and counters, fusion on
+    tel = ht.telemetry
+    pdata, _ = make_blobs(PLANE_ROWS, 64, 8, seed + 52, dev)
+    px = ht.array(pdata, split=0, comm=ht.MeshComm(4), copy=False)
+
+    def fit():
+        return ht.cluster.KMeans(n_clusters=8, init="random", max_iter=10, tol=-1.0, random_state=seed).fit(px)
+
+    k1.launches = 0
+    fit()
+    syncs = {}
+    for lvl in ("off", "counters"):
+        with tel.telemetry_level(lvl):
+            syncs[lvl] = len(host_syncs(fit))
+    out["k1"] += k1.launches
+    print(f"[fusion] host syncs of a KMeans fit ({PLANE_ROWS}, 64) k=8 over MeshComm(4), fusion on: off {syncs['off']}, "
+          f"counters {syncs['counters']} on {card}")
+    check(syncs["off"] == syncs["counters"], "telemetry at counters adds host syncs with fusion on")
+    out.update(syncs_off=syncs["off"], syncs_counters=syncs["counters"])
+    del px, pdata
+    torch.cuda.empty_cache()
+    print(f"[fusion] phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4928,6 +5355,12 @@ def main() -> int:
     tune = autotune_paths(ht, k1, args.seed, dev, card, kernel_rows,
                           {"K4": qr_launches, "K5": lasso_launches, "K6": matmul_launches, "K7": tr["launches"]}, quant)
 
+    # out-of-core streaming (KMeans, GaussianNB, KNN fit_stream) and the
+    # fusion engine (the census chain, the fused assignment step, mean and
+    # var, the fused split tail, the guard), K1 under both
+    strm = stream_paths(ht, k1, args.seed, dev, card)
+    fus = fusion_paths(ht, k1, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -4936,7 +5369,7 @@ def main() -> int:
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
             "launches": (launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"]
-                         + qknn["k1"] + tune["k1"]),
+                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"]),
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -4953,6 +5386,8 @@ def main() -> int:
             "launches_planes": planes["k1"],
             "launches_qknn": qknn["k1"],
             "launches_autotune": tune["k1"],
+            "launches_stream": strm["k1"],
+            "launches_fusion": fus["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
@@ -5123,6 +5558,13 @@ def main() -> int:
           f"ms; quantized KNN predict {qknn['ms']:.4f} ms (f32 {qknn['f32_ms']:.4f}); resplit wire off / int8 / fp8 "
           + " / ".join(f"{wire[m]['resplit_ms']:.4f}" for m in ("off", "int8", "fp8"))
           + f" ms (winner {wire['winner']}); warm start explores {tune['warm_explores']} on {card}")
+    print(f"[summary] KMeans.fit_stream of {STREAM_ROWS}x{STREAM_F} f32 from .npy: {strm['stream_fit_s']:.4f} s for "
+          f"{STREAM_ITERS} passes (pass walls {[round(w, 4) for w in strm['stream_pass_s']]} s, overlap_frac "
+          f"{strm['overlap_frac']}, peak staging {strm['staging_peak']} of {strm['budget']} B); streamed KNN predict "
+          f"median {strm['knn_ms_median']:.4f} / p99 {strm['knn_ms_p99']:.4f} ms; census chain fused / eager "
+          f"{fus['census_ms']:.4f} / {fus['census_eager_ms']:.4f} ms; assignment step fused / eager "
+          f"{fus['assign_ms']:.4f} / {fus['assign_eager_ms']:.4f} ms; fused split tail {fus['tail_ms']:.4f} ms; "
+          f"host syncs off / counters {fus['syncs_off']} / {fus['syncs_counters']} on {card}")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

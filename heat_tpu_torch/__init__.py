@@ -40,6 +40,7 @@ from .core import (
     devices,
     exponential,
     factories,
+    fusion,
     guard,
     io,
     linalg,
@@ -54,6 +55,7 @@ from .core import (
     sanitation,
     signal,
     statistics,
+    stream,
     stride_tricks,
     telemetry,
     tiling,
@@ -62,6 +64,7 @@ from .core import (
     version,
     wire,
 )
+from .core.fusion import materialize, materialize_all
 from .core.version import __version__
 from . import parallel
 from . import ops

@@ -25,9 +25,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ..core import factories, sanitation, statistics, telemetry, types
+from ..core import factories, fusion, sanitation, statistics, telemetry, types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray, _wrap
 from ..parallel.sort import topk_order, topk_select
@@ -37,12 +38,6 @@ __all__ = ["KNeighborsClassifier"]
 
 # rows of a distance block selected at a time (one host read a block)
 _SELECT_ROWS = 4096
-
-
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} needs core/stream.py's streaming pass, which is not ported yet (ROADMAP queue 1, item 13)"
-    )
 
 
 class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
@@ -65,6 +60,10 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         self.y = None
         self.classes_ = None
         self._qx = None
+        self._stream_src = None
+        self._stream_own = False
+        self._stream_plan = None
+        self._stream_budget = None
 
     @staticmethod
     def one_hot_encoding(x: DNDarray) -> DNDarray:
@@ -113,13 +112,82 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         return self
 
     def fit_stream(self, source, y, dataset: Optional[str] = None, *, comm=None, budget=None) -> "KNeighborsClassifier":
-        _not_ported("KNeighborsClassifier.fit_stream")
+        """Fit on a corpus that does not fit on the card
+        (heat_tpu/classification/kneighborsclassifier.py:107): keep the
+        chunk source's handle, not the data.  ``predict`` then streams the
+        corpus past the queries once a call, carrying each query's best k
+        (:func:`spatial.distance._stream_topk_merge`, K1's squared
+        distances).  ``y`` (class indices, or one-hot rows) stays in memory,
+        replicated; :meth:`close_stream` releases the handle."""
+        from ..core import devices, stream
+        from ..parallel.mesh import sanitize_comm
+
+        comm = sanitize_comm(comm)
+        device = devices.sanitize_device(None)
+        src = stream.open_source(source, dataset=dataset, np_dtype=np.float32)
+        if len(src.shape) != 2:
+            raise ValueError(f"corpus needs to be 2-D, but was {len(src.shape)}-D")
+        n = src.shape[0]
+        y_host = np.asarray(y.numpy() if isinstance(y, DNDarray) else y)
+        if y_host.shape[0] != n:
+            raise ValueError(f"Number of samples x and y samples mismatch: {n} != {y_host.shape[0]}")
+        if y_host.ndim == 1:
+            classes = np.unique(y_host)
+            self.classes_ = factories.array(classes, split=None, device=device, comm=comm)
+            onehot = (y_host[:, None] == classes[None, :]).astype(np.float32)
+        else:
+            self.classes_ = None
+            onehot = y_host.astype(np.float32)
+        # replicated: the votes gather rows by global corpus index
+        self.y = factories.array(onehot, split=None, device=device, comm=comm)
+        self.close_stream()
+        self._stream_src = src
+        self._stream_own = src is not source
+        self._stream_plan = None
+        self._stream_budget = budget
+        self.x = None
+        self._qx = None
+        return self
 
     def close_stream(self) -> None:
-        _not_ported("KNeighborsClassifier.close_stream")
+        """Release the out-of-core corpus (no-op when not streaming, or when
+        the caller owns the :class:`stream.ChunkSource`)."""
+        if self._stream_src is not None and self._stream_own:
+            self._stream_src.close()
+        self._stream_src = None
+        self._stream_plan = None
 
     def _predict_stream(self, x: DNDarray) -> DNDarray:
-        _not_ported("KNeighborsClassifier._predict_stream")
+        """One streaming pass of the corpus past the queries: each slab
+        merged into the carried best k (heat_tpu :183)."""
+        from ..core import stream
+
+        src = self._stream_src
+        if self._stream_plan is None:
+            # planned once: every later predict keeps the same slab rows
+            self._stream_plan = stream.plan_pass(src, comm=x.comm, site="knn_predict", budget=self._stream_budget)
+        pl = self._stream_plan
+        q = x.larray
+        if not q.is_floating_point():
+            q = q.to(torch.float32)
+        k = self.n_neighbors
+        nq = q.shape[0]
+        best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=q.device)
+        best_i = torch.zeros((nq, k), dtype=torch.int64, device=q.device)
+        sp = stream.StreamPass(src, comm=x.comm, plan=pl)
+        for slab in sp:
+            best_d, best_i = distance._stream_topk_merge(q, slab.x.larray, slab.valid, slab.base, best_d, best_i, k)
+            del slab  # drop the loop reference: the three-slab residency cap
+        rep = stream.finish_pass(sp)
+        self.last_stream_report = dict(rep, arm=pl.arm, budget=pl.budget)
+        n, f = src.shape
+        fp = telemetry.fingerprint(("stream_knn", pl.slab_rows, f, k, nq, x.comm.size))
+        telemetry.ensure_program(fp, kind="stream_knn", dtype="float32", flops=2.0 * n * f * nq,
+                                 hbm_bytes=float(n) * f * 4)
+        telemetry.record_timing(fp, rep["wall_s"])
+        telemetry.annotate_program(fp, io_stall_frac=round(1.0 - rep["overlap_frac"], 4), io_bytes=rep["bytes_read"])
+        labels = self._vote(best_i, self.y.larray.to(best_i.device))
+        return _wrap(labels, x.split, x.device, x.comm)
 
     def _vote(self, idx: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
         """Labels from the neighbours' indices: the most votes, the lower
@@ -138,14 +206,21 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         its layout does not fit, through the metric on the corpus
         dequantized for this call."""
         if self._qx is None:
-            return self.effective_metric_(x, self.x)
+            # materialized here: the timed region holds K1's launches
+            with fusion.sealed():
+                return fusion.materialize(self.effective_metric_(x, self.x))
         d = distance.cdist_quantized(x, self._qx)
-        return d if d is not None else self.effective_metric_(x, self._qx.dequantize())
+        if d is not None:
+            return d
+        with fusion.sealed():
+            return fusion.materialize(self.effective_metric_(x, self._qx.dequantize()))
 
     @telemetry.span("knn.predict")
     def predict(self, x: DNDarray) -> DNDarray:
         """Majority vote of the ``n_neighbors`` nearest training samples
         (kneighborsclassifier.py:218), split as ``x``."""
+        if self._stream_src is not None:
+            return self._predict_stream(x)
         if self.x is None and self._qx is None:
             raise RuntimeError("fit the model first")
         corpus = self.x if self._qx is None else self._qx

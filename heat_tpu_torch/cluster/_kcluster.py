@@ -25,7 +25,7 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from ..core import random as ht_random
-from ..core import sanitation, statistics, types
+from ..core import fusion, sanitation, statistics, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
@@ -280,11 +280,19 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         """Index of the closest centroid for each sample, as an (n, 1) array
         split like ``x`` (heat_tpu/cluster/_kcluster.py:219); with
         ``return_inertia`` also the sum of the row minima of the metric,
-        read back once."""
-        distances = self._metric(x, self._cluster_centers)
-        labels = statistics.argmin(distances, axis=1, keepdims=True)
-        if return_inertia:
-            inertia = float(statistics.min(distances, axis=1).sum().item())
+        read back once.  Under fusion the distances, the labels and the
+        inertia form one program of two roots: the distances (K1 for
+        KMeans) are computed once for both.  The labels come back
+        materialized."""
+        with fusion.sealed():
+            distances = self._metric(x, self._cluster_centers)
+            labels = statistics.argmin(distances, axis=1, keepdims=True)
+            if return_inertia:
+                total = statistics.min(distances, axis=1).sum()
+                fusion.materialize(labels, total)
+                inertia = float(total.item())
+            else:
+                fusion.materialize(labels)
         if labels.split != x.split:
             labels.resplit_(x.split)
         return (labels, inertia) if return_inertia else labels
@@ -326,4 +334,5 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             raise RuntimeError(
                 f"{type(self).__name__} is not fitted yet; call fit() before predict()"
             )
-        return self._assign_to_cluster(x)
+        # the labels are read here: the distances' launches belong to predict
+        return fusion.materialize(self._assign_to_cluster(x))

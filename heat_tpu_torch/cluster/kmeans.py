@@ -14,15 +14,23 @@ in f32, and K1 reads the 16-bit blocks as they are.  No f32 copy of the
 data exists.  A :class:`~heat_tpu_torch.cluster.packing.PackedSamples`
 (heat_tpu's ``_fit_packed`` :559) is fitted on views of its samples, and its
 ``inertia_`` comes from a last labels pass against the final centres.
+
+:meth:`KMeans.fit_stream` fits data that does not fit on the card: each
+Lloyd iteration is one streaming pass (:mod:`~heat_tpu_torch.core.stream`),
+each slab's statistics against the fixed centres come from K1 (its squared
+distances, no sqrt), then the argmin, the masked one-hot counts and sums and
+the row-min inertia, all in f32 (:func:`_stream_lloyd_stats`); the centre
+update and one scalar read of the shift come between passes.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
-from ..core import sanitation, telemetry, types
+from ..core import fusion, sanitation, telemetry, types
 from ..core.dndarray import DNDarray, _wrap
 from ..ops import cdist as _k1
 from ..parallel import collectives
@@ -92,6 +100,27 @@ def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_
     ).to(centers.dtype)
     shift = torch.sum((new_centers - centers).to(torch.float32) ** 2)
     return new_centers, shift, inertia
+
+
+def _stream_lloyd_stats(x: DNDarray, valid: int, centers: torch.Tensor, k: int):
+    """One slab's Lloyd statistics against fixed f32 ``centers``
+    (heat_tpu's ``_stream_lloyd_stats`` :116): the (k,) counts, (k, f)
+    sums and the inertia of its rows ``[0, valid)``, each position's rows
+    through K1 and the partials summed over the positions, all f32."""
+    counts, sums, inertia = [], [], []
+    for r, xs in enumerate(x.shards):
+        off = x.comm.chunk(x.shape, 0, rank=r)[0]
+        n_valid = max(0, min(int(valid) - off, xs.shape[0]))
+        if n_valid == 0:
+            continue
+        xs = xs[:n_valid]
+        d2 = _k1.cdist(_k1_input(xs), centers, sqrt=False)
+        labels = torch.argmin(d2, dim=1)
+        onehot = (labels[:, None] == torch.arange(k, device=xs.device)[None, :]).to(torch.float32)
+        counts.append(torch.sum(onehot, dim=0))
+        sums.append(_onehot_sums(onehot, xs.to(torch.float32)))
+        inertia.append(torch.sum(torch.amin(d2, dim=1)))
+    return collectives.psum(counts)[0], collectives.psum(sums)[0], collectives.psum(inertia)[0]
 
 
 def _step_program(blocks: List[torch.Tensor], k: int, positions: int) -> str:
@@ -212,8 +241,103 @@ class KMeans(_KCluster):
             [centers] * x.comm.size, tuple(centers.shape),
             types.canonical_heat_type(centers.dtype), None, x.device, x.comm,
         )
-        self._labels = self._assign_to_cluster(x)
+        # labels_ is read here, not later: its K1 launch belongs to the fit
+        self._labels = fusion.materialize(self._assign_to_cluster(x))
         self._inertia = float(inertia)
+        return self
+
+    # ------------------------------------------------------ streaming path
+    def _init_centers_stream(self, src, device, comm) -> torch.Tensor:
+        """Initial f32 centroids off a chunk source, by bounded host reads
+        (heat_tpu :636): explicit ones as given, "random" one row per
+        stratum, each read alone, kmeans++ on the first 2^18 rows."""
+        from ..core import random as ht_random
+        from ._kcluster import _kmeanspp_init
+
+        k = self.n_clusters
+        n, f = src.shape
+        if n < k:
+            raise ValueError(f"n_samples={n} should be >= n_clusters={k}")
+        tdev = device.torch_device
+        if isinstance(self.init, DNDarray):
+            if self.init.shape != (k, f):
+                raise ValueError("passed centroids do not match cluster count or data shape")
+            return self.init.resplit(None).larray.to(device=tdev, dtype=torch.float32)
+        if self.random_state is not None:
+            ht_random.seed(self.random_state)
+        us = ht_random.rand(k, device=device, comm=comm).larray.to(torch.float32)
+        if isinstance(self.init, str) and self.init == "random":
+            width = max(n // k, 1)
+            lo = np.arange(k) * (n // k)
+            off = (us.cpu().numpy() * width).astype(np.int64)  # k uniforms, read once at init
+            idx = np.minimum(lo + off, n - 1)
+            rows = np.concatenate([src.read(int(i), int(i) + 1) for i in idx])
+            return torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(tdev)
+        if isinstance(self.init, str) and self.init in ("probability_based", "kmeans++", "kmedians++"):
+            sub = torch.from_numpy(np.ascontiguousarray(src.read(0, min(n, 1 << 18)), np.float32)).to(tdev)
+            return _kmeanspp_init([sub], us, k)
+        raise ValueError(f"unsupported init for streamed data: {self.init!r}")
+
+    @telemetry.span("kmeans.fit_stream")
+    def fit_stream(self, source, dataset: Optional[str] = None, *, comm=None, budget: Optional[int] = None) -> "KMeans":
+        """Exact multi-pass Lloyd over data that does not fit on the card
+        (heat_tpu/cluster/kmeans.py:677): one streaming pass per iteration,
+        each slab folded into running f32 counts, sums and inertia by
+        :func:`_stream_lloyd_stats`, then the centre update and one scalar
+        read of the shift.  The fixed point is :meth:`fit`'s (only the
+        slab-wise order of the sums differs).  ``labels_`` stays None.
+        ``source`` is anything :func:`stream.open_source` takes; ``budget``
+        overrides the residency budget in bytes."""
+        from ..core import devices, stream
+        from ..parallel.mesh import sanitize_comm
+
+        comm = sanitize_comm(comm)
+        device = devices.sanitize_device(None)
+        src = stream.open_source(source, dataset=dataset, np_dtype=np.float32)
+        own = src is not source  # a ChunkSource passed in stays its caller's
+        try:
+            if len(src.shape) != 2:
+                raise ValueError(f"input needs to be 2-D, but was {len(src.shape)}-D")
+            n, f = src.shape
+            k = self.n_clusters
+            centers = self._init_centers_stream(src, device, comm)
+            inertia = 0.0
+            self._n_iter = 0
+            self.last_stream_report = None
+            for _ in range(self.max_iter):
+                pl = stream.plan_pass(src, comm=comm, site="kmeans_fit", budget=budget)
+                sp = stream.StreamPass(src, comm=comm, plan=pl)
+                counts = torch.zeros((k,), dtype=torch.float32, device=centers.device)
+                sums = torch.zeros((k, f), dtype=torch.float32, device=centers.device)
+                pass_inertia = torch.zeros((), dtype=torch.float32, device=centers.device)
+                for slab in sp:
+                    c, s, i = _stream_lloyd_stats(slab.x, slab.valid, centers, k)
+                    counts, sums, pass_inertia = counts + c, sums + s, pass_inertia + i
+                    del slab  # drop the loop reference: the three-slab residency cap
+                rep = stream.finish_pass(sp)
+                self.last_stream_report = dict(rep, arm=pl.arm, budget=pl.budget)
+                fp = telemetry.fingerprint(("stream_kmeans", pl.slab_rows, f, k, comm.size))
+                telemetry.ensure_program(fp, kind="stream_kmeans", dtype="float32", flops=4.0 * n * f * k,
+                                         hbm_bytes=float(n) * f * 4)
+                telemetry.record_timing(fp, rep["wall_s"])
+                telemetry.annotate_program(fp, io_stall_frac=round(1.0 - rep["overlap_frac"], 4),
+                                           io_bytes=rep["bytes_read"])
+                new_centers = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1)[:, None], centers)
+                # one read a pass: the shift and the pass's inertia together
+                shift, inertia = torch.stack([torch.sum((new_centers - centers) ** 2), pass_inertia]).tolist()
+                centers = new_centers
+                self._n_iter += 1
+                if shift <= self.tol:
+                    break
+        finally:
+            if own:
+                src.close()
+        self._cluster_centers = DNDarray([centers] * comm.size, tuple(centers.shape), types.float32, None, device,
+                                         comm)
+        # the dense path's inertia: the last pass's distances to the
+        # centres before their update; labels stay out of core
+        self._inertia = inertia
+        self._labels = None
         return self
 
     # ------------------------------------------------------ packed samples

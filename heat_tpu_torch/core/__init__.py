@@ -20,6 +20,8 @@ from . import envparse
 from .envparse import env_int
 from . import guard, telemetry, memtrack, roofline
 from . import autotune
+from . import fusion
+from .fusion import materialize, materialize_all
 from . import factories
 from .factories import *
 from . import _operations
@@ -55,6 +57,7 @@ from . import indexing
 from .indexing import *
 from . import io
 from .io import *
+from . import stream
 from . import random
 from . import linalg
 from .linalg import *

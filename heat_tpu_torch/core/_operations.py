@@ -15,6 +15,16 @@
 ``out=`` (every op) and ``where=`` (binary ops) follow the JAX package:
 ``out`` takes the result's values cast to its dtype and the result's split;
 where ``where`` is false, the result holds ``out``'s values, or 0.
+
+With the fusion engine on (:mod:`~heat_tpu_torch.core.fusion`, the
+default) and no ``out=``, each of the four builds a node of the lazy DAG
+instead of running, as heat_tpu's do: one leaf per operand (scalars as 0-d
+leaves), the ``where=`` select and its zero base as nodes of their own, a
+float cast of integer input to a unary op as a cast node.  A node applies
+the eager function of this module when its program runs, so fused values
+are the eager values bit for bit.  :func:`_composite` defers any other
+eager function of DNDarrays with static arguments as one node (the
+statistics and the Euclidean ``cdist``).
 """
 
 from __future__ import annotations
@@ -24,19 +34,21 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import sanitation, types
-from .dndarray import DNDarray, _wrap
+import functools
+
+from . import fusion, sanitation, types
+from .dndarray import DNDarray, _tdevice, _wrap
 from .stride_tricks import broadcast_shape, sanitize_axes_for_reduction, sanitize_axis
 from ..parallel import collectives
 
-__all__ = ["_binary_op", "_cum_op", "_local_op", "_reduce_op"]
+__all__ = ["_binary_op", "_composite", "_cum_op", "_local_op", "_reduce_op"]
 
 
 def _as_operand(x, ref: DNDarray):
     """DNDarrays pass through; python scalars become 0-d tensors of the
     scalar-aware ``result_type`` (a scalar never widens the array's dtype);
     other array-likes become replicated tensors on the array's device."""
-    tdev = ref.shards[0].device
+    tdev = _tdevice(ref)
     if isinstance(x, DNDarray):
         return x
     if np.isscalar(x):
@@ -52,6 +64,7 @@ def _inexact_type(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.int64 else torch.float32
 
 
+@functools.lru_cache(maxsize=None)
 def _promoted(fn: Callable, inexact: bool = False) -> Callable:
     """``fn`` of two tensors cast to their common type (its inexact form
     with ``inexact``), as ``jnp``'s binary operations promote."""
@@ -62,6 +75,8 @@ def _promoted(fn: Callable, inexact: bool = False) -> Callable:
             t = _inexact_type(t)
         return fn(a.to(t), b.to(t))
 
+    # one object per (fn, inexact): the fusion engine keys programs on it
+    op.__name__ = getattr(fn, "__name__", "op")
     return op
 
 
@@ -110,17 +125,122 @@ def _finish(result: DNDarray, out: Optional[DNDarray]) -> DNDarray:
 def _masked(result: DNDarray, where, out: Optional[DNDarray]) -> DNDarray:
     """``result`` where ``where`` holds, else ``out``'s values or 0
     (``jnp.where(where, result, out or zeros)``), with ``result``'s split."""
-    w = where.larray if isinstance(where, DNDarray) else torch.as_tensor(np.asarray(where))
+    dt = types.canonical_heat_type(result.dtype).torch_type()
+    base = out.larray.to(dt) if out is not None else torch.zeros((), dtype=dt)
+    return _select(where, result, base)
+
+
+def _select(where, result: DNDarray, base: torch.Tensor) -> DNDarray:
+    """``torch.where(where, result, base)`` with ``result``'s split."""
+    if isinstance(where, DNDarray):
+        w = where.larray
+    else:
+        w = where if isinstance(where, torch.Tensor) else torch.as_tensor(np.asarray(where))
     r = result.larray
-    base = out.larray.to(r.dtype) if out is not None else torch.zeros((), dtype=r.dtype)
     masked = torch.where(w.to(r.device), r, base.to(r.device))
     return _wrap(masked, result.split, result.device, result.comm)
 
 
+def _zeros(shape, dtype, device):
+    """The zero base of a lazy ``where=`` select: a 0-d tensor, which the
+    select broadcasts, as the eager path does."""
+    return torch.zeros((), dtype=dtype, device=device)
+
+
+fusion.register_op(_zeros, "zeros", kind="composite")
+fusion.register_op(_select, "where", kind="composite")
+
+
+def _lazy_operand(x, comm, fresh: bool = False):
+    """DAG node for one operand: a lazy array gives its pending expression,
+    a concrete one a pinned leaf over its shards, a tensor a replicated
+    leaf.  A tensor the caller may still hold (not ``fresh``) is cloned, so
+    a later write into it does not reach the chain.  Operands on meshes of
+    different sizes cannot share one program."""
+    if isinstance(x, DNDarray):
+        if x.comm is not comm and x.comm.size != comm.size:
+            raise fusion.Unfusable("operands live on different meshes")
+        return fusion.leaf_from(x)
+    return fusion.leaf(x if fresh else x.clone())
+
+
+def _apply_binary(a, b, op):
+    """The eager binary op of two node values (a program's step)."""
+    return _binary_eager(op, a, b, None, None)
+
+
+def _apply_local(x, op, no_cast):
+    return _local_eager(op, x, None, no_cast)
+
+
+def _apply_reduce(x, op, axis, keepdims, combine):
+    return _reduce_eager(op, x, axis, keepdims, combine, None)
+
+
+def _apply_cum(x, op, axis, combine, dtype):
+    return _cum_eager(op, x, axis, combine, dtype, None)
+
+
+fusion.register_op(_apply_binary, "binary", kind="elementwise")
+fusion.register_op(_apply_local, "local", kind="elementwise")
+fusion.register_op(_apply_reduce, "reduce", kind="reduction")
+fusion.register_op(_apply_cum, "scan", kind="scan")
+
+
+def _hashable_axis(axis):
+    return tuple(axis) if isinstance(axis, list) else axis
+
+
+def _defer(res, ref: DNDarray, tdev) -> DNDarray:
+    a = res.aval
+    return fusion.defer(res, a.shape, types.canonical_heat_type(a.dtype), a.split, ref.device, ref.comm, tdev)
+
+
+def _composite(fn: Callable, x: DNDarray, *others, **static) -> DNDarray:
+    """``fn(x, *others, **static)``, an eager function of DNDarrays with
+    hashable static arguments, as one node of the lazy DAG while the
+    fusion engine is on (else, or when it declines, run now)."""
+    if fusion.enabled():
+        try:
+            comm = x.comm
+            args = tuple(_lazy_operand(a, comm) for a in (x,) + others)
+            res = fusion.node(fn, args, (x.device, comm), **static)
+            if not res.aval.array:
+                raise fusion.Unfusable(f"{fusion.op_name(fn)} returns a tensor")
+            return _defer(res, x, _tdevice(x))
+        except fusion.Unfusable:
+            fusion.count_fallback()
+    return fn(x, *others, **static)
+
+
 def _binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, where=None) -> DNDarray:
-    """Generic distributed binary operation with broadcasting."""
+    """Generic distributed binary operation with broadcasting; lazy while
+    the fusion engine is on and ``out`` is None."""
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)}, {type(t2)}")
+    if fusion.enabled() and out is None:
+        try:
+            return _lazy_binary(operation, t1, t2, where)
+        except fusion.Unfusable:
+            fusion.count_fallback()
+    return _binary_eager(operation, t1, t2, out, where)
+
+
+def _lazy_binary(operation, t1, t2, where) -> DNDarray:
+    ref = t1 if isinstance(t1, DNDarray) else t2
+    comm, tdev = ref.comm, _tdevice(ref)
+    ctx = (ref.device, comm)
+    n1 = _lazy_operand(_as_operand(t1, ref), comm, fresh=np.isscalar(t1))
+    n2 = _lazy_operand(_as_operand(t2, ref), comm, fresh=np.isscalar(t2))
+    res = fusion.node(_apply_binary, (n1, n2), ctx, op=operation)
+    if where is not None:
+        w = where if isinstance(where, DNDarray) else torch.as_tensor(np.asarray(where), device=tdev)
+        base = fusion.node(_zeros, (), ctx, shape=res.aval.shape, dtype=res.aval.dtype, device=str(tdev))
+        res = fusion.node(_select, (_lazy_operand(w, comm), res, base), ctx)
+    return _defer(res, ref, tdev)
+
+
+def _binary_eager(operation: Callable, t1, t2, out: Optional[DNDarray], where) -> DNDarray:
     ref = t1 if isinstance(t1, DNDarray) else t2
     comm, device = ref.comm, ref.device
     o1, o2 = _as_operand(t1, ref), _as_operand(t2, ref)
@@ -150,9 +270,22 @@ def _binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, wher
 
 def _local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = False) -> DNDarray:
     """Elementwise operation; integer and bool input is cast to float32
-    first unless ``no_cast``."""
+    first unless ``no_cast`` (under fusion, a cast node)."""
     sanitation.sanitize_in(x)
+    if fusion.enabled() and out is None:
+        try:
+            ctx = (x.device, x.comm)
+            nx = _lazy_operand(x, x.comm)
+            if not no_cast and not (nx.aval.dtype.is_floating_point or nx.aval.dtype.is_complex):
+                nx = fusion.cast_node(nx, types.float32, ctx)
+            res = fusion.node(_apply_local, (nx,), ctx, op=operation, no_cast=no_cast)
+            return _defer(res, x, _tdevice(x))
+        except fusion.Unfusable:
+            fusion.count_fallback()
+    return _local_eager(operation, x, out, no_cast)
 
+
+def _local_eager(operation: Callable, x: DNDarray, out: Optional[DNDarray], no_cast: bool) -> DNDarray:
     def apply(t):
         if not no_cast and not (t.is_floating_point() or t.is_complex()):
             t = t.to(torch.float32)
@@ -213,8 +346,21 @@ def _reduce_op(
     """Generic reduction.  ``fn(t, dim, keepdim)`` reduces one tensor;
     ``combine`` (``"sum"``, ``"prod"``, ``"min"``, ``"max"``, ``"all"``,
     ``"any"``, ``"argmin"`` or ``"argmax"``) says how partial results over
-    the split axis merge across positions."""
+    the split axis merge across positions.  Under fusion a trailing
+    reduction extends its producer's DAG."""
     sanitation.sanitize_in(x)
+    if fusion.enabled() and out is None:
+        try:
+            nx = _lazy_operand(x, x.comm)
+            res = fusion.node(_apply_reduce, (nx,), (x.device, x.comm), op=fn, axis=_hashable_axis(axis),
+                              keepdims=bool(keepdims), combine=combine)
+            return _defer(res, x, _tdevice(x))
+        except fusion.Unfusable:
+            fusion.count_fallback()
+    return _reduce_eager(fn, x, axis, keepdims, combine, out)
+
+
+def _reduce_eager(fn: Callable, x: DNDarray, axis, keepdims: bool, combine: str, out: Optional[DNDarray]) -> DNDarray:
     axes, _ = sanitize_axes_for_reduction(x.shape, axis)
     comm = x.comm
     if x.split is None or x.split not in axes:
@@ -289,6 +435,18 @@ def _cum_op(
     axis = sanitize_axis(x.shape, axis)
     if axis is None:
         raise NotImplementedError("cumulative ops require an axis")
+    if fusion.enabled() and out is None:
+        try:
+            nx = _lazy_operand(x, x.comm)
+            res = fusion.node(_apply_cum, (nx,), (x.device, x.comm), op=fn, axis=axis, combine=combine,
+                              dtype=None if dtype is None else types.canonical_heat_type(dtype))
+            return _defer(res, x, _tdevice(x))
+        except fusion.Unfusable:
+            fusion.count_fallback()
+    return _cum_eager(fn, x, axis, combine, dtype, out)
+
+
+def _cum_eager(fn: Callable, x: DNDarray, axis: int, combine: str, dtype, out: Optional[DNDarray]) -> DNDarray:
     shards = x.shards if x.split is not None else x.shards[:1]
     if dtype is not None:
         shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]

@@ -9,6 +9,8 @@ JAX package accumulates them."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -272,11 +274,22 @@ def _accumulated(fn, a, axis, out, keepdims: bool, combine: str) -> DNDarray:
     partials too) and the result is cast back once."""
     sanitation.sanitize_in(a)
     half = a.dtype in (types.float16, types.bfloat16)
-    op = (lambda t, dim, keepdim: fn(t.to(torch.float32), dim, keepdim)) if half else fn
-    result = _operations._reduce_op(op, a, axis=axis, keepdims=keepdims, combine=combine)
+    result = _operations._reduce_op(_in_f32(fn) if half else fn, a, axis=axis, keepdims=keepdims, combine=combine)
     if half:
-        result = result.astype(a.dtype, copy=False)
+        result = result.astype(a.dtype)
     return result if out is None else sanitation.sanitize_out(out, result)
+
+
+@functools.lru_cache(maxsize=None)
+def _in_f32(fn):
+    """``fn`` of a 16-bit block widened to float32 (one object per ``fn``,
+    which the fusion engine keys on)."""
+
+    def op(t, dim, keepdim):
+        return fn(t.to(torch.float32), dim, keepdim)
+
+    op.__name__ = fn.__name__.lstrip("_")
+    return op
 
 
 def sum(a, axis=None, out=None, keepdims=False) -> DNDarray:
@@ -334,3 +347,22 @@ DNDarray.sum = lambda self, axis=None, out=None, keepdims=False: sum(self, axis=
 DNDarray.prod = lambda self, axis=None, out=None, keepdims=False: prod(self, axis=axis, out=out, keepdims=keepdims)
 DNDarray.cumsum = lambda self, axis, dtype=None, out=None: cumsum(self, axis, dtype, out)
 DNDarray.cumprod = lambda self, axis, dtype=None, out=None: cumprod(self, axis, dtype, out)
+
+# the fusion engine's op table: display names and kinds of the torch
+# operations this module sends through the lazy workhorses
+_P = _operations._promoted
+for _fn, _name in [
+    (torch.add, "add"), (_P(torch.sub), "sub"), (torch.mul, "mul"),
+    (_P(torch.true_divide, inexact=True), "div"), (_P(torch.floor_divide), "floordiv"),
+    (_P(torch.remainder), "mod"), (_P(torch.fmod), "fmod"), (_power, "pow"),
+    (_P(torch.hypot, inexact=True), "hypot"), (_P(torch.copysign, inexact=True), "copysign"),
+    (_P(torch.bitwise_left_shift), "lshift"), (_P(torch.bitwise_right_shift), "rshift"),
+    (_P(torch.bitwise_and), "and"), (_P(torch.bitwise_or), "or"), (_P(torch.bitwise_xor), "xor"),
+    (torch.neg, "neg"), (_positive, "pos"), (torch.bitwise_not, "invert"),
+]:
+    _operations.fusion.register_op(_fn, _name, kind="elementwise")
+for _fn, _name in [(_sum, "sum"), (_prod, "prod"), (_nansum, "nansum"), (_nanprod, "nanprod")]:
+    _operations.fusion.register_op(_fn, _name, kind="reduction")
+    _operations.fusion.register_op(_in_f32(_fn), _name, kind="reduction")
+for _fn, _name in [(torch.cumsum, "cumsum"), (torch.cumprod, "cumprod")]:
+    _operations.fusion.register_op(_fn, _name, kind="scan")

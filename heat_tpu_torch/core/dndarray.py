@@ -10,6 +10,7 @@ tensor at every position.
 
 from __future__ import annotations
 
+import sys
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,10 +43,27 @@ class _LlocAccessor:
         self._owner = owner
 
     def __getitem__(self, key):
-        return self._owner.larray[key]
+        whole = self._owner.larray
+        fusion.expose((whole,))
+        return whole[key]
 
     def __setitem__(self, key, value):
         self._owner[key] = value
+
+
+# this package's module names: a tensor handed to code outside them can be
+# written without the package seeing it (fusion.expose)
+_PKG = __name__.split(".")[0]
+
+
+def _outside() -> bool:
+    """Whether the caller of the property calling this is code outside the
+    package."""
+    try:
+        name = sys._getframe(2).f_globals.get("__name__", "")
+    except ValueError:  # no Python frame calls the property
+        return True
+    return name != _PKG and not name.startswith(_PKG + ".")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -55,6 +73,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
     # a tensor already on the host is copied: the array's later in-place
     # writes must not show through an earlier numpy result
     t = t.detach().cpu() if t.device.type != "cpu" else t.detach().clone()
+    if fusion._DEFERRED:
+        fusion.drain_guard(wait=True)  # the read has waited for the card
     if t.dtype != torch.bfloat16:
         return t.numpy()
     try:
@@ -125,11 +145,28 @@ class DNDarray:
         # user's call (a shard wrapped again counts a rebind)
         memtrack.register_shards(self.__shards, tag="leaf", split=split)
 
+    @classmethod
+    def _unledgered(cls, shards, gshape, dtype, split, device, comm) -> "DNDarray":
+        """A DNDarray over ``shards`` that the memory ledger does not count
+        again: the fusion engine's snapshots of arrays it reads."""
+        obj = DNDarray.__new__(DNDarray)
+        obj.__shards = list(shards)
+        obj.__gshape = tuple(int(s) for s in gshape)
+        obj.__dtype = dtype
+        obj.__split = split
+        obj.__device = device
+        obj.__comm = comm
+        obj.__halos = None
+        return obj
+
     # ------------------------------------------------------------ properties
     @property
     def shards(self) -> List[torch.Tensor]:
         """The per-position torch tensors, in position order."""
-        return list(self.__shards)
+        out = list(self.__shards)
+        if _outside():
+            fusion.expose(out)
+        return out
 
     @property
     def larray(self) -> torch.Tensor:
@@ -137,7 +174,10 @@ class DNDarray:
         concatenates the shards (a gather); per-position work reads
         :attr:`shards` instead."""
         if self.__split is None or self.__comm.size == 1:
-            return self.__shards[0]
+            t = self.__shards[0]
+            if _outside():
+                fusion.expose((t,))
+            return t
         return torch.cat(self.__shards, dim=self.__split)
 
     @property
@@ -298,6 +338,7 @@ class DNDarray:
             raise ValueError("Only 2D tensors supported at the moment")
         if isinstance(value, (DNDarray, torch.Tensor, np.ndarray)):
             value = value.item()
+        fusion.before_write(self.__shards)
         for r, s in _distinct(self.__shards):
             if self.__split is None:
                 s.diagonal().fill_(value)
@@ -463,7 +504,10 @@ class DNDarray:
     def item(self):
         if self.size != 1:
             raise ValueError("only one-element arrays can be converted to Python scalars")
-        return self.larray.reshape(()).item()
+        value = self.larray.reshape(()).item()
+        if fusion._DEFERRED:
+            fusion.drain_guard(wait=True)  # the read has waited for the card
+        return value
 
     def __float__(self) -> float:
         return float(self.item())
@@ -497,10 +541,18 @@ class DNDarray:
         if axis == self.__split:
             return self
         if transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
-            # the old shards are dropped below: the port's donation
-            memtrack.tag_shards(self.__shards, "donated")
-            shards = transport.tiled_resplit(self.__shards, self.__gshape, self.__split, axis, self.__comm,
-                                             exact=exact)
+            # a pending chain is evaluated straight into the new split's
+            # tile loop; its expression stays for its other consumers
+            shards = fusion.materialize_resplit(self, axis)
+            if shards is not None:
+                self.__dict__["_expr"] = None
+            else:
+                # the old shards are dropped below, the port's donation,
+                # unless a pending chain still reads them
+                if fusion.safe_to_donate(self.__shards):
+                    memtrack.tag_shards(self.__shards, "donated")
+                shards = transport.tiled_resplit(self.__shards, self.__gshape, self.__split, axis, self.__comm,
+                                                 exact=exact)
         else:
             shards = _shard(self.larray, axis, self.__comm)
         self.__shards = shards
@@ -515,6 +567,14 @@ class DNDarray:
 
     def _resplit(self, axis: Optional[int], exact: bool) -> "DNDarray":
         """:meth:`resplit`; ``exact`` as in :meth:`_resplit_`."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis != self.__split and transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
+            shards = fusion.materialize_resplit(self, axis)
+            if shards is not None:
+                # this array stays pending in its own split
+                out = DNDarray(shards, self.__gshape, self.__dtype, axis, self.__device, self.__comm)
+                memtrack.register_shards(shards, tag="output", split=axis)
+                return out
         out = DNDarray(
             self.__shards, self.__gshape, self.__dtype, self.__split, self.__device, self.__comm
         )
@@ -787,6 +847,7 @@ class DNDarray:
                 return  # numpy: a False key selects nothing
             keys = tuple(None if _is_scalar_bool_key(k) else k for k in keys)
         value = self.__assign_value(value)
+        fusion.before_write(self.__shards)
         self._invalidate_halos()
         if not self.__mask_assign(keys, value):
             self.__put(keys, value)
@@ -1445,3 +1506,13 @@ def _value_source(value, full_shape, full_labels, core_labels, dim_label, flips,
         return t
     dim = core_labels.index(dim_label)
     return transport.RowSource(dim, t.shape[dim], tensor=t)
+
+
+def _tdevice(x: DNDarray) -> torch.device:
+    """The torch device of ``x``'s shards, without materializing a lazy
+    array."""
+    tdev = getattr(x, "_tdev", None)
+    return tdev if tdev is not None else x.shards[0].device
+
+
+from . import fusion  # noqa: E402  (fusion builds on DNDarray)

@@ -81,3 +81,14 @@ DNDarray.log10 = lambda self, out=None: log10(self, out)
 DNDarray.log1p = lambda self, out=None: log1p(self, out)
 DNDarray.sqrt = lambda self, out=None: sqrt(self, out)
 DNDarray.square = lambda self, out=None: square(self, out)
+
+# the fusion engine's op table ("elementwise": shape-preserving maps the
+# transport engine's fused split tail may replay tile by tile)
+for _fn, _name in [
+    (torch.exp, "exp"), (torch.exp2, "exp2"), (torch.expm1, "expm1"), (torch.log, "log"),
+    (torch.log2, "log2"), (torch.log10, "log10"), (torch.log1p, "log1p"), (torch.sqrt, "sqrt"),
+    (_square, "square"), (_cbrt, "cbrt"),
+    (_operations._promoted(torch.logaddexp, inexact=True), "logaddexp"),
+    (_operations._promoted(torch.logaddexp2, inexact=True), "logaddexp2"),
+]:
+    _operations.fusion.register_op(_fn, _name, kind="elementwise")

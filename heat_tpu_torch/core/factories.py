@@ -18,7 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import devices, types
+from . import devices, fusion, types
 from .dndarray import DNDarray, _wrap
 from ..parallel.mesh import MeshComm, sanitize_comm
 from .stride_tricks import sanitize_axis, sanitize_shape
@@ -73,9 +73,11 @@ def array(
         obj = obj.larray
     device = devices.sanitize_device(device)
     tt = types.canonical_heat_type(dtype).torch_type() if dtype is not None else None
+    aliased = False
     if isinstance(obj, torch.Tensor):
         # row-major, as the kernels take it (a no-op for contiguous input)
         tensor = obj.detach().to(device=device.torch_device, dtype=tt, copy=copy).contiguous()
+        aliased = not copy and tensor.untyped_storage().data_ptr() == obj.untyped_storage().data_ptr()
     else:
         # host data is copied once, into torch's own buffer
         host = np.asarray(obj)
@@ -87,6 +89,10 @@ def array(
         tensor = tensor.to(device=device.torch_device, dtype=tt)
     if tensor.ndim < ndmin:
         tensor = tensor.reshape((1,) * (ndmin - tensor.ndim) + tuple(tensor.shape))
+    if aliased:
+        # the caller keeps the tensor and may write it: pending chains must
+        # not read it after such a write
+        fusion.expose((tensor,))
     return _wrap(tensor, split, device, comm)
 
 

@@ -7,9 +7,13 @@ hooks (counterpart of heat_tpu/core/guard.py).
   :func:`capture_site` walks the stack to the first frame outside the
   ``heat_tpu_torch`` package, the user line behind a buffer or an op;
   :mod:`~heat_tpu_torch.core.memtrack` stamps it on every buffer it
-  ledgers.  heat_tpu's consumer of the mode, the fusion engine's check of
-  a materialized chain and its eager replay that blames the first op to
-  produce NaN/Inf, comes with the port of ``core/fusion.py``.
+  ledgers, and every node of the fusion engine's DAG records it.  The
+  engine (:mod:`~heat_tpu_torch.core.fusion`) consumes the mode: while it
+  is on, each materialization checks its float outputs with one
+  reduction and one host read (deferred until the value has landed in
+  ``warn`` mode on the card), and a chain whose finite inputs produced
+  NaN/Inf is replayed op by op to name the first op, its line and its
+  subtree.
 * The fault-injection hooks :func:`fire` and :func:`corrupt`: the
   transport engine consults them on every move, so an installed injector
   (heat_tpu's ``utils.fault.FaultInjector``, not ported yet) can raise or

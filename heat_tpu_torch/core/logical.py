@@ -119,3 +119,13 @@ def signbit(x, out=None) -> DNDarray:
 
 DNDarray.all = lambda self, axis=None, out=None, keepdims=False: all(self, axis, out, keepdims)
 DNDarray.any = lambda self, axis=None, out=None, keepdims=False: any(self, axis, out, keepdims)
+
+# the fusion engine's op table
+for _fn, _name in [
+    (torch.logical_and, "logical_and"), (torch.logical_or, "logical_or"), (torch.logical_xor, "logical_xor"),
+    (torch.logical_not, "logical_not"), (torch.isfinite, "isfinite"), (torch.isinf, "isinf"),
+    (torch.isnan, "isnan"), (torch.isneginf, "isneginf"), (torch.isposinf, "isposinf"), (_signbit, "signbit"),
+]:
+    _operations.fusion.register_op(_fn, _name, kind="predicate")
+for _fn, _name in [(_all, "all"), (_any, "any")]:
+    _operations.fusion.register_op(_fn, _name, kind="reduction")

@@ -20,7 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import sanitation, stride_tricks, types
+from . import fusion, sanitation, stride_tricks, types
 from ..parallel import collectives, transport
 from ..parallel.sort import (
     distributed_sort,
@@ -109,7 +109,17 @@ def reshape(a: DNDarray, *shape, new_split=None) -> DNDarray:
         and new_split is not None
         and transport.reshape_applicable(a.shape, a.split, gout, new_split, a.comm)
     ):
-        shards = transport.tiled_reshape(a.shards, a.shape, a.split, gout, new_split, a.comm)
+        src, si = None, a.split
+        if a.split != 0 and not (
+            transport._prefix_prod(a.shape, a.split) == transport._prefix_prod(gout, new_split)
+            and a.shape[a.split] == gout[new_split]
+        ):
+            # a split-crossing reshape stages through split 0: a pending
+            # chain is evaluated straight into that first resplit
+            src = fusion.materialize_resplit(a, 0)
+            if src is not None:
+                si = 0
+        shards = transport.tiled_reshape(a.shards if src is None else src, a.shape, si, gout, new_split, a.comm)
         return DNDarray(shards, gout, a.dtype, new_split, a.device, a.comm)
     return _wrap(a.larray.reshape(gout), new_split, a.device, a.comm)
 

@@ -260,7 +260,14 @@ def tag_shards(shards, tag: str) -> None:
         tag_buffer(s, tag)
 
 
-def _render(rec: dict, now: float) -> dict:
+def _pinned_ids() -> set:
+    """Ids of the tensors a pending fusion expression reads (its pins)."""
+    from . import fusion
+
+    return set(fusion._PINNED)
+
+
+def _render(rec: dict, now: float, pinned: frozenset = frozenset()) -> dict:
     return {
         "id": rec["id"],
         "nbytes": rec["nbytes"],
@@ -269,6 +276,7 @@ def _render(rec: dict, now: float) -> dict:
         "split": rec["split"],
         "device": str(rec["device"]),
         "tag": rec["tag"],
+        "pinned": rec["id"] in pinned,
         "site": rec["site"],
         "age_s": round(now - rec["ts"], 3),
     }
@@ -282,7 +290,8 @@ def live_buffers(top: Optional[int] = 10) -> List[dict]:
     if top is not None:
         rows = rows[: max(int(top), 0)]
     now = time.monotonic()
-    return [_render(r, now) for r in rows]
+    pinned = _pinned_ids()
+    return [_render(r, now, pinned) for r in rows]
 
 
 def census(top: int = 8) -> dict:
@@ -488,7 +497,7 @@ def memwatch():
         gc.collect()
         now = time.monotonic()
         w.retained = [
-            _render(rec, now)
+            _render(rec, now, _pinned_ids())
             for rec in sorted(_LEDGER.values(), key=lambda r: -r["nbytes"])
             if rec["seq"] > w._mark
         ]
@@ -496,8 +505,11 @@ def memwatch():
 
 
 def leaks() -> List[dict]:
-    """Tensors registered inside the last :func:`memwatch` scope and still
-    alive now (``kind="retained"``).  heat_tpu also lists orphaned fusion
-    pins (``kind="pin"``); the port has no fusion engine yet.  Empty means
-    no evidence of retention."""
-    return [dict(row, kind="retained") for row in _WATCH_RETAINED if row["id"] in _LEDGER]
+    """Evidence of leaked residency: fusion pins whose owning expression is
+    gone (``kind="pin"``, :func:`fusion.pin_leaks`), and tensors registered
+    inside the last :func:`memwatch` scope and still alive now
+    (``kind="retained"``).  Empty means no evidence."""
+    from . import fusion
+
+    out = [dict(rec, kind="pin") for rec in fusion.pin_leaks()]
+    return out + [dict(row, kind="retained") for row in _WATCH_RETAINED if row["id"] in _LEDGER]

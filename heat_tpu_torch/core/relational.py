@@ -50,22 +50,34 @@ def lt(x, y) -> DNDarray:
 less = lt
 
 
+def _le(a, b):
+    return ordered_less(a, b, or_equal=True)
+
+
+def _gt(a, b):
+    return ordered_less(b, a)
+
+
+def _ge(a, b):
+    return ordered_less(b, a, or_equal=True)
+
+
 def le(x, y) -> DNDarray:
-    return _operations._binary_op(lambda a, b: ordered_less(a, b, or_equal=True), x, y)
+    return _operations._binary_op(_le, x, y)
 
 
 less_equal = le
 
 
 def gt(x, y) -> DNDarray:
-    return _operations._binary_op(lambda a, b: ordered_less(b, a), x, y)
+    return _operations._binary_op(_gt, x, y)
 
 
 greater = gt
 
 
 def ge(x, y) -> DNDarray:
-    return _operations._binary_op(lambda a, b: ordered_less(b, a, or_equal=True), x, y)
+    return _operations._binary_op(_ge, x, y)
 
 
 greater_equal = ge
@@ -78,3 +90,8 @@ DNDarray.__le__ = lambda self, other: le(self, other)
 DNDarray.__gt__ = lambda self, other: gt(self, other)
 DNDarray.__ge__ = lambda self, other: ge(self, other)
 DNDarray.__hash__ = object.__hash__
+
+# the fusion engine's op table: comparisons are elementwise nodes, and the
+# ``__bool__`` of their result is a materialization boundary
+for _fn, _name in [(torch.eq, "eq"), (torch.ne, "ne"), (ordered_less, "lt"), (_le, "le"), (_gt, "gt"), (_ge, "ge")]:
+    _operations.fusion.register_op(_fn, _name, kind="comparison")

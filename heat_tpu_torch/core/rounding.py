@@ -131,3 +131,10 @@ DNDarray.__abs__ = lambda self: abs(self)
 DNDarray.clip = lambda self, min=None, max=None, out=None: clip(self, min, max, out)
 DNDarray.round = lambda self, decimals=0, out=None, dtype=None: round(self, decimals, out, dtype)
 DNDarray.modf = lambda self, out=None: modf(self, out)
+
+# the fusion engine's op table (shape-preserving "elementwise" maps)
+for _fn, _name in [
+    (_abs, "abs"), (torch.abs, "fabs"), (torch.ceil, "ceil"), (torch.floor, "floor"),
+    (torch.trunc, "trunc"), (_sign, "sign"),
+]:
+    _operations.fusion.register_op(_fn, _name, kind="elementwise")

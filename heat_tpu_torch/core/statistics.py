@@ -18,6 +18,7 @@ same here.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -65,8 +66,13 @@ def _float_sum(t, dim, keepdim):
 def mean(x, axis=None, keepdims: bool = False) -> DNDarray:
     """Arithmetic mean (heat_tpu/core/statistics.py:297): integers give
     float32, floats keep their type.  Over the split axis, the positions'
-    partial sums are all-reduced and divided by the count once."""
+    partial sums are all-reduced and divided by the count once.  Under
+    fusion, one node."""
     sanitation.sanitize_in(x)
+    return _operations._composite(_mean, x, axis=_operations._hashable_axis(axis), keepdims=bool(keepdims))
+
+
+def _mean(x, axis, keepdims: bool) -> DNDarray:
     axes, _ = sanitize_axes_for_reduction(x.shape, axis)
     count = math.prod(x.shape[a] for a in axes)
     total = _operations._reduce_op(_float_sum, x, axis=axis, keepdims=keepdims, combine="sum")
@@ -141,6 +147,7 @@ def argmax(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     return _operations._reduce_op(_argmax, x, axis=axis, keepdims=keepdims, combine="argmax", out=out)
 
 
+@functools.lru_cache(maxsize=None)
 def _extremum(largest: bool):
     """An elementwise maximum (minimum) in the operands' common type, NaN
     propagating; complex in NumPy's lexicographic order."""
@@ -204,20 +211,40 @@ def _cast_back(result: DNDarray, x: DNDarray) -> DNDarray:
 
 def var(x, axis=None, ddof: int = 0, keepdims: bool = False) -> DNDarray:
     """Variance with ``ddof`` delta degrees of freedom: the sum of squared
-    deviations from the mean over N − ddof (real for complex input)."""
+    deviations from the mean over N − ddof (real for complex input).
+    Under fusion, one node."""
+    sanitation.sanitize_in(x)
+    return _operations._composite(_var_of, x, axis=_operations._hashable_axis(axis), ddof=ddof,
+                                  keepdims=bool(keepdims))
+
+
+def _var_of(x, axis, ddof: int, keepdims: bool) -> DNDarray:
     return _cast_back(_var(x, axis, ddof, keepdims), x)
 
 
 def std(x, axis=None, ddof: int = 0, keepdims: bool = False) -> DNDarray:
-    """Standard deviation: the square root of :func:`var`."""
+    """Standard deviation: the square root of :func:`var`.  Under fusion,
+    one node."""
+    sanitation.sanitize_in(x)
+    return _operations._composite(_std_of, x, axis=_operations._hashable_axis(axis), ddof=ddof,
+                                  keepdims=bool(keepdims))
+
+
+def _std_of(x, axis, ddof: int, keepdims: bool) -> DNDarray:
     return _cast_back(_operations._local_op(torch.sqrt, _var(x, axis, ddof, keepdims)), x)
 
 
 def _moment_stat(x, axis, order: int, unbiased: bool, fischer: bool = True) -> DNDarray:
     """Standardised central moment of order 3 (skew) or 4 (kurtosis) with
-    the JAX package's bias corrections (heat_tpu/core/statistics.py:217)."""
+    the JAX package's bias corrections (heat_tpu/core/statistics.py:217);
+    under fusion one ``moment`` node, as heat_tpu's composite."""
     sanitation.sanitize_in(x)
-    axis_s = sanitize_axis(x.shape, axis)
+    return _operations._composite(_moment, x, axis=sanitize_axis(x.shape, axis), order=int(order),
+                                  unbiased=bool(unbiased), fischer=bool(fischer))
+
+
+def _moment(x, axis, order: int, unbiased: bool, fischer: bool) -> DNDarray:
+    axis_s = axis
     n = x.size if axis_s is None else x.shape[axis_s]
     xf = x if x.dtype.torch_type().is_floating_point or x.dtype.torch_type().is_complex else x.astype(types.float32)
     mu = mean(xf, axis=axis_s, keepdims=True)
@@ -571,3 +598,12 @@ DNDarray.min = lambda self, axis=None, out=None, keepdims=False: min(self, axis,
 DNDarray.mean = lambda self, axis=None, keepdims=False: mean(self, axis=axis, keepdims=keepdims)
 DNDarray.std = lambda self, axis=None, ddof=0: std(self, axis, ddof)
 DNDarray.var = lambda self, axis=None, ddof=0: var(self, axis, ddof)
+
+# the fusion engine's op table
+for _fn, _name in [(_argmax, "argmax"), (_argmin, "argmin"), (_amax, "max"), (_amin, "min")]:
+    _operations.fusion.register_op(_fn, _name, kind="reduction")
+for _fn, _name in [(_mean, "mean"), (_std_of, "std"), (_var_of, "var")]:
+    _operations.fusion.register_op(_fn, _name, kind="reduction")
+_operations.fusion.register_op(_moment, "moment", kind="composite")
+_operations.fusion.register_op(_extremum(True), "maximum", kind="elementwise")
+_operations.fusion.register_op(_extremum(False), "minimum", kind="elementwise")

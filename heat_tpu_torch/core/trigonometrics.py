@@ -84,3 +84,13 @@ def sinc(x, out=None) -> DNDarray:
 
 def tanh(x, out=None) -> DNDarray:
     return _operations._local_op(torch.tanh, x, out=out)
+
+# the fusion engine's op table (shape-preserving "elementwise" maps)
+for _fn, _name in [
+    (torch.sin, "sin"), (torch.cos, "cos"), (torch.tan, "tan"), (torch.sinh, "sinh"), (torch.cosh, "cosh"),
+    (torch.tanh, "tanh"), (torch.arcsin, "arcsin"), (torch.arccos, "arccos"), (torch.arctan, "arctan"),
+    (torch.arcsinh, "arcsinh"), (torch.arccosh, "arccosh"), (torch.arctanh, "arctanh"),
+    (torch.deg2rad, "deg2rad"), (torch.rad2deg, "rad2deg"), (torch.sinc, "sinc"),
+    (_operations._promoted(torch.atan2, inexact=True), "arctan2"),
+]:
+    _operations.fusion.register_op(_fn, _name, kind="elementwise")

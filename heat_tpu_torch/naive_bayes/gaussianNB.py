@@ -178,9 +178,70 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
 
     def fit_stream(self, source, y, dataset: Optional[str] = None, *, classes=None, sample_weight=None, comm=None,
                    budget: Optional[int] = None) -> "GaussianNB":
-        raise NotImplementedError(
-            "GaussianNB.fit_stream needs core/stream.py, which is not ported yet (ROADMAP queue 1, item 13)"
-        )
+        """Fit from a source that does not fit on the card
+        (heat_tpu/naive_bayes/gaussianNB.py:130): one streaming pass, each
+        slab folded in through :meth:`partial_fit` (Chan's merge).  ``y``
+        and ``sample_weight`` are in memory; the pad rows of a slab's tail
+        enter with weight 0 and the first class's label.  ``epsilon_``
+        comes from the pooled variance of the whole stream (the law of
+        total variance over the per-class moments), as one in-memory call
+        computes it."""
+        from ..core import devices, factories, stream, telemetry
+        from ..parallel.mesh import sanitize_comm
+
+        comm = sanitize_comm(comm)
+        device = devices.sanitize_device(None)
+        src = stream.open_source(source, dataset=dataset, np_dtype=np.float32)
+        own = src is not source  # a ChunkSource passed in stays its caller's
+        self.classes_ = None  # a fresh fit, as fit()
+        self.theta_ = None
+        try:
+            if len(src.shape) != 2:
+                raise ValueError(f"expected x to be 2-D, but was {len(src.shape)}-D")
+            n, f = src.shape
+            y_host = np.asarray(y.numpy() if isinstance(y, DNDarray) else y).reshape(-1)
+            if y_host.shape[0] != n:
+                raise ValueError(f"y has {y_host.shape[0]} labels for {n} samples")
+            w_host = None
+            if sample_weight is not None:
+                w_host = np.asarray(
+                    sample_weight.numpy() if isinstance(sample_weight, DNDarray) else sample_weight, np.float32
+                ).reshape(-1)
+            if classes is not None:
+                cls_np = np.asarray(classes.numpy() if isinstance(classes, DNDarray) else classes)
+            else:
+                cls_np = np.unique(y_host)
+            cls_dnd = factories.array(cls_np, split=None, device=device, comm=comm)
+            pl = stream.plan_pass(src, comm=comm, site="gnb_fit", budget=budget)
+            sp = stream.StreamPass(src, comm=comm, plan=pl)
+            for slab in sp:
+                rows = slab.x.shape[0]
+                lo, hi = slab.base, slab.base + slab.valid
+                yk = y_host[lo:hi]
+                w = np.zeros(rows, np.float32)
+                w[: slab.valid] = 1.0 if w_host is None else w_host[lo:hi]
+                if slab.valid < rows:
+                    yk = np.concatenate([yk, np.full(rows - slab.valid, cls_np[0], yk.dtype)])
+                y_dnd = factories.array(yk, split=0, device=device, comm=comm)
+                self.partial_fit(slab.x, y_dnd, classes=cls_dnd, sample_weight=w)
+                del slab  # drop the loop reference: the three-slab residency cap
+            rep = stream.finish_pass(sp)
+            self.last_stream_report = dict(rep, arm=pl.arm, budget=pl.budget)
+            fp = telemetry.fingerprint(("stream_gnb", pl.slab_rows, f, len(cls_np), comm.size))
+            telemetry.ensure_program(fp, kind="stream_gnb", dtype="float32", flops=6.0 * n * f * len(cls_np),
+                                     hbm_bytes=float(n) * f * 4)
+            telemetry.record_timing(fp, rep["wall_s"])
+            telemetry.annotate_program(fp, io_stall_frac=round(1.0 - rep["overlap_frac"], 4),
+                                       io_bytes=rep["bytes_read"])
+        finally:
+            if own:
+                src.close()
+        n_c, mu_c, var_c = self._counts, self._means, self._vars
+        tot = torch.clamp(torch.sum(n_c), min=1)
+        mu = torch.sum(n_c[:, None] * mu_c, dim=0) / tot
+        total_var = torch.sum(n_c[:, None] * (var_c + (mu_c - mu[None, :]) ** 2), dim=0) / tot
+        self.epsilon_ = self.var_smoothing * float(torch.max(total_var))  # one read, finishing the fit
+        return self
 
     # ------------------------------------------------------------ predict
     @staticmethod

@@ -63,8 +63,20 @@ f32 wire.  A take never quantizes (``wire.decline("take")``).  On a CUDA
 tensor with the tuning plane on, the rechunk keeps K7's one-arm row under
 heat_tpu's ``reshape_repack`` key (``autotune.kernel_site``).
 
+The fused split tail (:func:`_lower_split_tail`, heat_tpu :718-1034): a
+pending lazy chain whose every op is a registered shape-preserving map, and
+whose leaves are full-shape arrays in the source split or one-element
+scalars, is evaluated straight into a resplit, one band of columns of one
+source shard at a time (the band lands in each destination it crosses),
+from views of the source shards; the chain is never
+materialized whole in the old split, and stays pending for its other
+consumers.  The port's shards hold no pad rows or columns, so the chain
+never runs on a pad lane and nothing needs zeroing.  A chain whose resplit
+would take a quantized wire declines, so the materialize-then-resplit
+route applies the wire as it would without fusion.
+
 Not ported (ROADMAP queue 1, item 13): the OOM back-off (its counters stay
-at their defaults) and the fused split tails.
+at their defaults).
 """
 
 from __future__ import annotations
@@ -85,8 +97,10 @@ __all__ = [
     "RowSource",
     "rechunk_plan",
     "rechunk_rows",
+    "reset_stats",
     "reshape_applicable",
     "resplit_applicable",
+    "stats",
     "tiled_reshape",
     "tiled_resplit",
     "tiled_take",
@@ -234,10 +248,10 @@ def reshape_applicable(gin, si, gout, so, comm) -> bool:
     return rechunk_plan(int(gin[0]), rowsz_in, int(gout[0]), rowsz_out, comm.size) is not None
 
 
-# heat_tpu's "transport" counter group.  Its keys are kept only so that
-# telemetry.snapshot() has heat_tpu's keys: nothing in the port moves them
-# until the OOM back-off and the fused tails are ported
-telemetry.register_group(
+# heat_tpu's "transport" counter group: ``fused_tails`` counts the fused
+# split tails; the OOM back-off's keys stay at their defaults until it is
+# ported
+_STATS = telemetry.register_group(
     "transport",
     {
         "oom_retries": 0,
@@ -716,3 +730,162 @@ class RowSource:
             if pos.numel():
                 out.index_copy_(self.dim, pos, s.index_select(self.dim, idx[pos] - lo))
         return out
+
+
+# ------------------------------------------------- fused elementwise tail
+
+# Op kinds a tile can replay: shape-preserving maps whose value at an
+# element depends on that element alone (heat_tpu :715).
+_FUSED_TAIL_KINDS = frozenset({"elementwise", "cast", "comparison", "predicate"})
+
+
+def _tail_op_ok(fn, kw) -> bool:
+    from ..core import fusion
+
+    for k, v in kw or ():
+        if k == "op":
+            meta = fusion._OP_TABLE.get(v)
+            return meta is not None and meta[1] in _FUSED_TAIL_KINDS
+    meta = fusion._OP_TABLE.get(fn)
+    return meta is not None and meta[1] in _FUSED_TAIL_KINDS
+
+
+def _lower_split_tail(instrs, leaves, avals, out_slot, gshape, sa, sb, comm, tile_bytes):
+    """Split-boundary terminator (``fusion.register_split_terminator``): the
+    shards, in split ``sb``, of a pending chain whose root is split ``sa``,
+    or None to decline (heat_tpu :855).  Accepted: every op a registered
+    shape-preserving map, every leaf a full-shape array split along ``sa``
+    on this mesh or a one-element scalar, every full-shape op fed by a
+    full-shape child, a full-shape root.  Reductions, ``where=`` masks,
+    broadcast operands and replicated or foreign-split leaves decline.
+
+    The columns of ``sb`` are cut into bands of :func:`tile_plan`'s width
+    over one source shard's rows; for each source shard and band, the chain
+    runs on the shard's view of those columns (its ops, as the program
+    would run them, on a one-position array), and the result lands in the
+    rows of that source in each destination whose columns the band
+    crosses.  Values are the materialize-then-resplit ones bit for bit."""
+    from ..core import fusion
+    from ..core.dndarray import DNDarray
+    from .mesh import MeshComm
+
+    gshape = tuple(int(d) for d in gshape)
+    if not resplit_applicable(gshape, sa, sb, comm) or instrs[out_slot][0] != "O":
+        return None
+    kinds = []
+    for lf in leaves:
+        a, v = lf.aval, lf.value
+        if a.array and a.shape == gshape:
+            if v.split != sa or v.comm.size != comm.size:
+                return None
+            kinds.append("full")
+        elif math.prod(a.shape) == 1 and (not a.array or v.split is None):
+            kinds.append("scalar")
+        else:
+            return None
+    for i, ins in enumerate(instrs):
+        if ins[0] != "O":
+            continue
+        _, fn, kw, ch = ins
+        if not _tail_op_ok(fn, kw):
+            return None
+        shp = tuple(avals[i].shape)
+        if shp == gshape:
+            if not any(tuple(avals[c].shape) == gshape for c in ch):
+                return None
+        elif math.prod(shp) != 1:
+            return None
+    root = avals[out_slot]
+    if tuple(root.shape) != gshape:
+        return None
+    S = comm.size
+    itemsize = root.dtype.itemsize
+    nelem = math.prod(gshape)
+    if _wire.eligible(root.dtype, nelem * itemsize) and _wire.consume(
+        "resplit", (gshape, int(sa), int(sb), S, autotune.dtype_name(root.dtype))
+    ):
+        return None
+    full = [lf.value for lf, k in zip(leaves, kinds) if k == "full"]
+    sanitize.check_use([t for v in full for t in v.shards], "transport.fused_tail")
+    one = MeshComm(1)
+    program = fusion._Program(instrs, (out_slot,), tuple(lf.aval for lf in leaves))
+    pa = -(-gshape[sa] // S)
+    rest = math.prod(e for d, e in enumerate(gshape) if d not in (sa, sb))
+    n_sb = gshape[sb]
+    # a band spans destinations: a program run per (source, band), with the
+    # tile budget over the source's rows, not per (destination, tile)
+    band, _ = tile_plan(n_sb, pa * rest * itemsize, _plan_tile_budget("resplit", tile_bytes))
+    like = full[0].shards[0]
+    row_bounds = _bounds(gshape[sa], S)
+    dst_bounds = _bounds(n_sb, S)
+
+    def view(v, kind, r, c0, c1):
+        if kind == "scalar":
+            if not isinstance(v, DNDarray):
+                return v
+            return DNDarray._unledgered(v.shards[:1], v.gshape, v.dtype, None, v.device, one)
+        t = v.shards[r].narrow(sb, c0, c1 - c0)
+        return DNDarray._unledgered([t], tuple(t.shape), v.dtype, None, v.device, one)
+
+    def run():
+        out = []
+        for lo, hi in dst_bounds:
+            dshape = list(gshape)
+            dshape[sb] = hi - lo
+            out.append(torch.empty(dshape, dtype=root.dtype, device=like.device))
+        for r, (r0, r1) in enumerate(row_bounds):
+            if r1 <= r0:
+                continue
+            for c0 in range(0, n_sb, band):
+                c1 = min(n_sb, c0 + band)
+                vals = [view(lf.value, k, r, c0, c1) for lf, k in zip(leaves, kinds)]
+                piece = program.run(vals)[0].shards[0]
+                for dst, (lo, hi) in zip(out, dst_bounds):
+                    a, b = max(lo, c0), min(hi, c1)
+                    if a < b:
+                        dst.narrow(sa, r0, r1 - r0).narrow(sb, a - lo, b - a).copy_(piece.narrow(sb, a - c0, b - a))
+        return out
+
+    fp = None
+    if telemetry.ledger_enabled():
+        n_ops = sum(1 for ins in instrs if ins[0] == "O")
+        in_bytes = sum(math.prod(lf.aval.shape) * lf.aval.dtype.itemsize for lf in leaves)
+        fp = telemetry.fingerprint(("fused_tail", gshape, int(sa), int(sb), S,
+                                    fusion._program_fingerprint(instrs, (out_slot,)), str(root.dtype)))
+        telemetry.ensure_program(fp, kind="fused_resplit_tail", ops=n_ops, flops=float(n_ops * nelem),
+                                 hbm_bytes=float(in_bytes + nelem * itemsize), mesh={"devices": S},
+                                 dtype=str(root.dtype))
+    with telemetry.span("transport.resplit"):
+        guard.fire("transport.resplit")
+        out = telemetry.timed_call(fp, run, device=like.device)
+    _link("resplit")
+    memtrack.register_shards(out, tag="output", split=sb)
+    out = guard.corrupt("transport.resplit", out)
+    _STATS["fused_tails"] += 1
+    telemetry.record_event("fused_tail", old_split=int(sa), new_split=int(sb), ops=len(instrs))
+    return out
+
+
+_FUSED_TAIL_REGISTERED = False
+
+
+def ensure_fused_tail_registered() -> None:
+    """Register :func:`_lower_split_tail` with the fusion engine once (the
+    engine calls this at its first split boundary, so the core never
+    imports the parallel package at load)."""
+    global _FUSED_TAIL_REGISTERED
+    if _FUSED_TAIL_REGISTERED:
+        return
+    from ..core import fusion
+
+    fusion.register_split_terminator(_lower_split_tail)
+    _FUSED_TAIL_REGISTERED = True
+
+
+def stats() -> dict:
+    """The ``transport`` counter group."""
+    return telemetry.snapshot_group("transport")
+
+
+def reset_stats() -> None:
+    telemetry.reset_group("transport")

@@ -20,6 +20,14 @@ go through K1 too, as they are (K1 widens its tiles itself), followed by
 the noise floor of the JAX package's ``_sq_euclidean``: no f32 copy of a
 16-bit operand is made (at 1e8 x 64 bf16 it would be 25.6 GB).  float64
 takes the torch expansion below, as the JAX package leaves it to XLA.
+
+Under the fusion engine (:mod:`~heat_tpu_torch.core.fusion`) ``cdist``
+defers as one ``euclid_cdist`` node whose body is the dispatch above (K1 on
+the card), in every layout but the ring one (both operands row-split over
+several positions, rows dividing evenly), which stays eager as in
+heat_tpu; ``rbf`` extends that node with its ``neg``, ``div`` and ``exp``
+nodes, so KMeans' labels and inertia, or a kernel matrix and its
+consumers, run as one program with one K1 launch a position.
 """
 
 from __future__ import annotations
@@ -28,13 +36,35 @@ from typing import Optional
 
 import torch
 
-from ..core import sanitation, types
-from ..core._operations import _local_op
+from ..core import _operations, exponential, fusion, sanitation, types
 from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
 from ..parallel import collectives
 
 __all__ = ["cdist", "cdist_quantized", "manhattan", "rbf"]
+
+
+def _stream_topk_merge(q: torch.Tensor, slab: torch.Tensor, valid: int, base: int, best_d: torch.Tensor,
+                       best_i: torch.Tensor, k: int):
+    """The running k-nearest merge against one streamed corpus slab
+    (heat_tpu :93): K1's squared distances of the queries to the slab (f32;
+    no sqrt, which keeps the order), rows at or past ``valid`` masked to
+    +inf, global corpus indices from ``base``, then the k smallest of the
+    carried best and the slab's, ``lax.top_k``'s stable order: the carry
+    (earlier, lower indices) precedes the slab, so a tie keeps the lower
+    corpus index, as the in-memory predict does."""
+    from ..parallel.sort import topk_order
+
+    rows = slab.shape[0]
+    xq = q if q.dtype in (torch.bfloat16, torch.float16) else q.to(torch.float32)
+    d2 = _k1.cdist(xq.contiguous(), slab.to(torch.float32).contiguous(), sqrt=False)
+    if valid < rows:
+        d2[:, valid:] = float("inf")
+    ids = (base + torch.arange(rows, dtype=torch.int64, device=d2.device))[None, :].expand(q.shape[0], rows)
+    cat_d = torch.cat([best_d, d2], dim=1)
+    cat_i = torch.cat([best_i, ids], dim=1)
+    sel = topk_order(cat_d, k, largest=False)
+    return cat_d.gather(1, sel), cat_i.gather(1, sel)
 
 
 def _check(x: DNDarray, y: Optional[DNDarray]):
@@ -91,6 +121,10 @@ def _noise_floor_(d2: torch.Tensor, xa: torch.Tensor, ya: torch.Tensor) -> torch
 
 def _block(xa: torch.Tensor, ya: torch.Tensor, promoted, sqrt: bool) -> torch.Tensor:
     """Distances of one block of rows of x to one block of rows of y."""
+    if xa.device.type == "meta":
+        # the fusion engine's metadata probe: the shape and type, no launch
+        return xa.new_empty((xa.shape[0], ya.shape[0]),
+                            dtype=torch.float64 if promoted is types.float64 else torch.float32)
     if promoted is types.float64:
         d2 = _sq_euclidean(xa.to(torch.float64), ya.to(torch.float64))
         return torch.sqrt(d2) if sqrt else d2
@@ -112,10 +146,25 @@ def _whole(a: DNDarray) -> torch.Tensor:
     return collectives.all_gather(a.shards, dim=a.split)[0]
 
 
+def _ring_eligible(x: DNDarray, y: DNDarray) -> bool:
+    """heat_tpu's ring layout (``_ring_eligible``), which stays eager."""
+    n = x.comm.size
+    return x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
+
+
 def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool = False, sqrt: bool = True) -> DNDarray:
     """Euclidean distance matrix of the rows of x to the rows of y (of x to
     itself when y is None).  ``quadratic_expansion`` is accepted for parity:
-    the expansion is always used.  ``sqrt=False`` gives squared distances."""
+    the expansion is always used.  ``sqrt=False`` gives squared distances.
+    Under fusion one ``euclid_cdist`` node, but in the ring layout."""
+    x, y, _ = _check(x, y)
+    if fusion.enabled() and not _ring_eligible(x, y):
+        return _operations._composite(_euclid, x, y, sqrt=bool(sqrt))
+    return _euclid(x, y, sqrt)
+
+
+def _euclid(x: DNDarray, y: DNDarray, sqrt: bool) -> DNDarray:
+    """The eager cdist: one block per position, through K1 for f32."""
     x, y, promoted = _check(x, y)
     comm = x.comm
     if x.split == 0:
@@ -177,8 +226,10 @@ def cdist_quantized(x: DNDarray, qy, sqrt: bool = True) -> Optional[DNDarray]:
 def rbf(x: DNDarray, y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False) -> DNDarray:
     """Gaussian (RBF) similarity exp(−d²/2σ²) of the rows of x to the rows
     of y, over the squared distances of :func:`cdist` (K1 for float32, in
-    every layout).  ``quadratic_expansion`` is accepted for parity."""
-    return _local_op(lambda d2: torch.exp(-d2 / (2.0 * sigma * sigma)), cdist(x, y, sqrt=False))
+    every layout).  ``quadratic_expansion`` is accepted for parity.  Under
+    fusion the ``neg``, ``div`` and ``exp`` extend cdist's node."""
+    d2 = cdist(x, y, sqrt=False)
+    return exponential.exp(-d2 / (2.0 * sigma * sigma))
 
 
 # elements of the (rows, m, f) broadcast that one block of :func:`_l1`
@@ -221,3 +272,6 @@ def manhattan(x: DNDarray, y: Optional[DNDarray] = None, expand: bool = False) -
         shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype),
         split, x.device, comm,
     )
+
+
+fusion.register_op(_euclid, "euclid_cdist", kind="composite")

@@ -214,8 +214,9 @@ def test_spatial_cdist_16bit_makes_no_f32_copy(monkeypatch):
     monkeypatch.setattr(distance._k1, "cdist", lambda a, b, sqrt: seen.append((a.dtype, b.dtype)) or real(a, b, sqrt))
     x, y = _data16(40, 3, 4, "bfloat16", "float32", seed=10)
     tc = htt.MeshComm(4)
-    htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu"))
-    htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"))
+    # cdist is lazy under the fusion engine: its blocks run when it is read
+    htt.materialize(htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu")))
+    htt.materialize(htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu")))
     assert seen == [(torch.bfloat16, torch.float32)] * 4 + [(torch.bfloat16, torch.bfloat16)] * 4
 
 

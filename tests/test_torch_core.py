@@ -115,19 +115,21 @@ def test_argmin_first_minimum_across_positions(ht, n):
     assert int(htt.argmin(b, axis=0).item()) == 4
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("at", [2, 6])
-def test_argmin_nan_in_a_later_shard(ht, n, at):
-    # a NaN is the minimum and the first NaN along the axis wins, at every
-    # mesh size; heat_tpu's min drops NaN over several positions (ROADMAP,
-    # reference fault (d)), so min is held to numpy's value
-    x = np.array([3, 1, 0, 2, 0.5, 4, 5, 6], dtype=np.float32)
-    x[at] = np.nan
-    jc, tc = _pair(ht, n)
-    a, b = ht.array(x, split=0, comm=jc), htt.array(x, split=0, comm=tc, device="cpu")
-    _same(ht.argmin(a, axis=0), htt.argmin(b, axis=0))
-    assert int(htt.argmin(b, axis=0).item()) == np.argmin(x) == at
-    assert np.isnan(htt.min(b, axis=0).item())
+def test_argmin_nan_in_a_later_shard(ht, n, at, fused):
+    with htt.fusion.fuse(fused):
+        # a NaN is the minimum and the first NaN along the axis wins, at every
+        # mesh size; heat_tpu's min drops NaN over several positions (ROADMAP,
+        # reference fault (d)), so min is held to numpy's value
+        x = np.array([3, 1, 0, 2, 0.5, 4, 5, 6], dtype=np.float32)
+        x[at] = np.nan
+        jc, tc = _pair(ht, n)
+        a, b = ht.array(x, split=0, comm=jc), htt.array(x, split=0, comm=tc, device="cpu")
+        _same(ht.argmin(a, axis=0), htt.argmin(b, axis=0))
+        assert int(htt.argmin(b, axis=0).item()) == np.argmin(x) == at
+        assert np.isnan(htt.min(b, axis=0).item())
 
 
 @pytest.mark.parametrize("n", MESHES)
@@ -150,20 +152,22 @@ def test_argmin_nan_2d_along_the_split(ht, n, split):
 BOOL_PARTNERS = [np.uint8, np.int8, np.int16, np.int32, np.int64, np.float32, np.float64]
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("op", ["sub", "pow"])
 @pytest.mark.parametrize("other", BOOL_PARTNERS)
 @pytest.mark.parametrize("bool_first", [True, False])
-def test_sub_pow_bool_operands(ht, n, op, other, bool_first):
-    # both operands are cast to the promoted type before the torch op
-    rng = np.random.default_rng(5)
-    m = rng.random((13, 3)) < 0.5
-    o = rng.integers(0, 6, (13, 3)).astype(other)
-    x, y = (m, o) if bool_first else (o, m)
-    jc, tc = _pair(ht, n)
-    a = getattr(ht, op)(ht.array(x, split=0, comm=jc), ht.array(y, split=0, comm=jc))
-    b = getattr(htt, op)(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, split=0, comm=tc, device="cpu"))
-    _same(a, b, rtol=1e-6)
+def test_sub_pow_bool_operands(ht, n, op, other, bool_first, fused):
+    with htt.fusion.fuse(fused):
+        # both operands are cast to the promoted type before the torch op
+        rng = np.random.default_rng(5)
+        m = rng.random((13, 3)) < 0.5
+        o = rng.integers(0, 6, (13, 3)).astype(other)
+        x, y = (m, o) if bool_first else (o, m)
+        jc, tc = _pair(ht, n)
+        a = getattr(ht, op)(ht.array(x, split=0, comm=jc), ht.array(y, split=0, comm=jc))
+        b = getattr(htt, op)(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, split=0, comm=tc, device="cpu"))
+        _same(a, b, rtol=1e-6)
 
 
 @pytest.mark.parametrize("n", MESHES)

@@ -119,16 +119,18 @@ BOOLS = np.array([[True, False, True], [True, True, True], [False, True, True], 
                   [True, True, True]])
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("split", [None, 0, 1])
 @pytest.mark.parametrize("axis, keepdims", [(None, False), (0, False), (1, False), (0, True), (1, True)])
-def test_argmin_of_bool_is_the_first_false(ht, n, split, axis, keepdims):
-    a, b = _pair(ht, BOOLS, n, split)
-    want = ht.argmin(a, axis=axis, keepdims=keepdims)
-    got = htt.argmin(b, axis=axis, keepdims=keepdims)
-    assert got.shape == want.shape and got.split == want.split
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    np.testing.assert_array_equal(got.numpy(), np.argmin(BOOLS, axis=axis, keepdims=keepdims))
+def test_argmin_of_bool_is_the_first_false(ht, n, split, axis, keepdims, fused):
+    with htt.fusion.fuse(fused):
+        a, b = _pair(ht, BOOLS, n, split)
+        want = ht.argmin(a, axis=axis, keepdims=keepdims)
+        got = htt.argmin(b, axis=axis, keepdims=keepdims)
+        assert got.shape == want.shape and got.split == want.split
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(got.numpy(), np.argmin(BOOLS, axis=axis, keepdims=keepdims))
 
 
 @pytest.mark.parametrize("n", MESHES)
@@ -219,19 +221,21 @@ def test_complex_argmin_raises_as_in_jax(ht):
 
 
 # -------------------------------------------------------------- F12, F13
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("fname", ["var", "std", "skew", "kurtosis"])
-def test_moments_keep_a_length_one_split(ht, n, fname):
+def test_moments_keep_a_length_one_split(ht, n, fname, fused):
     """F12: a moment along another axis than a split axis of length ≤ 1
     keeps the split, as heat_tpu does; the values stay (within rounding of
     the sums)."""
-    rng = np.random.default_rng(3)
-    for shape, split, axis in (((1, 4), 0, 1), ((3, 1), 1, 0), ((1, 4, 2), 0, 2)):
-        x = rng.normal(size=shape).astype(np.float32)
-        a, b = _pair(ht, x, n, split)
-        want, got = getattr(ht, fname)(a, axis=axis), getattr(htt, fname)(b, axis=axis)
-        assert got.split == want.split == 0 and got.shape == want.shape, (shape, split, axis)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want.larray), rtol=1e-5, atol=1e-6)
+    with htt.fusion.fuse(fused):
+        rng = np.random.default_rng(3)
+        for shape, split, axis in (((1, 4), 0, 1), ((3, 1), 1, 0), ((1, 4, 2), 0, 2)):
+            x = rng.normal(size=shape).astype(np.float32)
+            a, b = _pair(ht, x, n, split)
+            want, got = getattr(ht, fname)(a, axis=axis), getattr(htt, fname)(b, axis=axis)
+            assert got.split == want.split == 0 and got.shape == want.shape, (shape, split, axis)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want.larray), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("n", MESHES)

@@ -177,8 +177,10 @@ def test_converter(ht, n):
     jq, tq = ht.array(x, split=0, comm=jc), htt.array(x, split=0, comm=tc, device="cpu")
     np.testing.assert_allclose(tm.predict_proba(tq).numpy(), jm.predict_proba(jq).numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(tm.predict(tq).numpy(), jm.predict(jq).numpy())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.fit_stream(None, None)
+    # fit_stream is ported (tests/test_torch_stream.py): no source raises as in heat_tpu
+    for m in (tm, jm):
+        with pytest.raises(TypeError, match="cannot stream"):
+            m.fit_stream(None, None)
     with pytest.raises(RuntimeError):
         htt.naive_bayes.GaussianNB().predict(tq)
 

@@ -2,9 +2,11 @@
 CPU: the modes and their environment parsing, the scoped forms, the
 caller attribution, the error and warning types, and the fault-injection
 hooks as the transport engine calls them (the same sites, in the same
-order, for the same resplit at meshes 1, 4 and 8).  The mirror is
-``tests/test_guard.py``; heat_tpu's consumer of the mode, the fusion
-engine's NaN check and replay, waits for the port of ``core/fusion.py``.
+order, for the same resplit at meshes 1, 4 and 8), and the fusion
+engine's consumer of the mode: the NaN/Inf check of a materialized chain
+and the op-by-op replay that names the first op, its user line and its
+subtree, the same as heat_tpu's for the same chains.  The mirror is
+``tests/test_guard.py``.
 """
 
 import inspect
@@ -122,3 +124,155 @@ def test_an_injected_fault_reaches_the_caller():
     PG.fire("anything")  # no injector: a no-op
     assert PG.corrupt("anything", 5) == 5
     assert htt.guard is PG
+
+
+# ------------------------------------------------ the fusion engine's check
+def _both(ht):
+    from heat_tpu.core import fusion as JF
+
+    return ((ht, JF, {}), (htt, htt.fusion, {"device": "cpu"}))
+
+
+# one line builds every package's chain: the sites must name this line
+_BAD = lambda H, x: (x - x) / (x - x)  # noqa: E731
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_introduced_nan_names_the_same_op_line_and_subtree(ht, n):
+    got = []
+    for H, F, dev in _both(ht):
+        comm = ht.parallel.mesh.local_mesh(n) if H is ht else htt.MeshComm(n)
+        F.reset_cache()
+        with H.guard.guarded(True):
+            x = H.arange(8 * n, dtype=H.float32, split=0, comm=comm, **dev)
+            bad = _BAD(H, x)
+            with pytest.raises(H.guard.NonFiniteError) as ctx:
+                bad.numpy()
+        err = ctx.value
+        got.append((err.op, err.site, "first non-finite" in err.subtree, err.subtree.count("div("),
+                    F.cache_stats()["fallback_reasons"]["guard_replay"]))
+    assert got[0] == got[1]
+    assert got[1][0] == "div" and got[1][1][0] == __file__ and got[1][4] == 1
+
+
+def test_inf_warn_mode_propagation_and_guard_off_match(ht):
+    rows = []
+    for H, F, dev in _both(ht):
+        row = []
+        x = H.arange(8, dtype=H.float32, split=0, **dev)
+        with H.guard.guarded(True), pytest.raises(H.guard.NonFiniteError) as ctx:
+            ((x + 1.0) / (x - x)).numpy()
+        row.append(ctx.value.op)
+        with H.guard.guarded("warn"), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = np.asarray(_BAD(H, x).numpy())
+        msgs = [str(w.message) for w in caught if issubclass(w.category, H.guard.NonFiniteWarning)]
+        row += [bool(np.isnan(out).all()), len(msgs), "'div'" in msgs[0]]
+        src = np.array([1.0, np.nan, np.inf, 3.0], dtype=np.float32)
+        with H.guard.guarded(True):
+            row.append(np.asarray((H.array(src, split=0, **dev) * 2.0 + 1.0).numpy()).tolist()[1:3])
+        F.reset_cache()
+        with H.guard.guarded(False):
+            row.append(bool(np.isnan(np.asarray(_BAD(H, x).numpy())).all()))
+        row.append(F.cache_stats()["fallback_reasons"]["guard_replay"])
+        rows.append(row)
+    assert str(rows[0]) == str(rows[1])
+
+
+def test_shared_node_blamed_once_with_both_consumers(ht):
+    rows = []
+    for H, F, dev in _both(ht):
+        F.reset_cache()
+        x = H.arange(24, dtype=H.float32, split=0, **dev)
+        bad = _BAD(H, x)
+        with H.guard.guarded(True), pytest.raises(H.guard.NonFiniteError) as ctx:
+            H.materialize(bad + 1.0, bad * 2.0)
+        err = ctx.value
+        rows.append((err.op, err.subtree.count("div("), "2-output program" in str(err), "root index 0, 1" in str(err),
+                     F.cache_stats()["fallback_reasons"]["guard_replay"]))
+    assert rows[0] == rows[1] == ("div", 1, True, True, 1)
+
+
+class _NaNAt(_Recorder):
+    """Corrupts the first value offered at ``fusion.exec`` with NaN."""
+
+    def __init__(self, make_nan):
+        super().__init__()
+        self._nan = make_nan
+        self.fired = []
+
+    def corrupt_site(self, site, value):
+        self.sites.append(("corrupt", site))
+        if site == "fusion.exec" and not self.fired:
+            self.fired.append(site)
+            return (self._nan(value[0]),) + tuple(value[1:])
+        return value
+
+
+def test_injected_corruption_raises_unattributed_and_guard_adds_no_misses(ht):
+    import jax.numpy as jnp
+
+    rows = []
+    for (H, F, dev), nan in zip(_both(ht), (lambda v: jnp.full_like(v, jnp.nan),
+                                            lambda v: v * float("nan"))):
+        G = H.guard
+        x = H.arange(8, dtype=H.float32, split=0, **dev)
+        inj = _NaNAt(nan)
+        G._INJECTOR = inj
+        try:
+            with G.guarded(True), pytest.raises(G.NonFiniteError) as ctx:
+                (x + 1.0).numpy()
+        finally:
+            G._INJECTOR = None
+        F.reset_cache()
+        with G.guarded(True):
+            ((x + 1.0) * 2.0).numpy()
+            mid = F.cache_stats()
+            ((H.arange(8, dtype=H.float32, split=0, **dev) + 1.0) * 2.0).numpy()  # another line, one program
+            end = F.cache_stats()
+        rows.append((ctx.value.op, inj.fired, end["misses"] - mid["misses"], end["hits"] - mid["hits"]))
+    assert rows[0] == rows[1] == (None, ["fusion.exec"], 0, 1)
+
+
+def test_warn_mode_on_the_card_reads_its_flag_later(monkeypatch):
+    """In ``warn`` mode on the card the check's flag goes to the host
+    without waiting: it is read at the next materialization or host read,
+    and the warning names the op and the user line all the same.  Emulated
+    here by deferring on the CPU as on the card."""
+    from heat_tpu_torch.core import fusion as PF
+
+    monkeypatch.setattr(PF, "_DEFER_ON", ("cpu",))
+    x = htt.array(np.array([0.0, 1.0, 2.0], np.float32), split=0, comm=htt.MeshComm(2), device="cpu")
+    with PG.guarded("warn"), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (x / x).larray
+        assert caught == [] and len(PF._DEFERRED) == 1
+        (x + 1.0).larray  # the next materialization reads the flag
+        got = [w for w in caught if issubclass(w.category, PG.NonFiniteWarning)]
+        assert len(got) == 1 and "'div'" in str(got[0].message) and got[0].filename == __file__
+        assert len(PF._DEFERRED) == 1  # the second chain's own check
+        x.numpy()
+        assert not PF._DEFERRED
+        (x / x).larray
+        x.numpy()  # a host read reads it too
+        assert len([w for w in caught if issubclass(w.category, PG.NonFiniteWarning)]) == 2
+        assert not PF._DEFERRED
+        (x * 2.0).larray  # a finite chain leaves nothing behind
+        x.numpy()
+        assert len(caught) == 2 and not PF._DEFERRED
+    with PG.guarded("raise"):
+        with pytest.raises(PG.NonFiniteError):
+            (x / x).larray  # raise mode reads at once
+    assert not PF._DEFERRED
+
+
+def test_finite_extremes_pass_and_a_complex_nan_is_named():
+    """Values at the edge of f64's range are finite and pass the check;
+    a NaN made in a complex output is caught and named."""
+    big = htt.array(np.array([1e308, 1e308, 1.0]), split=0, comm=htt.MeshComm(2), device="cpu")
+    z = htt.array(np.array([1 + 1j, 0j, 2 - 1j], np.complex64), split=0, comm=htt.MeshComm(2), device="cpu")
+    with PG.guarded("raise"):
+        np.testing.assert_array_equal((big * 1.0).numpy(), np.array([1e308, 1e308, 1.0]))
+        with pytest.raises(PG.NonFiniteError) as err:
+            (z / z).larray  # 0/0 at the middle element
+    assert err.value.op == "div"

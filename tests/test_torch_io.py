@@ -22,8 +22,8 @@ from heat_tpu_torch.core import io as tio
 
 MESHES = (1, 4, 8)
 FORMATS = ("h5", "nc", "npy", "csv")
-# the 12 public names of heat_tpu that the port still lacks (tpu by design)
-MISSING = {"analysis", "fusion", "materialize", "materialize_all", "stream", "tpu"}
+# the public names of heat_tpu that the port still lacks (tpu by design)
+MISSING = {"analysis", "tpu"}
 
 
 @pytest.fixture(scope="module")

@@ -165,7 +165,8 @@ def test_summary_census_and_tags():
         assert s["peak_bytes_by_tag"] == {"staging": 40, "leaf": 40, "pinned": 40}
         c = PM.census(top=1)
         assert c["live_buffers"] == 2 and c["live_bytes"] == 80 and len(c["top"]) == 1
-        assert sorted(c["top"][0]) == ["age_s", "device", "dtype", "id", "nbytes", "shape", "site", "split", "tag"]
+        assert sorted(c["top"][0]) == ["age_s", "device", "dtype", "id", "nbytes", "pinned", "shape", "site", "split",
+                                       "tag"]
 
 
 def test_memtrack_group_and_census_keys_match(JM):

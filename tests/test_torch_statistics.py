@@ -91,19 +91,21 @@ def test_argmax_first_maximum_across_positions(ht, n):
     assert int(htt.argmax(b, axis=0).item()) == 1
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "eager"])
 @pytest.mark.parametrize("n", MESHES)
 @pytest.mark.parametrize("at", [2, 6])
-def test_max_with_nan_is_numpys(ht, n, at):
-    # reference fault (d) holds for max as for min: heat_tpu's max along
-    # the split drops NaN over several positions (6 or 5 here at meshes
-    # 4/8), so the port is held to numpy's NaN, and to heat_tpu at mesh 1
-    x = np.array([3, 1, 5, 2, 0.5, 4, 5, 6], dtype=np.float32)
-    x[at] = np.nan
-    a, b = _both(ht, n, x, 0)
-    assert np.isnan(htt.max(b).item()) and np.isnan(np.max(x))
-    assert int(htt.argmax(b).item()) == at == int(ht.argmax(a).item())
-    if n == 1:
-        _same(ht.max(a), htt.max(b))
+def test_max_with_nan_is_numpys(ht, n, at, fused):
+    with htt.fusion.fuse(fused):
+        # reference fault (d) holds for max as for min: heat_tpu's max along
+        # the split drops NaN over several positions (6 or 5 here at meshes
+        # 4/8), so the port is held to numpy's NaN, and to heat_tpu at mesh 1
+        x = np.array([3, 1, 5, 2, 0.5, 4, 5, 6], dtype=np.float32)
+        x[at] = np.nan
+        a, b = _both(ht, n, x, 0)
+        assert np.isnan(htt.max(b).item()) and np.isnan(np.max(x))
+        assert int(htt.argmax(b).item()) == at == int(ht.argmax(a).item())
+        if n == 1:
+            _same(ht.max(a), htt.max(b))
 
 
 @pytest.mark.parametrize("n", MESHES)
