@@ -102,7 +102,15 @@ benchmarks/cb/config.py:225-235, stream.py:72-160); and the fusion engine
 2e6 x 64 with one K1 launch for labels and inertia, mean and var at 4e6 as
 one program, the fused split tail of a 4096^2 chain over MeshComm(4), the
 guard naming a NaN's op and line, a KMeans fit's host syncs;
-benchmarks/cb/fusion.py:62-65);
+benchmarks/cb/fusion.py:62-65); the overlap engine over ``MeshComm(4)``
+(the ``ag``, ``rs`` and ``col`` rings at 8192^2 f32 and 4096 x 8192 x 4096,
+benchmarks/cb/config.py:151, :208-209, each against the eager layout code
+and an f64 product; a chain ``cast(relu(a @ b * s + bias), bf16)`` fused
+into one ring against ``fuse(False)``; the int8 ``matmul_quantized`` ring
+against the bf16 arm; the ring ``cdist`` of 16384 x 64 against 65536 x 64
+through K1, a ring call's host syncs); and the program audit (a fused
+chain, a split-crossing resplit and a ring clean, an injected host read
+found and its roofline row marked);
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -2208,10 +2216,10 @@ def host_syncs(fn) -> list:
 
 def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
     """(a) KNeighborsClassifier(5) fitted on 65536 x 64 f32 at split 0 over
-    MeshComm(4): one predict of 65536 fresh split-0 queries (a K1 launch a
-    position against the gathered corpus, then the top-k and the vote), and
-    the benchmark's 128 served requests of 1-8 replicated rows (column-split
-    distances, candidates merged)."""
+    MeshComm(4): one predict of 65536 fresh split-0 queries (the ring cdist:
+    a K1 launch a position and rotating block of the corpus, then the top-k
+    and the vote), and the benchmark's 128 served requests of 1-8 replicated
+    rows (column-split distances, candidates merged)."""
     gen = torch.Generator(device=dev).manual_seed(seed + 15)
     X = torch.randn(KNN_N, KNN_F, generator=gen, device=dev)
     labels = (X[:, 0] > 0).to(torch.int32)
@@ -2220,18 +2228,18 @@ def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
     # K1 at the shapes this path gives it, against its plain version
     rows = KNN_N // n_pos
     for name, a in (("knn batch block", Q[:rows]), ("knn request", Q[:8])):
-        b = X if a.shape[0] == rows else X[:rows]
+        b = X[:rows]  # a ring step's corpus block, and a request's column block
         abs_err, rel = compare_cdist(k1, a, b, True)
         print(f"[check] cdist {name} {tuple(a.shape)}x{tuple(b.shape)} sqrt=True: max_abs_err={abs_err:.3e} "
               f"max_rel_err={rel:.3e}")
         check(rel <= TOL, f"cdist {name}: relative error {rel:.3e} > {TOL}")
-    t_k = time_ms(lambda: k1.cdist(Q[:rows], X, sqrt=True), reps=10)
-    t_p = time_ms(lambda: k1.reference_cdist(Q[:rows], X, sqrt=True), reps=3)
-    t_l = time_ms(lambda: torch.cdist(Q[:rows], X), reps=3)
-    nbytes = 4.0 * (rows * KNN_F + KNN_N * KNN_F + rows * KNN_N)
-    flops = 2.0 * rows * KNN_N * KNN_F + 2.0 * (rows + KNN_N) * KNN_F + 4.0 * rows * KNN_N
+    t_k = time_ms(lambda: k1.cdist(Q[:rows], X[:rows], sqrt=True), reps=10)
+    t_p = time_ms(lambda: k1.reference_cdist(Q[:rows], X[:rows], sqrt=True), reps=3)
+    t_l = time_ms(lambda: torch.cdist(Q[:rows], X[:rows]), reps=3)
+    nbytes = 4.0 * (rows * KNN_F + rows * KNN_F + rows * rows)
+    flops = 2.0 * rows * rows * KNN_F + 2.0 * (rows + rows) * KNN_F + 4.0 * rows * rows
     b_ms, b_by = bound(nbytes, flops)
-    print(f"[time] cdist knn block ({rows},{KNN_F})x({KNN_N},{KNN_F}) sqrt: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+    print(f"[time] cdist knn ring block ({rows},{KNN_F})x({rows},{KNN_F}) sqrt: kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
           f"library_ms={t_l:.4f} (torch.cdist) bound_ms={b_ms:.4f} ({b_by}) on {card}")
     out = dict(ms_knn=t_k, plain_ms_knn=t_p, library_ms_knn=t_l, bound_ms_knn=b_ms, bound_by_knn=b_by)
     torch.cuda.empty_cache()
@@ -2256,10 +2264,10 @@ def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
     agree = bool(torch.equal(got[clear], want[clear]))
     share = float(clear.float().mean())
     print(f"[e2e] knn predict of ({KNN_N},{KNN_F}) split 0 against ({KNN_N},{KNN_F}) over MeshComm({n_pos}), k={KNN_K}: "
-          f"{ms:.4f} ms, cdist launches {launches} (expected {n_pos}), peak above corpus and queries "
+          f"{ms:.4f} ms, cdist launches {launches} (expected {n_pos * n_pos}: the ring), peak above corpus and queries "
           f"{peak / 1e9:.3f} GB (gate {KNN_PEAK_GATE / 1e9:.2f}), labels equal the f64 top-{KNN_K} vote on the "
           f"{share:.5f} of queries with a clear 5th/6th gap {agree}, rerun bitwise {torch.equal(got, again)} on {card}")
-    check(launches == n_pos, f"knn: cdist launches {launches} != {n_pos}")
+    check(launches == n_pos * n_pos, f"knn: cdist launches {launches} != {n_pos * n_pos}")
     check(peak <= KNN_PEAK_GATE, "knn: predict held more than the distance matrix + 10%")
     check(agree and share > 0.99 and torch.equal(got, again), "knn: batch labels differ from the f64 vote")
     out.update(batch_ms=ms, batch_peak=peak, k1=launches, trace=kinds)
@@ -2310,8 +2318,8 @@ def knn_paths(ht, k1, seed: int, dev, card: str, mesh) -> dict:
     lb = b.predict(ht.array(qs.cpu(), split=0, comm=mesh, device="cpu")).larray
     same = bool(torch.equal(la[clear_s.cpu()], lb[clear_s.cpu()]))
     print(f"[e2e] knn small (4096 x 64, 512 queries) card vs cpu: labels equal where the gap is clear {same}, "
-          f"cdist launches on the card {small_launches} (expected {n_pos})")
-    check(same and small_launches == n_pos, "knn: card and CPU differ, or the card's predict missed K1")
+          f"cdist launches on the card {small_launches} (expected {n_pos * n_pos})")
+    check(same and small_launches == n_pos * n_pos, "knn: card and CPU differ, or the card's predict missed K1")
     del X, Q, x_ht, q_ht, model, reqs
     torch.cuda.empty_cache()
     return out
@@ -4659,6 +4667,345 @@ def fusion_paths(ht, k1, seed: int, dev, card: str) -> dict:
 
 
 
+OVERLAP_MESH = 4
+# (m, k, n): 8192^2 (benchmarks/cb/config.py:151) and 4096 x 8192 x 4096
+# (config.py:208-209)
+OVERLAP_SHAPES = [(8192, 8192, 8192), (4096, 8192, 4096)]
+OVERLAP_CASES = {"ag": (0, 0), "rs": (1, 0), "col": (1, 1)}
+OVERLAP_REPS = 5
+# |ring - f64| <= TOL_RING * sum_k |a_ik||b_kj|: f32 block sums in IEEE f32
+# with TF32 off (17 f32 eps of the absolute sum).  Sound runs on the H100
+# read at most 4.3e-7; the phase also measures a TF32 product of the same
+# operands as a control, which must exceed the bound
+TOL_RING = 2e-6
+RING_CDIST = (16_384, 65_536, 64)  # x rows, y rows, features (KNN_N's corpus)
+
+
+def ring_error(got: torch.Tensor, a: torch.Tensor, b: torch.Tensor, rounding: float = 0.0) -> float:
+    """max (|got - a@b| - rounding * |a@b|) / (sum_k |a||b|), the product and
+    the bound in f64; ``rounding`` is the unit roundoff of a 16-bit result
+    (2^-8 for bf16), whose final rounding is not the sum's error."""
+    want = a.double() @ b.double()
+    scale = a.abs().double() @ b.abs().double()
+    err = float((((got.double() - want).abs() - rounding * want.abs()) / scale.clamp_min(1e-300)).max())
+    del want, scale
+    return err
+
+
+def overlap_paths(ht, k1, seed: int, dev, card: str) -> dict:
+    """The overlap engine over MeshComm(4) positions of the card: the ag, rs
+    and col rings at 8192^2 and 4096 x 8192 x 4096 f32, each forced against
+    the eager layout code (HEAT_TPU_MATMUL=gspmd) and held to an f64
+    product; the chain cast(relu(a @ b * s + bias), bf16) fused into one ring
+    (the second call a cache hit) against fuse(False); the int8
+    matmul_quantized ring against the bf16 arm; the ring cdist of 16384 x 64
+    against 65536 x 64, both split 0 (K1 16 times a call) against the
+    gathered layout; a ring call's host syncs.  On one card a ring hop moves
+    no link bytes.  Returns K1's launches and the times."""
+    t_phase = time.perf_counter()
+    O, F = ht.parallel.overlap, ht.fusion
+    mesh = ht.MeshComm(OVERLAP_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    out = {"k1": 0, "cases": {}}
+    # f32 hops throughout: the fused chain is held bitwise to the eager ring
+    prev_wire = ht.wire.set_mode("off")
+    try:
+        for m, k, n in OVERLAP_SHAPES:
+            a = torch.randn(m, k, generator=gen, device=dev)
+            b = torch.randn(k, n, generator=gen, device=dev)
+            for case, (sa, sb) in OVERLAP_CASES.items():
+                ha = ht.array(a, split=sa, comm=mesh, copy=False)
+                hb = ht.array(b, split=sb, comm=mesh, copy=False)
+                times, last = {}, {}
+                with F.fuse(False):
+                    for mode in ("ring", "gspmd"):
+                        O.set_mode(mode)
+                        res = ht.matmul(ha, hb)
+                        last[mode] = O.stats()["last"]
+                        err = ring_error(res.larray, a, b)
+                        check(err <= TOL_RING, f"overlap {case} {mode} {m}x{k}x{n}: error {err:.3e} > {TOL_RING}")
+                        times[mode] = time_ms(lambda: ht.matmul(ha, hb), OVERLAP_REPS)
+                        times[mode + "_err"] = err
+                        times[mode + "_split"] = res.split
+                        del res
+                lr = last["ring"]
+                print(f"[overlap] {case} {m}x{k}x{n} f32 over MeshComm({OVERLAP_MESH}): ring {times['ring']:.4f} ms, "
+                      f"eager layout (gspmd) {times['gspmd']:.4f} ms a call (CUDA events over {OVERLAP_REPS}); "
+                      f"max |err| / sum|a||b| ring {times['ring_err']:.3e}, gspmd {times['gspmd_err']:.3e} (bound "
+                      f"{TOL_RING:g}); stats last {lr}, out split {times['ring_split']} on {card}")
+                check(lr["schedule"] == "ring_" + case and lr["steps"] == OVERLAP_MESH and lr["reason"] == "mode=ring",
+                      f"overlap {case}: the ring did not run ({lr})")
+                check(last["gspmd"]["schedule"] == "gspmd", f"overlap {case}: the gspmd mode ran a ring")
+                check(times["ring_split"] == times["gspmd_split"], f"overlap {case}: the two arms' splits differ")
+                out["cases"][f"{case} {m}x{k}x{n}"] = (times["ring"], times["gspmd"], lr["bytes_per_step"])
+                del ha, hb
+            if (m, k, n) == OVERLAP_SHAPES[0]:
+                # the control: the same product in TF32 must fail the bound
+                prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    err_tf32 = ring_error(torch.matmul(a, b), a, b)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+                print(f"[overlap] control: torch.matmul in TF32 at {m}x{k}x{n}, max |err| / sum|a||b| {err_tf32:.3e} "
+                      f"against the bound {TOL_RING:g} on {card}")
+                check(err_tf32 > TOL_RING, f"overlap: the bound {TOL_RING:g} does not catch a TF32 product "
+                                           f"({err_tf32:.3e})")
+                out["tf32_err"] = err_tf32
+            del a, b
+            torch.cuda.empty_cache()
+
+        # bf16 operands at 8192^2: the ring's blocks are bf16 tensor-core
+        # products with an f32 result and accumulator, one rounding to bf16
+        # at the end; the eager layout code's are bf16 cuBLAS GEMMs
+        m, k, n = OVERLAP_SHAPES[0]
+        a = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        b = torch.randn(k, n, generator=gen, device=dev).bfloat16()
+        for case, (sa, sb) in OVERLAP_CASES.items():
+            ha = ht.array(a, split=sa, comm=mesh, copy=False)
+            hb = ht.array(b, split=sb, comm=mesh, copy=False)
+            times = {}
+            with F.fuse(False):
+                for mode in ("ring", "gspmd"):
+                    O.set_mode(mode)
+                    res = ht.matmul(ha, hb)
+                    times[mode + "_err"] = ring_error(res.larray, a, b, rounding=2.0**-8)
+                    times[mode + "_dtype"] = res.larray.dtype
+                    times[mode] = time_ms(lambda: ht.matmul(ha, hb), OVERLAP_REPS)
+                    if mode == "ring":
+                        lr = O.stats()["last"]
+                    del res
+            print(f"[overlap] {case} {m}x{k}x{n} bf16 over MeshComm({OVERLAP_MESH}): ring {times['ring']:.4f} ms, "
+                  f"eager layout (gspmd) {times['gspmd']:.4f} ms a call (CUDA events over {OVERLAP_REPS}); beyond the "
+                  f"bf16 rounding, max |err| / sum|a||b| ring {times['ring_err']:.3e}, gspmd {times['gspmd_err']:.3e} "
+                  f"(bound {TOL_RING:g} for the ring); result {times['ring_dtype']}, stats last {lr} on {card}")
+            check(lr["schedule"] == "ring_" + case and times["ring_dtype"] == torch.bfloat16,
+                  f"overlap bf16 {case}: the ring did not run or changed the type ({lr})")
+            check(times["ring_err"] <= TOL_RING, f"overlap bf16 {case}: error {times['ring_err']:.3e} > {TOL_RING}")
+            out["cases"][f"{case} {m}x{k}x{n} bf16"] = (times["ring"], times["gspmd"], lr["bytes_per_step"])
+            del ha, hb
+        del a, b
+        torch.cuda.empty_cache()
+
+        # the chain cast(relu(a @ b * s + bias), bf16), one ring with the
+        # tail applied to its blocks
+        m, k, n = OVERLAP_SHAPES[0]
+        a = torch.randn(m, k, generator=gen, device=dev)
+        b = torch.randn(k, n, generator=gen, device=dev)
+        bias = torch.randn(n, generator=gen, device=dev)
+        ha, hb = ht.array(a, split=0, comm=mesh, copy=False), ht.array(b, split=0, comm=mesh, copy=False)
+        hbias = ht.array(bias, comm=mesh, copy=False)
+        O.set_mode("ring")
+
+        def chain():
+            return ht.maximum(ht.matmul(ha, hb) * 0.5 + hbias, 0.0).astype(ht.bfloat16).larray
+
+        F.reset_cache()
+        O.reset_stats()
+        fused1 = chain()
+        fused2 = chain()
+        st, ov = F.cache_stats(), O.stats()
+        with F.fuse(False):
+            eager = chain()
+        same = bool(torch.equal(fused1, eager) and torch.equal(fused2, eager))
+        ms_f = time_ms(chain, OVERLAP_REPS)
+        with F.fuse(False):
+            ms_e = time_ms(chain, OVERLAP_REPS)
+        want = torch.relu((a.double() @ b.double()) * 0.5 + bias.double())
+        rel = float(((fused1.double() - want).abs() / want.abs().clamp_min(1.0)).max())
+        print(f"[overlap] chain cast(relu(a @ b * 0.5 + bias), bf16) {m}^2 ag: fused {ms_f:.4f} ms, fuse(False) "
+              f"{ms_e:.4f} ms a call; misses {st['misses']} hits {st['hits']}, ring calls {ov['ring_calls']} "
+              f"(builds {ov['ring_builds']}), bitwise equal to eager {same}, max rel err against f64 {rel:.3e} "
+              f"(bf16 output) on {card}")
+        check(st["misses"] == 1 and st["hits"] == 1 and ov["ring_calls"] == 1, "overlap: the chain was not one ring")
+        check(same and rel <= 2.0**-7, "overlap: the fused chain differs from eager or from f64")
+        out.update(chain_ms=ms_f, chain_eager_ms=ms_e)
+        del fused1, fused2, eager, want
+
+        # the int8 matmul_quantized ring against the bf16 arm (8192^2, x split
+        # 0, the weight split 0: ag with the scale and cast as the epilogue)
+        hw = ht.array(b, split=0, comm=mesh, copy=False)
+        qw = ht.quantize.quantize_weights(hw, "int8", axis=1)
+        O.reset_stats()
+        y8 = ht.quantize.matmul_quantized(ha, qw, arm="int8")
+        last8 = O.stats()["last"]
+        y16 = ht.quantize.matmul_quantized(ha, qw, arm="bf16")
+        deq = qw.dequantize().larray
+        err8 = ring_error(y8.larray, a, deq)
+        err16 = ring_error(y16.larray, a, deq)
+        # .larray: the bf16 arm's matmul is a lazy node until it is read
+        ms8 = time_ms(lambda: ht.quantize.matmul_quantized(ha, qw, arm="int8").larray, OVERLAP_REPS)
+        ms16 = time_ms(lambda: ht.quantize.matmul_quantized(ha, qw, arm="bf16").larray, OVERLAP_REPS)
+        print(f"[overlap] matmul_quantized {m}^2 int8 arm {ms8:.4f} ms (the ring, last {last8['schedule']}), bf16 arm "
+              f"{ms16:.4f} ms; max |err| / sum|x||w| against the dequantized f64 product int8 {err8:.3e}, bf16 "
+              f"{err16:.3e} on {card}")
+        check(last8["schedule"] == "ring_ag", "overlap: the int8 arm did not ring")
+        check(err8 <= TOL_RING and err16 <= TOL_RING, "overlap: a quantized arm differs from the dequantized product")
+        out.update(int8_ms=ms8, bf16_ms=ms16)
+        del y8, y16, deq, qw, hw, ha, hb, hbias, a, b
+
+        # host syncs of an eager ring call at the off and counters levels
+        a = torch.randn(2048, 2048, generator=gen, device=dev)
+        ha = ht.array(a, split=0, comm=mesh, copy=False)
+        syncs = {}
+        with F.fuse(False):
+            ht.matmul(ha, ha)
+            for lvl in ("off", "counters"):
+                prev = ht.telemetry.set_level(lvl)
+                syncs[lvl] = host_syncs(lambda: ht.matmul(ha, ha))
+                ht.telemetry.set_level(prev)
+        print(f"[overlap] host syncs of a ring call at off / counters: {len(syncs['off'])} / {len(syncs['counters'])} "
+              f"{syncs['off'] + syncs['counters']} on {card}")
+        check(not syncs["off"] and not syncs["counters"], "overlap: a ring call waits for the card")
+        out.update(syncs_off=len(syncs["off"]), syncs_counters=len(syncs["counters"]))
+        del a, ha
+
+        # the default settings (HEAT_TPU_MATMUL=auto, the wire and tuning
+        # planes on): the positions share the card, so no wire arm is
+        # consulted and every call is exact, whichever arm the tuning picks
+        m, k, n = OVERLAP_SHAPES[1]
+        a = torch.randn(m, k, generator=gen, device=dev)
+        b = torch.randn(k, n, generator=gen, device=dev)
+        ha, hb = ht.array(a, split=0, comm=mesh, copy=False), ht.array(b, split=0, comm=mesh, copy=False)
+        O.set_mode(None)
+        ht.wire.set_mode("on")
+        w0 = ht.wire.stats()
+        errs, scheds = [], []
+        with F.fuse(False):
+            for _ in range(5):
+                errs.append(ring_error(ht.matmul(ha, hb).larray, a, b))
+                scheds.append(O.stats()["last"]["reason"])
+        w1 = ht.wire.stats()
+        ht.wire.set_mode("off")
+        quantized = w1["quantized_dispatches"] - w0["quantized_dispatches"]
+        wire_explores = w1["explores"] - w0["explores"]
+        print(f"[overlap] defaults (matmul auto, wire on, autotune {ht.autotune.enabled()}) {m}x{k}x{n} f32 ag: "
+              f"5 calls, reasons {scheds}, max |err| / sum|a||b| {max(errs):.3e}, quantized dispatches {quantized}, "
+              f"wire explores {wire_explores} on {card}")
+        check(max(errs) <= TOL_RING and quantized == 0 and wire_explores == 0,
+              "overlap: under the default settings a one-card ring took a quantized wire")
+        del a, b, ha, hb
+    finally:
+        O.set_mode(None)
+        O.reset_stats()
+    torch.cuda.empty_cache()
+    try:
+        out.update(ring_cdist(ht, k1, gen, mesh, dev, card))
+    finally:
+        ht.wire.set_mode(prev_wire)
+    out["k1"] += out.pop("launches")
+    print(f"[overlap] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
+def ring_cdist(ht, k1, gen, mesh, dev, card: str) -> dict:
+    """The ring cdist: x and y split 0, y's blocks around the ring, K1 a
+    position and block (16 launches a call over 4 positions), against the
+    gathered layout."""
+    F = ht.fusion
+    xm, ym, f = RING_CDIST
+    x = torch.randn(xm, f, generator=gen, device=dev)
+    y = torch.randn(ym, f, generator=gen, device=dev)
+    hx, hy = ht.array(x, split=0, comm=mesh, copy=False), ht.array(y, split=0, comm=mesh, copy=False)
+    blk_x, blk_y = x[: xm // OVERLAP_MESH], y[: ym // OVERLAP_MESH]
+    abs_err, rel = compare_cdist(k1, blk_x, blk_y, True)
+    print(f"[check] cdist ring block {tuple(blk_x.shape)}x{tuple(blk_y.shape)} sqrt=True: max_abs_err={abs_err:.3e} "
+          f"max_rel_err={rel:.3e}")
+    check(rel <= TOL, f"cdist ring block: relative error {rel:.3e} > {TOL}")
+    ht.spatial.cdist(hx, hy)
+    torch.cuda.synchronize()
+    k1.launches = 0
+    d = ht.spatial.cdist(hx, hy)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    hy_whole = ht.array(y, comm=mesh, copy=False)
+    with F.fuse(False):
+        g = ht.spatial.cdist(hx, hy_whole)
+    lab_r = torch.argmin(d.larray, dim=1)
+    top2 = torch.topk(g.larray, 2, dim=1, largest=False)
+    clear = (top2.values[:, 1] - top2.values[:, 0]) > 1e-4 * top2.values[:, 1]
+    same = bool(torch.equal(lab_r[clear], top2.indices[clear, 0]))
+    ms_r = time_ms(lambda: ht.spatial.cdist(hx, hy), 5)
+    with F.fuse(False):
+        ms_g = time_ms(lambda: ht.spatial.cdist(hx, hy_whole), 5)
+    max_diff = float((d.larray - g.larray).abs().max())
+    # the default wire plane ("on", tuned): positions on one card consult no
+    # wire arm, so the ring stays bitwise the f32 one
+    prev = ht.wire.set_mode("on")
+    w0 = ht.wire.stats()
+    try:
+        same_on = all(torch.equal(ht.spatial.cdist(hx, hy).larray, d.larray) for _ in range(4))
+    finally:
+        ht.wire.set_mode(prev)
+    w1 = ht.wire.stats()
+    wire_moves = (w1["explores"] - w0["explores"], w1["quantized_dispatches"] - w0["quantized_dispatches"])
+    print(f"[overlap] ring cdist under the default wire plane (on): 4 calls bitwise the f32 ring {same_on}, wire "
+          f"explores and quantized dispatches {wire_moves} on {card}")
+    check(same_on and wire_moves == (0, 0), "ring cdist: the default wire plane quantized a one-card ring")
+    print(f"[overlap] ring cdist ({xm},{f}) x ({ym},{f}) both split 0 over MeshComm({OVERLAP_MESH}): K1 launches "
+          f"{launches} (expected {OVERLAP_MESH * OVERLAP_MESH}), {ms_r:.4f} ms against the gathered layout "
+          f"{ms_g:.4f} ms; nearest-neighbour labels equal on the {float(clear.float().mean()):.5f} of rows with a "
+          f"clear gap {same}, max |d_ring - d_gathered| {max_diff:.3e}, split {d.split} on {card}")
+    check(launches == OVERLAP_MESH * OVERLAP_MESH, f"ring cdist: K1 launches {launches} != {OVERLAP_MESH ** 2}")
+    check(same and d.split == 0 and tuple(d.shape) == (xm, ym), "ring cdist: labels, split or shape differ")
+    check(max_diff <= 1e-3, f"ring cdist: {max_diff:.3e} from the gathered layout")
+    del x, y, hx, hy, hy_whole, d, g, lab_r, top2, clear
+    torch.cuda.empty_cache()
+    return dict(cdist_ms=ms_r, cdist_gathered_ms=ms_g, launches=launches)
+
+
+def audit_paths(ht, seed: int, dev, card: str) -> dict:
+    """The program audit (HEAT_TPU_AUDIT) over MeshComm(4) on the card: a
+    fused chain, a split-crossing resplit and a ring matmul each audited
+    with no finding; a program with an injected .item() gives one
+    host_transfer finding and its roofline row is audited_dirty."""
+    t_phase = time.perf_counter()
+    A, T, O, F = ht.analysis.program_audit, ht.telemetry, ht.parallel.overlap, ht.fusion
+    mesh = ht.MeshComm(OVERLAP_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    x = torch.randn(4096, 4096, generator=gen, device=dev)
+    hx = ht.array(x, split=0, comm=mesh, copy=False)
+    prev_mode, prev_level = A.set_mode("jaxpr"), T.set_level("events")
+    A.reset()
+    found = {}
+    try:
+        F.reset_cache()
+        (ht.exp(hx * 0.5) + 1.0).sum().larray
+        found["fused chain"] = A.findings()
+        ht.resplit(hx, 1).larray
+        found["resplit 0 -> 1"] = A.findings()
+        O.set_mode("ring")
+        with F.fuse(False):
+            ht.matmul(hx, hx).larray
+        found["ring matmul"] = A.findings()
+        kinds = sorted({k for k, _ in A._SEEN})
+        fp = T.fingerprint(("audit_probe", 4096))
+        T.record_program(fp, kind="probe", ops=1)
+        probe = A.watched("probe", fp, lambda t: t * float(t.sum().item()), expect="none")
+        T.timed_call(fp, probe, x, device=x.device)
+        got = A.findings()
+        rows = {r["fingerprint"]: r for r in T.roofline_report()["rows"]}
+        dirty = [f for f, r in rows.items() if r.get("audited_dirty")]
+    finally:
+        A.set_mode(prev_mode)
+        T.set_level(prev_level)
+        O.set_mode(None)
+        O.reset_stats()
+    for what, fs in found.items():
+        print(f"[audit] {what}: {len(fs)} findings {[f['rule'] for f in fs]}")
+    print(f"[audit] programs watched by kind {kinds}; the injected .item(): findings {[(f['kind'], f['rule']) for f in got]}"
+          f" ({got[0]['detail'] if got else ''}); roofline rows marked audited_dirty {dirty} (the probe {fp}) on {card}")
+    check(all(not fs for fs in found.values()), "audit: an engine program has findings")
+    check("fused" in kinds and "ring_ag" in kinds and any(k.startswith("transport_") for k in kinds),
+          f"audit: a site was not watched ({kinds})")
+    check([f["rule"] for f in got] == ["host_transfer"] and dirty == [fp], "audit: the injected host read was missed")
+    A.reset()
+    del x, hx
+    torch.cuda.empty_cache()
+    print(f"[audit] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return {"findings": len(got), "dirty": len(dirty)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5361,6 +5708,12 @@ def main() -> int:
     strm = stream_paths(ht, k1, args.seed, dev, card)
     fus = fusion_paths(ht, k1, args.seed, dev, card)
 
+    # the overlap engine (the three rings at the benchmark's GEMM shapes,
+    # a fused chain into one ring, the int8 ring, the ring cdist through K1)
+    # and the program audit at its three sites
+    ovl = overlap_paths(ht, k1, args.seed, dev, card)
+    aud = audit_paths(ht, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -5369,7 +5722,7 @@ def main() -> int:
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
             "launches": (launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"]
-                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"]),
+                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"] + ovl["k1"]),
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -5388,8 +5741,10 @@ def main() -> int:
             "launches_autotune": tune["k1"],
             "launches_stream": strm["k1"],
             "launches_fusion": fus["k1"],
+            "launches_overlap": ovl["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
-            "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N}, {KNN_F}) f32 sqrt, a position's block of the KNN batch",
+            "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N // TRANSPORT_MESH}, {KNN_F}) f32 sqrt, a ring step's "
+                      "block of the KNN batch",
             "max_abs_err_d3": cb["max_abs_err"],
             **{key: cb[key] for key in ("ms_d3", "plain_ms_d3", "library_ms_d3", "bound_ms_d3", "bound_by_d3")},
             "at_d3": f"({4 * CLUSTER_N}, 3) x ({CLUSTER_K}, 3) f32, the cluster benchmark's spherical data",
@@ -5565,6 +5920,12 @@ def main() -> int:
           f"{fus['census_ms']:.4f} / {fus['census_eager_ms']:.4f} ms; assignment step fused / eager "
           f"{fus['assign_ms']:.4f} / {fus['assign_eager_ms']:.4f} ms; fused split tail {fus['tail_ms']:.4f} ms; "
           f"host syncs off / counters {fus['syncs_off']} / {fus['syncs_counters']} on {card}")
+    print("[summary] overlap rings over MeshComm(4), ring / eager layout ms: "
+          + "; ".join(f"{key} {r:.4f} / {g:.4f}" for key, (r, g, _) in ovl["cases"].items())
+          + f"; chain fused / eager {ovl['chain_ms']:.4f} / {ovl['chain_eager_ms']:.4f} ms; matmul_quantized int8 ring / "
+          f"bf16 {ovl['int8_ms']:.4f} / {ovl['bf16_ms']:.4f} ms; ring cdist {ovl['cdist_ms']:.4f} ms (gathered "
+          f"{ovl['cdist_gathered_ms']:.4f}); ring host syncs off / counters {ovl['syncs_off']} / {ovl['syncs_counters']}; "
+          f"audit: injected host read {aud['findings']} finding, {aud['dirty']} dirty row on {card}")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -81,8 +81,4 @@ from . import naive_bayes
 from . import utils
 from . import datasets
 from . import native
-
-# the analysis subpackage holds only the runtime sanitizer so far
-# (core.quantize imports it); ``ht.analysis`` joins the public names with
-# the lint rules and the program auditor (ROADMAP item 13)
-del analysis
+from . import analysis

@@ -197,20 +197,24 @@ def clear_poison() -> None:
 # the running fingerprint: a hash chain over (site, op, axis), identical
 # across ranks iff every rank ran the same collectives in the same order
 _CHAIN = {"n": 0, "digest": hashlib.sha256(b"heat_tpu").hexdigest()}
+_WATCHERS: "List[Any]" = []
 _TRAIL: "List[Tuple[str, str, Optional[str]]]" = []
 _TRAIL_MAX = 256
 
 
 def collective_event(op: str, axis: Optional[str] = None, site: Optional[str] = None) -> None:
     """Append one collective dispatch to the per-process chain.  Gated on
-    the sanitizer toggle: the steady state pays one boolean check."""
+    the sanitizer toggle: the steady state pays one boolean check.  The
+    program auditor's watchers (``_WATCHERS``) see every dispatch."""
+    for w in _WATCHERS:
+        w(op)
     if not enabled():
         return
     if site is None:
         site = guard.format_site(guard.capture_site(2))
     link = f"{site}|{op}|{axis or ''}"
     _CHAIN["digest"] = hashlib.sha256((_CHAIN["digest"] + link).encode()).hexdigest()
-    _CHAIN["n"] += 1
+    _CHAIN["n"] += 1  # ht: HT004 ok — hash-chain state, not a counter; sanitize._STATS carries the counters
     _STATS["collective_events"] += 1
     if len(_TRAIL) < _TRAIL_MAX:
         _TRAIL.append((site, op, axis))

@@ -206,13 +206,23 @@ class KMeans(_KCluster):
             matching_centroids.larray.reshape(-1).to(blocks[0].device),
             [b.shape[0] for b in blocks],
         )
-        counts, sums = [], []
+        counts, onehots = [], []
         for xs, lab in zip(blocks, labels):
             onehot = (lab[:, None] == torch.arange(k, device=xs.device)[None, :]).to(xs.dtype)
             counts.append(torch.sum(onehot, dim=0))
-            sums.append(torch.matmul(onehot.T, xs))
+            onehots.append(onehot)
         counts = collectives.psum(counts)[0]
-        sums = collectives.psum(sums)[0]
+        sums = None
+        if x.split == 0 and x.comm.size > 1:
+            # the sample axis is the contraction: the overlap engine's rs
+            # ring lands the (k, f) sums replicated (heat_tpu :460-470)
+            from ..parallel import overlap
+
+            ring = overlap.matmul_raw(x.comm, [oh.T for oh in onehots], blocks, (k, x.shape[0]), tuple(x.shape), 1, 0,
+                                      None)
+            sums = None if ring is None else ring[0]
+        if sums is None:
+            sums = collectives.psum([torch.matmul(oh.T, xs) for oh, xs in zip(onehots, blocks)])[0]
         old = self._cluster_centers.larray
         new = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1)[:, None], old)
         return DNDarray(

@@ -57,8 +57,15 @@ Where the port differs from heat_tpu's engine:
   - each leaf keeps its tensors' version counters, and a materialization
     raises rather than read a leaf that was written by a route the engine
     does not see.
-* The matmul node waits for the port of ``parallel/overlap.py``:
-  ``linalg.matmul`` materializes its operands and runs eagerly.
+* A matcher that raises, raises: heat_tpu's ``_lower_terminated`` swallows
+  a terminator's exception and takes the generic program; the port has no
+  eager rescue (:func:`register_terminator`).
+
+A 2-D ``linalg.matmul`` is a node of the overlap engine
+(``parallel/overlap.py``): at a cache miss of a single-root chain
+``tail(... (a @ b))`` the registered terminator returns one ring schedule
+with the elementwise tail applied to its result, which the cache keeps as
+the chain's program.
 
 The guard (``HEAT_TPU_GUARD``, :mod:`~heat_tpu_torch.core.guard`): while it
 is on, every node records the user source line that built it (kept out of
@@ -95,7 +102,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import envparse, guard, memtrack, telemetry
-from ..analysis import sanitize
+from ..analysis import program_audit, sanitize
 from .dndarray import DNDarray
 from .guard import NonFiniteError
 
@@ -122,8 +129,10 @@ __all__ = [
     "node",
     "op_name",
     "pin_leaks",
+    "register_cache_salt",
     "register_op",
     "register_split_terminator",
+    "register_terminator",
     "reset_cache",
     "safe_to_donate",
     "sealed",
@@ -767,9 +776,10 @@ class _Program:
     the instruction after which no consumer reads it (intermediates are
     dropped there)."""
 
-    __slots__ = ("instrs", "out_slots", "leaf_avals", "free_after", "hits", "fp")
+    __slots__ = ("instrs", "out_slots", "leaf_avals", "free_after", "hits", "fp", "custom")
 
-    def __init__(self, instrs, out_slots, leaf_avals):
+    def __init__(self, instrs, out_slots, leaf_avals, custom=None):
+        self.custom = custom
         self.instrs = instrs
         self.out_slots = out_slots
         self.leaf_avals = leaf_avals
@@ -788,12 +798,14 @@ class _Program:
         self.fp = None
 
     def run(self, vals):
-        """Evaluate op by op with the eager torch calls; returns one value
-        per root."""
+        """Evaluate op by op with the eager torch calls (or run the
+        terminator's program); returns one value per root."""
         global _ENABLED
         prev = _ENABLED
         _ENABLED = False
         try:
+            if self.custom is not None:
+                return (self.custom(vals),)
             env = [None] * len(self.instrs)
             for i, ins in enumerate(self.instrs):
                 if ins[0] == "L":
@@ -1098,7 +1110,7 @@ def _run_many_impl(exprs):
         for v in vals:
             sanitize.check_use(_tensors(v), "fusion.materialize")
     guard_on = guard.enabled()
-    key = (instrs, out_slots, tuple(_sig(v) for v in vals), guard_on)
+    key = (instrs, out_slots, tuple(_sig(v) for v in vals), guard_on, _terminator_salt(), _cache_salt())
     device = _tensors(vals[0])[0].device if vals else None
     entry = _CACHE.get(key)
     if entry is None:
@@ -1116,9 +1128,18 @@ def _run_many_impl(exprs):
                                mesh=mesh_info, flops=flops, hbm_bytes=hbm)
         t0 = time.monotonic()
         guard.fire("fusion.compile")
-        entry = _Program(instrs, out_slots, tuple(lf.aval for lf in leaves))
+        custom = None
+        if n_roots == 1 and _TERMINATORS:
+            # schedule-controlled engines (the overlap ring) take single
+            # roots; multi-root programs are always the generic list
+            custom = _lower_terminated(instrs, leaves, avals, out_slots[0], guard_on)
+        entry = _Program(instrs, out_slots, tuple(lf.aval for lf in leaves), custom)
         entry.fp = fp
-        outs = entry.run(vals)
+        if program_audit.enabled():
+            fp_a = fp if fp is not None else _program_fingerprint(instrs, out_slots)
+            outs = program_audit.audited("fused", fp_a, entry.run, (vals,), expect="reduce")
+        else:
+            outs = entry.run(vals)
         telemetry.record_event("compile_end", fingerprint=fp, ok=True, dur_s=round(time.monotonic() - t0, 6),
                                n_roots=n_roots, ops=ops, flops=flops, hbm_bytes=hbm, mesh=mesh_info)
         if fp is not None:
@@ -1260,6 +1281,58 @@ def materialize(*arrays):
         arrays[0].shards
         return arrays[0]
     return materialize_all(*arrays)
+
+
+# --------------------------------------------------------- chain terminators
+# Schedule-controlled engines (parallel/overlap.py's ring matmul) register a
+# lowerer consulted at a cache miss of a single-root program, before the
+# generic instruction list is kept.  Contract: lowerer(instrs, leaves,
+# out_slot, gshape, split, comm, with_guard) -> program(vals) -> the root's
+# value, or None to decline.  The program enters the same cache entry, so
+# cache_stats() counts terminated chains as any other.  ``salt`` adds the
+# engine's dispatch state (mode, threshold) to the cache key.  A lowerer
+# that raises, raises (heat_tpu swallows it; the port has no eager rescue).
+
+_TERMINATORS: "list[Tuple[Callable, Optional[Callable]]]" = []
+
+
+def register_terminator(lowerer: Callable, salt: Optional[Callable] = None) -> Callable:
+    """Register a chain lowerer (see the block comment above)."""
+    _TERMINATORS.append((lowerer, salt))
+    return lowerer
+
+
+def _terminator_salt() -> tuple:
+    return tuple(s() for _, s in _TERMINATORS if s is not None)
+
+
+# zero-argument callables whose results join every cache key (the tuning
+# plane's generation: a winner that flips builds a distinct program)
+_CACHE_SALTS: "list[Callable]" = []
+
+
+def register_cache_salt(fn: Callable) -> Callable:
+    """Register a zero-argument callable whose result joins every program
+    cache key (once per callable)."""
+    if fn not in _CACHE_SALTS:
+        _CACHE_SALTS.append(fn)
+    return fn
+
+
+def _cache_salt() -> tuple:
+    return tuple(s() for s in _CACHE_SALTS)
+
+
+def _lower_terminated(instrs, leaves, avals, out_slot, with_guard):
+    root = avals[out_slot]
+    comm = next((lf.value.comm for lf in leaves if isinstance(lf.value, DNDarray)), None)
+    if not root.array or comm is None:
+        return None
+    for lowerer, _ in _TERMINATORS:
+        program = lowerer(instrs, leaves, out_slot, tuple(root.shape), root.split, comm, with_guard)
+        if program is not None:
+            return program
+    return None
 
 
 # ------------------------------------------- split-boundary terminators

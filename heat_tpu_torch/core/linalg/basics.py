@@ -17,8 +17,11 @@ split, else the result is replicated.
 
 An operand that must be whole is gathered first.  The local product is
 ``torch.matmul`` in IEEE float32 (the card's TF32 stays off), as the JAX
-package leaves it to XLA; the overlap ring schedules (``parallel/overlap.py``)
-are a later slice (ROADMAP item 13).
+package leaves it to XLA.  Before these layouts, a 2-D product goes to the
+overlap engine (``parallel/overlap.py``): under fusion it is a lazy node
+whose elementwise consumers lower to one ring schedule with them as its
+tail, and eagerly the ring dispatcher runs; where the engine declines, the
+layouts above run.
 
 ``det`` and ``inv`` keep the JAX package's two routes.  A 2-D matrix split
 over several positions is eliminated over the shard list with partial
@@ -70,40 +73,66 @@ def _replicated(t: torch.Tensor, like: DNDarray) -> DNDarray:
     )
 
 
-def _inner_block(t: torch.Tensor, dim: int, comm, k: int, r: int) -> torch.Tensor:
-    """Position ``r``'s block of dimension ``dim`` (extent ``k``) of ``t``."""
-    off, lshape, _ = comm.chunk((k,), 0, rank=r)
-    return t.narrow(dim, off, lshape[0])
+def _matmul_shards(a_sh, a_split, b_sh, b_split, m: int, k: int, n: int, n_pos: int, tt: torch.dtype):
+    """The eager 2-D product over the shard lists of a (m, k) array split
+    along ``a_split`` and a (k, n) one split along ``b_split``: ``(shards,
+    split)`` of the result (the module docstring's layouts).  The overlap
+    engine's explore calls time it against the ring."""
 
+    def whole(shards, split) -> torch.Tensor:
+        if split is None or n_pos == 1:
+            return shards[0].to(tt)
+        return torch.cat(list(shards), dim=split).to(tt)
 
-def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
-    comm = a.comm
-    n_pos = comm.size
-    m, k = a.shape
-    n = b.shape[1]
-
-    def whole(x: DNDarray) -> torch.Tensor:
-        return x.larray.to(tt)
-
-    if a.split == 0 and n_pos > 1:
-        bw = whole(b)
-        shards = [torch.matmul(s.to(tt), bw) for s in a.shards]
-        return DNDarray(shards, (m, n), types.canonical_heat_type(tt), 0, a.device, comm)
-    if b.split == 1 and n_pos > 1:
-        aw = whole(a)
-        shards = [torch.matmul(aw, s.to(tt)) for s in b.shards]
-        return DNDarray(shards, (m, n), types.canonical_heat_type(tt), 1, a.device, comm)
-    if (a.split == 1 or b.split == 0) and n_pos > 1:
+    if a_split == 0 and n_pos > 1:
+        bw = whole(b_sh, b_split)
+        return [torch.matmul(s.to(tt), bw) for s in a_sh], 0
+    if b_split == 1 and n_pos > 1:
+        aw = whole(a_sh, a_split)
+        return [torch.matmul(aw, s.to(tt)) for s in b_sh], 1
+    if (a_split == 1 or b_split == 0) and n_pos > 1:
         # inner split: per-position partial products, summed over positions
         parts = []
         for r in range(n_pos):
-            ar = a.shards[r] if a.split == 1 else _inner_block(a.shards[0], 1, comm, k, r)
-            br = b.shards[r] if b.split == 0 else _inner_block(b.shards[0], 0, comm, k, r)
+            per = -(-k // n_pos)
+            off = min(r * per, k)
+            rows = min((r + 1) * per, k) - off
+            ar = a_sh[r] if a_split == 1 else a_sh[0].narrow(1, off, rows)
+            br = b_sh[r] if b_split == 0 else b_sh[0].narrow(0, off, rows)
             parts.append(torch.matmul(ar.to(tt), br.to(tt)))
-        return _replicated(collectives.psum(parts)[0], a)
-    out = torch.matmul(whole(a), whole(b))
-    split = 0 if a.split == 0 else (1 if b.split == 1 else None)
-    return _wrap(out, split, a.device, comm)
+        return [collectives.psum(parts)[0]] * n_pos, None
+    out = torch.matmul(whole(a_sh, a_split), whole(b_sh, b_split))
+    return [out] * n_pos, (0 if a_split == 0 else (1 if b_split == 1 else None))
+
+
+def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
+    """The eager product of two 2-D arrays (:func:`_matmul_shards`)."""
+    comm = a.comm
+    m, k = a.shape
+    n = b.shape[1]
+    shards, split = _matmul_shards(a.shards, a.split, b.shards, b.split, m, k, n, comm.size, tt)
+    return DNDarray(shards, (m, n), types.canonical_heat_type(shards[0].dtype), split, a.device, comm)
+
+
+def _lazy_matmul(a: DNDarray, b: DNDarray, promoted, split):
+    """``a @ b`` deferred as a fusion node of the overlap engine's ``_mm``
+    (heat_tpu :115), so that an elementwise chain over it lowers to one ring
+    with the chain as its tail.  ``None`` when an operand declines."""
+    from .. import _operations, fusion
+    from ..dndarray import _tdevice
+    from ...parallel import overlap as _overlap
+
+    _overlap.ensure_registered()
+    ctx = (a.device, a.comm)
+    try:
+        na = fusion.cast_node(_operations._lazy_operand(a, a.comm), promoted, ctx)
+        nb = fusion.cast_node(_operations._lazy_operand(b, a.comm), promoted, ctx)
+        res = fusion.node(_overlap._mm, (na, nb), ctx)
+    except fusion.Unfusable:
+        fusion.count_fallback()
+        return None
+    return fusion.defer(res, res.aval.shape, types.canonical_heat_type(res.aval.dtype), split, a.device, a.comm,
+                        _tdevice(a))
 
 
 def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
@@ -126,6 +155,20 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     # jnp.matmul's promotion: an integer meets a float at the float's type
     tt = torch.promote_types(a.dtype.torch_type(), b.dtype.torch_type())
     if a.ndim == 2 and b.ndim == 2:
+        # under fusion the product joins the lazy DAG (an elementwise chain
+        # over it lowers to the ring with the chain as its tail); eagerly
+        # the ring dispatcher runs; either declines to the layout code
+        from .. import fusion
+        from ...parallel import overlap as _overlap
+
+        split2 = 0 if a.split == 0 else (1 if b.split == 1 else None)
+        if fusion.enabled():
+            lazy = _lazy_matmul(a, b, types.canonical_heat_type(tt), split2)
+            if lazy is not None:
+                return lazy
+        ring = _overlap.matmul(a, b, out_split=split2)
+        if ring is not None:
+            return ring
         return _matmul_2d(a, b, tt)
     result = torch.matmul(a.larray.to(tt), b.larray.to(tt))
     nd_out = result.ndim

@@ -39,11 +39,18 @@ QR = collections.namedtuple("QR", "Q, R")
 
 def orthogonality_defect(q: DNDarray) -> DNDarray:
     """``max|QᵀQ − I|`` as a replicated 0-d array
-    (heat_tpu/core/linalg/qr.py:38).  For a row-split Q the positions'
-    partial Gram matrices are all-reduced."""
+    (heat_tpu/core/linalg/qr.py:38).  For a row-split Q the split axis is
+    the contraction: the overlap engine's ``rs`` ring with a replicated
+    out-split (heat_tpu :51-63), or, where it declines, the positions'
+    partial Gram matrices all-reduced."""
     sanitation.sanitize_in(q)
+    gram = None
     if q.split == 0 and q.ndim == 2 and q.comm.size > 1:
-        gram = collectives.psum([s.T @ s for s in q.shards])[0]
+        from ...parallel import overlap
+
+        m, n = q.shape
+        ring = overlap.matmul_raw(q.comm, [s.T for s in q.shards], q.shards, (n, m), (m, n), 1, 0, None)
+        gram = ring[0] if ring is not None else collectives.psum([s.T @ s for s in q.shards])[0]
     else:
         arr = q.larray
         gram = arr.T @ arr

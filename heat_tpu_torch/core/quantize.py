@@ -15,9 +15,11 @@ heat_tpu/core/quantize.py).
   reference arm, whose result an explore call returns bitwise and which
   ``HEAT_TPU_AUTOTUNE=off`` restores.  ``int8`` multiplies by the
   low-precision operand widened to the f32 accumulator and scales the
-  product per channel: heat_tpu's ``_gspmd_quant_mm`` form, the one its
-  ring declines to (the ring with the scale in its epilogue waits for
-  ``parallel/overlap.py``; its block-wise sums would round differently).
+  product per channel.  It goes ring-first, as heat_tpu's: the overlap
+  engine's ``matmul_raw`` with the scale and the cast in its
+  :class:`~heat_tpu_torch.parallel.overlap.Epilogue`, the int8 block
+  widened in the ring's step; where the ring declines, heat_tpu's
+  ``_gspmd_quant_mm`` form runs in one ``torch.matmul``.
 * :func:`quantize_tensor` / :func:`quantize_params`: the raw-tensor tier
   for the MoE FFN; :class:`QuantizedTensor` is a frozen dataclass.
 
@@ -393,7 +395,14 @@ def matmul_quantized(x: DNDarray, qw: QuantizedDNDarray, out_split="auto", *, ar
         return basics.matmul(x, qw.dequantize())
 
     def _int8() -> DNDarray:
+        from ..parallel import overlap as _overlap
+
         comm = x.comm
+        ep = _overlap.Epilogue(scale=qw.scale, dtype=out_dt)
+        ring = _overlap.matmul_raw(comm, x.shards, qw.qshards, (m, k), (k, n), x.split, qw.split, out_split,
+                                   comp_dtype=comp, epilogue=ep)
+        if ring is not None:
+            return DNDarray(ring, (m, n), out_ht, out_split, x.device, comm)
         if out_split == 0 and x.split == 0:
             qf = qw.q
             shards = [_quant_mm(xs, qf.to(xs.device), qw.scale, comp, out_dt) for xs in x.shards]

@@ -934,10 +934,20 @@ def roofline_report(top: Optional[int] = None, peaks: Optional[dict] = None) -> 
     measured time (:func:`heat_tpu_torch.core.roofline.report`):
     ``{"device", "peaks", "rows", "memory_bound_tail"}``, rows sorted by
     total measured time, the verdict ``unknown-peak`` where the device's
-    peaks are unknown (``HEAT_TPU_PEAKS`` overrides them)."""
+    peaks are unknown (``HEAT_TPU_PEAKS`` overrides them).  Rows whose
+    fingerprint carries a program-audit finding (a host read, an unmodeled
+    collective, a dead donation) are marked ``audited_dirty``: their time is
+    not trustworthy attribution."""
     from . import roofline
+    from ..analysis import program_audit
 
-    return roofline.report(programs(), top=top, peaks=peaks)
+    rep = roofline.report(programs(), top=top, peaks=peaks)
+    dirty = program_audit.dirty_fingerprints()
+    if dirty:
+        for row in rep.get("rows", ()):
+            if row.get("fingerprint") in dirty:
+                row["audited_dirty"] = True
+    return rep
 
 
 # ------------------------------------------------------------- memory axis

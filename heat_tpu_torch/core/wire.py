@@ -22,7 +22,12 @@ transfers below ``HEAT_TPU_WIRE_MIN_BYTES`` (64 KiB by default), row takes
 ``HEAT_TPU_WIRE`` = ``on`` (the default: the tuned arm per site) | ``off``
 (the f32 wire, no decisions) | ``int8`` | ``fp8`` (one arm forced, no
 decisions).  Unlike heat_tpu, an arm that raises while exploring raises:
-only a missing fp8 dtype forfeits its arm.
+only a missing fp8 dtype forfeits its arm.  The overlap rings (the ring
+GEMM and the ring ``cdist``) consult the table only where their positions
+span more than one device (``links=True``): with every position on one
+card no byte crosses a link, so a quantized arm could only win on timing
+noise and would make an exact result approximate; a forced mode still
+applies there.
 """
 
 from __future__ import annotations
@@ -221,34 +226,36 @@ def decline(site: str) -> None:
         _STATS["declined_static"] += 1
 
 
-def choose(site: str, geometry: tuple, desc: str = ""):
+def choose(site: str, geometry: tuple, desc: str = "", links: bool = True):
     """The wire-arm consult of one eligible transfer: ``(arm,
     decision_or_None)``.  A forced mode returns its arm with no decision;
-    the tuning plane off means ``wire_f32``; otherwise the table decides
-    and the caller runs :func:`explore` when ``decision.explore`` is set."""
+    the tuning plane off, or ``links=False`` (the transfer's positions
+    share one device), means ``wire_f32``; otherwise the table decides and
+    the caller runs :func:`explore` when ``decision.explore`` is set."""
     m = mode()
     if m in ("int8", "fp8"):
         if m == "fp8" and not fp8_available():
             return "wire_f32", None
         return "wire_" + m, None
-    if not autotune.enabled():
+    if not links or not autotune.enabled():
         return "wire_f32", None
     key = autotune.wire_key(site, *geometry)
     d = autotune.decide(key, "wire_f32", desc=desc or f"wire {site} {geometry}", arms=autotune.WIRE_ARMS)
     return d.arm, d
 
 
-def consume(site: str, geometry: tuple) -> str:
+def consume(site: str, geometry: tuple, links: bool = True) -> str:
     """The consume-only consult for sites that must not run their transfer
-    twice: a forced mode applies; otherwise only a resolved winner of the
-    shared key is served, and an unresolved key records the f32 prior.
-    Returns the wire mode (``""`` | ``"int8"`` | ``"fp8"``)."""
+    twice: a forced mode applies; otherwise (``links`` as in :func:`choose`)
+    only a resolved winner of the shared key is served, and an unresolved
+    key records the f32 prior.  Returns the wire mode (``""`` | ``"int8"``
+    | ``"fp8"``)."""
     m = mode()
     if m in ("int8", "fp8"):
         if m == "fp8" and not fp8_available():
             return ""
         return m
-    if not autotune.enabled():
+    if not links or not autotune.enabled():
         return ""
     key = autotune.wire_key(site, *geometry)
     w = autotune.winner(key)

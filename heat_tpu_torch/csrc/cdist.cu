@@ -63,7 +63,7 @@ namespace {
 template <int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 cdist_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 float* __restrict__ out, int m, int n, int d, int take_sqrt) {
+                 float* __restrict__ out, int m, int n, int d, int ldo, int take_sqrt) {
   constexpr int TY = BM / TM;  // threads along the rows of the tile
   constexpr int TX = BN / TN;  // threads along its columns
   constexpr int NT = TY * TX;
@@ -145,17 +145,17 @@ cdist_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
       if (col >= n) continue;
       float v = fmaxf(xn + yn_s[c] - 2.f * acc[i][j], 0.f);
       if (take_sqrt) v = sqrtf(v);
-      out[row * n + col] = v;
+      out[row * ldo + col] = v;
     }
   }
 }
 
 template <int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch(const float* x, const float* y, float* out, int m, int n, int d,
+cudaError_t launch(const float* x, const float* y, float* out, int m, int n, int d, int ldo,
                    int take_sqrt, cudaStream_t stream) {
   const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   const dim3 block((BM / TM) * (BN / TN));
-  cdist_f32_kernel<BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(x, y, out, m, n, d, take_sqrt);
+  cdist_f32_kernel<BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(x, y, out, m, n, d, ldo, take_sqrt);
   return cudaGetLastError();
 }
 
@@ -184,7 +184,7 @@ template <> struct Word<2> { using type = unsigned short; };
 template <class TX, class TY, int VX, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 cdist16_kernel(const typename TX::storage* __restrict__ x, const typename TY::storage* __restrict__ y,
-               float* __restrict__ out, int m, int n, int d, int take_sqrt) {
+               float* __restrict__ out, int m, int n, int d, int ldo, int take_sqrt) {
   using SX = typename TX::storage;
   using WX = typename Word<VX * sizeof(SX)>::type;
   constexpr int TYN = BM / TM;  // threads along the rows of the tile
@@ -295,6 +295,9 @@ cdist16_kernel(const typename TX::storage* __restrict__ x, const typename TY::st
   if (tid < BN) yn_s[tid] = ynorm;
   __syncthreads();
 
+  // a row's 4-column groups are 16-byte aligned (out may be a column slice
+  // of a wider matrix, rows ldo apart) and a group never crosses n
+  const bool vec_out = (n & 3) == 0 && (ldo & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty + i * TYN;
@@ -308,72 +311,75 @@ cdist16_kernel(const typename TX::storage* __restrict__ x, const typename TY::st
       v[j] = fmaxf(xn + yn_s[c] - 2.f * acc[i][j], 0.f);
       if (take_sqrt) v[j] = sqrtf(v[j]);
     }
-    if (TXN == 1 && TN % 4 == 0 && (n & 3) == 0) {
-      // this thread's columns are adjacent: 16-byte stores (out is the
-      // wrapper's own allocation, so row * n + col is 16-byte aligned)
+    if (TXN == 1 && TN % 4 == 0 && vec_out) {
+      // this thread's columns are adjacent: 16-byte stores
 #pragma unroll
       for (int j = 0; j < TN; j += 4)
         if (n0 + j < n)
-          *reinterpret_cast<float4*>(out + row * n + n0 + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+          *reinterpret_cast<float4*>(out + row * ldo + n0 + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
     } else {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int col = n0 + tx + j * TXN;
-        if (col < n) out[row * n + col] = v[j];
+        if (col < n) out[row * ldo + col] = v[j];
       }
     }
   }
 }
 
 template <class TX, class TY, int VX, int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch16(const void* x, const void* y, float* out, int m, int n, int d, int take_sqrt,
+cudaError_t launch16(const void* x, const void* y, float* out, int m, int n, int d, int ldo, int take_sqrt,
                      cudaStream_t stream) {
   const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   const dim3 block((BM / TM) * (BN / TN));
   cdist16_kernel<TX, TY, VX, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
       static_cast<const typename TX::storage*>(x), static_cast<const typename TY::storage*>(y), out, m, n, d,
-      take_sqrt);
+      ldo, take_sqrt);
   return cudaGetLastError();
 }
 
 // the tall 256 x 8 tile for n <= 8 (Lloyd at k <= 8, kmeans++'s column),
 // the 64 x 64 tile otherwise
 template <class TX, class TY, int VX>
-cudaError_t tiles16(const void* x, const void* y, float* out, int m, int n, int d, int take_sqrt, cudaStream_t s) {
-  if (n <= 8) return launch16<TX, TY, VX, 256, 8, 32, 1, 8>(x, y, out, m, n, d, take_sqrt, s);
-  return launch16<TX, TY, VX, 64, 64, 16, 4, 4>(x, y, out, m, n, d, take_sqrt, s);
+cudaError_t tiles16(const void* x, const void* y, float* out, int m, int n, int d, int ldo, int take_sqrt,
+                    cudaStream_t s) {
+  if (n <= 8) return launch16<TX, TY, VX, 256, 8, 32, 1, 8>(x, y, out, m, n, d, ldo, take_sqrt, s);
+  return launch16<TX, TY, VX, 64, 64, 16, 4, 4>(x, y, out, m, n, d, ldo, take_sqrt, s);
 }
 
 // the widest load x's base and row pitch allow
 template <class TX, class TY>
-cudaError_t widths16(const void* x, const void* y, float* out, int m, int n, int d, int take_sqrt, cudaStream_t s) {
+cudaError_t widths16(const void* x, const void* y, float* out, int m, int n, int d, int ldo, int take_sqrt,
+                     cudaStream_t s) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
-  if (d % 8 == 0 && base % 16 == 0) return tiles16<TX, TY, 8>(x, y, out, m, n, d, take_sqrt, s);
-  if (d % 2 == 0 && base % 4 == 0) return tiles16<TX, TY, 2>(x, y, out, m, n, d, take_sqrt, s);
-  return tiles16<TX, TY, 1>(x, y, out, m, n, d, take_sqrt, s);
+  if (d % 8 == 0 && base % 16 == 0) return tiles16<TX, TY, 8>(x, y, out, m, n, d, ldo, take_sqrt, s);
+  if (d % 2 == 0 && base % 4 == 0) return tiles16<TX, TY, 2>(x, y, out, m, n, d, ldo, take_sqrt, s);
+  return tiles16<TX, TY, 1>(x, y, out, m, n, d, ldo, take_sqrt, s);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  x (m, d), y (n, d) and out (m, n)
-// are contiguous row-major f32 on the current device; m, n >= 1.  Returns
-// the launch's cudaError_t (0 on success).
+// Plain C entry point, loaded with ctypes.  x (m, d) and y (n, d) are
+// contiguous row-major f32 on the current device; out (m, n) is row-major
+// with rows ldo >= n floats apart (a column slice of a wider matrix when
+// ldo > n); m, n >= 1.  Returns the launch's cudaError_t (0 on success).
 extern "C" int heat_cdist_f32(const float* x, const float* y, float* out, int m, int n,
-                              int d, int take_sqrt, void* stream) {
+                              int d, int ldo, int take_sqrt, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 8) return static_cast<int>(launch<256, 8, 32, 1, 8>(x, y, out, m, n, d, take_sqrt, s));
-  return static_cast<int>(launch<64, 64, 16, 4, 4>(x, y, out, m, n, d, take_sqrt, s));
+  if (n <= 8) return static_cast<int>(launch<256, 8, 32, 1, 8>(x, y, out, m, n, d, ldo, take_sqrt, s));
+  return static_cast<int>(launch<64, 64, 16, 4, 4>(x, y, out, m, n, d, ldo, take_sqrt, s));
 }
 
 // The same for 16-bit x: x_type and y_type are 1 for bf16, 2 for f16 and 0
-// for f32; x is bf16 or f16, y has x's type or is f32.  out (m, n) is f32.
-// Any other pair returns cudaErrorInvalidValue without a launch.
-extern "C" int heat_cdist_16(const void* x, const void* y, float* out, int m, int n, int d, int take_sqrt,
-                             int x_type, int y_type, void* stream) {
+// for f32; x is bf16 or f16, y has x's type or is f32.  out (m, n) is f32,
+// rows ldo apart.  Any other pair returns cudaErrorInvalidValue without a
+// launch.
+extern "C" int heat_cdist_16(const void* x, const void* y, float* out, int m, int n, int d, int ldo,
+                             int take_sqrt, int x_type, int y_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_type == 1 && y_type == 1) return static_cast<int>(widths16<BF16, BF16>(x, y, out, m, n, d, take_sqrt, s));
-  if (x_type == 1 && y_type == 0) return static_cast<int>(widths16<BF16, F32>(x, y, out, m, n, d, take_sqrt, s));
-  if (x_type == 2 && y_type == 2) return static_cast<int>(widths16<F16, F16>(x, y, out, m, n, d, take_sqrt, s));
-  if (x_type == 2 && y_type == 0) return static_cast<int>(widths16<F16, F32>(x, y, out, m, n, d, take_sqrt, s));
+  if (x_type == 1 && y_type == 1) return static_cast<int>(widths16<BF16, BF16>(x, y, out, m, n, d, ldo, take_sqrt, s));
+  if (x_type == 1 && y_type == 0) return static_cast<int>(widths16<BF16, F32>(x, y, out, m, n, d, ldo, take_sqrt, s));
+  if (x_type == 2 && y_type == 2) return static_cast<int>(widths16<F16, F16>(x, y, out, m, n, d, ldo, take_sqrt, s));
+  if (x_type == 2 && y_type == 0) return static_cast<int>(widths16<F16, F32>(x, y, out, m, n, d, ldo, take_sqrt, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

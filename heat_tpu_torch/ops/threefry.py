@@ -91,6 +91,10 @@ _ERFINV64_GE16 = (
 
 Key = Tuple[int, int]
 
+# the f32 lower bound of the normal sampler's uniforms, the float32 after -1
+# towards 0, as a host number (reading it from a card tensor would wait)
+_LO32 = -1.0 + 2.0**-24
+
 
 def threefry2x32(key: Key, x0, x1):
     """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
@@ -188,7 +192,7 @@ def _normal(y0: torch.Tensor, y1: torch.Tensor, dtype: torch.dtype) -> torch.Ten
     floats = _uniform(y0, y1, base)
     lo = torch.nextafter(torch.tensor(-1.0, dtype=base), torch.tensor(0.0, dtype=base)).to(floats.device)
     span = 1.0 - lo
-    scaled = _fma32(floats, span, float(lo)) if base == torch.float32 else floats * span + lo
+    scaled = _fma32(floats, span, _LO32) if base == torch.float32 else floats * span + lo
     u = torch.maximum(lo, scaled)
     sqrt2 = torch.tensor(math.sqrt(2.0), dtype=base, device=u.device)
     return (sqrt2 * (erfinv_f32(u) if base == torch.float32 else erfinv_f64(u))).to(dtype)

@@ -16,6 +16,15 @@ from .sort import ordered_less
 
 __all__ = ["psum", "pmin", "pmax", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan"]
 
+# callables told the name of each collective as it runs (the program
+# auditor's watch, analysis/program_audit.py); empty in the steady state
+_WATCHERS: list = []
+
+
+def _note(op: str) -> None:
+    for w in _WATCHERS:
+        w(op)
+
 
 def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t if t.device == like.device else t.to(like.device)
@@ -23,6 +32,8 @@ def _to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """All-reduce sum: every position receives the sum of all parts."""
+    if _WATCHERS:
+        _note("psum")
     total = parts[0]
     for p in parts[1:]:
         total = total + _to(p, total)
@@ -32,6 +43,8 @@ def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """All-reduce elementwise minimum (complex values in NumPy's
     lexicographic order)."""
+    if _WATCHERS:
+        _note("pmin")
     low = parts[0]
     for p in parts[1:]:
         p = _to(p, low)
@@ -42,6 +55,8 @@ def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """All-reduce elementwise maximum (complex values in NumPy's
     lexicographic order)."""
+    if _WATCHERS:
+        _note("pmax")
     high = parts[0]
     for p in parts[1:]:
         p = _to(p, high)
@@ -51,6 +66,8 @@ def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor]:
     """Concatenate every position's block along ``dim``, on every position."""
+    if _WATCHERS:
+        _note("all_gather")
     whole = torch.cat([_to(p, parts[0]) for p in parts], dim=dim)
     return [_to(whole, p) for p in parts]
 
@@ -60,6 +77,8 @@ def all_to_all(parts: Sequence[torch.Tensor], split_axis: int, concat_axis: int)
     position cuts its block into N equal pieces along ``split_axis`` and
     sends piece j to position j; position i concatenates the pieces it
     receives along ``concat_axis``, in the order of their sources."""
+    if _WATCHERS:
+        _note("all_to_all")
     n = len(parts)
     for p in parts:
         if p.shape[split_axis] % n:
@@ -73,6 +92,8 @@ def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> 
     heat_tpu/parallel/collectives.py:132): for each ``(src, dst)`` pair
     position ``dst`` receives position ``src``'s block; a position that no
     pair names receives zeros.  No position may receive twice."""
+    if _WATCHERS:
+        _note("ppermute")
     n = len(parts)
     out: List[Optional[torch.Tensor]] = [None] * n
     for src, dst in perm:
@@ -88,6 +109,8 @@ def ring_shift(parts: Sequence[torch.Tensor], shift: int = 1) -> List[torch.Tens
     """Pass each position's block ``shift`` positions up the ring
     (heat_tpu/parallel/collectives.py:132): position (i + shift) mod N
     receives position i's block."""
+    if _WATCHERS:
+        _note("ring_shift")
     n = len(parts)
     return ppermute(parts, [(i, (i + shift) % n) for i in range(n)])
 
@@ -96,6 +119,8 @@ def exscan(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Exclusive prefix sum over the positions
     (heat_tpu/parallel/collectives.py:155): position r receives the sum of
     the blocks of positions 0 .. r-1, position 0 zeros."""
+    if _WATCHERS:
+        _note("exscan")
     out, run = [], torch.zeros_like(parts[0])
     for p in parts:
         out.append(_to(run, p))
@@ -105,4 +130,6 @@ def exscan(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def bcast(parts: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
     """Every position receives the ``root`` position's tensor."""
+    if _WATCHERS:
+        _note("bcast")
     return [_to(parts[root], p) for p in parts]

@@ -86,7 +86,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..analysis import sanitize
+from ..analysis import program_audit, sanitize
 from ..core import autotune, guard, memtrack, telemetry
 from ..core import wire as _wire
 from ..ops import repack as _repack
@@ -290,6 +290,8 @@ def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, k
                                      mesh={"devices": comm.size}, dtype=str(like.dtype), **extra)
     with telemetry.span(f"transport.{kind}"):
         guard.fire(f"transport.{kind}")
+        if program_audit.enabled():
+            fn = program_audit.watched(f"transport_{kind}", fp, fn, expect="any")
         out = telemetry.timed_call(fp, fn, *args, device=like.device, observer=observer)
     if chain:
         _link(kind)

@@ -8,10 +8,16 @@ Layouts, by the operands' splits:
 * x replicated, y row-split: each position computes all rows against its
   block of y, which is the result's column block (result split 1);
 * both replicated: one computation, replicated;
-* both row-split: y is all-gathered and each position computes its rows
-  against it.  The JAX package rotates y's blocks around a ring instead
-  (``_build_ring_cdist``); the values are the same, and the ring is a later
-  slice.  A feature-split operand is gathered first.
+* both row-split, rows dividing evenly over several positions: the ring of
+  the JAX package (``_build_ring_cdist``, ``_ring_cdist``): each position
+  keeps its block of x while y's blocks pass around the ring
+  (``parallel.overlap.ring_sweep``), every step's block through K1, so K1
+  launches S times a position a call and no gathered copy of y exists.  An
+  eligible f32 y may travel on a quantized wire (``core/wire.py``; tuned
+  only where the positions span devices, forced anywhere), the program
+  :func:`cdist_quantized` runs for a corpus quantized already;
+* both row-split otherwise: y is all-gathered and each position computes
+  its rows against it.  A feature-split operand is gathered first.
 
 Dispatch: when the promoted dtype is float32 each block goes through K1
 (:mod:`heat_tpu_torch.ops.cdist`), which on the card launches the CUDA
@@ -23,11 +29,11 @@ takes the torch expansion below, as the JAX package leaves it to XLA.
 
 Under the fusion engine (:mod:`~heat_tpu_torch.core.fusion`) ``cdist``
 defers as one ``euclid_cdist`` node whose body is the dispatch above (K1 on
-the card), in every layout but the ring one (both operands row-split over
-several positions, rows dividing evenly), which stays eager as in
-heat_tpu; ``rbf`` extends that node with its ``neg``, ``div`` and ``exp``
-nodes, so KMeans' labels and inertia, or a kernel matrix and its
-consumers, run as one program with one K1 launch a position.
+the card), in every layout but the ring one, which stays eager as
+heat_tpu's does (its ``cdist`` defers only where neither the Pallas layout
+nor ``_ring_eligible`` holds); ``rbf`` extends that node with its ``neg``,
+``div`` and ``exp`` nodes, so KMeans' labels and inertia, or a kernel
+matrix and its consumers, run as one program with one K1 launch a position.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from typing import Optional
 
 import torch
 
-from ..core import _operations, exponential, fusion, sanitation, types
+from ..core import _operations, autotune, exponential, fusion, sanitation, types
+from ..core import wire as _wire
 from ..core.dndarray import DNDarray
 from ..ops import cdist as _k1
 from ..parallel import collectives
@@ -119,23 +126,32 @@ def _noise_floor_(d2: torch.Tensor, xa: torch.Tensor, ya: torch.Tensor) -> torch
     return d2
 
 
-def _block(xa: torch.Tensor, ya: torch.Tensor, promoted, sqrt: bool) -> torch.Tensor:
-    """Distances of one block of rows of x to one block of rows of y."""
+def _k1_into(xa: torch.Tensor, ya: torch.Tensor, sqrt: bool, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's distances, into ``out`` when it is given."""
+    if out is None:
+        return _k1.cdist(xa, ya, sqrt=sqrt)
+    return _k1.cdist(xa, ya, sqrt=sqrt, out=out)
+
+
+def _block(xa: torch.Tensor, ya: torch.Tensor, promoted, sqrt: bool, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Distances of one block of rows of x to one block of rows of y,
+    written into ``out`` (a column slice of the result) when it is given."""
     if xa.device.type == "meta":
         # the fusion engine's metadata probe: the shape and type, no launch
         return xa.new_empty((xa.shape[0], ya.shape[0]),
                             dtype=torch.float64 if promoted is types.float64 else torch.float32)
     if promoted is types.float64:
         d2 = _sq_euclidean(xa.to(torch.float64), ya.to(torch.float64))
-        return torch.sqrt(d2) if sqrt else d2
+        d = torch.sqrt(d2) if sqrt else d2
+        return d if out is None else out.copy_(d)
     if promoted is types.float32:
         # a 16-bit x stays as it is against f32 y: K1 widens its tiles
         if xa.dtype not in (torch.bfloat16, torch.float16):
             xa = xa.to(torch.float32)
-        return _k1.cdist(xa.contiguous(), ya.to(torch.float32).contiguous(), sqrt=sqrt)
+        return _k1_into(xa.contiguous(), ya.to(torch.float32).contiguous(), sqrt, out)
     tt = promoted.torch_type()
     xa, ya = xa.to(tt).contiguous(), ya.to(tt).contiguous()
-    d2 = _noise_floor_(_k1.cdist(xa, ya, sqrt=False), xa, ya)
+    d2 = _noise_floor_(_k1_into(xa, ya, False, out), xa, ya)
     return d2.sqrt_() if sqrt else d2
 
 
@@ -152,6 +168,80 @@ def _ring_eligible(x: DNDarray, y: DNDarray) -> bool:
     return x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
 
 
+def _ring_blocks(x_shards, moving, n_cols: int, promoted, sqrt: bool, block_of) -> list:
+    """The ring dataflow of heat_tpu's ``_build_ring_cdist``: each position
+    keeps its x block while the ``moving`` blocks (one a position, ``mb``
+    rows each) pass up the ring; at step t position ``me`` holds the block
+    that started on position (me - t) mod S, whose distances K1 writes
+    straight into that block's columns (no temporary, no copy).  ``block_of(item)`` gives the rows of y of a moving
+    item (a dequantization for a quantized corpus)."""
+    from ..parallel.overlap import ring_sweep
+
+    S = len(x_shards)
+    mb = n_cols // S
+    tt = torch.float64 if promoted is types.float64 else torch.float32
+
+    def step(t, me, item, out):
+        src = (me - t) % S
+        _block(x_shards[me], block_of(item), promoted, sqrt, out=out[:, src * mb : (src + 1) * mb])
+        return out
+
+    state = [xs.new_empty((xs.shape[0], n_cols), dtype=tt) for xs in x_shards]
+    return ring_sweep(S, list(moving), state, step)
+
+
+def _ring_cdist(x: DNDarray, y: DNDarray, promoted, sqrt: bool, exact: bool = False) -> DNDarray:
+    """The both-row-split ring (heat_tpu :323), every block through K1.  An
+    eligible f32 corpus may rotate absmax-quantized with global per-feature
+    scales (the wire plane's ``cdist`` site), measured against the f32 ring
+    while the table explores; positions on one device take the f32 ring
+    unless a wire mode is forced (``wire.choose``'s ``links``)."""
+    comm = x.comm
+    n_dev = comm.size
+    mb = y.shape[0] // n_dev
+    d_feat = y.shape[1]
+    tt = promoted.torch_type()
+    moved = mb * d_feat * (n_dev - 1) * max(tt.itemsize, 1)
+
+    def run_f32():
+        return _ring_blocks(x.shards, y.shards, y.shape[0], promoted, sqrt, lambda ys: ys)
+
+    def run_q(wm):
+        # per-feature scales over the WHOLE corpus: each position's absmax,
+        # then their maximum, so every block dequantizes with one table
+        amax = collectives.pmax([torch.amax(ys.to(torch.float32).abs(), dim=0) for ys in y.shards])[0]
+        scale = _wire.scale_of(amax, wm)
+        q = [_wire.to_grid(ys, scale.to(ys.device)[None, :], wm) for ys in y.shards]
+        return _ring_q(x.shards, q, scale, y.shape[0], promoted, sqrt)
+
+    wire_arm, wire_d = "wire_f32", None
+    dt = autotune.dtype_name(tt)
+    if _wire.eligible(tt, moved, exact=exact):
+        wire_arm, wire_d = _wire.choose("cdist", (tuple(x.shape), tuple(y.shape), n_dev, dt),
+                                        desc=f"ring cdist {tuple(x.shape)}x{tuple(y.shape)} S={n_dev}",
+                                        links=len({t.device for t in (*x.shards, *y.shards)}) > 1)
+    if wire_d is not None and wire_d.explore:
+        shards = _wire.explore(wire_d, lambda wm: run_q(wm) if wm else run_f32())
+    elif wire_arm != "wire_f32":
+        wm = wire_arm[len("wire_"):]
+        _wire.account("cdist", wire_arm, moved, _wire.payload_nbytes(mb * d_feat * (n_dev - 1), d_feat, wm))
+        shards = run_q(wm)
+    else:
+        shards = run_f32()
+    return DNDarray(shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype), 0, x.device, comm)
+
+
+def _ring_q(x_shards, q_shards, scale: torch.Tensor, n_cols: int, promoted, sqrt: bool) -> list:
+    """The quantized-corpus ring (heat_tpu :245): the int8/fp8 blocks move,
+    each dequantized with the global per-feature ``scale`` just before K1."""
+    comp = promoted.torch_type()
+    dev = x_shards[0].device
+    sc = scale.to(dev)[None, :]
+    xs = [t.to(comp).contiguous() for t in x_shards]
+    return _ring_blocks(xs, q_shards, n_cols, promoted, sqrt,
+                        lambda q: (q.to(dev).to(torch.float32) * sc).to(comp))
+
+
 def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool = False, sqrt: bool = True) -> DNDarray:
     """Euclidean distance matrix of the rows of x to the rows of y (of x to
     itself when y is None).  ``quadratic_expansion`` is accepted for parity:
@@ -164,9 +254,12 @@ def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool =
 
 
 def _euclid(x: DNDarray, y: DNDarray, sqrt: bool) -> DNDarray:
-    """The eager cdist: one block per position, through K1 for f32."""
+    """The eager cdist: one block per position (S blocks a position in the
+    ring layout), through K1 for f32."""
     x, y, promoted = _check(x, y)
     comm = x.comm
+    if _ring_eligible(x, y):
+        return _ring_cdist(x, y, promoted, sqrt)
     if x.split == 0:
         ya = _whole(y)
         shards, split = [_block(xs, ya, promoted, sqrt) for xs in x.shards], 0
@@ -206,20 +299,8 @@ def cdist_quantized(x: DNDarray, qy, sqrt: bool = True) -> Optional[DNDarray]:
     n_dev = comm.size
     if not (x.split == 0 and qy.split == 0 and n_dev > 1 and x.shape[0] % n_dev == 0 and qy.shape[0] % n_dev == 0):
         return None
-    comp = torch.promote_types(x.dtype.torch_type(), torch.float32)
-    mb = qy.shape[0] // n_dev
-    shards = []
-    for me, xs in enumerate(x.shards):
-        xs = xs.to(comp).contiguous()
-        out = xs.new_empty((xs.shape[0], n_dev * mb))
-        scale = qy.scale.to(xs.device)[None, :]
-        for t in range(n_dev):
-            # after t backward shifts this position holds the block that
-            # started on position (me - t) mod n: its column offset
-            src = (me - t) % n_dev
-            ys = (qy.qshards[src].to(xs.device).to(torch.float32) * scale).to(comp)
-            out[:, src * mb : (src + 1) * mb] = _block(xs, ys, types.canonical_heat_type(comp), sqrt)
-        shards.append(out)
+    comp = types.canonical_heat_type(torch.promote_types(x.dtype.torch_type(), torch.float32))
+    shards = _ring_q(x.shards, qy.qshards, qy.scale, qy.shape[0], comp, sqrt)
     return DNDarray(shards, (x.shape[0], qy.shape[0]), types.canonical_heat_type(shards[0].dtype), 0, x.device, comm)
 
 

@@ -108,7 +108,7 @@ def build(name: str):
 
 def entry(path: Path):
     fn = ctypes.CDLL(str(path)).heat_cdist_16
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

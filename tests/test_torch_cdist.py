@@ -211,13 +211,16 @@ def test_spatial_cdist_16bit_makes_no_f32_copy(monkeypatch):
 
     seen = []
     real = k1.cdist
-    monkeypatch.setattr(distance._k1, "cdist", lambda a, b, sqrt: seen.append((a.dtype, b.dtype)) or real(a, b, sqrt))
+    monkeypatch.setattr(distance._k1, "cdist",
+                        lambda a, b, sqrt, **kw: seen.append((a.dtype, b.dtype)) or real(a, b, sqrt, **kw))
     x, y = _data16(40, 3, 4, "bfloat16", "float32", seed=10)
     tc = htt.MeshComm(4)
     # cdist is lazy under the fusion engine: its blocks run when it is read
     htt.materialize(htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu"), htt.array(y, comm=tc, device="cpu")))
+    # x against itself, both split 0 with rows dividing: the ring layout,
+    # one K1 call a position and rotating block
     htt.materialize(htt.spatial.cdist(htt.array(x, split=0, comm=tc, device="cpu")))
-    assert seen == [(torch.bfloat16, torch.float32)] * 4 + [(torch.bfloat16, torch.bfloat16)] * 4
+    assert seen == [(torch.bfloat16, torch.float32)] * 4 + [(torch.bfloat16, torch.bfloat16)] * 16
 
 
 def test_spatial_cdist_zero_row_shard():
@@ -292,6 +295,22 @@ def test_spatial_manhattan_self_and_blocks(monkeypatch):
     np.testing.assert_array_equal(htt.spatial.manhattan(htt.array(x, split=0, comm=tc, device="cpu")).numpy(), whole.numpy())
 
 
+def test_kernel_writes_into_a_column_slice():
+    # out= takes a column slice of a wider matrix (rows ldo apart): the
+    # columns around it stay as they were, the slice holds the distances
+    x, y = _data(7, 5, 3, seed=13)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    wide = torch.full((7, 13), -1.0)
+    got = k1.cdist(xt, yt, sqrt=True, out=wide[:, 4:9])
+    assert got.data_ptr() == wide[:, 4:9].data_ptr()
+    np.testing.assert_array_equal(wide[:, 4:9].numpy(), k1.reference_cdist(xt, yt).numpy())
+    assert bool((wide[:, :4] == -1).all()) and bool((wide[:, 9:] == -1).all())
+    with pytest.raises(ValueError):
+        k1.cdist(xt, yt, out=torch.empty(7, 5, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        k1.cdist(xt, yt, out=torch.empty(5, 7).T)
+
+
 # ------------------------------------------------------------------ on the card
 CARD_SHAPES = [(1000, 8, 64), (1000, 1, 64), (1003, 257, 67), (5, 3, 1), (0, 8, 64), (130, 9, 16)]
 
@@ -360,6 +379,23 @@ def test_kernel16_at_misaligned_bases_on_card(cuda, pair, d, offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pair", [("float32", "float32")] + PAIRS16)
+@pytest.mark.parametrize("n, lo, ldo", [(8, 4, 20), (8, 1, 13), (64, 64, 256), (257, 3, 300)])
+def test_kernel_into_a_column_slice_on_card(cuda, pair, n, lo, ldo):
+    # the ring cdist's step: K1 writes a block into its columns of a wider
+    # matrix; a pitch or start off 16 bytes takes the 4-byte stores
+    m, d = 1003, 64
+    x, y = _data16(m, n, d, *pair, seed=14)
+    xt, yt = x.to(cuda), y.to(cuda)
+    wide = torch.full((m, ldo), -1.0, device=cuda)
+    k1.cdist(xt, yt, sqrt=False, out=wide[:, lo : lo + n])
+    alone = k1.cdist(xt, yt, sqrt=False)
+    torch.cuda.synchronize()
+    assert torch.equal(wide[:, lo : lo + n], alone)
+    assert bool((wide[:, :lo] == -1).all()) and bool((wide[:, lo + n :] == -1).all())
+
+
+@pytest.mark.gpu
 def test_kernel_raises_on_what_it_does_not_take(cuda):
     x = torch.zeros(4, 3, device=cuda)
     with pytest.raises(TypeError):
@@ -378,6 +414,8 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
 def test_spatial_cdist_on_card_launches_k1(cuda):
     x, y = _data(13, 6, 5, seed=7)
     before = k1.launches
-    b = htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(4), device="gpu"), htt.array(y, comm=htt.MeshComm(4), device="gpu"))
+    # cdist is lazy under the fusion engine: its blocks run when it is read
+    b = htt.materialize(htt.spatial.cdist(htt.array(x, split=0, comm=htt.MeshComm(4), device="gpu"),
+                                          htt.array(y, comm=htt.MeshComm(4), device="gpu")))
     assert k1.launches == before + 4
     _check_d2(b.numpy(), k1.reference_cdist(torch.from_numpy(x), torch.from_numpy(y)).numpy(), x, y, True)

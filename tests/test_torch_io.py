@@ -23,7 +23,7 @@ from heat_tpu_torch.core import io as tio
 MESHES = (1, 4, 8)
 FORMATS = ("h5", "nc", "npy", "csv")
 # the public names of heat_tpu that the port still lacks (tpu by design)
-MISSING = {"analysis", "tpu"}
+MISSING = {"tpu"}
 
 
 @pytest.fixture(scope="module")

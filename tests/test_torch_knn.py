@@ -200,8 +200,15 @@ def test_predict_through_k1_on_card(cuda, sq, monkeypatch):
     before = k1.launches
     got = model.predict(htt.array(q, split=sq, comm=mesh)).larray
     torch.cuda.synchronize()
-    assert k1.launches == before + 4
-    monkeypatch.setattr(k1, "cdist", k1.reference_cdist)
+    # split-0 queries over split-0 training rows take the ring cdist: one
+    # launch a position and rotating block; replicated queries one a position
+    assert k1.launches == before + (16 if sq == 0 else 4)
+
+    def plain(a, b, sqrt=True, out=None):
+        d = k1.reference_cdist(a, b, sqrt=sqrt)
+        return d if out is None else out.copy_(d)
+
+    monkeypatch.setattr(k1, "cdist", plain)
     want = model.predict(htt.array(q, split=sq, comm=mesh)).larray
     d = torch.cdist(q.double(), x.double()) ** 2
     top = torch.topk(d, 6, largest=False).values
