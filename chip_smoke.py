@@ -4,8 +4,8 @@ benchmark), QR, Lasso, sparse Spectral, TransformerLM, transport
 factories, printing), linear-algebra and classifier (KNN, GaussianNB,
 svd, det/inv, convolve, pad, tiles), I/O (files to the card and back),
 training (TransformerLM, ResNet, DASO), random (the Threefry streams),
-mixture-of-experts training, pipeline and runtime-plane paths on one CUDA
-card and check them.
+mixture-of-experts training, pipeline, runtime-plane, serving and
+fault-tolerance paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -110,7 +110,15 @@ into one ring against ``fuse(False)``; the int8 ``matmul_quantized`` ring
 against the bf16 arm; the ring ``cdist`` of 16384 x 64 against 65536 x 64
 through K1, a ring call's host syncs); and the program audit (a fused
 chain, a split-crossing resplit and a ring clean, an injected host read
-found and its roofline row marked);
+found and its roofline row marked); the serving front door over
+``MeshComm(4)`` (benchmarks/cb/config.py:195-196, benchmarks/cb/serving.py,
+router.py: a ServingEngine with KMeans, KNN and the int8 KNN corpus taking
+256 requests of 1-4 rows from 8 client threads; a stall shed and a drain;
+a fleet of four replicas with a replica stall, failover, probes and a
+rolling swap) and the fault utilities (the transport engine's OOM back-off
+through K7 under injected and real out-of-memory errors, 10 TransformerLM
+steps through K3 under ``run_elastic`` with injected faults against a
+fault-free run, ``monitor.profile_trace`` and ``bench.chain_slope``);
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -121,13 +129,17 @@ line; so does a machine without a card.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -4043,6 +4055,9 @@ def qknn_paths(ht, k1, seed: int, dev, card: str) -> dict:
     f32_labels, f32_ms, _ = timed_call(lambda: f32.predict(q_ht))
     del f32
     model = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(ht.array(X.clone(), split=0, comm=mesh), y_ht)
+    # collect the earlier phases' garbage first: a cycle freed by the
+    # collector inside the window would count as the master's bytes
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     model.quantize_("int8")
@@ -5006,6 +5021,559 @@ def audit_paths(ht, seed: int, dev, card: str) -> dict:
     return {"findings": len(got), "dirty": len(dirty)}
 
 
+# ------------------------------------------------ the serving front door
+# the benchmark's serving stream (benchmarks/cb/config.py:195-196,
+# benchmarks/cb/router.py's reg_kwargs and STALL_S): KMeans at F = 64,
+# k = 8 fitted on 512 rows (benchmarks/cb/serving.py:25-31), KNN on
+# KNN_N's corpus in f32 and int8, 256 requests of 1-4 rows from 8 client
+# threads
+SERVE_F, SERVE_K, SERVE_FIT_ROWS = 64, 8, 512
+SERVE_REQS, SERVE_CLIENTS = 256, 8
+SERVE_REG = dict(min_bucket=8, max_batch=32, max_delay_s=0.002, warm=True)
+SHED_TIMEOUT_S, SHED_STALL_S = 0.08, 0.6
+FLEET_REPLICAS, FLEET_STALL_S = 4, 0.35
+# fault paths: the back-off on the benchmark's split-crossing reshape, 10
+# TransformerLM steps under run_elastic (plain SGD on the model's
+# parameters, a checkpoint every 2 steps, NaN at step 3, an exception at 6)
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_LR = 10, 2, 0.05
+
+
+def serve_stream(submit, requests, clients: int):
+    """Each request through ``submit`` (which returns a future) from
+    ``clients`` threads, each waiting for its answer before sending its
+    next: (answers, per-request ms from submit to answer)."""
+    def one(r):
+        t0 = time.perf_counter()
+        out = submit(r).result(120)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(clients) as pool:
+        got = list(pool.map(one, requests))
+    return [g[0] for g in got], [g[1] for g in got]
+
+
+def kmeans_reference(rows: torch.Tensor, centres: torch.Tensor):
+    """Plain f64 labels of ``rows`` against ``centres`` and where the top-two
+    margin is clear of K1's tolerance."""
+    d = torch.cdist(rows.double(), centres.double()).square()
+    top2 = d.topk(2, dim=1, largest=False)
+    scale = (rows.double() ** 2).sum(1) + (centres.double() ** 2).sum(1).max()
+    return top2.indices[:, 0], (top2.values[:, 1] - top2.values[:, 0]) > 2 * TOL * scale
+
+
+def bucket_hits(ht, eng, name: str) -> dict:
+    """Batches each bucket of endpoint ``name`` served: the hits of its
+    step's ledger row (a warm-up run counts none)."""
+    rows = {r["fingerprint"]: r["hits"] for r in ht.telemetry.programs()}
+    return {b: rows.get(eng._steps[(name, b)].fingerprint, 0) for b in eng._endpoint(name).buckets}
+
+
+def serving_paths(ht, k1, seed: int, dev, card: str, direct: dict) -> dict:
+    """The serving front door on the card over ``MeshComm(4)``: (1) a
+    ServingEngine with the KMeans, KNN and int8 KNN endpoints taking the
+    benchmark's stream, each response against the model's direct predict
+    and the plain reference, K1's launches a batch against a direct predict
+    of that bucket, per-request median and p99, batches per bucket, flush
+    causes and host syncs a batch beside ``direct`` (knn_paths' served
+    requests); (2) a 0.6 s stall at ``fusion.exec`` under a 0.08 s
+    StallDetector: shed ``stalled``, recover, drain on close; (3) a
+    ServingFleet of 4 replicas on the card with a 0.35 s stall at
+    ``serving.step.r0``: failover, r0 ejected and probed back, a rolling
+    swap of the centroids with a canary.  Returns K1's launches of the
+    engine's streams (one worker thread launches them)."""
+    t_phase = time.perf_counter()
+    from heat_tpu_torch.utils import fault
+
+    ht.serving  # the lazy subpackage: importing it registers its counter groups
+    mesh = ht.MeshComm(4)
+    ht.use_comm(mesh)  # a step builds its batch on the default mesh
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    rng = np.random.default_rng(seed + 61)
+    fit_x = torch.randn(SERVE_FIT_ROWS, SERVE_F, generator=gen, device=dev)
+    km = ht.cluster.KMeans(n_clusters=SERVE_K, init="kmeans++", max_iter=5, random_state=seed)
+    km.fit(ht.array(fit_x, split=0, comm=mesh))
+    centres = km.cluster_centers_.larray.float()
+    X = torch.randn(KNN_N, KNN_F, generator=gen, device=dev)
+    labels = (X[:, 0] > 0).to(torch.int32)
+    knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(
+        ht.array(X.clone(), split=0, comm=mesh), ht.array(labels, split=0, comm=mesh))
+    qknn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(
+        ht.array(X.clone(), split=0, comm=mesh), ht.array(labels, split=0, comm=mesh))
+    sizes = [int(r) for r in rng.integers(1, 5, size=SERVE_REQS)]
+    requests = [torch.randn(r, SERVE_F, generator=gen, device=dev).cpu().numpy() for r in sizes]
+    stacked = torch.from_numpy(np.concatenate(requests)).to(dev)
+    out = {}
+
+    # ---- (1) the engine
+    ht.telemetry.reset_group("serving")
+    eng = ht.serving.ServingEngine()
+    k1_total = 0
+    try:
+        t0 = time.perf_counter()
+        # replicated requests for the f32 KNN (knn_paths' served route: the
+        # corpus's column blocks, candidates merged); split-0 requests for
+        # the int8 corpus, whose ring (cdist_quantized) takes split rows
+        eng.register("kmeans", km, feature_dim=SERVE_F, **SERVE_REG)
+        eng.register("knn", knn, feature_dim=KNN_F, split=None, **SERVE_REG)
+        eng.register("knn_int8", qknn, feature_dim=KNN_F, quantize=True, **SERVE_REG)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        ladder = eng._endpoint("kmeans").buckets
+        compiles_warm = eng.stats()["step_compiles"]
+        check(compiles_warm == 3 * len(ladder), f"serving: {compiles_warm} steps after warmup, not {3 * len(ladder)}")
+        deq = qknn._qx.dequantize().larray
+        for name, model in (("kmeans", km), ("knn", knn), ("knn_int8", qknn)):
+            ep = eng._endpoint(name)
+            # what a direct predict of each bucket launches (a comparison,
+            # not counted with the path's launches)
+            per_bucket = {}
+            for b in ladder:
+                k1.launches = 0
+                model.predict(ht.array(torch.zeros(b, SERVE_F, device=dev), split=ep.split, comm=mesh)).larray.cpu()
+                per_bucket[b] = k1.launches
+            want = model.predict(ht.array(stacked, split=ep.split, comm=mesh)).larray.reshape(-1).cpu()
+            # a step's work alone, as the worker does it: a bucket-16 batch
+            # from host memory to the card, the predict, the answer's read
+            pad = np.zeros((16, SERVE_F), np.float32)
+            step_ms = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                model.predict(ht.array(pad, split=ep.split, comm=mesh)).numpy()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_ms = float(np.median(step_ms[1:]))
+            hits0 = bucket_hits(ht, eng, name)
+            causes0 = dict(eng.stats()["flush_cause"])
+            k1.launches = 0
+            answers, lat = serve_stream(lambda r: eng.submit(name, r), requests, SERVE_CLIENTS)
+            launches = k1.launches
+            k1_total += launches
+            hits = {b: v - hits0[b] for b, v in bucket_hits(ht, eng, name).items()}
+            causes = {c: v - causes0[c] for c, v in eng.stats()["flush_cause"].items()}
+            got = torch.from_numpy(np.concatenate([np.asarray(a).reshape(-1) for a in answers]))
+            same_direct = bool(torch.equal(got, want.to(got.dtype)))
+            if name == "kmeans":
+                ref, clear = kmeans_reference(stacked, centres)
+            else:
+                ref, clear = knn_reference(stacked, X if name == "knn" else deq, labels, KNN_K)
+            ref, clear = ref.cpu().to(got.dtype), clear.cpu()
+            agree = bool(torch.equal(got[clear], ref[clear]))
+            expect = sum(hits[b] * per_bucket[b] for b in ladder)
+            med, p99 = float(np.median(lat)), float(np.percentile(lat, 99))
+            print(f"[serve] engine {name} (split {ep.split}): {SERVE_REQS} requests of 1-4 rows ({sum(sizes)} rows) from "
+                  f"{SERVE_CLIENTS} client threads: median {med:.4f} ms, p99 {p99:.4f} ms per request (a bucket-16 "
+                  f"step alone {step_ms:.4f} ms); batches per "
+                  f"bucket {hits}, flush causes {causes}; K1 launches {launches} (a direct predict launches "
+                  f"{per_bucket} by bucket, so {expect}); answers equal the direct predict {same_direct}, the plain "
+                  f"reference on {float(clear.float().mean()):.4f} of rows with a clear margin {agree} on {card}")
+            check(same_direct and agree, f"serving {name}: answers differ from the direct predict or the reference")
+            check(launches == expect, f"serving {name}: K1 launches {launches} != {expect}")
+            out[name] = dict(median_ms=med, p99_ms=p99, step_ms=step_ms, hits=hits, causes=causes, launches=launches)
+        st = eng.stats()
+        check(st["step_compiles"] == compiles_warm, "serving: live traffic built a new step")
+        used = sorted({b for name in ("kmeans", "knn", "knn_int8") for b, h in out[name]["hits"].items() if h})
+        print(f"[serve] engine: warmup of 3 endpoints x buckets {list(ladder)} {warm_s:.3f} s; step builds "
+              f"{st['step_compiles']} after warmup and after the streams (buckets used {used}), step hits "
+              f"{st['step_hits']}, padded rows {st['padded_rows']}, accepted {st['accepted']}, shed {st['shed']}")
+        # the host's waits for the card: one request, one batch
+        one = requests[0]
+        syncs = {name: host_syncs(lambda: eng.predict(name, one)) for name in ("kmeans", "knn", "knn_int8")}
+        per_req = {name: len(s) * sum(out[name]["hits"].values()) / SERVE_REQS for name, s in syncs.items()}
+        print("[serve] host syncs a batch (one request alone): " + "; ".join(
+            f"{n} {len(s)} at {sorted(set(s))}" for n, s in syncs.items())
+            + " ; a request of the streams, syncs a batch x batches / requests: "
+            + ", ".join(f"{n} {v:.3f}" for n, v in per_req.items()))
+        print(f"[serve] KNN served through the engine median {out['knn']['median_ms']:.4f} / p99 "
+              f"{out['knn']['p99_ms']:.4f} ms a request, beside knn_paths' direct served predict of one replicated "
+              f"request median {direct['served_median_ms']:.4f} / p99 {direct['served_p99_ms']:.4f} ms (1-8 rows, "
+              f"no batching) on {card}")
+        out["syncs"] = {n: len(s) for n, s in syncs.items()}
+    finally:
+        eng.close()
+    out["k1"] = k1_total
+
+    # ---- (2) shed and drain under an injected stall in a fused execution
+    ht.telemetry.reset_group("serving")
+    eng = ht.serving.ServingEngine(admission=ht.serving.AdmissionController(retry_after_s=0.02))
+    det = fault.StallDetector(timeout=SHED_TIMEOUT_S)
+    eng.attach_stall_detector(det)
+    stalled, recovered = threading.Event(), threading.Event()
+    det.subscribe(lambda kind, info: stalled.set() if kind == "stall" else recovered.set() if kind == "recover" else None)
+    det.start()
+    futures, sheds = [], 0
+    try:
+        eng.register("km", km, feature_dim=SERVE_F, min_bucket=8, max_batch=8, max_delay_s=30.0, warm=True)
+        # the warm-up was quiet work on this thread: re-arm the clock and
+        # forget what the detector said meanwhile
+        det.beat()
+        stalled.clear()
+        recovered.clear()
+        inj = fault.FaultInjector().stall_in("fusion.exec", SHED_STALL_S)
+        with fault.injected(inj):
+            wedged = eng.submit("km", requests[1].repeat(8, axis=0)[:8])
+            futures.append(wedged)
+            check(stalled.wait(10), "shed: the detector never saw the stall")
+            try:
+                eng.submit("km", requests[2])
+            except ht.serving.RequestRejected as e:
+                sheds += e.reason == "stalled"
+            wedged.result(30)
+        check(recovered.wait(10), "shed: no recovery after the stalled batch")
+        # the watchdog has done its part: an idle engine beats no one, so
+        # its clock is paused before the last request is queued, which the
+        # timer never flushes: only the drain does
+        det.pause()
+        queued = eng.submit("km", requests[3])
+        futures.append(queued)
+    finally:
+        eng.close()
+        det.stop()
+    lost = sum(1 for f in futures if not f.done())
+    st = eng.stats()
+    print(f"[serve] shed and drain: a {SHED_STALL_S} s stall at fusion.exec ({inj.fired}) under a {SHED_TIMEOUT_S} s "
+          f"detector: {sheds} RequestRejected('stalled') (counter {st['shed']['stalled']}), recovered "
+          f"{recovered.is_set()}, drain flushes on close {st['flush_cause']['drain']}, futures lost {lost} on {card}")
+    check(inj.fired == [("stall", "fusion.exec")] and sheds >= 1 and st["flush_cause"]["drain"] >= 1 and lost == 0,
+          "shed and drain: no shed, no drain flush, or a lost future")
+    check(queued.result(10).shape[0] == requests[3].shape[0] and not det._thread.is_alive(), "shed: drained answer")
+
+    # ---- (3) the fleet: 4 replicas on the one card
+    ht.telemetry.reset_group("serving")
+    ht.telemetry.reset_group("router")
+    centres_np = centres.cpu().numpy()
+    models = [ht.cluster.kmeans_from_state(centres_np, km.n_iter_, km.inertia_, comm=mesh) for _ in range(FLEET_REPLICAS)]
+    want, _ = kmeans_reference(stacked, centres)
+    fleet = ht.serving.ServingFleet(replicas=FLEET_REPLICAS, stall_timeout_s=0.1, cooldown_s=0.2, error_threshold=2,
+                                    max_retries=4)
+    try:
+        fleet.register("km", models=models, feature_dim=SERVE_F, **SERVE_REG)
+        direct_labels = models[0].predict(ht.array(stacked, split=0, comm=mesh)).larray.reshape(-1).cpu()
+        inj = fault.FaultInjector().stall_in("serving.step.r0", FLEET_STALL_S)
+        with ht.telemetry.telemetry_level("events"):
+            ht.telemetry.clear_events()
+            with fault.injected(inj):
+                answers, lat = serve_stream(lambda kr: fleet.submit("km", kr[1], key=kr[0]), list(enumerate(requests)),
+                                            SERVE_CLIENTS)
+            t0 = time.perf_counter()
+            healthy = False
+            while time.perf_counter() - t0 < 30.0 and not healthy:
+                healthy = all(r.state == "healthy" for r in fleet.replicas)
+                time.sleep(0.005)
+            recovery_s = time.perf_counter() - t0
+            health = [(e["replica"], e["state"]) for e in ht.telemetry.events("router_health")]
+        got = torch.from_numpy(np.concatenate([np.asarray(a).reshape(-1) for a in answers]))
+        same = bool(torch.equal(got, direct_labels.to(got.dtype)))
+        stats = fleet.stats()
+        med, p99 = float(np.median(lat)), float(np.percentile(lat, 99))
+        print(f"[fleet] {FLEET_REPLICAS} replicas on one card, the same stream with a {FLEET_STALL_S} s stall at "
+              f"serving.step.r0 ({inj.fired}): median {med:.4f} ms, p99 {p99:.4f} ms per request; answers equal the "
+              f"direct predict {same}; health transitions {health}; healthy again {healthy} {recovery_s:.3f} s after "
+              f"the last answer; lost futures {stats['lost_futures']} on {card}")
+        check(same and stats["lost_futures"] == 0, "fleet: a wrong answer or a lost future")
+        check(("r0", "ejected") in health and healthy and stats["probes"] >= 1 and stats["recoveries"] >= 1,
+              "fleet: r0 was not ejected, or not probed back to healthy")
+        # a rolling swap: the centroids rolled by one, so every label moves
+        # to the next cluster; canary first
+        compiles = ht.telemetry.serving_report()["step_compiles"]
+        new_c = torch.roll(centres, 1, dims=0)
+        report = fleet.rolling_swap("km", {"_cluster_centers": ht.array(new_c, comm=mesh)}, canary=1,
+                                    regression_ratio=20.0)
+        after = [np.asarray(fleet.predict("km", r, key=i)).reshape(-1) for i, r in enumerate(requests[:32])]
+        new_want, new_clear = kmeans_reference(stacked[: sum(sizes[:32])], new_c)
+        after_t = torch.from_numpy(np.concatenate(after)).to(torch.int64)
+        swapped_ok = bool(torch.equal(after_t[new_clear.cpu()], new_want.cpu()[new_clear.cpu()]))
+        print(f"[fleet] rolling_swap of the centroids (rolled by one), canary 1: {report}; the next 32 requests serve "
+              f"the new model's labels {swapped_ok}; step builds {ht.telemetry.serving_report()['step_compiles']} "
+              f"(before {compiles})")
+        check(not report["rolled_back"] and len(report["swapped"]) == FLEET_REPLICAS and swapped_ok,
+              "fleet: the rolling swap rolled back or did not serve the new centroids")
+        check(ht.telemetry.serving_report()["step_compiles"] == compiles, "fleet: the swap built new steps")
+        rep = ht.telemetry.router_report()
+        print("[fleet] router_report: " + ", ".join(f"{k} {v}" for k, v in rep.items() if not isinstance(v, dict)))
+        print(f"[fleet] what one card does not show: the {FLEET_REPLICAS} replicas share one H100 and its stream, "
+              f"so their steps queue on it; the fleet shows routing, failover, probes and swaps, not more throughput. "
+              f"K1's launch counter is a module global that {FLEET_REPLICAS} worker threads increment, so the fleet's "
+              f"launches are not counted with the path's")
+        out["fleet"] = dict(median_ms=med, p99_ms=p99, recovery_s=recovery_s, report=rep)
+    finally:
+        fleet.close()
+    ht.use_comm(None)
+    del knn, qknn, X, stacked
+    torch.cuda.empty_cache()
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
+def monitor_child(seed: int) -> None:
+    """One batch served by a ServingEngine (KMeans at F = 64, k = 8, over
+    MeshComm(4)) under ``utils.monitor.profile_trace``, in a fresh process:
+    prints one JSON line of the trace's events, kernels and K1 kernels."""
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.utils import monitor
+
+    dev = torch.device("cuda", 0)
+    mesh = ht.MeshComm(4)
+    ht.use_comm(mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 73)
+    centres = torch.randn(SERVE_K, SERVE_F, generator=gen, device=dev)
+    km = ht.cluster.kmeans_from_state(centres.cpu().numpy(), 1, 0.0, comm=mesh)
+    eng = ht.serving.ServingEngine()
+    trace_dir = tempfile.mkdtemp(prefix="heat_trace_")
+    try:
+        eng.register("km", km, feature_dim=SERVE_F, **SERVE_REG)
+        row = torch.randn(3, SERVE_F, generator=gen, device=dev).cpu().numpy()
+        with monitor.profile_trace(trace_dir):
+            eng.predict("km", row)
+        (name,) = os.listdir(trace_dir)
+        events = json.loads(Path(trace_dir, name).read_text())["traceEvents"]
+    finally:
+        eng.close()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "cdist" in e.get("name", "")]
+    print(json.dumps({"events": len(events), "kernels": len(kernels), "k1": len(k1_events),
+                      "k1_names": sorted({e["name"][:60] for e in k1_events})}))
+
+
+def fill_card_but(dev, window: int) -> list:
+    """Tensors holding every byte the caching allocator can get on the card
+    but one free block of ``window`` bytes: a transfer whose allocations
+    need more than that meets a real ``torch.OutOfMemoryError``.  The hole
+    is allocated first, so it is one block, and the card is then filled in
+    1 GiB, 64 MiB and 2 MiB pieces (the pieces also take the free blocks
+    earlier phases left inside the allocator's segments)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    hole = torch.empty(window, dtype=torch.uint8, device=dev)
+    filler = []
+    for size in (1 << 30, 1 << 26, 1 << 21):
+        while True:
+            try:
+                filler.append(torch.empty(size, dtype=torch.uint8, device=dev))
+            except torch.OutOfMemoryError:
+                break
+    del hole
+    return filler
+
+
+class _Squeeze:
+    """An injector for the guard hooks that frees a filler tensor at its
+    second consultation of ``site``: the device runs out of memory on the
+    first attempt of a transfer and has room again for the retry."""
+
+    def __init__(self, site: str, filler: list):
+        self.site, self.filler, self.seen = site, filler, 0
+
+    def fire_site(self, site: str) -> None:
+        if site == self.site:
+            self.seen += 1
+            if self.seen == 2:
+                self.filler.clear()
+                torch.cuda.empty_cache()
+
+    def corrupt_site(self, site: str, value):
+        return value
+
+
+def fault_paths(ht, k1, k3, k7, seed: int, dev, card: str) -> dict:
+    """Fault utilities on the card: (1) the transport engine's OOM back-off
+    on the benchmark's split-crossing reshape over ``MeshComm(4)``:
+    injected OOMs (halving, the informed first retry, ``low_hbm``, the
+    floor) and a real one from a filled card, each result bitwise the
+    fault-free one and K7's plain version; (2) 10 TransformerLM steps
+    (K3) under ``run_elastic`` with a checkpoint every 2 steps, NaN at step
+    3 and an exception at step 6, against a fault-free run; (3)
+    ``monitor.profile_trace`` around a served batch and ``bench.chain_slope``.
+    Returns K7's and K3's launches of the path."""
+    t_phase = time.perf_counter()
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+    from heat_tpu_torch.utils import bench, fault
+
+    tr = ht.parallel.transport
+    mesh = ht.MeshComm(TRANSPORT_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    gin, gout = (REPACK_OUT[0] * REPACK_OUT[1],), REPACK_OUT
+    src = torch.randn(gin, generator=gen, device=dev)
+    a = ht.array(src, split=0, comm=mesh, copy=False)
+    expect = k7_destinations(gout, mesh)
+    plain = k7.reference_repack(src, gout)
+    base = ht.reshape(a, gout)
+    torch.cuda.synchronize()
+    check(same_shards(base, plain, mesh), "back-off: the fault-free reshape differs from K7's plain version")
+    out = {"k7": 0}
+
+    def attempt(label, inj, want_retries, want_tile, want_launches=None):
+        tr.reset_stats()
+        k7.launches = 0
+        with fault.injected(inj):
+            b = ht.reshape(a, gout)
+            torch.cuda.synchronize()
+        launches = k7.launches
+        out["k7"] += launches
+        st = tr.stats()
+        exact = same_shards(b, plain, mesh) and all(torch.equal(x, y) for x, y in zip(b.shards, base.shards))
+        print(f"[fault] back-off {label}: oom_retries {st['oom_retries']}, informed {st['informed_retries']}, "
+              f"last_tile_bytes {st['last_tile_bytes']} (first budget {tr.TILE_BYTES}), K7 launches {launches} "
+              f"(a clean attempt launches {expect}), bitwise equal to the fault-free result and to K7's plain version "
+              f"{exact} on {card}")
+        check(exact and st["oom_retries"] == want_retries and st["last_tile_bytes"] == want_tile,
+              f"back-off {label}: retries {st['oom_retries']} / tile {st['last_tile_bytes']}")
+        check(want_launches is None or launches == want_launches, f"back-off {label}: K7 launches {launches}")
+        return st, launches
+
+    # two injected OOMs: the first retry sized from the card's free memory
+    # (a quarter, capped at the halving), the second halves again
+    st, _ = attempt("oom_in(transport.reshape, 2)", fault.FaultInjector().oom_in("transport.reshape", times=2), 2,
+                    tr.TILE_BYTES // 4, expect)
+    check(st["informed_retries"] == 1, "back-off: the card's first retry was not sized from its free memory")
+    # a starved card (low_hbm, 4 MiB free): with the tuning plane on the plan
+    # already seeds the first budget from the free bytes; the first retry
+    # claims a quarter of them, never more than the halving
+    free = 4 << 20
+    starved = fault.FaultInjector().oom_in("transport.reshape").low_hbm(free)
+    with fault.injected(fault.FaultInjector().low_hbm(free)):
+        first = tr._plan_tile_budget("reshape")
+    want = max(tr.TILE_FLOOR_BYTES, min(first // 2, free // 4))
+    st, _ = attempt(f"low_hbm(4 MiB) + oom_in(1), first budget {first}", starved, 1, want, expect)
+    check(st["informed_retries"] == 1, "back-off: the starved card's retry was not sized from its free bytes")
+    # at the floor the error is re-raised
+    saved = tr.TILE_BYTES
+    tr.TILE_BYTES = 2 * tr.TILE_FLOOR_BYTES
+    try:
+        tr.reset_stats()
+        raised = False
+        with fault.injected(fault.FaultInjector().oom_in("transport.reshape", times=3)):
+            try:
+                ht.reshape(a, gout)
+            except fault.InjectedOOM:
+                raised = True
+        st = tr.stats()
+    finally:
+        tr.TILE_BYTES = saved
+    print(f"[fault] back-off at the floor ({2 * tr.TILE_FLOOR_BYTES} B, three OOMs): re-raised {raised}, oom_retries "
+          f"{st['oom_retries']}, oom_exhausted {st['oom_exhausted']}")
+    check(raised and st["oom_exhausted"] == 1 and st["oom_retries"] == 1, "back-off: no re-raise at the floor")
+    # a real OOM: the card filled but for 2.5 destinations, so the first
+    # attempt's K7 writes two and the third allocation fails; the retry
+    # finds the filler gone
+    del base
+    dest_bytes = (gin[0] // TRANSPORT_MESH) * 4
+    filler = fill_card_but(dev, int(2.5 * dest_bytes))
+    squeeze = _Squeeze("transport.reshape", filler)
+    prev = ht.guard._INJECTOR
+    ht.guard._INJECTOR = squeeze
+    tr.reset_stats()
+    k7.launches = 0
+    try:
+        b = ht.reshape(a, gout)
+        torch.cuda.synchronize()
+    finally:
+        ht.guard._INJECTOR = prev
+        filler.clear()
+    launches = k7.launches
+    out["k7"] += launches
+    st = tr.stats()
+    exact = same_shards(b, plain, mesh)
+    print(f"[fault] back-off on a real torch.OutOfMemoryError (the card filled but for a block of "
+          f"{int(2.5 * dest_bytes)} B): "
+          f"oom_retries {st['oom_retries']}, last_tile_bytes {st['last_tile_bytes']}, K7 launches {launches} (the "
+          f"failed attempt's {launches - expect} before its allocation failed, the retry's {expect}), bitwise equal "
+          f"to K7's plain version {exact} on {card}")
+    check(exact and st["oom_retries"] == 1 and expect < launches < 2 * expect,
+          "back-off: the real OOM was not retried through K7")
+    del a, b, src, plain
+    torch.cuda.empty_cache()
+
+    # ---- (2) elastic training through K3
+    model = ht.models.transformer_from_flax(flax_layout_params(seed, **LM), device="gpu")
+    bh, s_, d_ = LM_BATCH * LM["num_heads"], LM["max_seq_len"], LM["head_dim"]
+    q, k, v = (torch.randn(bh, s_, d_, generator=gen, device=dev) for _ in range(3))
+    err = float((k3.flash_attention(q, k, v, causal=True) - k3.reference_flash_attention(q, k, v, causal=True)).abs().max())
+    print(f"[fault] K3 at the step's shape ({bh},{s_},{d_}) f32 causal: max_abs_err={err:.3e} (tolerance {TOL_ATTN:g})")
+    check(err <= TOL_ATTN, "elastic: K3 differs from its plain version at the step's shape")
+    del q, k, v
+
+    def batch_fn(i):
+        g = torch.Generator(device=dev).manual_seed(seed + 1000 + i)
+        tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]), generator=g, device=dev)
+        return i, tokens, torch.roll(tokens, -1, dims=1)
+
+    def step_fn(faults):
+        def step(state, batch):
+            i, tokens, targets = batch
+            params = {n: p.detach().requires_grad_(True) for n, p in state.items()}
+            loss = _default_loss(torch.func.functional_call(model, params, (tokens,)), targets)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            new = {n: (p - ELASTIC_LR * g).detach() for (n, p), g in zip(params.items(), grads)}
+            return new, {"loss": faults.fire(i, loss.detach())}
+        return step
+
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    ref, ref_rep = fault.run_elastic(step_fn(fault.FaultInjector()), init, batch_fn, ELASTIC_STEPS)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    ckdir = tempfile.mkdtemp(prefix="heat_elastic_")
+    try:
+        faults = fault.FaultInjector().nan_at(3).raise_at(6)
+        k3.launches = 0
+        t0 = time.perf_counter()
+        got, rep = fault.run_elastic(step_fn(faults), init, batch_fn, ELASTIC_STEPS,
+                                     checkpointer=ht.utils.Checkpointer(ckdir), checkpoint_every=ELASTIC_EVERY)
+        torch.cuda.synchronize()
+        faulty_s = time.perf_counter() - t0
+        k3_launches = k3.launches
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    kinds = [(e["kind"], e["step"]) for e in rep.events]
+    bitwise = all(torch.equal(got[n], ref[n]) for n in ref)
+    diff = max(float((got[n] - ref[n]).abs().max()) for n in ref)
+    scale = max(float(ref[n].abs().max()) for n in ref)
+    attempts = rep.steps_run + rep.restarts
+    print(f"[fault] run_elastic: {ELASTIC_STEPS} TransformerLM {LM} steps of {LM_BATCH}x{LM['max_seq_len']} tokens "
+          f"(SGD {ELASTIC_LR}), a checkpoint every {ELASTIC_EVERY}, nan_at(3) and raise_at(6): events {kinds}, "
+          f"restarts {rep.restarts}, skipped {rep.skipped_steps}, steps run {rep.steps_run}; K3 launches {k3_launches} "
+          f"(expected {attempts} attempts x {LM['num_layers']} layers); final parameters against the fault-free run: "
+          f"bitwise equal {bitwise}, max|Δ| {diff:.3e} (tolerance {TOL_TRAIN:g} x {scale:.4e} when not bitwise); "
+          f"{faulty_s:.3f} s with faults, {clean_s:.3f} s without, on {card}")
+    check(rep.restarts == 2 and rep.skipped_steps == [] and ref_rep.restarts == 0, "elastic: restarts or skips differ")
+    check(kinds == [("failure", 3), ("restore", 2), ("failure", 6), ("restore", 6)], f"elastic: events {kinds}")
+    check(k3_launches == attempts * LM["num_layers"], f"elastic: K3 launches {k3_launches}")
+    check(bitwise or diff <= TOL_TRAIN * scale, "elastic: final parameters differ from the fault-free run")
+    out.update(k3=k3_launches, elastic_bitwise=bitwise, elastic_s=faulty_s, clean_s=clean_s)
+    del model, ref, got, init
+    torch.cuda.empty_cache()
+
+    # ---- (3) monitor and bench.  The trace is taken in a fresh process: in
+    # this process, after the earlier phases, a profiler session came back
+    # once without a single kernel record (torch.profiler's CUPTI records;
+    # a fresh process records them, scripts/probe_profiler_sessions.py,
+    # PERF.md §7)
+    proc = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.monitor_child({seed})"],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"monitor: the child failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[fault] monitor.profile_trace around one served batch (a child process): {got['events']} trace events, "
+          f"{got['kernels']} kernels, K1 kernels {got['k1_names']} x{got['k1']}")
+    check(got["k1"] >= 1, "monitor: the trace does not name K1's kernel")
+    centres = torch.randn(SERVE_K, SERVE_F, generator=gen, device=dev)
+    xs = torch.randn(1 << 20, SERVE_F, generator=gen, device=dev)
+
+    def run_k(n):
+        for _ in range(n):
+            k1.cdist(xs, centres, sqrt=False)
+
+    run_k(2)
+    slope = bench.chain_slope(run_k, min_delta=0.05)
+    b_ms, b_by = cdist_bound_ms(1 << 20, SERVE_K, SERVE_F)
+    print(f"[fault] bench.chain_slope of K1 at ({1 << 20},{SERVE_F})x({SERVE_K},{SERVE_F}): {1e3 * slope.per_unit_s:.4f} "
+          f"ms a call ({slope.fields()}), bound {b_ms:.4f} ms ({b_by}) on {card}")
+    check(math.isfinite(slope.per_unit_s) and slope.per_unit_s > 0, "bench: no slope")
+    del xs
+    torch.cuda.empty_cache()
+    print(f"[fault] phase {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5714,6 +6282,9 @@ def main() -> int:
     ovl = overlap_paths(ht, k1, args.seed, dev, card)
     aud = audit_paths(ht, args.seed, dev, card)
 
+    srv = serving_paths(ht, k1, args.seed, dev, card, la["knn"])
+    flt = fault_paths(ht, k1, k3, k7, args.seed, dev, card)
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -5722,7 +6293,7 @@ def main() -> int:
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
             "launches": (launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"]
-                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"] + ovl["k1"]),
+                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"] + ovl["k1"] + srv["k1"]),
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -5742,6 +6313,7 @@ def main() -> int:
             "launches_stream": strm["k1"],
             "launches_fusion": fus["k1"],
             "launches_overlap": ovl["k1"],
+            "launches_serving": srv["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N // TRANSPORT_MESH}, {KNN_F}) f32 sqrt, a ring step's "
                       "block of the KNN batch",
@@ -5811,12 +6383,14 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/attention.cu",
             "replaces": "heat_tpu/ops/attention.py:37",
-            "launches": lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"] + quant["launches"],
+            "launches": (lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"] + quant["launches"]
+                         + flt["k3"]),
             "launches_forward_and_ulysses": lm["attention"],
             "launches_training": trn["lm_launches"],
             "launches_moe_training": moe["launches"],
             "launches_pipeline": pipe["launches"],
             "launches_quant": quant["launches"],
+            "launches_elastic": flt["k3"],
             "max_abs_err": k3_abs,
             "ms": att_times[(64, 2048, 64, "float32", True)][0],
             "plain_ms": att_times[(64, 2048, 64, "float32", True)][1],
@@ -5855,8 +6429,9 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/repack.cu",
             "replaces": "heat_tpu/ops/repack.py:75",
-            "launches": tr["launches"] + rt["k7"] + io["k7"] + wire["k7"],
+            "launches": tr["launches"] + rt["k7"] + io["k7"] + wire["k7"] + flt["k7"],
             "launches_transport": tr["launches"],
+            "launches_oom_backoff": flt["k7"],
             "launches_wire": wire["k7"],
             "launches_runtime_core": rt["k7"],
             "launches_io": io["k7"],
@@ -5926,6 +6501,13 @@ def main() -> int:
           f"bf16 {ovl['int8_ms']:.4f} / {ovl['bf16_ms']:.4f} ms; ring cdist {ovl['cdist_ms']:.4f} ms (gathered "
           f"{ovl['cdist_gathered_ms']:.4f}); ring host syncs off / counters {ovl['syncs_off']} / {ovl['syncs_counters']}; "
           f"audit: injected host read {aud['findings']} finding, {aud['dirty']} dirty row on {card}")
+    print("[summary] serving over MeshComm(4), ms a request median / p99 through the engine: "
+          + "; ".join(f"{n} {srv[n]['median_ms']:.4f} / {srv[n]['p99_ms']:.4f}" for n in ("kmeans", "knn", "knn_int8"))
+          + f" (knn_paths' direct served predict {la['knn']['served_median_ms']:.4f} / "
+          f"{la['knn']['served_p99_ms']:.4f}); host syncs a batch {srv['syncs']}; fleet of {FLEET_REPLICAS} "
+          f"{srv['fleet']['median_ms']:.4f} / {srv['fleet']['p99_ms']:.4f} with a replica stall, healthy again "
+          f"{srv['fleet']['recovery_s']:.3f} s after; elastic TransformerLM bitwise {flt['elastic_bitwise']} "
+          f"({flt['elastic_s']:.3f} s with two restarts, {flt['clean_s']:.3f} s clean) on {card}")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

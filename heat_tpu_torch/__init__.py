@@ -27,7 +27,10 @@ data-parallel, expert-parallel and pipeline training (``nn``, ``optim``,
 ``utils.checkpointing``, ``utils.vision_transforms``), and the runtime
 planes ``telemetry``, ``memtrack``, ``roofline``, ``guard``, ``autotune``,
 ``wire`` and ``quantize`` (with the quantized MoE TransformerLM and the
-quantized KNN corpus).
+quantized KNN corpus), the fusion engine, streaming, the overlap ring and
+the analysis tier, and the serving front door (``serving``: the batcher,
+admission, the engine and the fleet router) with the fault utilities
+(``utils.fault``, ``utils.monitor``, ``utils.bench``).
 """
 
 from .core import *
@@ -82,3 +85,17 @@ from . import utils
 from . import datasets
 from . import native
 from . import analysis
+
+# serving spins up its telemetry groups and worker machinery: load it
+# lazily, as heat_tpu does
+_LAZY_SUBPACKAGES = ("serving",)
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBPACKAGES:
+        import importlib
+
+        module = importlib.import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module 'heat_tpu_torch' has no attribute {name!r}")

@@ -148,10 +148,28 @@ def _env_enabled() -> bool:
 
 _ENABLED = _env_enabled()
 
+# per-thread state: ``eager`` counts the engine's own op-by-op runs on this
+# thread (a program's run, a replay, a metadata probe), inside which every
+# op evaluates eagerly; ``sealed`` counts :func:`sealed` scopes.  Serving
+# replicas run their steps on threads of their own, so neither may leak
+# from one thread into another the way a module global would.
+_LOCAL = threading.local()
+
 
 def enabled() -> bool:
-    """Whether the lazy engine is active (``HEAT_TPU_FUSE``, default on)."""
-    return _ENABLED
+    """Whether the lazy engine is active on this thread (``HEAT_TPU_FUSE``,
+    default on; off inside the engine's own op-by-op runs)."""
+    return _ENABLED and not getattr(_LOCAL, "eager", 0)
+
+
+@contextmanager
+def _eager():
+    """Evaluate eagerly on this thread (the engine's own runs)."""
+    _LOCAL.eager = getattr(_LOCAL, "eager", 0) + 1
+    try:
+        yield
+    finally:
+        _LOCAL.eager -= 1
 
 
 def set_enabled(flag: bool) -> bool:
@@ -356,7 +374,6 @@ def _storage_objects_kept() -> bool:
 
 _WEAK_STORAGE = _storage_objects_kept()
 _EXPOSED: "dict[int, object]" = {}
-_SEALED = [0]
 
 
 def _unexpose(ptr, ref) -> None:
@@ -400,11 +417,11 @@ def sealed():
     """A library call that builds a chain and materializes it before it
     returns: no code outside the package runs in between, so leaves over
     exposed storage need no snapshot inside it."""
-    _SEALED[0] += 1
+    _LOCAL.sealed = getattr(_LOCAL, "sealed", 0) + 1
     try:
         yield
     finally:
-        _SEALED[0] -= 1
+        _LOCAL.sealed -= 1
 
 
 def _versions(value) -> tuple:
@@ -510,7 +527,7 @@ def leaf_from(x: DNDarray) -> Expr:
         if e is not None:
             return e
     shards = x._DNDarray__shards
-    snap = not _SEALED[0] and bool(_EXPOSED) and any(_is_exposed(s) for s in shards)
+    snap = not getattr(_LOCAL, "sealed", 0) and bool(_EXPOSED) and any(_is_exposed(s) for s in shards)
     cached = x.__dict__.get("_fusion_leaf")
     if cached is not None:
         e = cached[0]()
@@ -542,26 +559,29 @@ _AVAL_MEMO: "OrderedDict[tuple, Aval]" = OrderedDict()
 _AVAL_MEMO_MAX = 4096
 
 
+# the planes _quiet silences are process-wide: one thread's save and
+# restore must not interleave with another's
+_QUIET_LOCK = threading.RLock()
+
+
 @contextmanager
 def _quiet():
     """Eager evaluation with every plane that observes a run silenced: the
     metadata probe must leave no trace in the ledgers, the injectors or the
     sanitizer's chain."""
-    global _ENABLED
-    prev = (_ENABLED, telemetry._LEVEL, memtrack._ENABLED[0], sanitize._ENABLED_OVERRIDE[0], guard._INJECTOR)
-    _ENABLED = False
-    telemetry._LEVEL = 0
-    memtrack._ENABLED[0] = False
-    sanitize._ENABLED_OVERRIDE[0] = False
-    guard._INJECTOR = None
-    try:
-        yield
-    finally:
-        _ENABLED = prev[0]
-        telemetry._LEVEL = prev[1]
-        memtrack._ENABLED[0] = prev[2]
-        sanitize._ENABLED_OVERRIDE[0] = prev[3]
-        guard._INJECTOR = prev[4]
+    with _QUIET_LOCK, _eager():
+        prev = (telemetry._LEVEL, memtrack._ENABLED[0], sanitize._ENABLED_OVERRIDE[0], guard._INJECTOR)
+        telemetry._LEVEL = 0
+        memtrack._ENABLED[0] = False
+        sanitize._ENABLED_OVERRIDE[0] = False
+        guard._INJECTOR = None
+        try:
+            yield
+        finally:
+            telemetry._LEVEL = prev[0]
+            memtrack._ENABLED[0] = prev[1]
+            sanitize._ENABLED_OVERRIDE[0] = prev[2]
+            guard._INJECTOR = prev[3]
 
 
 def _probe_value(a: Aval, device, comm):
@@ -800,10 +820,7 @@ class _Program:
     def run(self, vals):
         """Evaluate op by op with the eager torch calls (or run the
         terminator's program); returns one value per root."""
-        global _ENABLED
-        prev = _ENABLED
-        _ENABLED = False
-        try:
+        with _eager():
             if self.custom is not None:
                 return (self.custom(vals),)
             env = [None] * len(self.instrs)
@@ -816,8 +833,6 @@ class _Program:
                 for s in self.free_after[i]:
                     env[s] = None
             return tuple(env[s] for s in self.out_slots)
-        finally:
-            _ENABLED = prev
 
 
 # ------------------------------------------------------------ program cache
@@ -954,6 +969,8 @@ _DEFER_ON = ("cuda",)
 _DEFER_MAX = 64
 _DEFERRED: "deque" = deque()
 _HOST_FLAGS = []  # [pinned ring, next slot]
+# the queue and the ring are shared by every thread that materializes
+_DEFER_LOCK = threading.Lock()
 
 
 def _defer_flag(flag: torch.Tensor):
@@ -961,10 +978,11 @@ def _defer_flag(flag: torch.Tensor):
     wait)."""
     if flag.device.type != "cuda":
         return flag, (lambda: True), (lambda: None)
-    if not _HOST_FLAGS:
-        _HOST_FLAGS.extend([torch.empty(2 * _DEFER_MAX + 2, dtype=torch.bool, pin_memory=True), 0])
-    ring, i = _HOST_FLAGS
-    _HOST_FLAGS[1] = (i + 1) % ring.numel()
+    with _DEFER_LOCK:
+        if not _HOST_FLAGS:
+            _HOST_FLAGS.extend([torch.empty(2 * _DEFER_MAX + 2, dtype=torch.bool, pin_memory=True), 0])
+        ring, i = _HOST_FLAGS
+        _HOST_FLAGS[1] = (i + 1) % ring.numel()
     host = ring[i]
     host.copy_(flag, non_blocking=True)
     ev = torch.cuda.Event()
@@ -977,11 +995,14 @@ def drain_guard(wait: bool = False) -> None:
     copy has landed, or with ``wait`` all of them (free after a host read,
     which has waited for the card already).  A flag that says non-finite
     runs the check's replay and warning."""
-    while _DEFERRED:
-        ready, block, host, ctx = _DEFERRED[0]
-        if not wait and len(_DEFERRED) <= _DEFER_MAX and not ready():
-            return
-        _DEFERRED.popleft()
+    while True:
+        with _DEFER_LOCK:
+            if not _DEFERRED:
+                return
+            ready, block, host, ctx = _DEFERRED[0]
+            if not wait and len(_DEFERRED) <= _DEFER_MAX and not ready():
+                return
+            _DEFERRED.popleft()
         block()
         if not bool(host):
             _guard_trip(*ctx)
@@ -1020,7 +1041,8 @@ def _guard_check(outs, instrs, sites, leaves, out_slots) -> None:
             _guard_trip(*ctx)
         return
     host, ready, block = _defer_flag(flag)
-    _DEFERRED.append((ready, block, host, ctx))
+    with _DEFER_LOCK:
+        _DEFERRED.append((ready, block, host, ctx))
     if len(_DEFERRED) > _DEFER_MAX:
         drain_guard()
 
@@ -1038,10 +1060,7 @@ def _guard_trip(instrs, sites, leaves, out_slots, strict: bool) -> None:
     leaf_avals = [lf.aval for lf in leaves]
     err = None
     env = []
-    global _ENABLED
-    prev = _ENABLED
-    _ENABLED = False
-    try:
+    with _eager():
         for i, ins in enumerate(instrs):
             if ins[0] == "L":
                 env.append(vals[ins[1]])
@@ -1068,8 +1087,6 @@ def _guard_trip(instrs, sites, leaves, out_slots, strict: bool) -> None:
                     op=name, site=site, subtree=subtree,
                 )
                 break
-    finally:
-        _ENABLED = prev
     if err is None:
         # the replay stayed finite: the non-finites exist only in the
         # program's delivered output (an injected corruption)
@@ -1203,7 +1220,7 @@ class LazyDNDarray(DNDarray):
 
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
         # still pending + copy=True: the cast joins the DAG
-        if copy and _ENABLED and _pending(self):
+        if copy and enabled() and _pending(self):
             from . import types
 
             ht_dtype = types.canonical_heat_type(dtype)
@@ -1356,7 +1373,7 @@ def materialize_resplit(x, new_split, tile_bytes=None):
     not pending, the boundary is no split change, or every lowerer
     declines (the caller then materializes and resplits).  ``x`` itself
     stays pending: its other consumers still need the old-split value."""
-    if not _ENABLED or not _pending(x):
+    if not enabled() or not _pending(x):
         return None
     if new_split is None or x.split is None or new_split == x.split:
         return None

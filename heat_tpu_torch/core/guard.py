@@ -15,8 +15,9 @@ hooks (counterpart of heat_tpu/core/guard.py).
   NaN/Inf is replayed op by op to name the first op, its line and its
   subtree.
 * The fault-injection hooks :func:`fire` and :func:`corrupt`: the
-  transport engine consults them on every move, so an installed injector
-  (heat_tpu's ``utils.fault.FaultInjector``, not ported yet) can raise or
+  transport engine, the fusion engine, the streamed slabs and the serving
+  front door consult them, so an installed injector
+  (:class:`heat_tpu_torch.utils.fault.FaultInjector`) can raise, stall or
   corrupt at a real call site.  With none installed a hook costs one
   global read.
 """

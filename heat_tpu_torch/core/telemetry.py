@@ -978,10 +978,6 @@ def memwatch():
     return memtrack.memwatch()
 
 
-def _unported(plane: str) -> NotImplementedError:
-    return NotImplementedError(f"the {plane} plane is not ported yet: ROADMAP item 13")
-
-
 def autotune_report(top: Optional[int] = None) -> dict:
     """The tuning table (:func:`heat_tpu_torch.core.autotune.report`)."""
     from . import autotune
@@ -990,15 +986,24 @@ def autotune_report(top: Optional[int] = None) -> dict:
 
 
 def serving_report() -> dict:
-    """heat_tpu's ``serving`` counter group; the port has no serving front
-    door yet."""
-    raise _unported("serving")
+    """Snapshot of the ``serving`` counter group (registered when
+    :mod:`heat_tpu_torch.serving` is imported): accepted/rejected/batch/shed
+    counters and each endpoint's latency p50/p99.  An empty dict until the
+    serving front door has been imported."""
+    if "serving" not in _GROUPS:
+        return {}
+    return snapshot_group("serving")
 
 
 def router_report() -> dict:
-    """heat_tpu's ``router`` counter group; the port has no fleet router
-    yet."""
-    raise _unported("serving router")
+    """Snapshot of the ``router`` counter group (registered when
+    :mod:`heat_tpu_torch.serving.router` is imported): dispatch, spill,
+    failover and retry counters, circuit-breaker transitions (ejections,
+    half-opens, probes, recoveries) and rolling-swap outcomes.  An empty
+    dict until the fleet router has been imported."""
+    if "router" not in _GROUPS:
+        return {}
+    return snapshot_group("router")
 
 
 def reset() -> None:

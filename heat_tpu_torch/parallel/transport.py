@@ -75,8 +75,15 @@ never runs on a pad lane and nothing needs zeroing.  A chain whose resplit
 would take a quantized wire declines, so the materialize-then-resplit
 route applies the wire as it would without fusion.
 
-Not ported (ROADMAP queue 1, item 13): the OOM back-off (its counters stay
-at their defaults).
+The OOM back-off (:func:`_with_oom_backoff`, heat_tpu :200): every
+transfer runs at a tile budget, and an out-of-memory error
+(``torch.OutOfMemoryError``, which :class:`~heat_tpu_torch.utils.fault.InjectedOOM`
+subclasses) halves it and runs the same route again, down to
+``TILE_FLOOR_BYTES``, where it re-raises.  The first retry is sized from
+the measured free memory where the device reports it.  The budget sets a
+lossy wire's cut and a fused tail's band; the exact routes stage nothing
+(each destination is written in place), so their retry runs the same
+launches, K7's included.
 """
 
 from __future__ import annotations
@@ -248,9 +255,8 @@ def reshape_applicable(gin, si, gout, so, comm) -> bool:
     return rechunk_plan(int(gin[0]), rowsz_in, int(gout[0]), rowsz_out, comm.size) is not None
 
 
-# heat_tpu's "transport" counter group: ``fused_tails`` counts the fused
-# split tails; the OOM back-off's keys stay at their defaults until it is
-# ported
+# heat_tpu's "transport" counter group: the OOM back-off's counters and
+# ``fused_tails``, the fused split tails
 _STATS = telemetry.register_group(
     "transport",
     {
@@ -265,15 +271,71 @@ _STATS = telemetry.register_group(
 )
 
 
-def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, kernel_bytes=None, wire=None,
-            observer=None, chain=True):
-    """Run ``fn(*args)`` as the transport program ``kind``: ledgered under
-    ``key`` (with K7's bytes where ``kernel_bytes`` is given, else no work
-    count; a quantized wire ``(mode, logical_bytes, wire_bytes)`` makes it
-    heat_tpu's ``<kind>_wire`` row), in a span, between the guard's hooks,
-    its output shards ledgered.  ``observer`` sees its sampled times.
-    ``chain`` appends the dispatch to the sanitizer's collective chain (a
-    reshape appends its stages itself, in heat_tpu's order)."""
+def _is_oom(err: BaseException) -> bool:
+    """An allocation failure: the caching allocator's
+    ``torch.OutOfMemoryError`` (an injected one subclasses it)."""
+    return isinstance(err, torch.OutOfMemoryError)
+
+
+def _with_oom_backoff(kind: str, run, tile_bytes=None, fp=None, device=None, observer=None):
+    """``run(tile_bytes)`` with heat_tpu's bounded OOM back-off (:200): on an
+    out-of-memory error the budget halves and the same route runs again,
+    down to ``TILE_FLOOR_BYTES``, where the error is re-raised; any other
+    error propagates untouched.  ``guard.fire`` gives an installed injector
+    each attempt.  The first retry is sized from the measured free memory
+    (a quarter of it, never more than the halving) where the device
+    reports it (the card, or ``FaultInjector.low_hbm``).  Every OOM leaves
+    a buffer census on the flight recorder, and the first one a postmortem;
+    the counters are heat_tpu's.  A run is timed into ``fp``'s ledger row
+    when sampled."""
+    tb = _plan_tile_budget(kind, tile_bytes)
+    retried = False
+    while True:
+        try:
+            guard.fire(f"transport.{kind}")
+            out = telemetry.timed_call(fp, run, tb, device=device, observer=observer)
+        except Exception as err:  # noqa: BLE001 — filtered to OOM below
+            if not _is_oom(err):
+                raise
+            census = memtrack.census(top=8) if telemetry.events_enabled() else None
+            if tb <= TILE_FLOOR_BYTES:
+                _STATS["oom_exhausted"] += 1
+                telemetry.record_event("oom_exhausted", kernel=kind, tile_bytes=tb, census=census)
+                telemetry.postmortem("transport_oom_exhausted", kernel=kind, tile_bytes=tb)
+                raise
+            halved = max(TILE_FLOOR_BYTES, tb >> 1)
+            informed = free = None
+            if not retried:
+                free = memtrack.min_free_bytes()
+                if free is not None:
+                    informed = memtrack.suggest_budget(halved, fraction=_FREE_TILE_FRACTION,
+                                                       floor=TILE_FLOOR_BYTES, free=free)
+                telemetry.postmortem("transport_oom", kernel=kind, tile_bytes=tb)
+            tb = informed if informed is not None else halved
+            retried = True
+            _STATS["oom_retries"] += 1
+            if informed is not None:
+                _STATS["informed_retries"] += 1
+            _STATS["last_retry_informed"] = informed is not None
+            by_kind = _STATS["retries_by_kind"]
+            by_kind[kind] = by_kind.get(kind, 0) + 1
+            telemetry.record_event("oom_retry", kernel=kind, tile_bytes=tb, informed=informed is not None,
+                                   free_bytes=free, census=census)
+            continue
+        _STATS["last_tile_bytes"] = tb
+        return out
+
+
+def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, run, *, tile_bytes=None, kernel_bytes=None,
+            wire=None, observer=None, chain=True):
+    """Run ``run(tile_bytes)`` as the transport program ``kind`` under the
+    OOM back-off: ledgered under ``key`` (with K7's bytes where
+    ``kernel_bytes`` is given, else no work count; a quantized wire
+    ``(mode, logical_bytes, wire_bytes)`` makes it heat_tpu's
+    ``<kind>_wire`` row), in a span, between the guard's hooks, its output
+    shards ledgered.  ``observer`` sees its sampled times.  ``chain``
+    appends the dispatch to the sanitizer's collective chain (a reshape
+    appends its stages itself, in heat_tpu's order)."""
     fp = None
     if telemetry.ledger_enabled():
         extra = {}
@@ -289,10 +351,9 @@ def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, fn, *args, k
             telemetry.ensure_program(fp, kind="kernel_repack", ops=1, flops=0.0, hbm_bytes=float(kernel_bytes),
                                      mesh={"devices": comm.size}, dtype=str(like.dtype), **extra)
     with telemetry.span(f"transport.{kind}"):
-        guard.fire(f"transport.{kind}")
         if program_audit.enabled():
-            fn = program_audit.watched(f"transport_{kind}", fp, fn, expect="any")
-        out = telemetry.timed_call(fp, fn, *args, device=like.device, observer=observer)
+            run = program_audit.watched(f"transport_{kind}", fp, run, expect="any")
+        out = _with_oom_backoff(kind, run, tile_bytes, fp=fp, device=like.device, observer=observer)
     if chain:
         _link(kind)
     memtrack.register_shards([o for o in out if o is not None], tag="output", split=split)
@@ -368,8 +429,8 @@ def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int
         if wm:
             logical, n_scales = _resplit_wire_model(gshape, sa, sb, comm.size, shards[0].element_size(), tile_bytes)
             wire = (wm, logical, _wire.payload_nbytes(math.prod(key[0]), n_scales, wm))
-        return _engine("resplit", key, shards[0], comm, sb, _resplit, shards, gshape, sa, sb, comm, wm,
-                       tile_bytes, wire=wire, observer=observer)
+        return _engine("resplit", key, shards[0], comm, sb, lambda tb: _resplit(shards, gshape, sa, sb, comm, wm, tb),
+                       tile_bytes=tile_bytes, wire=wire, observer=observer)
 
     return _resplit_stage(shards, gshape, sa, sb, comm, exact, tile_bytes, run)
 
@@ -504,7 +565,7 @@ def rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> 
     m = sum(int(s.shape[0]) for s in shards)
     nbytes = m * math.prod(shards[0].shape[1:]) * shards[0].element_size()
     key = (m, tuple(shards[0].shape[1:]), tuple(dst_bounds))
-    return _engine("rechunk", key, shards[0], comm, 0, _rechunk_rows, shards, dst_bounds, comm, out,
+    return _engine("rechunk", key, shards[0], comm, 0, lambda tb: _rechunk_rows(shards, dst_bounds, comm, out),
                    kernel_bytes=2 * nbytes)
 
 
@@ -534,8 +595,9 @@ def tiled_reshape(
     sanitize.check_use(list(shards), "transport.tiled_reshape")
     crossing = not (_prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so])
     nbytes = math.prod(gin) * shards[0].element_size()
-    return _engine("reshape", (gin, int(si), gout, int(so)), shards[0], comm, so, _reshape, shards, gin, si, gout,
-                   so, comm, exact, tile_bytes, kernel_bytes=2 * nbytes if crossing else None, chain=False)
+    return _engine("reshape", (gin, int(si), gout, int(so)), shards[0], comm, so,
+                   lambda tb: _reshape(shards, gin, si, gout, so, comm, exact, tb), tile_bytes=tile_bytes,
+                   kernel_bytes=2 * nbytes if crossing else None, chain=False)
 
 
 def _resplit_inner(shards, gshape, sa: int, sb: int, comm, exact: bool, tile_bytes):
@@ -639,7 +701,7 @@ def tiled_take(
     one (destination, owner) table of row counts per call."""
     _wire.decline("take")
     key = (tuple(shards[0].shape), int(rows.numel()), int(n), int(split))
-    return _engine("take", key, shards[0], comm, split, _take, shards, rows, n, split, comm)
+    return _engine("take", key, shards[0], comm, split, lambda tb: _take(shards, rows, n, split, comm))
 
 
 def _take(shards: Sequence[torch.Tensor], rows: torch.Tensor, n: int, split: int, comm) -> List[torch.Tensor]:
@@ -814,9 +876,6 @@ def _lower_split_tail(instrs, leaves, avals, out_slot, gshape, sa, sb, comm, til
     pa = -(-gshape[sa] // S)
     rest = math.prod(e for d, e in enumerate(gshape) if d not in (sa, sb))
     n_sb = gshape[sb]
-    # a band spans destinations: a program run per (source, band), with the
-    # tile budget over the source's rows, not per (destination, tile)
-    band, _ = tile_plan(n_sb, pa * rest * itemsize, _plan_tile_budget("resplit", tile_bytes))
     like = full[0].shards[0]
     row_bounds = _bounds(gshape[sa], S)
     dst_bounds = _bounds(n_sb, S)
@@ -829,7 +888,10 @@ def _lower_split_tail(instrs, leaves, avals, out_slot, gshape, sa, sb, comm, til
         t = v.shards[r].narrow(sb, c0, c1 - c0)
         return DNDarray._unledgered([t], tuple(t.shape), v.dtype, None, v.device, one)
 
-    def run():
+    def run(tb):
+        # a band spans destinations: a program run per (source, band), with
+        # the tile budget over the source's rows, not per (destination, tile)
+        band, _ = tile_plan(n_sb, pa * rest * itemsize, tb)
         out = []
         for lo, hi in dst_bounds:
             dshape = list(gshape)
@@ -858,8 +920,7 @@ def _lower_split_tail(instrs, leaves, avals, out_slot, gshape, sa, sb, comm, til
                                  hbm_bytes=float(in_bytes + nelem * itemsize), mesh={"devices": S},
                                  dtype=str(root.dtype))
     with telemetry.span("transport.resplit"):
-        guard.fire("transport.resplit")
-        out = telemetry.timed_call(fp, run, device=like.device)
+        out = _with_oom_backoff("resplit", run, tile_bytes, fp=fp, device=like.device)
     _link("resplit")
     memtrack.register_shards(out, tag="output", split=sb)
     out = guard.corrupt("transport.resplit", out)

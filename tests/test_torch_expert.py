@@ -49,11 +49,21 @@ def _params(seed, d=D, h=H, e=E):
     return gate, w_in, w_out
 
 
+def _jitted(fn, **kw):
+    """heat_tpu's function compiled whole by ``jax.jit`` (op by op it
+    dispatches and compiles each op alone, ~20x slower on the CPU)."""
+    import functools
+
+    import jax
+
+    return jax.jit(functools.partial(fn, **kw))
+
+
 def _both(jex, x, params, n, **kw):
     import jax.numpy as jnp
 
     jm, tm = _mesh(n)
-    yj, aj = jex.moe_ffn(jnp.asarray(x), *map(jnp.asarray, params), mesh=jm, axis="ep", **kw)
+    yj, aj = _jitted(jex.moe_ffn, mesh=jm, axis="ep", **kw)(jnp.asarray(x), *map(jnp.asarray, params))
     yt, at = tex.moe_ffn(torch.from_numpy(x), *map(torch.from_numpy, params), mesh=tm, axis="ep", **kw)
     return (np.asarray(yj), {k: float(v) for k, v in aj.items()}), (yt.numpy(), {k: float(v) for k, v in at.items()})
 
@@ -153,7 +163,7 @@ def test_gradients_match_jax_grad(jex, n):
         y, aux = jex.moe_ffn(a, g, wi, wo, k=2, capacity_factor=1.0, mesh=jm, axis="ep")
         return jnp.mean(y * y) + 0.01 * aux["load_balance_loss"]
 
-    gj = jax.grad(loss_j, argnums=(0, 1, 2, 3))(jnp.asarray(x), *map(jnp.asarray, params))
+    gj = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3)))(jnp.asarray(x), *map(jnp.asarray, params))
     ts = [torch.tensor(a, requires_grad=True) for a in (x,) + params]
     y, aux = tex.moe_ffn(*ts, k=2, capacity_factor=1.0, mesh=tm)
     assert float(aux["fraction_dropped"]) > 0  # gradients through a drop too
@@ -187,8 +197,8 @@ def test_moe_lm_forward_and_aux_losses_from_flax(jex, n):
     jm, tm = _mesh(n)
     tokens = np.random.default_rng(0).integers(0, 64, (2, 16))
     lm = ht.models.TransformerLM(**LM, ep_mesh=jm)
-    variables = lm.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
-    logits, state = lm.apply(variables, jnp.asarray(tokens), mutable=["intermediates"])
+    variables = jax.jit(lm.init)(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    logits, state = _jitted(lm.apply, mutable=["intermediates"])(variables, jnp.asarray(tokens))
     want_aux = [float(v) for v in jax.tree.leaves(state["intermediates"])]
     params = jax.tree_util.tree_map(np.asarray, variables)
 
@@ -317,7 +327,7 @@ def test_moemlp_quantize_through_transformer_from_flax(jex, dtype):
 
     tokens = np.random.default_rng(0).integers(0, 64, (2, 16))
     lm = ht.models.TransformerLM(**LM)
-    variables = lm.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    variables = jax.jit(lm.init)(jax.random.PRNGKey(0), jnp.asarray(tokens))
     params = jax.tree_util.tree_map(np.asarray, variables)
     # heat_tpu's model serves quantized experts through MoEMlp only: its
     # reference here is the LM with each expert weight quantized and
@@ -328,7 +338,7 @@ def test_moemlp_quantize_through_transformer_from_flax(jex, dtype):
             for w in ("w_in", "w_out"):
                 blk["moe"][w] = np.asarray(JQ.dequantize_tensor(JQ.quantize_tensor(jnp.asarray(blk["moe"][w]), dtype,
                                                                                    axis=(0, 2))))
-    want = np.asarray(lm.apply(deq, jnp.asarray(tokens)))
+    want = np.asarray(jax.jit(lm.apply)(deq, jnp.asarray(tokens)))
     model = htt.models.transformer_from_flax(params, device="cpu", moe_quantize=dtype)
     assert all(b.moe.quantize == dtype for b in model.blocks)
     plain = htt.models.transformer_from_flax(deq, device="cpu")

@@ -302,3 +302,12 @@ def test_public_names(ht):
                  "save_netcdf", "save_npy", "supports_hdf5", "supports_netcdf"):
         assert getattr(htt, name) is getattr(htt.io, name)
     assert sorted(htt.utils.data.__all__) == sorted(ht.utils.data.__all__)
+    # the serving front door (lazy in both packages) and the fault utilities
+    import heat_tpu.utils.bench
+    import heat_tpu_torch.utils.bench
+
+    assert sorted(htt.serving.__all__) == sorted(ht.serving.__all__)
+    assert sorted(htt.utils.__all__) == sorted(ht.utils.__all__)
+    for mod in ("fault", "monitor", "bench"):
+        assert sorted(getattr(htt.utils, mod).__all__) == sorted(getattr(ht.utils, mod).__all__)
+    assert {n for n in set(dir(ht)) - set(dir(htt)) if not n.startswith("_")} == MISSING

@@ -47,13 +47,30 @@ def _flat(tree, prefix=""):
     return out
 
 
+class _JitInit:
+    """A flax module whose ``init`` is compiled whole by ``jax.jit`` (flax's
+    init runs op by op otherwise, ~10 s of CPU for a ResNet); every other
+    attribute is the module's."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def init(self, rngs, sample):
+        import jax
+
+        return jax.jit(self._module.init)(rngs, sample)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
 def _train_both(ht, flax_module, convert, opt_name, opt_kw, x, y, mesh, steps=3):
     """(losses of heat_tpu, losses of the port, heat_tpu's model, the port's
     wrapper) after ``steps`` steps from the same variables."""
     import optax
 
     jc, tc = _jcomm(ht, mesh), htt.MeshComm(mesh)
-    jm = ht.nn.DataParallel(flax_module, comm=jc,
+    jm = ht.nn.DataParallel(_JitInit(flax_module), comm=jc,
                             optimizer=ht.optim.DataParallelOptimizer(getattr(optax, opt_name)(**opt_kw)))
     jm.init(0, x)
     module = convert(_numpy_tree(jm.variables))

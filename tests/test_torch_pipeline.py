@@ -95,8 +95,8 @@ def test_gradients_match_jax_grad_and_the_sequential_stack(jpp, n):
     y = rng.standard_normal((8, WIDTH)).astype(np.float32)
     mesh = _jax_mesh(n)
     stacked = jpp.stack_stage_params([{k: jnp.asarray(v) for k, v in p.items()} for p in params], mesh)
-    g_jax = jax.grad(lambda sp: jnp.mean((jpp.pipeline_apply(_stage_jax, sp, jnp.asarray(x), mesh=mesh, n_micro=2)
-                                          - jnp.asarray(y)) ** 2))(stacked)
+    g_jax = jax.jit(jax.grad(lambda sp: jnp.mean((jpp.pipeline_apply(_stage_jax, sp, jnp.asarray(x), mesh=mesh,
+                                                                     n_micro=2) - jnp.asarray(y)) ** 2)))(stacked)
 
     comm = htt.MeshComm(n)
     leaves = {k: torch.tensor(np.stack([p[k] for p in params]), requires_grad=True) for k in ("w", "b")}

@@ -295,10 +295,16 @@ def test_trace_level_spans_reach_the_torch_profiler():
     assert "probe.traced" in {e.key for e in prof.key_averages()}
 
 
-def test_unported_reports_name_item_13():
-    for fn in (PT.serving_report, PT.router_report):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn()
+def test_unported_reports_name_item_13(ht):
+    """Item 13's serving and router reports, ported: once the front door is
+    imported, each is its counter group, with heat_tpu's keys."""
+    import heat_tpu.serving  # noqa: F401 — registers heat_tpu's groups
+    import heat_tpu_torch.serving  # noqa: F401 — registers the port's
+    from heat_tpu.core import telemetry as JT
+
+    for name in ("serving", "router"):
+        got, want = getattr(PT, f"{name}_report")(), getattr(JT, f"{name}_report")()
+        assert got == PT.snapshot_group(name) and set(got) == set(want)
     # the tuning plane is ported: its report is autotune.report()'s
     rep = PT.autotune_report()
     assert set(rep) == {"device_kind", "enabled", "generation", "stats", "rows"}

@@ -37,8 +37,9 @@ def flax_model(ht):
 
     tokens = np.random.default_rng(3).integers(0, 50, (2, 32))
     model = ht.models.TransformerLM(**CONFIG)
-    variables = model.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
-    logits = np.asarray(model.apply(variables, jnp.asarray(tokens)))
+    # compiled whole: op by op, flax's init and apply dispatch each op alone
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(tokens))
+    logits = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(tokens)))
     params = jax.tree_util.tree_map(np.asarray, variables)
     return params, tokens, logits
 
@@ -83,12 +84,13 @@ def test_converter_rejects_a_disagreeing_width(flax_model):
 
 @pytest.mark.parametrize("strategy", ["ring", "ulysses"])
 def test_sequence_parallel_model_matches_flax(ht, flax_model, strategy):
+    import jax
     import jax.numpy as jnp
 
     params, tokens, _ = flax_model
     mesh = _sp_mesh(4)
     jax_sp = ht.models.TransformerLM(**CONFIG, attention=strategy, sp_mesh=mesh)
-    want = np.asarray(jax_sp.apply(params, jnp.asarray(tokens)))
+    want = np.asarray(jax.jit(jax_sp.apply)(params, jnp.asarray(tokens)))
     model = htt.models.transformer_from_flax(params, device="cpu", attention=strategy, sp_mesh=htt.MeshComm(4))
     with torch.no_grad():
         got = model(torch.from_numpy(tokens)).numpy()
