@@ -119,6 +119,15 @@ rolling swap) and the fault utilities (the transport engine's OOM back-off
 through K7 under injected and real out-of-memory errors, 10 TransformerLM
 steps through K3 under ``run_elastic`` with injected faults against a
 fault-free run, ``monitor.profile_trace`` and ``bench.chain_slope``);
+the eight example scripts of ``examples/torch`` for a few steps each
+(K3 in the MoE LM, K1 in the clustering and KNN demos, K5 in the Lasso
+path); and the process layer: ``init_distributed`` under torchrun's
+variables at world size 1 (NCCL) with TransformerLM DataParallel steps
+through K3 and a KMeans fit through K1 on the process comm against the
+single controller, NCCL's refusal of two ranks on one card, and two
+processes over gloo on the one card (TransformerLM steps, ResNet-18 with
+the cross-process BatchNorm, DASO with the processes as slices, KMeans
+from given centres) against one-process runs;
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -1837,6 +1846,53 @@ def manipulation_paths(ht, seed: int, dev, card: str) -> None:
     print(f"[e2e] {len(ops)} manipulations at (37, 6) split 0 over MeshComm({mesh.size}): card vs cpu bitwise equal "
           f"for all but {bad}")
     check(not bad, f"manipulations differ between card and CPU: {bad}")
+
+
+SORT_METHOD_MESH = 8
+SORT_METHOD_ROWS = ((8 * 98, 20), (100_000, 10), (SELECT_ROWS, 3))  # (rows, timed calls)
+
+
+def sort_method_paths(ht, seed: int, dev, card: str) -> dict:
+    """Both methods of ``parallel/sort.py::distributed_sort`` over
+    ``MeshComm(8)`` at blocks where columnsort applies (8 × 98 rows, the
+    least; 1e5; 1e7), f32 with ties: each against ``torch.sort(stable=True)``
+    on the whole array (values and indices bitwise), then timed by CUDA
+    events around its calls (the host's launches included).  Returns
+    {rows: {method: ms}, "auto": what ``method="auto"`` took at each size}."""
+    from heat_tpu_torch.parallel import sort as psort
+
+    mesh = ht.MeshComm(SORT_METHOD_MESH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    out = {"auto": {}}
+    for rows, reps in SORT_METHOD_ROWS:
+        src = torch.randint(0, 1000, (rows,), generator=gen, device=dev).float()
+        shards = [s.contiguous() for s in torch.split(src, [mesh.chunk((rows,), 0, rank=r)[1][0]
+                                                             for r in range(mesh.size)])]
+        per = max(s.shape[0] for s in shards)
+        check(psort.columnsort_applicable(mesh.size, per), f"sort methods: columnsort does not apply at {rows} rows")
+        want = torch.sort(src, stable=True)
+        times = {}
+        for method in ("network", "columnsort"):
+            v, i, _ = psort.distributed_sort(shards, 0, method=method)
+            exact = torch.equal(torch.cat(v), want.values) and torch.equal(torch.cat(i).long(), want.indices)
+            check(exact, f"sort methods: {method} at {rows} rows differs from torch.sort(stable=True)")
+            times[method] = time_ms(lambda: psort.distributed_sort(shards, 0, method=method), reps=reps, warmup=1)
+        taken = []
+        real = psort._columnsort
+        psort._columnsort = lambda *a: taken.append(1) or real(*a)
+        try:
+            psort.distributed_sort(shards, 0)
+        finally:
+            psort._columnsort = real
+        out[rows] = times
+        out["auto"][rows] = "columnsort" if taken else "network"
+        print(f"[e2e] sort ({rows},) f32 with ties over MeshComm({mesh.size}), blocks of {per} rows: network "
+              f"{times['network']:.4f} ms, columnsort {times['columnsort']:.4f} ms a call (CUDA events over {reps}, "
+              f"host launches included; columnsort / network {times['columnsort'] / times['network']:.3f}); both "
+              f"bitwise torch.sort(stable=True); auto takes {out['auto'][rows]} on {card}")
+        del src, shards, want, v, i
+    torch.cuda.empty_cache()
+    return out
 
 
 def timed_call(fn):
@@ -5574,11 +5630,427 @@ def fault_paths(ht, k1, k3, k7, seed: int, dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ examples
+EXAMPLE_RUNS = [
+    # (script under examples/torch, a few steps' arguments); each runs on the card
+    ("nn/mnist.py", ["--epochs", "2", "--batch-size", "128"]),  # the synthetic set's 512 images, 4 steps an epoch
+    ("nn/imagenet.py", ["--epochs", "1", "--batch-size", "32", "--steps-per-epoch", "3"]),
+    ("nn/imagenet_daso.py", ["--epochs", "2"]),
+    ("nn/moe_lm.py", ["--steps", "5"]),
+    ("nn/elastic.py", ["--steps", "30"]),
+    ("cluster/demo_kclustering.py", []),
+    ("classification/demo_knn.py", []),
+    ("lasso/demo.py", []),
+]
+
+
+def example_main(rel: str):
+    """The ``main`` of the example script ``examples/torch/<rel>``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch" / rel
+    spec = importlib.util.spec_from_file_location("example_" + rel.replace("/", "_")[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def example_paths(ht, k1, k3, k5, card: str) -> dict:
+    """The eight example scripts of ``examples/torch`` through their
+    ``main``, each for a few steps on the card, with K1, K3 and K5 counted
+    around each: K3 in the MoE LM's forwards, K1 in the clustering and KNN
+    demos' distances, K5 in the Lasso path's sweeps."""
+    import contextlib
+    import io as _io
+
+    out = {"k1": 0, "k3": 0, "k5": 0, "s": {}}
+    tmp = tempfile.mkdtemp(prefix="heat_examples_")
+    try:
+        for rel, argv in EXAMPLE_RUNS:
+            if rel == "nn/mnist.py":
+                argv = argv + ["--data", tmp]
+            if rel == "nn/elastic.py":
+                argv = argv + ["--ckpt-dir", os.path.join(tmp, "ckpt")]
+            main_fn = example_main(rel)
+            k1.launches = k3.launches = k5.launches = 0
+            buf = _io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = main_fn(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"k1": k1.launches, "k3": k3.launches, "k5": k5.launches}
+            for key in got:
+                out[key] += got[key]
+            out["s"][rel] = wall
+            tail = " | ".join(line.strip() for line in buf.getvalue().strip().splitlines()[-2:])
+            print(f"[examples] examples/torch/{rel} {' '.join(argv)}: {wall:.2f} s, launches K1 {got['k1']}, "
+                  f"K3 {got['k3']}, K5 {got['k5']}; last lines: {tail[-300:]} on {card}")
+            if rel == "nn/mnist.py":
+                check(0.0 <= result <= 1.0, "examples: the MNIST accuracy is not a fraction")
+            elif rel in ("nn/imagenet.py", "nn/imagenet_daso.py"):
+                check(len(result) > 0 and all(math.isfinite(v) for v in result), f"examples: {rel} losses not finite")
+            elif rel == "nn/moe_lm.py":
+                check(math.isfinite(result) and got["k3"] == 2 * 5, f"examples: the MoE LM ran K3 {got['k3']} times, "
+                      "not 2 layers x 5 steps, or its loss is not finite")
+            elif rel == "nn/elastic.py":
+                report, final = result
+                check(report.restarts == 2 and math.isfinite(final), "examples: elastic did not restart twice")
+            elif rel == "cluster/demo_kclustering.py":
+                check(len(result) == 9 and all(np.isfinite(c).all() for c in result.values()) and got["k1"] > 0,
+                      "examples: k-clustering centres not finite or no K1 launch")
+            elif rel == "classification/demo_knn.py":
+                check(len(result) == 5 and float(np.mean(result)) > 0.8 and got["k1"] > 0,
+                      f"examples: KNN accuracy {float(np.mean(result)):.3f} or no K1 launch")
+            elif rel == "lasso/demo.py":
+                check(result.shape == (11, 10) and np.isfinite(result).all() and got["k5"] > 0,
+                      "examples: Lasso paths not finite or no K5 launch")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ht.use_device("gpu")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ processes
+PROC_STEPS = 3
+PROC_LR = 0.05
+PROC_KM = (2_000_000, 64, 8)  # rows, features, k: a KMeans fit from given centres
+PROC_KM_ITERS = 10
+PROC_RN = (16, 64, 3)  # ResNet-18 batch, image side, steps
+PROC_DASO = (64, 784, 10)  # rows, features, classes of DASO's MLP
+PROC_CHILD_LIMIT = 240  # seconds for each child process
+TOL_PROC = 1e-4  # a two-process step against the one-process global batch, relative to the scale
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def proc_lm_run(ht, comm, seed: int, dev):
+    """``PROC_STEPS`` DataParallel SGD steps of the TransformerLM (K3 in
+    every forward) on ``comm``: (losses, ms a step after the first, the
+    parameters)."""
+    model = ht.models.transformer_from_flax(flax_layout_params(seed, **LM), device="gpu")
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]), generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    dp = ht.nn.DataParallel(model, comm=comm, optimizer=ht.optim.DataParallelOptimizer(ht.optim.sgd(PROC_LR)))
+    dp.init(seed, tokens)
+    tok, tgt = ht.array(tokens, split=0, comm=comm), ht.array(targets, split=0, comm=comm)
+    losses = [dp.train_step(tok, tgt)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROC_STEPS - 1):
+        losses.append(dp.train_step(tok, tgt))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (PROC_STEPS - 1)
+    return [float(v) for v in losses], ms, {n: p.detach() for n, p in model.named_parameters()}
+
+
+def proc_kmeans_run(ht, comm, seed: int, dev):
+    """KMeans from given centres on ``PROC_KM`` Gaussian blobs over
+    ``comm`` (K1 per position): (centres, this process's labels and their
+    first row, inertia, seconds)."""
+    n, f, k = PROC_KM
+    gen = torch.Generator(device=dev).manual_seed(seed + 42)
+    means = 4 * torch.randn(k, f, generator=gen, device=dev)
+    x = means[torch.randint(0, k, (n,), generator=gen, device=dev)] + torch.randn(n, f, generator=gen, device=dev)
+    xd = ht.array(x, split=0, comm=comm)
+    km = ht.cluster.KMeans(n_clusters=k, init=ht.array(x[:k].clone(), comm=comm), max_iter=PROC_KM_ITERS, tol=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km.fit(xd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    labels = torch.cat(comm.local_shards(km.labels_.shards)).reshape(-1)
+    first = comm.chunk((n,), 0, rank=comm.local_positions[0])[0]
+    return km.cluster_centers_.larray.clone(), labels, first, km.inertia_, wall
+
+
+def proc_resnet_run(ht, comm, seed: int, dev):
+    """ResNet-18 DataParallel SGD steps on ``comm`` (its BatchNorm across
+    the processes): (losses, running statistics, parameters)."""
+    batch, hw, steps = PROC_RN
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    net = ht.models.ResNet18(num_classes=10, device="gpu", generator=gen)
+    images = torch.randn(batch, hw, hw, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 10, (batch,), generator=gen, device=dev)
+    dp = ht.nn.DataParallel(net, comm=comm, optimizer=ht.optim.DataParallelOptimizer(ht.optim.sgd(0.1, momentum=0.9)))
+    dp.init(seed, images)
+    img, lab = ht.array(images, split=0, comm=comm), ht.array(labels, split=0, comm=comm)
+    losses = [float(dp.train_step(img, lab)) for _ in range(steps)]
+    stats = {k: v.clone() for k, v in net.state_dict().items() if k.endswith(".mean") or k.endswith(".var")}
+    return losses, stats, {n: p.detach() for n, p in net.named_parameters()}
+
+
+def proc_daso_run(ht, across: bool, seed: int, dev):
+    """DASO on an MLP, two slices: across the two processes (a dcn tier of
+    processes) or both in this process: (losses, {slice: first kernel})."""
+    rows, feat, classes = PROC_DASO
+    if across:
+        mesh = ht.parallel.hybrid_mesh({"ici": 1}, {"dcn": 2})
+        comm = ht.MeshComm(mesh, split_axis="ici")
+    else:
+        mesh, comm = (2, 1), ht.MeshComm(2)
+    gen = torch.Generator(device=dev).manual_seed(seed + 44)
+    net = ht.models.MLP((256, classes), in_features=feat, device="gpu", generator=gen)
+    x = torch.randn(rows, feat, generator=gen, device=dev)
+    y = torch.randint(0, classes, (rows,), generator=gen, device=dev)
+    daso = ht.optim.DASO(ht.optim.DataParallelOptimizer(ht.optim.sgd(0.05, momentum=0.9)), mesh=mesh, comm=comm,
+                         total_epochs=4, warmup_epochs=1, cooldown_epochs=1)
+    dm = ht.nn.DataParallelMultiGPU(net, comm=comm, optimizer=daso).init(seed, x[:8])
+    losses = []
+    for _ in range(4):
+        epoch = [float(dm.train_step(x, y)) for _ in range(2)]
+        losses += epoch
+        daso.next_epoch(sum(epoch) / len(epoch))
+    kernels = {s: r.layers[0].kernel.detach().clone() for s, r in zip(daso.local_slices, dm.replicas)}
+    return losses, kernels, daso.reduced_comms[0]
+
+
+def process_child(args) -> int:
+    """One process of ``process_paths``' second leg (``--process-child``):
+    ``nccl`` asks NCCL for two ranks on the one card and records its
+    refusal; ``gloo`` runs the leg's scenarios over a gloo group of two and
+    saves what the parent compares."""
+    import datetime
+
+    out_dir = Path(args.out)
+    res = {"rank": args.rank}
+    if args.process_child == "nccl":
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{args.port}", world_size=2,
+                                             rank=args.rank, timeout=datetime.timedelta(seconds=60))
+        try:
+            t = torch.ones(1, device="cuda")
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            res["error"] = None
+        except Exception as err:  # the refusal is the expected outcome
+            res["error"] = f"{type(err).__name__}: {err}"
+        (out_dir / f"nccl{args.rank}.json").write_text(json.dumps(res))
+        sys.stdout.flush()
+        os._exit(0)  # the group cannot be torn down cleanly after the refusal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.ops import attention as k3
+    from heat_tpu_torch.ops import cdist as k1
+
+    dev = torch.device("cuda", 0)
+    k1._kernel()
+    k3._kernel()
+    rank, size = ht.parallel.init_distributed(f"127.0.0.1:{args.port}", 2, args.rank, backend="gloo")
+    comm = ht.parallel.world()
+    res.update(size=size, backend=torch.distributed.get_backend(), comm=repr(comm))
+    k1.launches = k3.launches = 0
+    losses, ms, params = proc_lm_run(ht, comm, args.seed, dev)
+    res.update(lm_losses=losses, lm_ms=ms, k3=k3.launches)
+    torch.save({n: p.cpu() for n, p in params.items()}, out_dir / f"lm{args.rank}.pt")
+    del params
+    rl, stats, rparams = proc_resnet_run(ht, comm, args.seed, dev)
+    res["rn_losses"] = rl
+    torch.save({"stats": {k: v.cpu() for k, v in stats.items()}, "params": {k: v.cpu() for k, v in rparams.items()}},
+               out_dir / f"rn{args.rank}.pt")
+    dl, kernels, dcn = proc_daso_run(ht, True, args.seed, dev)
+    res.update(daso_losses=dl, daso_comm=repr(dcn))
+    k1.launches = 0
+    centres, labels, first, inertia, wall = proc_kmeans_run(ht, comm, args.seed, dev)
+    res.update(k1=k1.launches, km_inertia=inertia, km_s=wall, km_first=first)
+    torch.save({"daso": {s: k.cpu() for s, k in kernels.items()}, "centres": centres.cpu(), "labels": labels.cpu()},
+               out_dir / f"misc{args.rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    (out_dir / f"gloo{args.rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def spawn_pair(mode: str, out_dir: str, seed: int) -> list:
+    """Start the two ``--process-child`` processes of ``mode`` and wait for
+    them (each within ``PROC_CHILD_LIMIT``); a child that fails fails the
+    phase.  Returns their outputs."""
+    port = free_port()
+    env = dict(os.environ)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--process-child", mode, "--rank", str(r),
+                               "--port", str(port), "--out", out_dir, "--seed", str(seed)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs, deadline = [], time.perf_counter() + PROC_CHILD_LIMIT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"process {mode} child {r} did not finish within {PROC_CHILD_LIMIT} s")
+            outs.append(text)
+            check(p.returncode == 0, f"process {mode} child {r} failed (exit {p.returncode}):\n{text[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def rel_err(got: dict, want: dict) -> tuple:
+    """(max |got - want| over the tensors, max |want|)."""
+    diff = max(float((got[k].to(want[k].device) - want[k]).abs().max()) for k in want)
+    return diff, max(float(want[k].abs().max()) for k in want)
+
+
+def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
+    """The process layer on the card.  Leg 1: ``init_distributed`` through
+    a torchrun environment of world size 1 (NCCL), TransformerLM
+    DataParallel steps through K3 and a KMeans fit through K1 on the process
+    comm, against the same on ``MeshComm(1)`` (the single controller).  Leg
+    2: NCCL's refusal of two ranks on one card, then two processes over
+    gloo on the one card (``backend="gloo"``): TransformerLM steps through
+    K3, ResNet-18 with the cross-process BatchNorm, DASO with the processes
+    as slices, KMeans from given centres through K1, each against a
+    one-process run here.  Returns K1's and K3's launches."""
+    out = {"k1": 0, "k3": 0}
+    torch.cuda.empty_cache()
+    # ---- leg 1: NCCL at world size 1, as torchrun starts a job of one
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        rank, size = ht.parallel.init_distributed()
+        backend = torch.distributed.get_backend()
+        comm = ht.parallel.world()
+        print(f"[process] init_distributed() under torchrun's variables {env}: (rank, size) = ({rank}, {size}), "
+              f"backend {backend}, world() = {comm!r} on {card}")
+        check((rank, size) == (0, 1) and backend == "nccl" and comm.is_process_comm, "process: NCCL world 1 did not start")
+        k3.launches = 0
+        losses, ms, params = proc_lm_run(ht, comm, seed, dev)
+        launches = k3.launches
+        losses1, ms1, params1 = proc_lm_run(ht, ht.MeshComm(1), seed, dev)
+        diff, scale = rel_err(params, params1)
+        print(f"[process] TransformerLM {LM} DataParallel SGD({PROC_LR}), {PROC_STEPS} steps of {LM_BATCH}x"
+              f"{LM['max_seq_len']} tokens on the NCCL process comm: losses {[round(v, 6) for v in losses]}, "
+              f"{ms:.4f} ms/step (the gradient all-reduce through NCCL) against {ms1:.4f} ms/step on MeshComm(1), the "
+              f"single controller (losses {[round(v, 6) for v in losses1]}); parameters max|Δ| {diff:.3e} (tolerance "
+              f"{TOL_PROC:g} x {scale:.4e}); K3 launches {launches} on {card}")
+        check(launches == LM["num_layers"] * PROC_STEPS, f"process: K3 launches {launches} on the NCCL leg")
+        check(diff <= TOL_PROC * scale, "process: the NCCL world-1 step differs from the single controller's")
+        out["k3"] += launches
+        out.update(nccl_lm_ms=ms, single_lm_ms=ms1)
+        del params, params1
+        k1.launches = 0
+        c, lab, _, inertia, wall = proc_kmeans_run(ht, comm, seed, dev)
+        kl = k1.launches
+        c1, lab1, _, inertia1, wall1 = proc_kmeans_run(ht, ht.MeshComm(1), seed, dev)
+        same = torch.equal(lab, lab1)
+        cdiff = float((c - c1).abs().max())
+        print(f"[process] KMeans {PROC_KM} from given centres, {PROC_KM_ITERS} iterations, on the NCCL process comm: "
+              f"{wall:.4f} s (MeshComm(1) {wall1:.4f} s), centres max|Δ| {cdiff:.3e}, labels equal {same}, inertia "
+              f"{inertia:.6e} vs {inertia1:.6e}; K1 launches {kl} on {card}")
+        check(same and cdiff <= 1e-5 * float(c1.abs().max()) and kl == PROC_KM_ITERS + 1,
+              f"process: the NCCL KMeans differs from the single controller's or K1 ran {kl} times")
+        out["k1"] += kl
+        del c, lab, c1, lab1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for var in env:
+            os.environ.pop(var, None)
+        ht.parallel.mesh._world_comm = None
+    torch.cuda.empty_cache()
+
+    # ---- leg 2: two processes on the one card
+    tmp = tempfile.mkdtemp(prefix="heat_process_")
+    try:
+        t0 = time.perf_counter()
+        spawn_pair("nccl", tmp, seed)
+        errors = [json.loads((Path(tmp) / f"nccl{r}.json").read_text())["error"] for r in range(2)]
+        print(f"[process] NCCL with two ranks on the one card ({time.perf_counter() - t0:.1f} s): rank 0: "
+              f"{(errors[0] or 'no error')[:400]} | rank 1: {(errors[1] or 'no error')[:200]}")
+        check(any(e for e in errors), "process: NCCL accepted two ranks on one card")
+        t0 = time.perf_counter()
+        spawn_pair("gloo", tmp, seed)
+        leg_s = time.perf_counter() - t0
+        res = [json.loads((Path(tmp) / f"gloo{r}.json").read_text()) for r in range(2)]
+        lm = [torch.load(Path(tmp) / f"lm{r}.pt") for r in range(2)]
+        rn = [torch.load(Path(tmp) / f"rn{r}.pt") for r in range(2)]
+        misc = [torch.load(Path(tmp) / f"misc{r}.pt") for r in range(2)]
+        print(f"[process] two gloo processes on the one card ({leg_s:.1f} s with their start): {res[0]['comm']}, "
+              f"backend {res[0]['backend']}")
+        # TransformerLM
+        bitwise = all(torch.equal(lm[0][n], lm[1][n]) for n in lm[0])
+        _, _, params1 = proc_lm_run(ht, ht.MeshComm(1), seed, dev)
+        diff, scale = rel_err({n: p for n, p in lm[0].items()}, {n: p.cpu() for n, p in params1.items()})
+        k3_child = sum(r["k3"] for r in res)
+        print(f"[process] TransformerLM DataParallel over 2 gloo processes ({LM_BATCH // 2} rows each): losses "
+              f"{[round(v, 6) for v in res[0]['lm_losses']]}, {res[0]['lm_ms']:.4f} ms/step (the all-reduce through "
+              f"the host); parameters bitwise equal across ranks {bitwise}, against one process over the global batch "
+              f"max|Δ| {diff:.3e} (tolerance {TOL_PROC:g} x {scale:.4e}); K3 launches {k3_child} (2 x "
+              f"{LM['num_layers']} layers x {PROC_STEPS} steps) on {card}")
+        check(bitwise, "process: the ranks' TransformerLM parameters differ")
+        check(diff <= TOL_PROC * scale, "process: two-process TransformerLM steps differ from the global-batch step")
+        check(k3_child == 2 * LM["num_layers"] * PROC_STEPS, f"process: K3 launches {k3_child} in the gloo leg")
+        out["k3"] += k3_child
+        out["gloo_lm_ms"] = res[0]["lm_ms"]
+        del params1, lm
+        # ResNet-18 with the cross-process BatchNorm
+        rl1, stats1, rparams1 = proc_resnet_run(ht, ht.MeshComm(1), seed, dev)
+        sdiff, sscale = rel_err(rn[0]["stats"], {k: v.cpu() for k, v in stats1.items()})
+        pdiff, pscale = rel_err(rn[0]["params"], {k: v.cpu() for k, v in rparams1.items()})
+        same_ranks = all(torch.equal(rn[0]["stats"][k], rn[1]["stats"][k]) for k in stats1)
+        print(f"[process] ResNet-18, {PROC_RN[2]} steps of {PROC_RN[0]} images of {PROC_RN[1]}^2 over 2 processes, "
+              f"BatchNorm over both: losses {[round(v, 6) for v in res[0]['rn_losses']]} vs one process "
+              f"{[round(v, 6) for v in rl1]}; running statistics max|Δ| {sdiff:.3e} (tolerance {TOL_PROC:g} x "
+              f"{sscale:.4e}), equal across ranks {same_ranks}; parameters max|Δ| {pdiff:.3e} (x {pscale:.4e})")
+        check(same_ranks and sdiff <= TOL_PROC * sscale and pdiff <= TOL_PROC * pscale,
+              "process: the cross-process BatchNorm's statistics or parameters differ from one process")
+        # DASO
+        dl1, kernels1, _ = proc_daso_run(ht, False, seed, dev)
+        ddiff = max(float((misc[r]["daso"][r] - kernels1[r].cpu()).abs().max()) for r in range(2))
+        dscale = max(float(k.abs().max()) for k in kernels1.values())
+        print(f"[process] DASO, the 2 processes as slices ({res[0]['daso_comm']}): losses "
+              f"{[round(v, 6) for v in res[0]['daso_losses']]} vs one process {[round(v, 6) for v in dl1]}; each "
+              f"slice's first kernel max|Δ| {ddiff:.3e} (tolerance {TOL_PROC:g} x {dscale:.4e})")
+        check(ddiff <= TOL_PROC * dscale, "process: DASO across processes differs from DASO in one process")
+        # KMeans, against one process holding the same two blocks (MeshComm(2)):
+        # the same K1 blocks and the same two partial sums
+        c1, lab1, _, inertia1, wall1 = proc_kmeans_run(ht, ht.MeshComm(2), seed, dev)
+        lab1 = lab1.cpu()
+        same = all(torch.equal(misc[r]["labels"], lab1[res[r]["km_first"]:res[r]["km_first"] + misc[r]["labels"].numel()])
+                   for r in range(2))
+        cdiff = max(float((misc[r]["centres"] - c1.cpu()).abs().max()) for r in range(2))
+        k1_child = sum(r["k1"] for r in res)
+        print(f"[process] KMeans {PROC_KM} from given centres over 2 processes: {res[0]['km_s']:.4f} s (one process "
+              f"over MeshComm(2) {wall1:.4f} s), centres max|Δ| {cdiff:.3e} (tolerance 1e-5 x the centres' scale), "
+              f"labels equal {same}, inertia {res[0]['km_inertia']:.6e} vs "
+              f"{inertia1:.6e}; K1 launches {k1_child} (2 x {PROC_KM_ITERS + 1}) on {card}")
+        check(same and cdiff <= 1e-5 * float(c1.abs().max()) and k1_child == 2 * (PROC_KM_ITERS + 1),
+              "process: two-process KMeans differs from one process, or K1 did not run in each")
+        out["k1"] += k1_child
+        del misc, rn
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[process] not measured here: NVLink and NCCL between ranks on different cards (one card; NCCL refuses "
+          "two ranks on it), more than one card, and a multi-host start")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # the second process leg's children (process_paths starts them)
+    parser.add_argument("--process-child", choices=("nccl", "gloo"), default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--out", type=str, default="", help=argparse.SUPPRESS)
     args = parser.parse_args()
     t_start = time.perf_counter()
+    if args.process_child is not None:
+        return process_child(args)
 
     # ---------------------------------------------------------- 1. identity
     if not torch.cuda.is_available():
@@ -6234,6 +6706,7 @@ def main() -> int:
     # the transport engine: reshape, resplit and advanced getitem
     tr = transport_paths(ht, k7, args.seed, dev, card)
     manipulation_paths(ht, args.seed, dev, card)
+    sort_method_paths(ht, args.seed, dev, card)
 
     # the runtime core: the data pipeline through K1, assignments through K7
     rt = runtime_core_paths(ht, k1, k7, args.seed, dev, card)
@@ -6285,6 +6758,15 @@ def main() -> int:
     srv = serving_paths(ht, k1, args.seed, dev, card, la["knn"])
     flt = fault_paths(ht, k1, k3, k7, args.seed, dev, card)
 
+    # the eight example scripts, then the process layer: NCCL at world 1,
+    # two gloo processes on the one card
+    t_phase = time.perf_counter()
+    exm = example_paths(ht, k1, k3, k5, card)
+    print(f"[examples] {time.perf_counter() - t_phase:.1f} s for the eight scripts")
+    t_phase = time.perf_counter()
+    prc = process_paths(ht, k1, k3, args.seed, dev, card)
+    print(f"[process] {time.perf_counter() - t_phase:.1f} s for the phase")
+
     # ---------------------------------------------------------- 6. summary
     kernels = [
         {
@@ -6293,7 +6775,8 @@ def main() -> int:
             "source": "heat_tpu_torch/csrc/cdist.cu",
             "replaces": "heat_tpu/ops/cdist.py:32",
             "launches": (launches + ns["launches"] + cb["launches"] + rt["k1"] + la["knn"]["k1"] + io["k1"] + planes["k1"]
-                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"] + ovl["k1"] + srv["k1"]),
+                         + qknn["k1"] + tune["k1"] + strm["k1"] + fus["k1"] + ovl["k1"] + srv["k1"] + exm["k1"]
+                         + prc["k1"]),
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -6314,6 +6797,8 @@ def main() -> int:
             "launches_fusion": fus["k1"],
             "launches_overlap": ovl["k1"],
             "launches_serving": srv["k1"],
+            "launches_examples": exm["k1"],
+            "launches_process": prc["k1"],
             **{key: la["knn"][key] for key in ("ms_knn", "plain_ms_knn", "library_ms_knn", "bound_ms_knn", "bound_by_knn")},
             "at_knn": f"({KNN_N // TRANSPORT_MESH}, {KNN_F}) x ({KNN_N // TRANSPORT_MESH}, {KNN_F}) f32 sqrt, a ring step's "
                       "block of the KNN batch",
@@ -6345,7 +6830,8 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/lasso_sweep.cu",
             "replaces": "heat_tpu/ops/lasso_sweep.py:66",
-            "launches": lasso_launches,
+            "launches": lasso_launches + exm["k5"],
+            "launches_examples": exm["k5"],
             "max_abs_err": k5_abs,
             "ms": k5_ms,
             "plain_ms": k5_plain_ms,
@@ -6384,13 +6870,15 @@ def main() -> int:
             "source": "heat_tpu_torch/csrc/attention.cu",
             "replaces": "heat_tpu/ops/attention.py:37",
             "launches": (lm["attention"] + trn["lm_launches"] + moe["launches"] + pipe["launches"] + quant["launches"]
-                         + flt["k3"]),
+                         + flt["k3"] + exm["k3"] + prc["k3"]),
             "launches_forward_and_ulysses": lm["attention"],
             "launches_training": trn["lm_launches"],
             "launches_moe_training": moe["launches"],
             "launches_pipeline": pipe["launches"],
             "launches_quant": quant["launches"],
             "launches_elastic": flt["k3"],
+            "launches_examples": exm["k3"],
+            "launches_process": prc["k3"],
             "max_abs_err": k3_abs,
             "ms": att_times[(64, 2048, 64, "float32", True)][0],
             "plain_ms": att_times[(64, 2048, 64, "float32", True)][1],
@@ -6508,6 +6996,10 @@ def main() -> int:
           f"{srv['fleet']['median_ms']:.4f} / {srv['fleet']['p99_ms']:.4f} with a replica stall, healthy again "
           f"{srv['fleet']['recovery_s']:.3f} s after; elastic TransformerLM bitwise {flt['elastic_bitwise']} "
           f"({flt['elastic_s']:.3f} s with two restarts, {flt['clean_s']:.3f} s clean) on {card}")
+    print(f"[summary] process layer: TransformerLM DataParallel {prc['nccl_lm_ms']:.4f} ms/step on the NCCL process "
+          f"comm of world 1 against {prc['single_lm_ms']:.4f} ms/step on the single controller, "
+          f"{prc['gloo_lm_ms']:.4f} ms/step over two gloo processes on the one card; the eight examples "
+          f"{sum(exm['s'].values()):.1f} s")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,7 +41,10 @@ def _row_blocks(x: DNDarray) -> List[torch.Tensor]:
     if x.split is None:
         blocks = [x.shards[0]]
     else:
-        blocks = (x if x.split == 0 else x._resplit(0, exact=True)).shards
+        rows = x if x.split == 0 else x._resplit(0, exact=True)
+        # on a process comm: this process's positions, whose partials the
+        # collectives' process route combines
+        blocks = rows.comm.local_shards(rows.shards)
     return [b if b.is_floating_point() else b.to(torch.float32) for b in blocks]
 
 
@@ -258,6 +261,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
                 f'init needs to be "random", "kmeans++"/"probability_based" or a '
                 f"DNDarray, but was {self.init!r}"
             )
+        comm.only_local(f"{self.init!r} seeding (it draws rows from every position)")
         # uniforms stay float32 whatever the data dtype
         us = ht_random.rand(k, device=device, comm=comm).larray
         if self.init == "random":
@@ -269,7 +273,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     def _initialize_cluster_centers(self, x: DNDarray) -> None:
         """Initial centroids of the rows of ``x``, replicated."""
         # explicit centroids need only the rows' device: no resplit for them
-        blocks = x.shards[:1] if isinstance(self.init, DNDarray) else _row_blocks(x)
+        blocks = x.comm.local_shards(x.shards)[:1] if isinstance(self.init, DNDarray) else _row_blocks(x)
         centroids = self._initial_centroids(blocks, x.shape[0], x.shape[1], x.device, x.comm)
         self._cluster_centers = DNDarray(
             [centroids] * x.comm.size, tuple(centroids.shape),
@@ -304,6 +308,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         sanitation.sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input needs to be 2-D, but was {x.ndim}-D")
+        x.comm.only_local(f"{type(self).__name__}'s median loop")
         self._initialize_cluster_centers(x)
         blocks = _row_blocks(x)
         centers = self._cluster_centers.larray.to(device=blocks[0].device, dtype=blocks[0].dtype)
@@ -319,6 +324,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     def _label_blocks(self, x: DNDarray, matching_centroids: DNDarray):
         """The row blocks of ``x`` (float), its labels cut like them, and the
         current centres in the rows' type, for ``_update_centroids``."""
+        x.comm.only_local(f"{type(self).__name__}._update_centroids")
         blocks = _row_blocks(x)
         labels = list(torch.split(
             matching_centroids.larray.reshape(-1).to(blocks[0].device),

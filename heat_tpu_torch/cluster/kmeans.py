@@ -73,12 +73,13 @@ def _onehot_sums(onehot: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     return parts.sum(0) + torch.mm(onehot[whole:].T, xs[whole:], out_dtype=torch.float32)
 
 
-def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_inertia: bool = True):
+def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_inertia: bool = True, comm=None):
     """One Lloyd iteration (heat_tpu/cluster/kmeans.py:90): returns
     (new_centers, shift², inertia), the last two as f32 scalars.  Inertia is
     the sum of each row's distance to its nearest centre BEFORE the update
     (0 without ``with_inertia``, which skips its pass).  The centres have
-    the data's type, and so does the update."""
+    the data's type, and so does the update.  On a process comm ``blocks``
+    are this process's and the sums go through the process route."""
     counts, sums, inertia = [], [], []
     for xs in blocks:
         d2 = _k1.cdist(_k1_input(xs), _k1_input(centers), sqrt=False)
@@ -90,9 +91,9 @@ def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_
         sums.append(_onehot_sums(onehot, xs))
         if with_inertia:
             inertia.append(torch.sum(torch.amin(d2, dim=1)))
-    counts = collectives.psum(counts)[0]
-    sums = collectives.psum(sums)[0]
-    inertia = collectives.psum(inertia)[0] if with_inertia else torch.zeros((), device=centers.device)
+    counts = collectives.psum(counts, comm=comm)[0]
+    sums = collectives.psum(sums, comm=comm)[0]
+    inertia = collectives.psum(inertia, comm=comm)[0] if with_inertia else torch.zeros((), device=centers.device)
     new_centers = torch.where(
         counts[:, None] > 0,
         sums / torch.clamp(counts, min=1)[:, None],
@@ -139,7 +140,7 @@ def _step_program(blocks: List[torch.Tensor], k: int, positions: int) -> str:
 
 def _lloyd_loop(
     blocks: List[torch.Tensor], centers: torch.Tensor, k: int, max_iter: int, tol: float, with_inertia: bool = True,
-    fp: Optional[str] = None,
+    fp: Optional[str] = None, comm=None,
 ):
     """Iterate :func:`_lloyd_step` while ``it < max_iter`` and
     ``shift² > tol``, from ``shift = inf`` (so ``tol=-1`` runs exactly
@@ -153,7 +154,8 @@ def _lloyd_loop(
     it = 0
     # shift > tol compares in f32, as the JAX loop's carry does
     while it < max_iter and bool(shift > tol):
-        centers, shift, inertia = telemetry.timed_call(fp, _lloyd_step, blocks, centers, k, with_inertia, device=dev)
+        centers, shift, inertia = telemetry.timed_call(fp, _lloyd_step, blocks, centers, k, with_inertia, comm,
+                                                       device=dev)
         it += 1
     return centers, shift, inertia, it
 
@@ -201,6 +203,7 @@ class KMeans(_KCluster):
         """Masked-mean centroid update from given labels
         (heat_tpu/cluster/kmeans.py:452); ``fit`` uses the fused step."""
         k = self.n_clusters
+        x.comm.only_local("KMeans._update_centroids")
         blocks = _row_blocks(x)
         labels = torch.split(
             matching_centroids.larray.reshape(-1).to(blocks[0].device),
@@ -244,7 +247,7 @@ class KMeans(_KCluster):
         centers = self._cluster_centers.larray.to(blocks[0].dtype)
         centers, _, inertia, n_iter = _lloyd_loop(
             blocks, centers, self.n_clusters, self.max_iter, self.tol,
-            fp=_step_program(blocks, self.n_clusters, x.comm.size),
+            fp=_step_program(blocks, self.n_clusters, x.comm.size), comm=x.comm,
         )
         self._n_iter = n_iter
         self._cluster_centers = DNDarray(

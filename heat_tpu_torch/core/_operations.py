@@ -257,10 +257,10 @@ def _binary_eager(operation: Callable, t1, t2, out: Optional[DNDarray], where) -
         result = operation(a, b)
         shards = [result] * comm.size
     else:
-        shards = [
-            operation(_block(o1, out_shape, split, comm, r), _block(o2, out_shape, split, comm, r))
-            for r in range(comm.size)
-        ]
+        shards = comm.per_position(
+            lambda r: operation(_block(o1, out_shape, split, comm, r), _block(o2, out_shape, split, comm, r)),
+            out_shape, split,
+        )
         result = shards[0]
     wrapped = DNDarray(shards, out_shape, types.canonical_heat_type(result.dtype), split, device, comm)
     if where is not None:
@@ -294,7 +294,8 @@ def _local_eager(operation: Callable, x: DNDarray, out: Optional[DNDarray], no_c
     if x.split is None:
         shards = [apply(x.shards[0])] * x.comm.size
     else:
-        shards = [apply(s) for s in x.shards]
+        src = x.shards
+        shards = x.comm.per_position(lambda r: apply(src[r]), x.shape, x.split)
     return _finish(
         DNDarray(shards, x.shape, types.canonical_heat_type(shards[0].dtype), x.split, x.device, x.comm), out
     )
@@ -326,6 +327,11 @@ def _merge(parts, combine: str) -> torch.Tensor:
         return collectives.pmin(parts)[0]
     if combine == "max":
         return collectives.pmax(parts)[0]
+    return _fold(parts, combine)
+
+
+def _fold(parts, combine: str) -> torch.Tensor:
+    """``parts`` combined in order by ``"prod"``, ``"all"`` or ``"any"``."""
     out = parts[0]
     for p in parts[1:]:
         p = p.to(out.device)
@@ -367,7 +373,12 @@ def _reduce_eager(fn: Callable, x: DNDarray, axis, keepdims: bool, combine: str,
         if x.split is None:
             shards = [_apply_reduction(fn, x.shards[0], axes, keepdims)] * comm.size
         else:
-            shards = [_apply_reduction(fn, s, axes, keepdims) for s in x.shards]
+            src = x.shards
+            shards = comm.per_position(lambda r: _apply_reduction(fn, src[r], axes, keepdims),
+                                       _gshape(x.shape, axes, keepdims),
+                                       _reduce_split(x.split, axes, keepdims, len(x.shape) - (0 if keepdims else len(axes))))
+    elif comm.is_process_comm and not (combine in ("argmin", "argmax") and len(axes) > 1):
+        shards = [_reduce_across(fn, x, axes, keepdims, combine)] * comm.size
     elif combine in ("argmin", "argmax") and len(axes) > 1:
         # a flat index over several axes, the split one among them: gather
         result = _apply_reduction(fn, x.larray, axes, keepdims)
@@ -390,6 +401,48 @@ def _reduce_eager(fn: Callable, x: DNDarray, axis, keepdims: bool, combine: str,
     )
 
 
+def _template(fn: Callable, x: DNDarray, axes, keepdims: bool, device) -> torch.Tensor:
+    """Zeros on ``device`` of the shape and dtype of one position's partial
+    result: the stand-in of a process whose shards are all empty, which
+    contributes none but takes part in every collective."""
+    shape = list(x.shape)
+    shape[x.split] = 1
+    meta = _apply_reduction(fn, torch.empty(shape, dtype=x.dtype.torch_type(), device="meta"), axes, keepdims)
+    return torch.zeros(meta.shape, dtype=meta.dtype, device=device)
+
+
+def _gather_rows(parts: dict, like: torch.Tensor, comm, device) -> torch.Tensor:
+    """The partials of every position that has one, stacked in position
+    order in every process: ``parts`` maps this process's positions to
+    their partials."""
+    rows = [
+        parts[r].unsqueeze(0) if r in parts else torch.empty((0,) + tuple(like.shape), dtype=like.dtype, device=device)
+        for r in comm.local_positions
+    ]
+    return collectives.all_gather(rows, dim=0, comm=comm)[0]
+
+
+def _reduce_across(fn: Callable, x: DNDarray, axes, keepdims: bool, combine: str) -> torch.Tensor:
+    """A reduction over the split axis of an array on a process comm: each
+    of this process's non-empty shards reduces alone, then the partials
+    merge across processes through the collectives' process route, in
+    position order as on one process."""
+    comm, src = x.comm, x.shards
+    dev = src[comm.local_positions[0]].device
+    live = [r for r in comm.local_positions if src[r].shape[x.split] > 0]
+    if combine in ("argmin", "argmax"):
+        return _arg_across(x, live, axes[0], keepdims, largest=combine == "argmax")
+    like = _template(fn, x, axes, keepdims, dev)
+    parts = [_apply_reduction(fn, src[r], axes, keepdims) for r in live]
+    if combine in ("sum", "min", "max"):
+        merge = {"sum": collectives.psum, "min": collectives.pmin, "max": collectives.pmax}[combine]
+        return merge(parts, comm=comm, like=like)[0]
+    rows = _gather_rows(dict(zip(live, parts)), like, comm, dev)
+    if rows.shape[0] == 0:  # every shard empty: the reduction of an empty shard
+        return _apply_reduction(fn, src[comm.local_positions[0]], axes, keepdims)
+    return _fold(list(rows.unbind(0)), combine)
+
+
 def _gshape(shape, axes, keepdims: bool):
     if keepdims:
         return tuple(1 if i in axes else n for i, n in enumerate(shape))
@@ -404,14 +457,25 @@ def _arg_across(x: DNDarray, live, axis: int, keepdims: bool, largest: bool = Fa
     pick, extreme, better = (
         (torch.argmax, torch.amax, torch.gt) if largest else (torch.argmin, torch.amin, torch.lt)
     )
-    best_v = best_i = None
+    candidates = []
     for r in live:
         s = x.shards[r]
         if s.dtype == torch.bool:
             s = s.to(torch.uint8)
         off = x.comm.chunk(x.shape, x.split, rank=r)[0]
-        v = extreme(s, dim=axis, keepdim=keepdims)
-        i = pick(s, dim=axis, keepdim=keepdims) + off
+        candidates.append((extreme(s, dim=axis, keepdim=keepdims), pick(s, dim=axis, keepdim=keepdims) + off))
+    comm = x.comm
+    if comm.is_process_comm:
+        # every process's candidates, in position order
+        dt = torch.uint8 if x.dtype.torch_type() == torch.bool else x.dtype.torch_type()
+        like = extreme(torch.empty([1 if d == x.split else n for d, n in enumerate(x.shape)], dtype=dt, device="meta"),
+                       dim=axis, keepdim=keepdims)
+        dev = x.shards[comm.local_positions[0]].device
+        vs = _gather_rows({r: v for r, (v, _) in zip(live, candidates)}, like, comm, dev)
+        ids = _gather_rows({r: i for r, (_, i) in zip(live, candidates)}, like.to(torch.int64), comm, dev)
+        candidates = list(zip(vs.unbind(0), ids.unbind(0)))
+    best_v = best_i = None
+    for v, i in candidates:
         if best_v is None:
             best_v, best_i = v, i
         else:
@@ -447,21 +511,45 @@ def _cum_op(
 
 
 def _cum_eager(fn: Callable, x: DNDarray, axis: int, combine: str, dtype, out: Optional[DNDarray]) -> DNDarray:
-    shards = x.shards if x.split is not None else x.shards[:1]
+    comm, src = x.comm, x.shards
+    shards = {r: src[r] for r in ((0,) if x.split is None else comm.local_positions)}
     if dtype is not None:
-        shards = [s.to(types.canonical_heat_type(dtype).torch_type()) for s in shards]
-    keep = torch.int64 if shards[0].dtype == torch.bool else shards[0].dtype
-    scanned = [fn(s, axis).to(keep) for s in shards]
+        shards = {r: s.to(types.canonical_heat_type(dtype).torch_type()) for r, s in shards.items()}
+    first = next(iter(shards.values()))
+    keep = torch.int64 if first.dtype == torch.bool else first.dtype
+    if x.split == axis and comm.is_process_comm:
+        if combine == "sum":
+            return _finish(_cum_across(fn, x, shards, axis, keep), out)
+        comm.only_local("a cumulative product along the split axis")
+    scanned = {r: fn(s, axis).to(keep) for r, s in shards.items()}
     if x.split == axis and len(scanned) > 1:
         run = None
-        for r, sc in enumerate(scanned):
+        for r, sc in scanned.items():
             if sc.shape[axis] == 0:
                 continue
             if run is not None:
                 scanned[r] = (sc + run if combine == "sum" else sc * run).to(keep)
             run = scanned[r].narrow(axis, sc.shape[axis] - 1, 1)
     if x.split is None:
-        scanned = scanned * x.comm.size
-    return _finish(
-        DNDarray(scanned, x.shape, types.canonical_heat_type(keep), x.split, x.device, x.comm), out
-    )
+        result = [scanned[0]] * comm.size
+    else:
+        result = comm.per_position(lambda r: scanned[r], x.shape, x.split)
+    return _finish(DNDarray(result, x.shape, types.canonical_heat_type(keep), x.split, x.device, comm), out)
+
+
+def _cum_across(fn: Callable, x: DNDarray, shards, axis: int, keep: torch.dtype) -> DNDarray:
+    """A cumulative sum along the split axis on a process comm: each of this
+    process's shards scans alone, then adds the exclusive scan
+    (:func:`collectives.exscan`, its process route) of the shards' totals."""
+    comm = x.comm
+    local = comm.local_positions
+    scanned = {r: fn(shards[r], axis).to(keep) for r in local}
+    row = [1 if d == axis else n for d, n in enumerate(x.shape)]
+    totals = [
+        sc.narrow(axis, sc.shape[axis] - 1, 1) if sc.shape[axis] else torch.zeros(row, dtype=keep, device=sc.device)
+        for sc in scanned.values()
+    ]
+    for r, before in zip(local, collectives.exscan(totals, comm=comm)):
+        scanned[r] = (scanned[r] + before).to(keep)
+    out = comm.per_position(lambda r: scanned[r], x.shape, axis)
+    return DNDarray(out, x.shape, types.canonical_heat_type(keep), x.split, x.device, comm)

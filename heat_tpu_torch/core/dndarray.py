@@ -19,7 +19,7 @@ import torch
 from . import memtrack, types
 from .devices import Device
 from .stride_tricks import sanitize_axis
-from ..parallel import transport
+from ..parallel import collectives, transport
 from ..parallel.select import distributed_mask_select, distributed_pair_take
 from ..parallel.mesh import MeshComm
 
@@ -85,14 +85,23 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _shard(tensor: torch.Tensor, split: Optional[int], comm: MeshComm) -> List[torch.Tensor]:
-    """Cut a global tensor into one shard per position (views, no copy)."""
+    """Cut a global tensor into one shard per position (views, no copy);
+    across processes each keeps its own positions' shards."""
     if split is None or tensor.ndim == 0:
         return [tensor] * comm.size
-    out = []
-    for r in range(comm.size):
-        off, lshape, _ = comm.chunk(tuple(tensor.shape), split, rank=r)
-        out.append(tensor.narrow(split, off, lshape[split]))
-    return out
+    gshape = tuple(tensor.shape)
+
+    def cut(r):
+        off, lshape, _ = comm.chunk(gshape, split, rank=r)
+        return tensor.narrow(split, off, lshape[split])
+
+    return comm.per_position(cut, gshape, split)
+
+
+def _gathered(shards, split: int, comm: MeshComm) -> torch.Tensor:
+    """The global tensor of a split array: the shards concatenated, across
+    processes through the process route's gather."""
+    return collectives.all_gather(comm.local_shards(shards), dim=split, comm=comm)[0]
 
 
 def _wrap(tensor: torch.Tensor, split: Optional[int], device: Device, comm: MeshComm) -> "DNDarray":
@@ -178,6 +187,7 @@ class DNDarray:
             if _outside():
                 fusion.expose((t,))
             return t
+        self.__comm.only_local("the global tensor of a split array (.larray)")
         return torch.cat(self.__shards, dim=self.__split)
 
     @property
@@ -460,12 +470,16 @@ class DNDarray:
         (heat_tpu/core/dndarray.py:333); a replicated array gives one."""
         if self.__split is None:
             return [self.numpy()]
+        self.__comm.only_local("lshards() of every position")
         return [_host(s) for s in self.__shards]
 
     # ------------------------------------------------------------ conversion
     def numpy(self) -> np.ndarray:
         """Gather to a host numpy array; bfloat16 comes back as an
-        ``ml_dtypes.bfloat16`` array of the same bits, as heat_tpu's does."""
+        ``ml_dtypes.bfloat16`` array of the same bits, as heat_tpu's does.
+        Across processes the split array is gathered into every process."""
+        if self.__split is not None and self.__comm.spans_processes:
+            return _host(_gathered(self.__shards, self.__split, self.__comm))
         return _host(self.larray)
 
     def __array__(self, dtype=None, copy=None):
@@ -479,7 +493,8 @@ class DNDarray:
         if self.__split is None:
             shards = [self.__shards[0].to(tt, copy=copy)] * self.__comm.size
         else:
-            shards = [s.to(tt, copy=copy) for s in self.__shards]
+            shards = self.__comm.per_position(lambda r: self.__shards[r].to(tt, copy=copy), self.__gshape,
+                                              self.__split)
         if not copy:
             self.__shards = shards
             self.__dtype = dtype
@@ -495,7 +510,8 @@ class DNDarray:
         if result.split is None:
             self.__shards = [result.shards[0].to(tt)] * self.__comm.size
         else:
-            self.__shards = [s.to(tt) for s in result.shards]
+            src = result.shards
+            self.__shards = self.__comm.per_position(lambda r: src[r].to(tt), self.__gshape, result.split)
         self.__split = result.split
         self._invalidate_halos()
         memtrack.register_shards(self.__shards, tag="leaf", split=self.__split)
@@ -540,7 +556,11 @@ class DNDarray:
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
-        if transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
+        if self.__comm.spans_processes and self.__split is not None:
+            if axis is not None:
+                self.__comm.only_local(f"resplit from axis {self.__split} to axis {axis}")
+            shards = [_gathered(self.__shards, self.__split, self.__comm)] * self.__comm.size
+        elif transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
             # a pending chain is evaluated straight into the new split's
             # tile loop; its expression stays for its other consumers
             shards = fusion.materialize_resplit(self, axis)
@@ -568,7 +588,8 @@ class DNDarray:
     def _resplit(self, axis: Optional[int], exact: bool) -> "DNDarray":
         """:meth:`resplit`; ``exact`` as in :meth:`_resplit_`."""
         axis = sanitize_axis(self.__gshape, axis)
-        if axis != self.__split and transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
+        if (axis != self.__split and not self.__comm.spans_processes
+                and transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm)):
             shards = fusion.materialize_resplit(self, axis)
             if shards is not None:
                 # this array stays pending in its own split

@@ -58,8 +58,12 @@ def array(
     """A DNDarray from array-like data (a DNDarray, torch tensor, numpy
     array, nested sequence or scalar), split along ``split``.  ``is_split``
     declares the data this process's chunk of an array split along that
-    axis; one process drives every position, so its chunk is the whole
-    array.  Shards are row-major whatever ``order`` says."""
+    axis: in one process its chunk is the whole array; on a process comm
+    the chunks' lengths are gathered, the global shape is their sum
+    (heat_tpu/core/factories.py:105, ``make_array_from_process_local_data``),
+    and a chunk that is not the chunk rule's for this process's positions
+    raises.  With ``split`` every process gives the whole array and keeps
+    its positions' shards.  Shards are row-major whatever ``order`` says."""
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive")
     if is_split is not None:
@@ -93,7 +97,43 @@ def array(
         # the caller keeps the tensor and may write it: pending chains must
         # not read it after such a write
         fusion.expose((tensor,))
+    if is_split is not None and comm.is_process_comm:
+        return _from_process_chunks(tensor, is_split, device, comm)
     return _wrap(tensor, split, device, comm)
+
+
+def _from_process_chunks(tensor: torch.Tensor, split: int, device, comm: MeshComm) -> DNDarray:
+    """The array whose chunk along ``split`` in each process of ``comm`` is
+    that process's ``tensor``: the chunks' shapes are all-reduced, their
+    lengths summed into the global shape, and this process's chunk cut
+    into its positions' shards."""
+    from ..parallel import collectives
+
+    split = sanitize_axis(tuple(tensor.shape), split)
+    shapes = torch.zeros((comm.nprocs, tensor.ndim), dtype=torch.int64, device=tensor.device)
+    shapes[comm.rank] = torch.tensor(tensor.shape, dtype=torch.int64)
+    shapes = collectives.psum([shapes], comm=comm)[0].tolist()  # ht: HT002 ok — the chunks' shapes make the global shape
+    others = {tuple(n for d, n in enumerate(sh) if d != split) for sh in shapes}
+    if len(others) != 1:
+        raise ValueError(f"process chunks disagree off the split axis {split}: {shapes}")
+    gshape = list(tensor.shape)
+    gshape[split] = sum(sh[split] for sh in shapes)
+    gshape = tuple(gshape)
+    local = comm.local_positions
+    start = comm.chunk(gshape, split, rank=local[0])[0]
+    want = sum(comm.chunk(gshape, split, rank=r)[1][split] for r in local)
+    if tensor.shape[split] != want:
+        raise ValueError(
+            f"process {comm.rank}'s chunk has {tensor.shape[split]} rows along axis {split}, but the chunk rule "
+            f"gives its positions {local} {want} of the global {gshape[split]}"
+        )
+
+    def cut(r):
+        off, lshape, _ = comm.chunk(gshape, split, rank=r)
+        return tensor.narrow(split, off - start, lshape[split])
+
+    shards = comm.per_position(cut, gshape, split)
+    return DNDarray(shards, gshape, types.canonical_heat_type(tensor.dtype), split, device, comm)
 
 
 def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:

@@ -526,6 +526,8 @@ def leaf_from(x: DNDarray) -> Expr:
         e = x._expr
         if e is not None:
             return e
+    if x.comm.is_process_comm:
+        raise Unfusable("the comm spans processes")
     shards = x._DNDarray__shards
     snap = not getattr(_LOCAL, "sealed", 0) and bool(_EXPOSED) and any(_is_exposed(s) for s in shards)
     cached = x.__dict__.get("_fusion_leaf")
@@ -645,6 +647,9 @@ def node(fn: Callable, args: Tuple[Expr, ...], ctx, **kwargs) -> Expr:
     """Apply ``fn`` lazily to child nodes with static ``kwargs``; ``ctx`` is
     the (Device, MeshComm) pair the result lives on.  With the guard on, the
     user source line that built the op rides along."""
+    if ctx[1].is_process_comm:
+        # a program runs within one process: process comms stay eager
+        raise Unfusable("the comm spans processes")
     kw_key = _kwargs_key(kwargs)
     aval = _infer_aval(fn, tuple(a.aval for a in args), kw_key, ctx[0], ctx[1])
     site = guard.capture_site(2) if guard.enabled() else None

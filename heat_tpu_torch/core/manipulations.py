@@ -829,6 +829,7 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
         raise ValueError(f"axis {axis} is out of bounds for array of dimension 0")
     axis = stride_tricks.sanitize_axis(a.shape, axis)
     if a.split == axis and a.is_distributed():
+        a.comm.only_local("sort along the split axis")
         values, indices, _ = distributed_sort(a.shards, axis, descending)
         v = DNDarray(values, a.shape, a.dtype, a.split, a.device, a.comm)
         i = DNDarray(indices, a.shape, types.int32, a.split, a.device, a.comm)
@@ -856,6 +857,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         raise ValueError(f"k={k} exceeds dimension size {a.shape[dim]}")
     shape = tuple(int(k) if d == dim else s for d, s in enumerate(a.shape))
     if a.split == dim and a.is_distributed():
+        a.comm.only_local("topk along the split axis")
         values, indices = distributed_topk(a.shards, dim, int(k), largest)
         v = DNDarray([values] * a.comm.size, shape, a.dtype, None, a.device, a.comm)
         i = DNDarray([indices] * a.comm.size, shape, types.int64, None, a.device, a.comm)
@@ -924,6 +926,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     its inverse (int32) keeps the input's split and is found per shard."""
     sanitation.sanitize_in(a)
     if axis is None and a.ndim == 1 and a.split == 0 and a.is_distributed():
+        a.comm.only_local("unique of a split array")
         values, _, _ = distributed_sort(a.shards, 0)
         vals = torch.cat(unique_compact_sorted(values))
         v = DNDarray([vals] * a.comm.size, tuple(vals.shape), a.dtype, None, a.device, a.comm)

@@ -40,6 +40,8 @@ import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from . import guard, telemetry
 
 __all__ = [
@@ -237,7 +239,8 @@ def tag_buffer(value, tag: str) -> None:
 def _distinct(shards):
     seen = set()
     for s in shards:
-        if id(s) not in seen:
+        # a shard another process holds (mesh.RemoteShard) has no storage here
+        if isinstance(s, torch.Tensor) and id(s) not in seen:
             seen.add(id(s))
             yield s
 

@@ -13,7 +13,9 @@ names, shapes, separators and dataset/variable keys.
 - ``iris_y_pred_proba.csv``: GaussianNB class probabilities for the test
   rows.
 - ``diabetes.h5``: 'x' = (442, 11) intercept column + 10 standardized
-  features, 'y' = (442,) response.
+  features, 'y' = (442,) response; ``diabetes.csv`` the same 442 rows as
+  text, x's 11 columns then y, ';'-separated (the port's examples read it
+  where h5py is missing).
 
 sklearn's ``load_iris`` differs from the reference's own ``iris.csv`` in 2
 rows (the known UCI-vs-Fisher discrepancy, rows 34 and 37), and
@@ -77,6 +79,11 @@ def main() -> None:
             f.create_dataset("y", data=yd)
     except ImportError:
         pass
+    # diabetes.h5's x and y as text, for machines without h5py
+    dia = load_diabetes()
+    Xd = np.concatenate([np.ones((dia.data.shape[0], 1)), np.asarray(dia.data, np.float64)], axis=1)
+    np.savetxt(os.path.join(HERE, "diabetes.csv"), np.concatenate([Xd, np.asarray(dia.target, np.float64)[:, None]], 1),
+               delimiter=";", fmt="%.18e")
 
     try:
         from scipy.io import netcdf_file

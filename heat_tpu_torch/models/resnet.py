@@ -21,6 +21,13 @@ the flax modules exactly:
   scoped).  With ``dtype=torch.bfloat16`` the convolutions and the dense
   layer compute in bf16 while the statistics stay f32, and the logits come
   out in f32.
+* **Across processes.** Inside :func:`batch_stats_across` with a process
+  comm (``DataParallel``'s step sets it), a training BatchNorm all-reduces
+  its per-channel sum, sum of squares and row count, so its statistics and
+  running buffers are the global batch's, as ``heat_tpu``'s BatchNorm over
+  the sharded batch gives.  The all-reduce is an autograd function whose
+  backward all-reduces the statistics' gradients (torch's SyncBatchNorm
+  does the same).
 
 Parameters are made on an explicit device from an explicit
 ``torch.Generator`` with flax's initialisers (truncated-normal LeCun
@@ -31,6 +38,8 @@ loads a flax variable tree instead.  No Pallas kernel is on this path.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from functools import partial
 from typing import Optional, Sequence, Tuple
 
@@ -72,6 +81,40 @@ def no_tf32():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
                        allow_tf32=False)
+
+
+_ACROSS = threading.local()
+
+
+@contextmanager
+def batch_stats_across(comm):
+    """Within the scope, a training :class:`BatchNorm` on this thread takes
+    its statistics over the batch rows of every process of ``comm`` (a
+    process comm; any other comm changes nothing)."""
+    saved = getattr(_ACROSS, "comm", None)
+    _ACROSS.comm = comm if comm is not None and comm.is_process_comm else None
+    try:
+        yield
+    finally:
+        _ACROSS.comm = saved
+
+
+class _SumAcross(torch.autograd.Function):
+    """All-reduce sum over a process comm whose backward all-reduces the
+    gradient: every process's loss reads the summed statistics."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        from ..parallel import collectives
+
+        ctx.comm = comm
+        return collectives.psum([t], comm=comm)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..parallel import collectives
+
+        return collectives.psum([grad.contiguous()], comm=ctx.comm)[0], None
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -123,8 +166,17 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             xf = x.to(torch.float32)
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            comm = getattr(_ACROSS, "comm", None)
+            if comm is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            else:
+                c = xf.shape[1]
+                count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
+                total = _SumAcross.apply(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]),
+                                         comm)
+                mean = total[:c] / total[-1]
+                var = torch.clamp_min(total[c:2 * c] / total[-1] - mean * mean, 0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)

@@ -7,10 +7,13 @@ the parameters), which :meth:`DataParallelOptimizer.init` binds.
 
 ``DASO`` is the hierarchical delayed-sync scheme: slices of positions train
 their own copies of the model between global syncs, and a sync replaces
-every slice's floating variables by their mean over the slices.  The JAX
-package reads the slice count from a two-axis (dcn, ici) mesh; the port's
-``MeshComm`` has one axis, so ``DASO(mesh=(n_slices, per_slice))`` names
-the layout, with ``n_slices · per_slice == comm.size``; no ``mesh`` means one
+every slice's floating variables by their mean over the slices.  As in the
+JAX package the slice count is a two-axis (dcn, ici) mesh's dcn size:
+:func:`~heat_tpu_torch.parallel.hybrid_mesh` builds one, and after
+:func:`~heat_tpu_torch.parallel.init_distributed` its dcn tier is the
+processes, each holding its slice, so a sync is one all-reduce a dtype over
+the dcn group.  ``DASO(mesh=(n_slices, per_slice))`` names a layout of one
+process, with ``n_slices · per_slice == comm.size``; no ``mesh`` means one
 slice, as a one-axis JAX mesh gives.  The phase machine (warm-up, cycling,
 cool-down, the skip adaptation) is host Python, as in the JAX package.
 """
@@ -22,7 +25,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..parallel.mesh import MeshComm, sanitize_comm
+import numpy as np
+
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, MeshComm, sanitize_comm
 
 __all__ = ["DASO", "DataParallelOptimizer"]
 
@@ -80,11 +86,15 @@ class DataParallelOptimizer:
 class DASO:
     """Hierarchical delayed-sync data parallelism (heat_tpu/optim/dp_optimizer.py:75).
 
-    ``mesh`` is ``(n_slices, per_slice)`` over ``comm``'s positions.
+    ``mesh`` is a two-axis (dcn, ici) :class:`~heat_tpu_torch.parallel.Mesh`
+    (:func:`~heat_tpu_torch.parallel.hybrid_mesh`) or ``(n_slices,
+    per_slice)`` over ``comm``'s positions.
     :class:`heat_tpu_torch.nn.DataParallelMultiGPU` keeps one copy of the
-    model and one optimizer state a slice, steps each slice on its B/n rows,
-    and averages the slices' floating variables whenever
-    :meth:`should_sync_globally` says so."""
+    model and one optimizer state a slice this process holds
+    (:attr:`local_slices`), steps each slice on its B/n rows, and averages
+    the slices' floating variables whenever :meth:`should_sync_globally`
+    says so.  ``reduced_comms`` holds one sub-communicator per intra-slice
+    position, spanning the dcn axis (heat_tpu/optim/dp_optimizer.py:150)."""
 
     def __init__(
         self,
@@ -111,10 +121,26 @@ class DASO:
         self.comm = sanitize_comm(comm)
         if mesh is None:
             mesh = (1, self.comm.size)
-        mesh = tuple(int(m) for m in mesh)
-        if len(mesh) != 2 or mesh[0] * mesh[1] != self.comm.size:
-            raise ValueError(f"mesh {mesh} must be (n_slices, per_slice) with a product of comm.size = {self.comm.size}")
+        if not isinstance(mesh, Mesh):
+            mesh = tuple(int(m) for m in mesh)
+            if len(mesh) != 2 or mesh[0] * mesh[1] != self.comm.size:
+                raise ValueError(
+                    f"mesh {mesh} must be (n_slices, per_slice) with a product of comm.size = {self.comm.size}"
+                )
+            grid = Mesh(np.arange(mesh[0] * mesh[1]).reshape(mesh), ("dcn", "ici"))
+        else:
+            grid = mesh
         self.mesh = mesh
+        names = grid.axis_names
+        self.dcn_axis = names[0] if len(names) > 1 else None
+        self.reduced_comms: List[MeshComm] = []
+        if self.dcn_axis is not None:
+            ici_pos = 1
+            for i in range(grid.devices.shape[ici_pos]):
+                col = np.take(grid.devices, [i], axis=ici_pos).reshape(-1)
+                self.reduced_comms.append(MeshComm(Mesh(col, (self.dcn_axis,), grid.per_process),
+                                                   split_axis=self.dcn_axis))
+        self._n_slices = int(grid.shape[self.dcn_axis]) if self.dcn_axis else 1
         self.total_epochs = total_epochs
         self.warmup_epochs = warmup_epochs
         self.cooldown_epochs = cooldown_epochs
@@ -131,7 +157,22 @@ class DASO:
 
     @property
     def n_slices(self) -> int:
-        return self.mesh[0]
+        return self._n_slices
+
+    @property
+    def dcn_comm(self) -> Optional[MeshComm]:
+        """The comm over the slices along the dcn axis (a process comm when
+        the dcn tier is the processes)."""
+        return self.reduced_comms[0] if self.reduced_comms else None
+
+    @property
+    def across_processes(self) -> bool:
+        return self.dcn_comm is not None and self.dcn_comm.is_process_comm
+
+    @property
+    def local_slices(self) -> Tuple[int, ...]:
+        """The slices whose copies this process holds."""
+        return self.dcn_comm.local_positions if self.across_processes else tuple(range(self.n_slices))
 
     @property
     def tx(self):
@@ -141,8 +182,13 @@ class DASO:
         self.local_optimizer._bind_model(model)
 
     def stack_tree(self, module: torch.nn.Module) -> List[torch.nn.Module]:
-        """``n_slices`` copies of ``module``, one a slice."""
-        return [module] + [copy.deepcopy(module) for _ in range(self.n_slices - 1)]
+        """One copy of ``module`` a slice this process holds; across
+        processes every slice starts from slice 0's variables."""
+        if self.across_processes:
+            with torch.no_grad():
+                for t in module.state_dict(keep_vars=True).values():
+                    t.data.copy_(collectives.bcast([t.data], root=0, comm=self.dcn_comm)[0])
+        return [module] + [copy.deepcopy(module) for _ in range(len(self.local_slices) - 1)]
 
     def init(self, replicas: Sequence[torch.nn.Module]) -> None:
         """One optimizer state a slice, over that slice's copy."""
@@ -205,7 +251,11 @@ class DASO:
     @torch.no_grad()
     def sync(self, replicas: Sequence[torch.nn.Module]) -> None:
         """Every slice's floating parameters and buffers replaced by their
-        mean over the slices; other buffers by slice 0's."""
+        mean over the slices; other buffers by slice 0's.  ``replicas`` are
+        this process's slices; across processes the floating variables are
+        summed by one all-reduce a dtype over the dcn group."""
+        if self.across_processes:
+            return self._sync_across(replicas)
         if len(replicas) < 2:
             return
         states = [r.state_dict(keep_vars=True) for r in replicas]
@@ -217,6 +267,28 @@ class DASO:
             else:
                 for s in states[1:]:
                     s[name].data.copy_(first)
+
+    def _sync_across(self, replicas: Sequence[torch.nn.Module]) -> None:
+        comm, n = self.dcn_comm, self.n_slices
+        states = [r.state_dict(keep_vars=True) for r in replicas]
+        floats, others = [], []
+        for name, first in states[0].items():
+            if torch.is_floating_point(first):
+                total = first.detach().clone()
+                for st in states[1:]:
+                    total += st[name].detach()
+                floats.append((name, total))
+            else:
+                others.append(name)
+        collectives.psum_flat([t for _, t in floats], comm)
+        for name, t in floats:
+            mean = (t / n).to(t.dtype)
+            for st in states:
+                st[name].data.copy_(mean)
+        for name in others:
+            value = collectives.bcast([states[0][name].data], root=0, comm=comm)[0]
+            for st in states:
+                st[name].data.copy_(value)
 
     def zero_grad(self) -> None:
         for opt in self.optimizers:

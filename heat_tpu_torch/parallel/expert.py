@@ -177,6 +177,8 @@ def moe_ffn(
     channel) scales applied after each product, dispatched per geometry
     over the ``("bf16", "int8")`` autotune arms, an explore call returning
     the bf16 (dequantized) arm's result."""
+    if mesh is not None:
+        mesh.only_local("expert.moe_ffn")
     q_in, q_out = _is_quantized(w_in), _is_quantized(w_out)
     if q_in != q_out:
         raise ValueError(

@@ -538,6 +538,7 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
     f32 wire, and ``rs`` declines (its travelling partial sum cannot be
     re-quantized at every hop).  ``precision`` is accepted for parity:
     products are IEEE float32."""
+    comm.only_local("overlap.matmul_raw")
     a, b = list(a), list(b)
     sanitize.check_use(a, "overlap.matmul_raw")
     sanitize.check_use(b, "overlap.matmul_raw")
@@ -669,6 +670,7 @@ def matmul(a, b, out_split="auto", *, epilogue: Optional[Epilogue] = None, preci
     the eager arm (the caller runs its own product).  ``out_split="auto"``
     follows the convention (row-split a -> 0, col-split b -> 1, an inner
     split -> replicated); ``rs`` honours any explicit request."""
+    a.comm.only_local("overlap.matmul")
     from ..core import types
     from ..core.dndarray import DNDarray
 

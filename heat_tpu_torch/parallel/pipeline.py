@@ -58,6 +58,7 @@ def stack_stage_params(params_list, mesh: MeshComm, axis: str = "pp"):
     """Stack the per-stage parameter trees on a leading dimension of one
     slice per position (heat_tpu/parallel/pipeline.py:30).  All stages must
     share one tree structure."""
+    mesh.only_local("pipeline.stack_stage_params")
     n_stages = mesh.size
     if len(params_list) != n_stages:
         raise ValueError(f"{len(params_list)} stage trees for a {n_stages}-way {axis!r} axis")
@@ -74,6 +75,7 @@ def pipeline_apply(fn: Callable, stage_params, x: torch.Tensor, *, mesh: MeshCom
     with a leading ``n_stages`` dimension (:func:`stack_stage_params`).
     ``x``'s leading dimension must divide into ``n_micro`` microbatches;
     the bubble fraction is ``(n_stages − 1) / (n_micro + n_stages − 1)``."""
+    mesh.only_local("pipeline.pipeline_apply")
     n_stages = mesh.size
     leading = {int(leaf.shape[0]) for leaf in _leaves(stage_params)}
     if leading != {n_stages}:

@@ -36,6 +36,7 @@ def distributed_mask_select(
     ``flatten=True`` serves the full-``ndim`` mask of a split-0 array: each
     shard and its mask are flattened row-major first, and the output is 1-D.
     ``n_sel`` is the mask's true count."""
+    comm.only_local("select.distributed_mask_select")
     picked = []
     for s, m in zip(shards, mask_shards):
         m = m.to(device=s.device, dtype=torch.bool)
@@ -67,6 +68,7 @@ def distributed_pair_take(
     and dimension ``p2`` is consumed.  ``cols`` is 1-D, as long as the
     ``t_ax`` extent, normalised to ``[0, dim_p2)``; each position reads its
     own span of it, with no exchange."""
+    comm.only_local("select.distributed_pair_take")
     p2_m = p2 + 1 if p2 < t_ax else p2  # p2 after t moves to the front
     t_after = t_ax - (1 if p2 < t_ax else 0)  # t's position after the squeeze
     out = []

@@ -157,6 +157,7 @@ def sequence_parallel_attention(
     if strategy not in ("ring", "ulysses"):
         raise ValueError(f"unknown strategy {strategy!r}")
     comm = sanitize_comm(comm)
+    comm.only_local("sequence.sequence_parallel_attention")
     n = comm.size
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"sequence_parallel_attention takes (batch, heads, seq, head_dim), got {q.ndim}-D")

@@ -9,8 +9,18 @@ orders by the total key (value, original index), so both partners agree on
 ties and the result is the stable sort, independent of the number of
 positions.  The blocks keep the chunk rule's sizes throughout (a short or
 empty trailing block included: by the 0-1 principle ``S`` rounds still
-sort), so the data axis is never gathered.  The JAX package switches to
-columnsort on large meshes; both give the same permutation.
+sort), so the data axis is never gathered.  ``method="columnsort"``
+takes Leighton's columnsort instead, on six positions or more with blocks
+of at least ``2(S-1)²`` rows: sort each block (a column), deal it
+round-robin over the columns, sort, undeal, sort, then three merge-split
+rounds of neighbours; its columns are padded to a multiple of ``S`` rows
+with flagged pads that sort to the tail, and the sorted columns are cut
+back to the chunk rule.  Both give the same permutation.  The JAX package's
+``"auto"`` takes columnsort wherever it applies, since on a TPU each
+network round is an exchange between chips; here every position lies on
+one card, where columnsort took 1.9–2.3× the network's time at 784 and
+1e5 rows over 8 positions and the same at 1e7 (``chip_smoke.py``'s
+``sort_method_paths`` on an H100), so ``"auto"`` takes the network.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 __all__ = [
+    "columnsort_applicable",
     "distributed_sort",
     "distributed_topk",
     "ordered_less",
@@ -84,15 +95,42 @@ def _order(keys: torch.Tensor, idx: torch.Tensor, payloads: Sequence[torch.Tenso
     return keys.gather(0, perm), idx.gather(0, perm), [p.gather(0, perm) for p in payloads]
 
 
+def columnsort_applicable(nshards: int, per: int) -> bool:
+    """Leighton's bound (heat_tpu/parallel/sort.py:184): a column of ``r``
+    rows over ``s`` columns sorts in the 5-step schedule iff ``r >=
+    2(s-1)²``, ``r`` the block padded to a multiple of ``s``; below six
+    positions the network's rounds are as few."""
+    per_pad = -(-per // nshards) * nshards
+    return nshards >= 6 and per_pad >= 2 * (nshards - 1) ** 2
+
+
 def distributed_sort(
-    shards: Sequence[torch.Tensor], axis: int, descending: bool = False, payloads: Sequence[Sequence[torch.Tensor]] = ()
+    shards: Sequence[torch.Tensor], axis: int, descending: bool = False, payloads: Sequence[Sequence[torch.Tensor]] = (),
+    method: str = "auto",
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[List[torch.Tensor]]]:
     """Sort the shards of an array split along ``axis``
     (heat_tpu/parallel/sort.py:395): returns the sorted shards (stable, NaN
     last ascending and first descending, as ``torch.sort``/``jnp.sort``),
     the original global positions along ``axis`` as int32 shards, and each
-    payload (a list of shards aligned with the keys) reordered alike."""
+    payload (a list of shards aligned with the keys) reordered alike.
+    ``method``: ``"auto"`` and ``"network"`` take the odd-even network (on
+    one card it is never slower; module docstring), ``"columnsort"`` takes
+    columnsort, which raises below Leighton's bound
+    (:func:`columnsort_applicable`)."""
     S = len(shards)
+    per = max(s.shape[axis] for s in shards) if S else 0
+    if method == "auto":
+        method = "network"
+    if method == "columnsort":
+        per_pad = -(-per // S) * S
+        if per_pad < 2 * (S - 1) ** 2:
+            raise ValueError(
+                f"columnsort needs a padded block of >= 2(s-1)^2 = {2 * (S - 1) ** 2} rows per shard, "
+                f"got {per_pad}; use method='network'"
+            )
+        return _columnsort(shards, axis, descending, payloads, per)
+    if method != "network":
+        raise ValueError(f"unknown sort method {method!r}")
     keys, idx, pays = [], [], []
     off = 0
     for r, s in enumerate(shards):
@@ -121,6 +159,70 @@ def distributed_sort(
     indices = [i.movedim(0, axis).to(torch.int32).contiguous() for i in idx]
     moved = [[p.movedim(0, axis).contiguous() for p in ps] for ps in pays]
     return values, indices, [[moved[r][j] for r in range(S)] for j in range(len(payloads))]
+
+
+def _order_padded(arrs: List[torch.Tensor], descending: bool) -> List[torch.Tensor]:
+    """Reorder ``[keys, idx, pad, *payloads]`` along dim 0 by the total key
+    (pad flag, key, index): real elements first, ordered as :func:`_order`
+    orders them; pads after."""
+    perm = torch.argsort(arrs[1], dim=0, stable=True)
+    arrs = [a.gather(0, perm) for a in arrs]
+    _, perm = stable_sort(arrs[0], 0, descending)
+    arrs = [a.gather(0, perm) for a in arrs]
+    perm = torch.argsort(arrs[2].to(torch.uint8), dim=0, stable=True)
+    return [a.gather(0, perm) for a in arrs]
+
+
+def _columnsort(shards, axis: int, descending: bool, payloads, per: int):
+    """Leighton's columnsort over the positions' blocks
+    (heat_tpu/parallel/sort.py:196): each position's block (``per`` rows by
+    the chunk rule, padded to ``per_pad = b·S`` with flagged pads) is a
+    column; sort, deal (row i of column j to column i mod S, row j·b +
+    i//S), sort, undeal, sort, then merge-split rounds of neighbours (even,
+    odd, even), each keeping ``per_pad`` rows; the columns then hold the
+    sorted sequence, real elements first, and are cut to the chunk rule."""
+    S = len(shards)
+    b = -(-per // S)
+    per_pad = b * S
+    cols, off = [], 0
+    for r, sh in enumerate(shards):
+        k = sh.movedim(axis, 0)
+        n, rest, dev = k.shape[0], tuple(k.shape[1:]), sh.device
+        lead = (per_pad,) + (1,) * len(rest)
+        idx = (torch.arange(per_pad, device=dev, dtype=torch.int64) + off).reshape(lead).expand((per_pad,) + rest)
+        pad = (torch.arange(per_pad, device=dev) >= n).reshape(lead).expand((per_pad,) + rest)
+        grow = lambda t: torch.cat([t, t.new_zeros((per_pad - n,) + tuple(t.shape[1:]))]) if per_pad > n else t
+        cols.append([grow(k), idx.contiguous(), pad.contiguous()] + [grow(q[r].movedim(axis, 0)) for q in payloads])
+        off += n
+    n_total = off
+    cols = [_order_padded(c, descending) for c in cols]
+    width = len(cols[0])
+    # deal: column c gathers row block [:, c] of every column's (b, S) view
+    views = [[a.reshape((b, S) + tuple(a.shape[1:])) for a in c] for c in cols]
+    cols = [[torch.cat([views[j][t][:, c] for j in range(S)]) for t in range(width)] for c in range(S)]
+    cols = [_order_padded(c, descending) for c in cols]
+    # undeal: column j interleaves rows [j·b, (j+1)·b) of every column
+    cols = [[torch.stack([cols[c][t][j * b:(j + 1) * b] for c in range(S)], dim=1).reshape(cols[0][t].shape)
+             for t in range(width)] for j in range(S)]
+    cols = [_order_padded(c, descending) for c in cols]
+    for parity in (0, 1, 0):
+        for a in range(parity, S - 1, 2):
+            merged = _order_padded([torch.cat([x, y]) for x, y in zip(cols[a], cols[a + 1])], descending)
+            cols[a], cols[a + 1] = [m[:per_pad] for m in merged], [m[per_pad:] for m in merged]
+    # the real elements lead the column sequence: cut it by the chunk rule
+    outs = [[] for _ in range(width)]
+    start = 0
+    for r in range(S):
+        end = min(start + per, n_total)
+        for t in range(width):
+            pieces = [cols[c][t][max(start - c * per_pad, 0):max(min(end - c * per_pad, per_pad), 0)]
+                      for c in range(start // per_pad, S) if c * per_pad < end]
+            outs[t].append(torch.cat(pieces) if pieces else cols[0][t][:0])
+        start = end
+    values = [k.movedim(0, axis).contiguous() for k in outs[0]]
+    indices = [i.movedim(0, axis).to(torch.int32).contiguous() for i in outs[1]]
+    moved = [[p.movedim(0, axis).contiguous() for p in outs[3 + j]] for j in range(len(payloads))]
+    return values, indices, moved
 
 
 def _total_order_key(t: torch.Tensor) -> torch.Tensor:

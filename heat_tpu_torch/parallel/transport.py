@@ -419,6 +419,7 @@ def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int
     result's shards are new contiguous tensors; the sources are untouched.
     A floating payload may travel on a quantized wire (module docstring);
     ``exact=True`` pins the f32 wire."""
+    comm.only_local("transport.tiled_resplit")
     if len(shards) != comm.size:
         raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
     sanitize.check_use(list(shards), "transport.tiled_resplit")
@@ -562,6 +563,7 @@ def rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> 
     contiguous tensor of those rows' shape, such as a shard's row range)
     or into a new tensor; destinations without rows give ``None``.  Bit
     for bit; no other copy of the array exists."""
+    comm.only_local("transport.rechunk_rows")
     m = sum(int(s.shape[0]) for s in shards)
     nbytes = m * math.prod(shards[0].shape[1:]) * shards[0].element_size()
     key = (m, tuple(shards[0].shape[1:]), tuple(dst_bounds))
@@ -590,6 +592,7 @@ def tiled_reshape(
     split-crossing reshape (resplit to split 0, rechunk, resplit to ``so``)
     takes its own wire decision; ``exact=True`` pins the f32 wire on every
     stage."""
+    comm.only_local("transport.tiled_reshape")
     gin = tuple(int(d) for d in gin)
     gout = tuple(int(d) for d in gout)
     sanitize.check_use(list(shards), "transport.tiled_reshape")
@@ -699,6 +702,7 @@ def tiled_take(
     copies them into place, so every output row moves once, at most
     ``_TAKE_BYTES`` of them at a time beside the output.  The host reads
     one (destination, owner) table of row counts per call."""
+    comm.only_local("transport.tiled_take")
     _wire.decline("take")
     key = (tuple(shards[0].shape), int(rows.numel()), int(n), int(split))
     return _engine("take", key, shards[0], comm, split, lambda tb: _take(shards, rows, n, split, comm))

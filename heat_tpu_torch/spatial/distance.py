@@ -156,16 +156,20 @@ def _block(xa: torch.Tensor, ya: torch.Tensor, promoted, sqrt: bool, out: Option
 
 
 def _whole(a: DNDarray) -> torch.Tensor:
-    """The global tensor of ``a``, all-gathered when it is split."""
+    """The global tensor of ``a``, all-gathered when it is split (through
+    the process route on a process comm)."""
     if a.split is None:
         return a.shards[0]
-    return collectives.all_gather(a.shards, dim=a.split)[0]
+    return collectives.all_gather(a.comm.local_shards(a.shards), dim=a.split, comm=a.comm)[0]
 
 
 def _ring_eligible(x: DNDarray, y: DNDarray) -> bool:
-    """heat_tpu's ring layout (``_ring_eligible``), which stays eager."""
+    """heat_tpu's ring layout (``_ring_eligible``), which stays eager; a
+    comm across processes gathers y instead (the ring's shifts are item
+    14b)."""
     n = x.comm.size
-    return x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
+    return (x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
+            and not x.comm.spans_processes)
 
 
 def _ring_blocks(x_shards, moving, n_cols: int, promoted, sqrt: bool, block_of) -> list:
@@ -262,10 +266,14 @@ def _euclid(x: DNDarray, y: DNDarray, sqrt: bool) -> DNDarray:
         return _ring_cdist(x, y, promoted, sqrt)
     if x.split == 0:
         ya = _whole(y)
-        shards, split = [_block(xs, ya, promoted, sqrt) for xs in x.shards], 0
+        src = x.shards
+        shards, split = comm.per_position(lambda r: _block(src[r], ya, promoted, sqrt),
+                                          (x.shape[0], y.shape[0]), 0), 0
     elif y.split == 0:
         xa = _whole(x)
-        shards, split = [_block(xa, ys, promoted, sqrt) for ys in y.shards], 1
+        src = y.shards
+        shards, split = comm.per_position(lambda r: _block(xa, src[r], promoted, sqrt),
+                                          (x.shape[0], y.shape[0]), 1), 1
     else:
         out = _block(_whole(x), _whole(y), promoted, sqrt)
         shards, split = [out] * comm.size, None
@@ -342,10 +350,12 @@ def manhattan(x: DNDarray, y: Optional[DNDarray] = None, expand: bool = False) -
     comm = x.comm
     if x.split == 0:
         ya = _whole(y).to(tt)
-        shards, split = [_l1(xs.to(tt), ya) for xs in x.shards], 0
+        src = x.shards
+        shards, split = comm.per_position(lambda r: _l1(src[r].to(tt), ya), (x.shape[0], y.shape[0]), 0), 0
     elif y.split == 0:
         xa = _whole(x).to(tt)
-        shards, split = [_l1(xa, ys.to(tt)) for ys in y.shards], 1
+        src = y.shards
+        shards, split = comm.per_position(lambda r: _l1(xa, src[r].to(tt)), (x.shape[0], y.shape[0]), 1), 1
     else:
         out = _l1(_whole(x).to(tt), _whole(y).to(tt))
         shards, split = [out] * comm.size, None

@@ -115,3 +115,63 @@ def test_network_sorts_every_chunk_layout():
             want = torch.sort(x, stable=True)
             assert torch.equal(torch.cat(vals), want.values)
             assert torch.equal(torch.cat(idx).long(), want.indices)
+
+
+# ------------------------------------------------------------------ columnsort
+COLUMNSORT_CASES = {
+    "floats": lambda rng: rng.standard_normal(1000).astype(np.float32),
+    "ties": lambda rng: rng.integers(0, 7, 1200).astype(np.int32),
+    "short-tail": lambda rng: (rng.random(790) < 0.5).astype(np.float32),
+}
+
+
+@pytest.mark.parametrize("method", ("columnsort", "network"))
+@pytest.mark.parametrize("case", list(COLUMNSORT_CASES))
+def test_columnsort_matches_heat_tpu(ht, case, method):
+    """At mesh 8 both of heat_tpu's methods give the port's permutation,
+    whichever method the port takes: values and int32 indices bitwise."""
+    import jax
+    import jax.numpy as jnp
+    from heat_tpu.parallel.sort import distributed_sort
+
+    a = COLUMNSORT_CASES[case](np.random.default_rng(len(case)))
+    n = a.size
+    jc = ht.parallel.mesh.local_mesh(8)
+    per = -(-n // 8)
+    phys = np.zeros(per * 8, a.dtype)
+    phys[:n] = a
+    vj, ij = (np.asarray(o)[:n] for o in distributed_sort(
+        jax.device_put(jnp.asarray(phys), jc.sharding(0, 1)), jc.mesh, jc.split_axis, 0, n, method=method)[:2])
+    shards = htt.array(a, split=0, comm=htt.MeshComm(8), device="cpu").shards
+    vt, it, _ = psort.distributed_sort(shards, 0, method=method)
+    assert [v.shape[0] for v in vt] == [s.shape[0] for s in shards]
+    np.testing.assert_array_equal(torch.cat(vt).numpy(), vj)
+    np.testing.assert_array_equal(torch.cat(it).numpy(), ij)
+    assert all(i.dtype == torch.int32 for i in it)
+
+
+def test_columnsort_dispatch_and_bound(ht, monkeypatch):
+    from heat_tpu.parallel.sort import columnsort_applicable
+
+    for s in (4, 6, 8):
+        for per in (10, 49, 50, 97, 98, 99, 400):
+            assert psort.columnsort_applicable(s, per) == columnsort_applicable(s, per), (s, per)
+    # "auto" takes the network even where columnsort applies (every
+    # position lies on one device, where the network is never slower);
+    # "columnsort" forces it at mesh 8 with a padded block of 98 rows
+    taken = []
+    real = psort._columnsort
+    monkeypatch.setattr(psort, "_columnsort", lambda *a: taken.append(a[-1]) or real(*a))
+    x = _ties((8 * 98,), seed=3)
+    b = htt.array(x, split=0, comm=htt.MeshComm(8), device="cpu")
+    vals, _ = htt.sort(b)
+    assert taken == []
+    np.testing.assert_array_equal(vals.numpy(), np.sort(x, kind="stable"))
+    forced, _, _ = psort.distributed_sort(b.shards, 0, method="columnsort")
+    assert taken == [98]
+    np.testing.assert_array_equal(torch.cat(forced).numpy(), np.sort(x, kind="stable"))
+    with pytest.raises(ValueError, match=r"2\(s-1\)\^2 = 98"):
+        psort.distributed_sort(htt.array(x[:80], split=0, comm=htt.MeshComm(8), device="cpu").shards, 0,
+                               method="columnsort")
+    with pytest.raises(ValueError, match="unknown sort method"):
+        psort.distributed_sort(b.shards, 0, method="bitonic")
