@@ -5719,6 +5719,10 @@ PROC_KM = (2_000_000, 64, 8)  # rows, features, k: a KMeans fit from given centr
 PROC_KM_ITERS = 10
 PROC_RN = (16, 64, 3)  # ResNet-18 batch, image side, steps
 PROC_DASO = (64, 784, 10)  # rows, features, classes of DASO's MLP
+PROC_RESPLIT = (2_000_000, 64)  # f32 rows x columns (512 MB): resplit 0 -> 1 -> 0 and shuffle_rows
+PROC_RESHAPE = ((999_999, 20), (1_999_998, 10))  # f32, 80 MB (benchmarks/cb/config.py:186-188)
+PROC_SORT = 10_000_000  # f32 keys sorted along the split (the odd-even network)
+PROC_KMEDOIDS = (200_000, 64, 8, 6)  # rows, features, k, at most this many iterations (kmedoids++)
 PROC_CHILD_LIMIT = 240  # seconds for each child process
 TOL_PROC = 1e-4  # a two-process step against the one-process global batch, relative to the scale
 
@@ -5813,6 +5817,95 @@ def proc_daso_run(ht, across: bool, seed: int, dev):
     return losses, kernels, daso.reduced_comms[0]
 
 
+def fingerprint(t: torch.Tensor) -> list:
+    """Two int64 sums of ``t``'s bits, one weighted by position (wrapping
+    alike on every run): equal fingerprints of two results mean the same
+    bits with overwhelming likelihood, without moving the data off the
+    card."""
+    flat = t.contiguous().view(-1)
+    words = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[flat.element_size()])
+    words = words.to(torch.int64)
+    weight = torch.arange(words.numel(), device=words.device, dtype=torch.int64) % 65521 + 1
+    return [int(words.sum()), int((words * weight).sum())]
+
+
+def proc_move_run(ht, comm, seed: int, dev, k1, k7) -> dict:
+    """Shards moving between positions on ``comm``: a resplit 0 -> 1 -> 0
+    of ``PROC_RESPLIT``, the benchmark's reshape ``PROC_RESHAPE``,
+    ``shuffle_rows`` of the resplit's array, a sort of ``PROC_SORT`` keys
+    along the split, a KMeans fit of ``PROC_KM`` from ``init="kmeans++"``
+    and a KMedoids fit of ``PROC_KMEDOIDS`` from ``"kmedoids++"``.  Returns
+    per op its ms (this process's wall, card-synchronised, after a barrier
+    across processes), the exchange's counters, K1's and K7's launches,
+    this process's positions' result fingerprints, the centres (the
+    kmeans++ seeding's alone too) and the KMeans fit's labels."""
+    from heat_tpu_torch.parallel import transport
+
+    across = comm.spans_processes
+    out, prints, centres = {}, {}, {}
+
+    def timed(name, fn, results):
+        transport.reset_stats()
+        k1.launches = k7.launches = 0
+        torch.cuda.synchronize()
+        if across:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        st = transport.stats()
+        out[name] = {"ms": ms, "sent": st["sent_bytes"], "staged": st["staged_bytes"], "exchanges": st["exchanges"],
+                     "k1": k1.launches, "k7": k7.launches}
+        prints[name] = {str(r): fingerprint(t.shards[r]) for t in results(res) for r in comm.local_positions
+                        if t.split is not None} if results else {}
+        return res
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 45)
+    x = torch.randn(*PROC_RESPLIT, generator=gen, device=dev)
+    a = ht.array(x, split=0, comm=comm)
+    b = timed("resplit 0->1", lambda: a.resplit(1), lambda r: [r])
+    timed("resplit 1->0", lambda: b.resplit(0), lambda r: [r])
+    del b
+    ht.random.seed(seed)
+    timed("shuffle_rows", lambda: ht.random.shuffle_rows([a])[0], lambda r: [r])
+    del a, x
+    (m_in, f_in), shape_out = PROC_RESHAPE
+    xr = ht.array(torch.randn(m_in, f_in, generator=gen, device=dev), split=0, comm=comm)
+    timed("reshape", lambda: ht.reshape(xr, shape_out, new_split=0), lambda r: [r])
+    del xr
+    ks = ht.array(torch.randn(PROC_SORT, generator=gen, device=dev), split=0, comm=comm)
+    timed("sort", lambda: ht.sort(ks), lambda r: list(r))
+    del ks
+    n, f, k = PROC_KM
+    g2 = torch.Generator(device=dev).manual_seed(seed + 42)
+    means = 4 * torch.randn(k, f, generator=g2, device=dev)
+    xk = means[torch.randint(0, k, (n,), generator=g2, device=dev)] + torch.randn(n, f, generator=g2, device=dev)
+    xd = ht.array(xk, split=0, comm=comm)
+
+    def seeding():
+        est = ht.cluster.KMeans(n_clusters=k, init="kmeans++", random_state=seed)
+        est._initialize_cluster_centers(xd)
+        return est
+
+    centres["kmeans++ seeding"] = timed("kmeans++ seeding", seeding, None).cluster_centers_.larray.clone()
+    km = timed("kmeans++ fit", lambda: ht.cluster.KMeans(n_clusters=k, init="kmeans++", max_iter=PROC_KM_ITERS, tol=-1,
+                                                         random_state=seed).fit(xd), None)
+    centres["kmeans++ fit"] = km.cluster_centers_.larray.clone()
+    labels = {str(r): km.labels_.shards[r].reshape(-1).cpu() for r in comm.local_positions}
+    del xd, xk, km
+    n, f, k, iters = PROC_KMEDOIDS
+    g3 = torch.Generator(device=dev).manual_seed(seed + 46)
+    means = 4 * torch.randn(k, f, generator=g3, device=dev)
+    xm = means[torch.randint(0, k, (n,), generator=g3, device=dev)] + torch.randn(n, f, generator=g3, device=dev)
+    xd = ht.array(xm, split=0, comm=comm)
+    kmo = timed("kmedoids fit", lambda: ht.cluster.KMedoids(n_clusters=k, init="kmedoids++", max_iter=iters,
+                                                            random_state=seed).fit(xd), lambda r: [r.labels_])
+    centres["kmedoids fit"] = kmo.cluster_centers_.larray.clone()
+    out["kmedoids fit"]["n_iter"] = kmo.n_iter_
+    return {"ops": out, "prints": prints, "centres": centres, "labels": labels}
+
+
 def process_child(args) -> int:
     """One process of ``process_paths``' second leg (``--process-child``):
     ``nccl`` asks NCCL for two ranks on the one card and records its
@@ -5845,6 +5938,7 @@ def process_child(args) -> int:
     dev = torch.device("cuda", 0)
     k1._kernel()
     k3._kernel()
+    ht.wire.set_mode("off")  # as in the parent: the moves are held bit for bit
     rank, size = ht.parallel.init_distributed(f"127.0.0.1:{args.port}", 2, args.rank, backend="gloo")
     comm = ht.parallel.world()
     res.update(size=size, backend=torch.distributed.get_backend(), comm=repr(comm))
@@ -5864,6 +5958,16 @@ def process_child(args) -> int:
     res.update(k1=k1.launches, km_inertia=inertia, km_s=wall, km_first=first)
     torch.save({"daso": {s: k.cpu() for s, k in kernels.items()}, "centres": centres.cpu(), "labels": labels.cpu()},
                out_dir / f"misc{args.rank}.pt")
+    # shards moving between the processes: 2 x 2 positions of local_mesh(4)
+    from heat_tpu_torch.ops import repack as k7
+
+    k7._kernel()
+    four = ht.parallel.local_mesh(4)
+    proc_move_run(ht, four, args.seed, dev, k1, k7)  # warm-up: first uses of the kernels' modules in this process
+    moves = proc_move_run(ht, four, args.seed, dev, k1, k7)
+    res.update(moves_comm=repr(four), moves=moves["ops"], move_prints=moves["prints"])
+    torch.save({"centres": {k: v.cpu() for k, v in moves["centres"].items()}, "labels": moves["labels"]},
+               out_dir / f"moves{args.rank}.pt")
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     (out_dir / f"gloo{args.rank}.json").write_text(json.dumps(res))
@@ -5913,8 +6017,19 @@ def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
     gloo on the one card (``backend="gloo"``): TransformerLM steps through
     K3, ResNet-18 with the cross-process BatchNorm, DASO with the processes
     as slices, KMeans from given centres through K1, each against a
-    one-process run here.  Returns K1's and K3's launches."""
-    out = {"k1": 0, "k3": 0}
+    one-process run here.  Both legs move shards between positions
+    (:func:`proc_move_run`: resplit, reshape through K7, ``shuffle_rows``,
+    the sort network, kmeans++ and kmedoids++ fits through K1): leg 1 on
+    ``local_mesh(4)`` of the world of one, where no pair crosses processes,
+    leg 2 on 2 processes x 2 positions, where the blocks cross through the
+    exchange (staged through pinned host memory on gloo); each is held
+    bit for bit against one process's ``MeshComm(4)``.  Returns K1's, K3's
+    and K7's launches and the moves' numbers."""
+    from heat_tpu_torch.ops import repack as k7
+
+    k7._kernel()
+    out = {"k1": 0, "k3": 0, "k7": 0}
+    one = None
     torch.cuda.empty_cache()
     # ---- leg 1: NCCL at world size 1, as torchrun starts a job of one
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
@@ -5954,6 +6069,27 @@ def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
               f"process: the NCCL KMeans differs from the single controller's or K1 ran {kl} times")
         out["k1"] += kl
         del c, lab, c1, lab1
+        # the moves on the process comm of world 1 (4 positions, none in
+        # another process) against the single controller's MeshComm(4)
+        four = ht.parallel.local_mesh(4)
+        proc_move_run(ht, ht.MeshComm(4), seed, dev, k1, k7)  # warm-up: first uses of the kernels' modules
+        mv_p = proc_move_run(ht, four, seed, dev, k1, k7)
+        one = proc_move_run(ht, ht.MeshComm(4), seed, dev, k1, k7)
+        for name, got in mv_p["ops"].items():
+            want = one["ops"][name]
+            same = mv_p["prints"][name] == one["prints"][name]
+            if name in mv_p["centres"]:
+                same = same and torch.equal(mv_p["centres"][name], one["centres"][name])
+            if name == "kmeans++ fit":
+                same = same and all(torch.equal(mv_p["labels"][r], one["labels"][r]) for r in one["labels"])
+            print(f"[process] {name} on {four!r} (NCCL, world 1): {got['ms']:.4f} ms against {want['ms']:.4f} ms on "
+                  f"MeshComm(4); bitwise equal {same}; exchanges {got['exchanges']}, sent {got['sent']} bytes (no pair "
+                  f"crosses processes); K1 {got['k1']} / {want['k1']}, K7 {got['k7']} / {want['k7']} launches on {card}")
+            check(same and got["sent"] == 0 and (got["k1"], got["k7"]) == (want["k1"], want["k7"]),
+                  f"process: {name} on the NCCL process comm differs from MeshComm(4)")
+            out["k1"] += got["k1"]
+            out["k7"] += got["k7"]
+        del mv_p
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -6031,6 +6167,40 @@ def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
               "process: two-process KMeans differs from one process, or K1 did not run in each")
         out["k1"] += k1_child
         del misc, rn
+        # the moves across the two processes against one process's MeshComm(4) (leg 1's run)
+        moved = [torch.load(Path(tmp) / f"moves{r}.pt") for r in range(2)]
+        print(f"[process] shards moving between 2 gloo processes x 2 positions ({res[0]['moves_comm']}); one process "
+              f"over MeshComm(4) on the same card as reference; ms are each process's wall after a barrier")
+        moves = {}
+        for name, want in one["ops"].items():
+            got = [r["moves"][name] for r in res]
+            mine = {pos: fp for r in res for pos, fp in r["move_prints"][name].items()}
+            same = mine == one["prints"][name]
+            if name == "kmeans++ fit":
+                same = same and all(torch.equal(m["labels"][r], one["labels"][r]) for m in moved for r in m["labels"])
+            if name in one["centres"]:
+                same = same and all(torch.equal(m["centres"][name], one["centres"][name].cpu()) for m in moved)
+            k1_sum, k7_sum = sum(g["k1"] for g in got), sum(g["k7"] for g in got)
+            ms = max(g["ms"] for g in got)
+            sent = sum(g["sent"] for g in got)
+            gbs = sent / (ms * 1e6) if ms > 0 else 0.0
+            moves[name] = {"ms": ms, "sent": sent, "staged": sum(g["staged"] for g in got), "gb_s": gbs,
+                           "one_ms": want["ms"]}
+            print(f"[process] {name}: {' / '.join(format(g['ms'], '.4f') for g in got)} ms (ranks 0 / 1; one "
+                  f"process {want['ms']:.4f} ms); exchanges {got[0]['exchanges']}, sent {sent} bytes, staged "
+                  f"{moves[name]['staged']} bytes through pinned host memory, {gbs:.3f} GB/s sent over the slower "
+                  f"rank's wall; bitwise equal to one process {same}; K1 {[g['k1'] for g in got]} (sum {k1_sum}, one "
+                  f"process {want['k1']}), K7 {[g['k7'] for g in got]} (sum {k7_sum}, one process {want['k7']}) "
+                  f"launches on {card}")
+            check(same, f"process: {name} across two processes differs from one process")
+            check((k1_sum, k7_sum) == (want["k1"], want["k7"]),
+                  f"process: {name}'s K1/K7 launches across the processes differ from one process's")
+            check(name not in ("resplit 0->1", "resplit 1->0", "shuffle_rows", "sort") or sent > 0,
+                  f"process: {name} sent no bytes between the processes")
+            out["k1"] += k1_sum
+            out["k7"] += k7_sum
+        out["moves"] = moves
+        del moved, one
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("[process] not measured here: NVLink and NCCL between ranks on different cards (one card; NCCL refuses "
@@ -6917,8 +7087,9 @@ def main() -> int:
             "route": "cuda",
             "source": "heat_tpu_torch/csrc/repack.cu",
             "replaces": "heat_tpu/ops/repack.py:75",
-            "launches": tr["launches"] + rt["k7"] + io["k7"] + wire["k7"] + flt["k7"],
+            "launches": tr["launches"] + rt["k7"] + io["k7"] + wire["k7"] + flt["k7"] + prc["k7"],
             "launches_transport": tr["launches"],
+            "launches_process": prc["k7"],
             "launches_oom_backoff": flt["k7"],
             "launches_wire": wire["k7"],
             "launches_runtime_core": rt["k7"],
@@ -7000,6 +7171,9 @@ def main() -> int:
           f"comm of world 1 against {prc['single_lm_ms']:.4f} ms/step on the single controller, "
           f"{prc['gloo_lm_ms']:.4f} ms/step over two gloo processes on the one card; the eight examples "
           f"{sum(exm['s'].values()):.1f} s")
+    print("[summary] shards moving between two gloo processes on the one card (slower rank's ms, one process's ms, "
+          "GB/s sent): " + "; ".join(f"{n} {m['ms']:.4f} / {m['one_ms']:.4f} ms, {m['gb_s']:.3f} GB/s"
+                                      for n, m in prc["moves"].items()) + f" on {card}")
     print(f"[summary] {time.perf_counter() - t_start:.1f} s from start to summary")
     print(json.dumps({"kernels": kernels}))
     print(card)

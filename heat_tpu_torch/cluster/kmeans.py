@@ -79,7 +79,8 @@ def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_
     the sum of each row's distance to its nearest centre BEFORE the update
     (0 without ``with_inertia``, which skips its pass).  The centres have
     the data's type, and so does the update.  On a process comm ``blocks``
-    are this process's and the sums go through the process route."""
+    are this process's and the partial sums of every position are added in
+    position order (:func:`collectives.psum_in_order`)."""
     counts, sums, inertia = [], [], []
     for xs in blocks:
         d2 = _k1.cdist(_k1_input(xs), _k1_input(centers), sqrt=False)
@@ -91,9 +92,11 @@ def _lloyd_step(blocks: List[torch.Tensor], centers: torch.Tensor, k: int, with_
         sums.append(_onehot_sums(onehot, xs))
         if with_inertia:
             inertia.append(torch.sum(torch.amin(d2, dim=1)))
-    counts = collectives.psum(counts, comm=comm)[0]
-    sums = collectives.psum(sums, comm=comm)[0]
-    inertia = collectives.psum(inertia, comm=comm)[0] if with_inertia else torch.zeros((), device=centers.device)
+    # across processes in position order, so the step is one process's bit for bit
+    counts = collectives.psum_in_order(counts, comm=comm)[0]
+    sums = collectives.psum_in_order(sums, comm=comm)[0]
+    inertia = (collectives.psum_in_order(inertia, comm=comm)[0] if with_inertia
+               else torch.zeros((), device=centers.device))
     new_centers = torch.where(
         counts[:, None] > 0,
         sums / torch.clamp(counts, min=1)[:, None],

@@ -43,7 +43,7 @@ class KMedians(_KCluster):
         """Per-cluster medians from given labels (heat_tpu/cluster/kmedians.py:47);
         ``fit`` runs the loop."""
         blocks, labels, old = self._label_blocks(x, matching_centroids)
-        new = _kcluster._masked_medians(blocks, labels, self.n_clusters, old)
+        new = _kcluster._masked_medians(blocks, labels, self.n_clusters, old, comm=_kcluster._rows_comm(x))
         return DNDarray(
             [new] * x.comm.size, tuple(new.shape), types.canonical_heat_type(new.dtype), None, x.device, x.comm,
         )

@@ -43,8 +43,9 @@ class KMedoids(_KCluster):
         """Medians from given labels, each snapped to its nearest sample
         (heat_tpu/cluster/kmedoids.py:46)."""
         blocks, labels, old = self._label_blocks(x, matching_centroids)
-        med = _kcluster._masked_medians(blocks, labels, self.n_clusters, old)
-        new = _kcluster._snap(blocks, med, _kcluster._counts(labels, self.n_clusters), old)
+        comm = _kcluster._rows_comm(x)
+        med = _kcluster._masked_medians(blocks, labels, self.n_clusters, old, comm=comm)
+        new = _kcluster._snap(blocks, med, _kcluster._counts(labels, self.n_clusters, comm), old, comm)
         return DNDarray(
             [new] * x.comm.size, tuple(new.shape), types.canonical_heat_type(new.dtype), None, x.device, x.comm,
         )

@@ -518,9 +518,8 @@ def _cum_eager(fn: Callable, x: DNDarray, axis: int, combine: str, dtype, out: O
     first = next(iter(shards.values()))
     keep = torch.int64 if first.dtype == torch.bool else first.dtype
     if x.split == axis and comm.is_process_comm:
-        if combine == "sum":
-            return _finish(_cum_across(fn, x, shards, axis, keep), out)
-        comm.only_local("a cumulative product along the split axis")
+        across = _cum_across if combine == "sum" else _cumprod_across
+        return _finish(across(fn, x, shards, axis, keep), out)
     scanned = {r: fn(s, axis).to(keep) for r, s in shards.items()}
     if x.split == axis and len(scanned) > 1:
         run = None
@@ -551,5 +550,33 @@ def _cum_across(fn: Callable, x: DNDarray, shards, axis: int, keep: torch.dtype)
     ]
     for r, before in zip(local, collectives.exscan(totals, comm=comm)):
         scanned[r] = (scanned[r] + before).to(keep)
+    out = comm.per_position(lambda r: scanned[r], x.shape, axis)
+    return DNDarray(out, x.shape, types.canonical_heat_type(keep), x.split, x.device, comm)
+
+
+def _cumprod_across(fn: Callable, x: DNDarray, shards, axis: int, keep: torch.dtype) -> DNDarray:
+    """A cumulative product along the split axis on a process comm: each of
+    this process's shards scans alone; the last rows of every position's
+    scan are gathered (:func:`collectives.all_gather`, one row a non-empty
+    position), and every process chains them in position order exactly as
+    one process does (each position's product with the combined last row
+    before it), so the values are the single controller's bit for bit."""
+    comm = x.comm
+    local = comm.local_positions
+    scanned = {r: fn(shards[r], axis).to(keep) for r in local}
+    sizes = [int(n) for n in comm.lshape_map(x.shape, axis)[:, axis]]
+    lasts = [scanned[r].narrow(axis, max(sizes[r] - 1, 0), min(sizes[r], 1)) for r in local]
+    rows = collectives.all_gather(lasts, dim=axis, comm=comm, lengths=[min(n, 1) for n in sizes])[0]
+    run, before, at = None, {}, 0
+    for r in range(comm.size):
+        if not sizes[r]:
+            continue
+        before[r] = run
+        last = rows.narrow(axis, at, 1)
+        run = last if run is None else (last * run).to(keep)
+        at += 1
+    for r in local:
+        if before.get(r) is not None:
+            scanned[r] = (scanned[r] * before[r].to(scanned[r].device)).to(keep)
     out = comm.per_position(lambda r: scanned[r], x.shape, axis)
     return DNDarray(out, x.shape, types.canonical_heat_type(keep), x.split, x.device, comm)

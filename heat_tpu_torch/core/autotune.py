@@ -421,6 +421,10 @@ def _on_card(out) -> bool:
         return any(_on_card(o) for o in out)
     if isinstance(out, dict):
         return any(_on_card(o) for o in out.values())
+    from ..parallel.mesh import RemoteShard
+
+    if isinstance(out, RemoteShard):  # another process's shard: its metadata only
+        return out.device.type == "cuda"
     shards = getattr(out, "shards", None)
     if shards is not None and not callable(shards):
         return _on_card(list(shards))

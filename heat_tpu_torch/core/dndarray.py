@@ -21,7 +21,7 @@ from .devices import Device
 from .stride_tricks import sanitize_axis
 from ..parallel import collectives, transport
 from ..parallel.select import distributed_mask_select, distributed_pair_take
-from ..parallel.mesh import MeshComm
+from ..parallel.mesh import MeshComm, RemoteShard
 
 __all__ = ["DNDarray", "LocalIndex"]
 
@@ -100,8 +100,10 @@ def _shard(tensor: torch.Tensor, split: Optional[int], comm: MeshComm) -> List[t
 
 def _gathered(shards, split: int, comm: MeshComm) -> torch.Tensor:
     """The global tensor of a split array: the shards concatenated, across
-    processes through the process route's gather."""
-    return collectives.all_gather(comm.local_shards(shards), dim=split, comm=comm)[0]
+    processes through the process route's gather (each shard crosses to
+    each other process once; the lengths are the chunk rule's)."""
+    lengths = [int(s.shape[split]) for s in shards]
+    return collectives.all_gather(comm.local_shards(shards), dim=split, comm=comm, lengths=lengths)[0]
 
 
 def _wrap(tensor: torch.Tensor, split: Optional[int], device: Device, comm: MeshComm) -> "DNDarray":
@@ -179,15 +181,18 @@ class DNDarray:
 
     @property
     def larray(self) -> torch.Tensor:
-        """The global tensor at its logical shape.  For a split array this
-        concatenates the shards (a gather); per-position work reads
+        """The global tensor at its logical shape (heat_tpu's global array,
+        heat_tpu/core/dndarray.py:201).  For a split array this
+        concatenates the shards (a gather; across processes every process
+        takes part and gets the whole tensor); per-position work reads
         :attr:`shards` instead."""
         if self.__split is None or self.__comm.size == 1:
             t = self.__shards[0]
             if _outside():
                 fusion.expose((t,))
             return t
-        self.__comm.only_local("the global tensor of a split array (.larray)")
+        if self.__comm.spans_processes:
+            return _gathered(self.__shards, self.__split, self.__comm)
         return torch.cat(self.__shards, dim=self.__split)
 
     @property
@@ -467,11 +472,12 @@ class DNDarray:
     # -------------------------------------------------------------- shards
     def lshards(self) -> List[np.ndarray]:
         """Per-position shard data as numpy arrays, in position order
-        (heat_tpu/core/dndarray.py:333); a replicated array gives one."""
+        (heat_tpu/core/dndarray.py:333); a replicated array gives one.
+        Like heat_tpu's addressable shards, across processes these are this
+        process's positions' shards only, with no transfer."""
         if self.__split is None:
             return [self.numpy()]
-        self.__comm.only_local("lshards() of every position")
-        return [_host(s) for s in self.__shards]
+        return [_host(s) for s in self.__comm.local_shards(self.__shards)]
 
     # ------------------------------------------------------------ conversion
     def numpy(self) -> np.ndarray:
@@ -556,11 +562,7 @@ class DNDarray:
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
-        if self.__comm.spans_processes and self.__split is not None:
-            if axis is not None:
-                self.__comm.only_local(f"resplit from axis {self.__split} to axis {axis}")
-            shards = [_gathered(self.__shards, self.__split, self.__comm)] * self.__comm.size
-        elif transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
+        if transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
             # a pending chain is evaluated straight into the new split's
             # tile loop; its expression stays for its other consumers
             shards = fusion.materialize_resplit(self, axis)
@@ -588,8 +590,7 @@ class DNDarray:
     def _resplit(self, axis: Optional[int], exact: bool) -> "DNDarray":
         """:meth:`resplit`; ``exact`` as in :meth:`_resplit_`."""
         axis = sanitize_axis(self.__gshape, axis)
-        if (axis != self.__split and not self.__comm.spans_processes
-                and transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm)):
+        if axis != self.__split and transport.resplit_applicable(self.__gshape, self.__split, axis, self.__comm):
             shards = fusion.materialize_resplit(self, axis)
             if shards is not None:
                 # this array stays pending in its own split
@@ -672,9 +673,12 @@ class DNDarray:
             return t[key].flip(flips) if flips else t[key]
 
         if distributed and whole and new_split is not None:
-            shards = [index(s) for s in self.__shards]
-            gshape = list(shards[0].shape)
+            loc = self.__comm.local_positions[0]
+            first = index(self.__shards[loc])
+            gshape = list(first.shape)
             gshape[new_split] = self.__gshape[split]
+            shards = self.__comm.per_position(lambda r: first if r == loc else index(self.__shards[r]), gshape,
+                                              new_split)
             return DNDarray(shards, tuple(gshape), self.__dtype, new_split, self.__device, self.__comm)
         result = index(self.larray)
         return _wrap(result, new_split if result.ndim else None, self.__device, self.__comm)
@@ -882,9 +886,10 @@ class DNDarray:
             if value.is_distributed() and value.comm.size == self.__comm.size:
                 if value.dtype is not self.__dtype:
                     value = value.astype(self.__dtype)
-                shards = [sh if sh.device == tdev else sh.to(tdev) for sh in value.shards]
+                shards = [sh if sh.device == tdev or isinstance(sh, RemoteShard) else sh.to(tdev)
+                          for sh in value.shards]
                 if any(_shares(sh, self.__shards) for sh in shards):
-                    shards = [sh.clone() for sh in shards]
+                    shards = [sh if isinstance(sh, RemoteShard) else sh.clone() for sh in shards]
                 return DNDarray(shards, value.shape, value.dtype, value.split, self.__device, self.__comm)
             value = value.larray
         if isinstance(value, np.generic):
@@ -903,17 +908,25 @@ class DNDarray:
         return t.clone() if _shares(t, self.__shards) else t
 
     def __positions(self):
-        """(rank, shard, lo, hi) of each distinct shard: its rows of the
-        split dimension; one entry covering everything when the array is
-        not distributed."""
+        """(rank, shard, lo, hi) of each distinct shard of this process: its
+        rows of the split dimension; one entry covering everything when the
+        array is not distributed."""
         if not self.is_distributed():
             n = self.__gshape[self.__split] if self.__split is not None else 0
             return [(0, self.__shards[0], 0, n)]
         out = []
+        local = set(self.__comm.local_positions)
         for r, shard in _distinct(self.__shards):
-            lo = self.__comm.chunk(self.__gshape, self.__split, rank=r)[0]
-            out.append((r, shard, lo, lo + shard.shape[self.__split]))
+            if r in local:
+                lo = self.__comm.chunk(self.__gshape, self.__split, rank=r)[0]
+                out.append((r, shard, lo, lo + shard.shape[self.__split]))
         return out
+
+    def __spans(self):
+        """(lo, hi) of every position's rows of the split dimension, this
+        process's and the others'."""
+        return [(lo, lo + shape[self.__split]) for lo, shape in
+                ((self.__comm.chunk(self.__gshape, self.__split, rank=r)[:2]) for r in range(self.__comm.size))]
 
     def __mask_assign(self, keys, value) -> bool:
         """The mask route: one boolean array key, 1-D on the split
@@ -961,7 +974,13 @@ class DNDarray:
                     m = m.reshape([-1 if d == p else 1 for d in range(self.ndim)])
                 shard.masked_fill_(m, fill)
             return True
-        counts = torch.stack([pieces[r].sum() for r, *_ in positions]).tolist()  # one host read
+        comm = self.__comm
+        local_counts = torch.stack([pieces[r].sum() for r, *_ in positions])
+        if distributed and comm.spans_processes:
+            # every position's count: one gather; the rows follow in one exchange
+            local_counts = collectives.all_gather([c.reshape(1) for c in local_counts.unbind(0)], comm=comm,
+                                                  lengths=[1] * comm.size)[0]
+        counts = local_counts.tolist()  # ht: HT002 ok — one host read: the counts place the value's rows
         starts = np.concatenate(([0], np.cumsum(counts)[:-1])).tolist()
         n_sel = int(sum(counts))
         full_shape = (n_sel,) if flatten else self.__gshape[:p] + (n_sel,) + self.__gshape[p + 1 :]
@@ -972,11 +991,18 @@ class DNDarray:
         def index(m):
             return m if flatten else (slice(None),) * p + (m,)
 
-        by_k7 = distributed and dim == 0 and _rows_contiguous(src, full_shape)
+        by_k7 = distributed and dim == 0 and _rows_contiguous(src, full_shape, comm)
+        if distributed and comm.spans_processes:
+            spans = {r: (starts[r], starts[r] + counts[r]) for r in range(comm.size) if counts[r]}
+            rows = _k7_rows_all(src, spans, comm) if by_k7 else src.fetch(comm, ranges=spans)
+            for r, shard, _, _ in positions:
+                if counts[r]:
+                    shard[index(pieces[r])] = rows[r]
+            return True
         for i, (r, shard, _, _) in enumerate(positions):
             if counts[i]:
                 a, b = starts[i], starts[i] + counts[i]
-                shard[index(pieces[r])] = _k7_rows(src, r, a, b, self.__comm) if by_k7 else src.range(a, b)
+                shard[index(pieces[r])] = _k7_rows(src, r, a, b, comm) if by_k7 else src.range(a, b)
         return True
 
     def __put(self, keys, value) -> None:
@@ -1030,12 +1056,29 @@ class DNDarray:
                     local[split] = local[split] - lo
                 shard[tuple(local)] = src
             return
+        across = self.__comm.spans_processes
         if isinstance(kind, slice):
             src = _value_source(value, full_shape, full_labels, core_labels, ("dim", split), flips)
-            by_k7 = split == 0 and _rows_contiguous(src, core_shape)
+            by_k7 = split == 0 and _rows_contiguous(src, core_shape, self.__comm)
             # whole rows at step 1 lie contiguous in a shard: K7 writes there
             whole_rows = by_k7 and kind.step == 1 and all(
                 c == slice(0, gshape[d], 1) for d, c in enumerate(core) if d != split)
+            if across:
+                spans = {r: _span(kind, lo, hi)[:2] for r, (lo, hi) in enumerate(self.__spans())}
+                spans = {r: sp for r, sp in spans.items() if sp[1] > sp[0]}
+                mine = {r: (shard, _span(kind, lo, hi)[2]) for r, shard, lo, hi in self.__positions() if r in spans}
+                if by_k7:
+                    outs = {r: shard[rows] for r, (shard, rows) in mine.items() if whole_rows and shard.is_contiguous()}
+                    got = _k7_rows_all(src, spans, self.__comm, outs=outs)
+                else:
+                    got = src.fetch(self.__comm, ranges=spans)
+                for r, (shard, rows) in mine.items():
+                    if by_k7 and r in outs:
+                        continue
+                    local = list(core)
+                    local[split] = rows
+                    shard[tuple(local)] = got[r]
+                return
             for r, shard, lo, hi in self.__positions():
                 k0, k1, local_rows = _span(kind, lo, hi)
                 if k1 <= k0:
@@ -1051,6 +1094,16 @@ class DNDarray:
         # block's dimensions into one, then each position takes its elements
         src = _value_source(value, full_shape, full_labels, core_labels, ("blk", 0), flips, merge=len(block))
         flat = [c.expand(block).reshape(-1) if isinstance(c, torch.Tensor) else c for c in core]
+        if across:
+            sels = {r: torch.nonzero((flat[split] >= lo) & (flat[split] < hi)).reshape(-1)
+                    for r, (lo, hi) in enumerate(self.__spans())}
+            got = src.fetch(self.__comm, takes=sels)
+            for r, shard, lo, hi in self.__positions():
+                if sels[r].numel():
+                    local = [c.index_select(0, sels[r]) if isinstance(c, torch.Tensor) else c for c in flat]
+                    local[split] = local[split] - lo
+                    shard[tuple(local)] = got[r]
+            return
         for _, shard, lo, hi in self.__positions():
             sel = torch.nonzero((flat[split] >= lo) & (flat[split] < hi)).reshape(-1)
             if sel.numel() == 0:
@@ -1354,10 +1407,10 @@ def _distinct(shards: Sequence[torch.Tensor]):
 
 def _shares(t: torch.Tensor, shards: Sequence[torch.Tensor]) -> bool:
     """Whether ``t`` lies in the memory of one of ``shards``."""
-    if t.numel() == 0:
+    if isinstance(t, RemoteShard) or t.numel() == 0:
         return False
     ptr = t.untyped_storage().data_ptr()
-    return any(s.numel() and s.untyped_storage().data_ptr() == ptr for s in shards)
+    return any(not isinstance(s, RemoteShard) and s.numel() and s.untyped_storage().data_ptr() == ptr for s in shards)
 
 
 def _assign_key(key, shape: Tuple[int, ...]) -> tuple:
@@ -1420,14 +1473,33 @@ def _k7_rows(src, r: int, a: int, b: int, comm, out: Optional[torch.Tensor] = No
     return transport.rechunk_rows(src.shards, bounds, comm, out=outs)[r]
 
 
-def _rows_contiguous(src, shape) -> bool:
+def _k7_rows_all(src, spans: dict, comm, outs: Optional[dict] = None) -> dict:
+    """Across processes: rows ``spans[d] = (a, b)`` of the split value
+    ``src`` for every position d with rows (every process passes every
+    position's span), by one K7 rechunk whose segments from other processes
+    cross in one exchange; this process's pieces by position (written into
+    ``outs[d]`` where given)."""
+    bounds = [spans.get(d, (0, 0)) for d in range(comm.size)]
+    dest = [None if outs is None else outs.get(d) for d in range(comm.size)]
+    got = transport.rechunk_rows(src.shards, bounds, comm, out=dest)
+    return {d: got[d] for d in comm.local_positions if d in spans}
+
+
+def _rows_contiguous(src, shape, comm=None) -> bool:
     """Whether K7 can move ``src``'s rows: split shards laid along the
     region's leading dimension, read forwards, each contiguous (no
-    broadcast dimension)."""
-    return (
+    broadcast dimension).  Across processes each process judges its own
+    shards and the answer is agreed (one ``all_reduce``), so that every
+    process takes the same route."""
+    ok = (
         isinstance(src, transport.RowSource) and src.shards is not None and not src.reverse and src.dim == 0
-        and all(s.is_contiguous() and tuple(s.shape[1:]) == tuple(shape[1:]) for s in src.shards)
+        and all(isinstance(s, RemoteShard) or s.is_contiguous() and tuple(s.shape[1:]) == tuple(shape[1:])
+                for s in src.shards)
     )
+    if comm is not None and comm.spans_processes and isinstance(src, transport.RowSource) and src.shards is not None:
+        like = src.shards[comm.local_positions[0]]
+        ok = not collectives.agree_max([not ok], comm, like.device)[0]
+    return ok
 
 
 def _broadcast_to(t: torch.Tensor, shape) -> torch.Tensor:
@@ -1518,7 +1590,12 @@ def _value_source(value, full_shape, full_labels, core_labels, dim_label, flips,
         if merge <= 1 and 0 <= vd < value.ndim and value.shape[vd] == full_shape[target]:
             if value.split != vd:
                 value = value._resplit(vd, exact=True)
-            shards = [to_core(sh, sh.shape[vd], flip_dim=False) for sh in value.shards]
+            shards = [
+                RemoteShard(r, tuple(to_core(torch.empty(sh.shape, dtype=sh.dtype, device="meta"), sh.shape[vd],
+                                             flip_dim=False).shape), sh.dtype, sh.device)
+                if isinstance(sh, RemoteShard) else to_core(sh, sh.shape[vd], flip_dim=False)
+                for r, sh in enumerate(value.shards)
+            ]
             return transport.RowSource(core_labels.index(dim_label), full_shape[target], shards=shards,
                                        reverse=dim_label in flips)
         value = value.larray

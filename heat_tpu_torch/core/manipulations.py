@@ -187,8 +187,10 @@ def _like(a: DNDarray, fn, gshape, split) -> DNDarray:
     if a.split is None:
         t = fn(a.shards[0])
         return DNDarray([t] * a.comm.size, tuple(gshape), types.canonical_heat_type(t.dtype), None, a.device, a.comm)
-    shards = [fn(s) for s in a.shards]
-    return DNDarray(shards, tuple(gshape), types.canonical_heat_type(shards[0].dtype), split, a.device, a.comm)
+    loc = a.comm.local_positions[0]
+    first = fn(a.shards[loc])
+    shards = a.comm.per_position(lambda r: first if r == loc else fn(a.shards[r]), gshape, split)
+    return DNDarray(shards, tuple(gshape), types.canonical_heat_type(first.dtype), split, a.device, a.comm)
 
 
 def _gathered(a: DNDarray, result: torch.Tensor, split) -> DNDarray:
@@ -829,8 +831,7 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
         raise ValueError(f"axis {axis} is out of bounds for array of dimension 0")
     axis = stride_tricks.sanitize_axis(a.shape, axis)
     if a.split == axis and a.is_distributed():
-        a.comm.only_local("sort along the split axis")
-        values, indices, _ = distributed_sort(a.shards, axis, descending)
+        values, indices, _ = distributed_sort(a.shards, axis, descending, comm=a.comm)
         v = DNDarray(values, a.shape, a.dtype, a.split, a.device, a.comm)
         i = DNDarray(indices, a.shape, types.int32, a.split, a.device, a.comm)
     elif a.split == axis:
@@ -857,8 +858,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         raise ValueError(f"k={k} exceeds dimension size {a.shape[dim]}")
     shape = tuple(int(k) if d == dim else s for d, s in enumerate(a.shape))
     if a.split == dim and a.is_distributed():
-        a.comm.only_local("topk along the split axis")
-        values, indices = distributed_topk(a.shards, dim, int(k), largest)
+        values, indices = distributed_topk(a.shards, dim, int(k), largest, comm=a.comm)
         v = DNDarray([values] * a.comm.size, shape, a.dtype, None, a.device, a.comm)
         i = DNDarray([indices] * a.comm.size, shape, types.int64, None, a.device, a.comm)
     else:
@@ -926,9 +926,12 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     its inverse (int32) keeps the input's split and is found per shard."""
     sanitation.sanitize_in(a)
     if axis is None and a.ndim == 1 and a.split == 0 and a.is_distributed():
-        a.comm.only_local("unique of a split array")
-        values, _, _ = distributed_sort(a.shards, 0)
-        vals = torch.cat(unique_compact_sorted(values))
+        values, _, _ = distributed_sort(a.shards, 0, comm=a.comm)
+        kept = unique_compact_sorted(values, comm=a.comm)
+        if a.comm.spans_processes:
+            vals = collectives.all_gather(kept, comm=a.comm)[0]
+        else:
+            vals = torch.cat(kept)
         v = DNDarray([vals] * a.comm.size, tuple(vals.shape), a.dtype, None, a.device, a.comm)
         if not return_inverse:
             return v

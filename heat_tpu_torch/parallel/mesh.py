@@ -16,9 +16,15 @@ only the tensors of this process's positions, and the collectives of
 :mod:`~heat_tpu_torch.parallel.collectives` combine the local parts first
 and then make one ``torch.distributed`` call on the comm's process group.
 The shard of a position that another process owns is a
-:class:`RemoteShard`: any use of it raises ``NotImplementedError``, so code
-that moves shards between processes (ROADMAP item 14b) cannot compute over
-the local shards as if they were the whole array.
+:class:`RemoteShard`: any use of it raises ``NotImplementedError``, so no
+code computes over the local shards as if they were the whole array.
+Shards move between processes only through one primitive,
+:func:`~heat_tpu_torch.parallel.collectives.exchange` (one
+``all_to_all_single`` on the comm's group, entered by every process); the
+transport engine, select, sort, the DNDarray's members and the
+estimators' seeding ride on it.  What still refuses a comm that spans
+processes (the overlap rings, sequence and expert parallelism, the
+pipeline: ROADMAP item 14b-ii) calls :meth:`MeshComm.only_local`.
 """
 
 from __future__ import annotations
@@ -49,8 +55,8 @@ __all__ = [
 #: canonical name of the mesh axis that backs the DNDarray ``split`` dimension
 SPLIT_AXIS = "split"
 
-#: what moves shards between processes: named by every refusal
-ITEM_14B = "ROADMAP item 14b"
+#: what still refuses to move shards between processes: named by every refusal
+ITEM_14B = "ROADMAP item 14b-ii"
 
 
 class Communication:
@@ -88,7 +94,7 @@ class RemoteShard:
     """The shard of a position that another process owns.  It carries the
     chunk rule's metadata (``shape``, ``dtype``, ``device``, ``ndim``) and
     nothing else: any other use, a torch function included, raises
-    ``NotImplementedError`` naming ROADMAP item 14b."""
+    ``NotImplementedError`` naming ROADMAP item 14b-ii."""
 
     __slots__ = ("position", "shape", "dtype", "device")
 
@@ -284,15 +290,55 @@ class MeshComm(Communication):
     def is_distributed(self) -> bool:
         return self.__size > 1
 
+    def process_index(self, position: int) -> int:
+        """The index, among the comm's processes (the rank in
+        :attr:`group`), of the process owning ``position``; 0 in one
+        process."""
+        return 0 if self.__owner is None else self.__ranks.index(self.__owner[position])
+
+    def positions_of(self, index: int) -> Tuple[int, ...]:
+        """The positions of the comm's ``index``-th process, in order."""
+        if self.__owner is None:
+            return tuple(range(self.__size))
+        rank = self.__ranks[index]
+        return tuple(r for r in range(self.__size) if self.__owner[r] == rank)
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The ``torch.distributed`` backend of the comm's group; None in
+        one process."""
+        if self.__owner is None:
+            return None
+        return str(torch.distributed.get_backend(self.__group))
+
+    def exchange_route(self, device) -> str:
+        """How :func:`~heat_tpu_torch.parallel.collectives.exchange` moves
+        bytes between this comm's processes for tensors on ``device``,
+        read from the backend alone: ``"local"`` when no other process
+        owns a position, ``"staged"`` for CUDA tensors on gloo (through
+        pinned host buffers), else ``"direct"``.  Gloo's documented table
+        promises CUDA tensors only to ``broadcast`` and ``all_reduce``;
+        torch 2.11's gloo takes ``all_to_all_single`` on them too, copying
+        them through the host itself at the staged route's speed
+        (``scripts/probe_gloo_cuda.py``), so the port stages them where the
+        copies are its own and counted (``staged_bytes``)."""
+        if not self.spans_processes:
+            return "local"
+        if torch.device(device).type == "cuda" and self.backend == "gloo":
+            return "staged"
+        return "direct"
+
     def __repr__(self) -> str:
         if self.__owner is None:
             return f"MeshComm(size={self.__size})"
-        return f"MeshComm(size={self.__size}, processes={self.nprocs}, local={self.__local})"
+        cuda = self.exchange_route("cuda") if torch.distributed.is_initialized() else "local"
+        return (f"MeshComm(size={self.__size}, processes={self.nprocs}, local={self.__local}, "
+                f"backend={self.backend!r}, cuda_exchange={cuda!r})")
 
     # ------------------------------------------------------------ locality
     def only_local(self, what: str) -> None:
         """Refuse ``what`` where it would read the shard of a position that
-        another process owns: ``NotImplementedError`` naming item 14b.  Every
+        another process owns: ``NotImplementedError`` naming item 14b-ii.  Every
         site that reads another position's shard calls this first, unless it
         reads only :attr:`local_positions`."""
         if self.spans_processes:

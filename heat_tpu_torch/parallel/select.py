@@ -7,7 +7,10 @@ Mask selection is *compact and rebalance*, as in the JAX package: each
 position keeps its selected rows (front-compacted, in order), an exclusive
 prefix of the per-position counts (:func:`collectives.exscan`) places them
 in the global output, and each destination chunk of the output is cut from
-the compacted blocks that cover it.  The input is never gathered.
+the compacted blocks that cover it.  The input is never gathered.  Across
+processes the counts' prefix takes the collectives' process route, and the
+picked rows whose destination lies in another process cross in one
+:func:`collectives.exchange`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import List, Sequence
 import torch
 
 from . import collectives
+from .mesh import RemoteShard
 from .transport import _bounds
 
 __all__ = ["distributed_mask_select", "distributed_pair_take"]
@@ -36,27 +40,57 @@ def distributed_mask_select(
     ``flatten=True`` serves the full-``ndim`` mask of a split-0 array: each
     shard and its mask are flattened row-major first, and the output is 1-D.
     ``n_sel`` is the mask's true count."""
-    comm.only_local("select.distributed_mask_select")
-    picked = []
-    for s, m in zip(shards, mask_shards):
-        m = m.to(device=s.device, dtype=torch.bool)
-        if flatten:
-            picked.append(s.reshape(-1)[m.reshape(-1)])
-        else:
-            picked.append(s.movedim(split, 0)[m])
+    local = comm.local_positions
+    picked = {}
+    for r in local:
+        s, m = shards[r], mask_shards[r].to(device=shards[r].device, dtype=torch.bool)
+        picked[r] = s.reshape(-1)[m.reshape(-1)] if flatten else s.movedim(split, 0)[m]
     axis = 0 if flatten else split
-    counts = [torch.tensor(p.shape[0], dtype=torch.int64) for p in picked]
-    starts = [int(c) for c in collectives.exscan(counts)]
-    out = []
-    for lo, hi in _bounds(int(n_sel), comm.size):
+    like = picked[local[0]]
+    dev = like.device
+    if comm.spans_processes:
+        # every position's count: one gather of this process's counts
+        counts = collectives.all_gather([torch.tensor([picked[r].shape[0]], dtype=torch.int64, device=dev)
+                                         for r in local], comm=comm, lengths=[1] * comm.size)[0]
+        counts = counts.tolist()  # ht: HT002 ok — the counts size the blocks that cross
+    else:
+        counts = [int(picked[r].shape[0]) for r in local]
+    starts = [sum(counts[:r]) for r in range(comm.size)]
+    bounds = _bounds(int(n_sel), comm.size)
+
+    def span(r, d):
+        lo, hi = bounds[d]
+        return max(lo, starts[r]), min(hi, starts[r] + counts[r])
+
+    got = {}
+    if comm.spans_processes:
+        sends, specs = {}, {}
+        for r in range(comm.size):
+            for d in range(comm.size):
+                a, b = span(r, d)
+                if a >= b or comm.process_index(r) == comm.process_index(d):
+                    continue
+                if r in local:
+                    sends[(r, d)] = picked[r][a - starts[r]: b - starts[r]]
+                elif d in local:
+                    specs[(r, d)] = ((b - a,) + tuple(like.shape[1:]), like.dtype)
+        got = collectives.exchange(sends, specs, comm, dev)
+    out = {}
+    for d in local:
         parts = []
-        for p, st in zip(picked, starts):
-            a, b = max(lo, st), min(hi, st + p.shape[0])
+        for r in range(comm.size):
+            a, b = span(r, d)
             if a < b:
-                parts.append(p[a - st : b - st])
-        block = torch.cat(parts) if parts else picked[0][:0]
-        out.append(block if flatten else block.movedim(0, axis))
-    return out
+                parts.append(got[(r, d)] if (r, d) in got else picked[r][a - starts[r]: b - starts[r]])
+        block = torch.cat(parts) if parts else like[:0]
+        out[d] = block if flatten else block.movedim(0, axis)
+
+    def shape(d):
+        rest = list(like.shape[1:])
+        n = bounds[d][1] - bounds[d][0]
+        return (n,) if flatten else tuple(rest[:axis] + [n] + rest[axis:])
+
+    return [out[d] if d in out else RemoteShard(d, shape(d), like.dtype, dev) for d in range(comm.size)]
 
 
 def distributed_pair_take(
@@ -68,17 +102,20 @@ def distributed_pair_take(
     and dimension ``p2`` is consumed.  ``cols`` is 1-D, as long as the
     ``t_ax`` extent, normalised to ``[0, dim_p2)``; each position reads its
     own span of it, with no exchange."""
-    comm.only_local("select.distributed_pair_take")
     p2_m = p2 + 1 if p2 < t_ax else p2  # p2 after t moves to the front
     t_after = t_ax - (1 if p2 < t_ax else 0)  # t's position after the squeeze
-    out = []
-    start = 0
-    for y in shards:
+
+    def take(r):
+        y = shards[r]
+        start = comm.chunk((int(cols.shape[0]),), 0, rank=r)[0]
         per = y.shape[t_ax]
         lc = cols[start : start + per].to(device=y.device, dtype=torch.int64)
-        start += per
         ym = y.movedim(t_ax, 0)
         idx = lc.reshape([per] + [1] * (ym.ndim - 1)).expand(*([per] + [1 if d == p2_m else ym.shape[d] for d in range(1, ym.ndim)]))
         got = torch.take_along_dim(ym, idx, dim=p2_m).squeeze(p2_m)
-        out.append(got.movedim(0, t_after))
-    return out
+        return got.movedim(0, t_after)
+
+    like = shards[comm.local_positions[0]]
+    gshape = [e for d, e in enumerate(like.shape) if d != p2]
+    gshape[t_after] = int(cols.shape[0])
+    return comm.per_position(take, gshape, t_after)

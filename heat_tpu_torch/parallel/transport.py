@@ -36,6 +36,18 @@ array:
     or by index, each from the value shard that holds it (``RowSource``,
     the reverse of ``tiled_take``).
 
+Across processes (a :class:`~heat_tpu_torch.parallel.mesh.MeshComm` that
+spans them) each of the four keeps its plan, which every process computes
+alike from global metadata, and moves the blocks whose source and
+destination lie in different processes through one
+:func:`collectives.exchange` a stage: a resplit's (source, destination)
+blocks, a rechunk's segments (K7 then writes each destination of this
+process from its local shards and the received buffers alike, at offset 0
+into a received one), a take's rows by owner (the rows are replicated, so
+every process knows what it owes to whom).  A quantized wire encodes at the
+source and decodes at the destination, so the bytes that cross are the
+wire's.  Each process computes only its own positions' destinations.
+
 Each of the four runs as heat_tpu's transport kernels do: inside a
 ``transport.<kind>`` span, after the ``guard.fire`` injection hook and
 before ``guard.corrupt``, as a program of the ledger (timed by
@@ -59,7 +71,9 @@ a resplit's column tiles, ``TILE_BYTES`` over the item size for a rechunk's
 chunk, a pure function of shape and budget (nothing is staged).  A device
 that reports its memory may shrink the budget from its free bytes
 (``memtrack.suggest_budget``), as in heat_tpu.  ``exact=True`` pins the
-f32 wire.  A take never quantizes (``wire.decline("take")``).  On a CUDA
+f32 wire.  On a comm that spans processes the arm is process 0's,
+broadcast until its table resolves the key and kept from then on
+(:func:`_agreed_choice`), so every process ships the same format.  A take never quantizes (``wire.decline("take")``).  On a CUDA
 tensor with the tuning plane on, the rechunk keeps K7's one-arm row under
 heat_tpu's ``reshape_repack`` key (``autotune.kernel_site``).
 
@@ -83,7 +97,13 @@ subclasses) halves it and runs the same route again, down to
 the measured free memory where the device reports it.  The budget sets a
 lossy wire's cut and a fused tail's band; the exact routes stage nothing
 (each destination is written in place), so their retry runs the same
-launches, K7's included.
+launches, K7's included.  Across processes the attempt's outcome and the
+budget are agreed by one ``all_reduce`` before the route's first exchange
+and one after it (:func:`collectives.agree_max`): every process retries in
+step at the smallest budget any of them chose, or every process raises.
+
+The fused split tail declines on a comm that spans processes (the chain is
+materialized, then resplit).
 """
 
 from __future__ import annotations
@@ -97,6 +117,8 @@ from ..analysis import program_audit, sanitize
 from ..core import autotune, guard, memtrack, telemetry
 from ..core import wire as _wire
 from ..ops import repack as _repack
+from . import collectives
+from .mesh import RemoteShard
 
 __all__ = [
     "TILE_BYTES",
@@ -277,7 +299,7 @@ def _is_oom(err: BaseException) -> bool:
     return isinstance(err, torch.OutOfMemoryError)
 
 
-def _with_oom_backoff(kind: str, run, tile_bytes=None, fp=None, device=None, observer=None):
+def _with_oom_backoff(kind: str, run, tile_bytes=None, fp=None, device=None, observer=None, comm=None):
     """``run(tile_bytes)`` with heat_tpu's bounded OOM back-off (:200): on an
     out-of-memory error the budget halves and the same route runs again,
     down to ``TILE_FLOOR_BYTES``, where the error is re-raised; any other
@@ -287,43 +309,70 @@ def _with_oom_backoff(kind: str, run, tile_bytes=None, fp=None, device=None, obs
     reports it (the card, or ``FaultInjector.low_hbm``).  Every OOM leaves
     a buffer census on the flight recorder, and the first one a postmortem;
     the counters are heat_tpu's.  A run is timed into ``fp``'s ledger row
-    when sampled."""
+    when sampled.
+
+    On a ``comm`` that spans processes the attempt is agreed in step: one
+    ``all_reduce`` after the injection hook and before the route (whether
+    any process failed, and the smallest budget), one after the route
+    (whether any process ran out of memory in it); a failure anywhere makes
+    every process back off alike, or raise alike at the floor.  heat_tpu
+    has no counterpart: GSPMD compiles one program for every host."""
     tb = _plan_tile_budget(kind, tile_bytes)
+    across = comm is not None and comm.spans_processes
     retried = False
     while True:
+        err = None
         try:
             guard.fire(f"transport.{kind}")
-            out = telemetry.timed_call(fp, run, tb, device=device, observer=observer)
-        except Exception as err:  # noqa: BLE001 — filtered to OOM below
-            if not _is_oom(err):
+        except Exception as e:  # noqa: BLE001 — filtered to OOM below
+            if not _is_oom(e):
                 raise
-            census = memtrack.census(top=8) if telemetry.events_enabled() else None
-            if tb <= TILE_FLOOR_BYTES:
-                _STATS["oom_exhausted"] += 1
-                telemetry.record_event("oom_exhausted", kernel=kind, tile_bytes=tb, census=census)
-                telemetry.postmortem("transport_oom_exhausted", kernel=kind, tile_bytes=tb)
-                raise
-            halved = max(TILE_FLOOR_BYTES, tb >> 1)
-            informed = free = None
-            if not retried:
-                free = memtrack.min_free_bytes()
-                if free is not None:
-                    informed = memtrack.suggest_budget(halved, fraction=_FREE_TILE_FRACTION,
-                                                       floor=TILE_FLOOR_BYTES, free=free)
-                telemetry.postmortem("transport_oom", kernel=kind, tile_bytes=tb)
-            tb = informed if informed is not None else halved
-            retried = True
-            _STATS["oom_retries"] += 1
-            if informed is not None:
-                _STATS["informed_retries"] += 1
-            _STATS["last_retry_informed"] = informed is not None
-            by_kind = _STATS["retries_by_kind"]
-            by_kind[kind] = by_kind.get(kind, 0) + 1
-            telemetry.record_event("oom_retry", kernel=kind, tile_bytes=tb, informed=informed is not None,
-                                   free_bytes=free, census=census)
-            continue
-        _STATS["last_tile_bytes"] = tb
-        return out
+            err = e
+        if across:
+            failed, neg_tb = collectives.agree_max([err is not None, -tb], comm, device)
+            tb = -neg_tb
+        else:
+            failed = err is not None
+        if not failed:
+            try:
+                out = telemetry.timed_call(fp, run, tb, device=device, observer=observer)
+            except Exception as e:  # noqa: BLE001 — filtered to OOM below
+                if not _is_oom(e):
+                    raise
+                err = e
+            failed = err is not None
+            if across:
+                failed = bool(collectives.agree_max([failed], comm, device)[0])
+            if not failed:
+                _STATS["last_tile_bytes"] = tb
+                return out
+        if err is None:
+            err = torch.OutOfMemoryError(f"transport.{kind}: another process ran out of memory at a tile budget "
+                                         f"of {tb} bytes")
+        census = memtrack.census(top=8) if telemetry.events_enabled() else None
+        if tb <= TILE_FLOOR_BYTES:
+            _STATS["oom_exhausted"] += 1
+            telemetry.record_event("oom_exhausted", kernel=kind, tile_bytes=tb, census=census)
+            telemetry.postmortem("transport_oom_exhausted", kernel=kind, tile_bytes=tb)
+            raise err
+        halved = max(TILE_FLOOR_BYTES, tb >> 1)
+        informed = free = None
+        if not retried:
+            free = memtrack.min_free_bytes()
+            if free is not None:
+                informed = memtrack.suggest_budget(halved, fraction=_FREE_TILE_FRACTION,
+                                                   floor=TILE_FLOOR_BYTES, free=free)
+            telemetry.postmortem("transport_oom", kernel=kind, tile_bytes=tb)
+        tb = informed if informed is not None else halved
+        retried = True
+        _STATS["oom_retries"] += 1
+        if informed is not None:
+            _STATS["informed_retries"] += 1
+        _STATS["last_retry_informed"] = informed is not None
+        by_kind = _STATS["retries_by_kind"]
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+        telemetry.record_event("oom_retry", kernel=kind, tile_bytes=tb, informed=informed is not None,
+                               free_bytes=free, census=census)
 
 
 def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, run, *, tile_bytes=None, kernel_bytes=None,
@@ -353,10 +402,11 @@ def _engine(kind: str, key: tuple, like: torch.Tensor, comm, split, run, *, tile
     with telemetry.span(f"transport.{kind}"):
         if program_audit.enabled():
             run = program_audit.watched(f"transport_{kind}", fp, run, expect="any")
-        out = _with_oom_backoff(kind, run, tile_bytes, fp=fp, device=like.device, observer=observer)
+        out = _with_oom_backoff(kind, run, tile_bytes, fp=fp, device=like.device, observer=observer, comm=comm)
     if chain:
         _link(kind)
-    memtrack.register_shards([o for o in out if o is not None], tag="output", split=split)
+    memtrack.register_shards([o for o in out if o is not None and not isinstance(o, RemoteShard)], tag="output",
+                             split=split)
     return guard.corrupt(f"transport.{kind}", out)
 
 
@@ -367,16 +417,18 @@ def _link(kind: str) -> None:
     sanitize.collective_event(kind, site=f"transport.{kind}")
 
 
-def _wired(site: str, geometry: tuple, desc: str, dtype, logical_bytes: int, wire_bytes, exact: bool, run):
+def _wired(site: str, geometry: tuple, desc: str, dtype, logical_bytes: int, wire_bytes, exact: bool, run, comm=None,
+           device=None):
     """One transfer under its wire decision (heat_tpu :668-706,
     :1356-1394): ``run(mode, observer)`` with ``mode`` in ``""`` (f32),
     ``"int8"``, ``"fp8"``.  An explore runs all three and returns the f32
     result; a quantized arm is accounted, and a table-decided one feeds the
     degradation watch through ``observer``.  ``wire_bytes(mode)`` is the
-    format's on-wire byte count."""
+    format's on-wire byte count.  On a ``comm`` that spans processes the
+    decision is :func:`_agreed_choice`'s."""
     arm, d = "wire_f32", None
     if logical_bytes and _wire.eligible(dtype, logical_bytes, exact=exact):
-        arm, d = _wire.choose(site, geometry, desc=desc)
+        arm, d = _agreed_choice(site, geometry, desc, comm, device)
     if d is not None and d.explore:
         return _wire.explore(d, lambda wm: run(wm, None))
     if arm == "wire_f32":
@@ -385,6 +437,34 @@ def _wired(site: str, geometry: tuple, desc: str, dtype, logical_bytes: int, wir
     _wire.account(site, arm, logical_bytes, wire_bytes(wm))
     observer = None if d is None else (lambda dur: autotune.observe(d.key, arm, dur))
     return run(wm, observer)
+
+
+# wire arms agreed across processes, by table key: kept once process 0's
+# table has resolved the key
+_AGREED: dict = {}
+
+
+def _agreed_choice(site: str, geometry: tuple, desc: str, comm, device):
+    """:func:`wire.choose` (``links=True``), the same on every process of a
+    comm that spans them: every process consults its own table, then process
+    0's arm and explore flag are broadcast (one ``broadcast`` of two
+    integers), until process 0 serves a resolved arm, which is kept for the
+    key from then on.  A forced ``HEAT_TPU_WIRE`` or the tuning plane off
+    decides alike everywhere and needs no broadcast.  The arm decides the
+    sizes that cross: two processes on different arms would hang the
+    exchange."""
+    if comm is None or not comm.spans_processes or _wire.mode() in ("int8", "fp8") or not autotune.enabled():
+        return _wire.choose(site, geometry, desc=desc)
+    key = autotune.wire_key(site, *geometry)
+    if key in _AGREED:
+        return _AGREED[key], autotune.Decision(_AGREED[key], "cached", False, key)
+    arm, d = _wire.choose(site, geometry, desc=desc)
+    arms = autotune.WIRE_ARMS
+    idx, explore = collectives.broadcast_ints([arms.index(arm), d is not None and d.explore], comm, device)
+    arm = arms[idx]
+    if not explore:
+        _AGREED[key] = arm
+    return arm, autotune.Decision(arm, "explored" if explore else "cached", bool(explore), key)
 
 
 def _resplit_wire_model(gshape, sa: int, sb: int, S: int, itemsize: int, tile_bytes=None):
@@ -398,17 +478,34 @@ def _resplit_wire_model(gshape, sa: int, sb: int, S: int, itemsize: int, tile_by
     return math.prod(int(e) for e in gshape) * itemsize, pa * S * n_tiles * S
 
 
+def _like(shards: Sequence, comm) -> torch.Tensor:
+    """A shard of this process: the dtype, size and device of the others."""
+    return shards[comm.local_positions[0]]
+
+
+def _crosses(comm, a: int, b: int) -> bool:
+    """Whether positions ``a`` and ``b`` belong to different processes."""
+    return comm.process_index(a) != comm.process_index(b)
+
+
+def _placed(comm, local: dict, shape_of, like: torch.Tensor) -> List:
+    """One entry per position: this process's destinations from ``local``,
+    a :class:`RemoteShard` of ``shape_of(d)`` for the others."""
+    return [local[d] if d in local else RemoteShard(d, shape_of(d), like.dtype, like.device) for d in range(comm.size)]
+
+
 def _resplit_stage(shards, gshape, sa: int, sb: int, comm, exact: bool, tile_bytes, run):
     """A resplit's wire decision: ``run(mode, observer)`` as in
     :func:`_wired`, under heat_tpu's ``resplit`` geometry."""
     gshape_t = tuple(int(d) for d in gshape)
     S = comm.size
-    dt = shards[0].dtype
-    logical, n_scales = _resplit_wire_model(gshape_t, sa, sb, S, shards[0].element_size(), tile_bytes)
+    like = _like(shards, comm)
+    dt = like.dtype
+    logical, n_scales = _resplit_wire_model(gshape_t, sa, sb, S, like.element_size(), tile_bytes)
     nelem = math.prod(gshape_t)
     return _wired("resplit", (gshape_t, int(sa), int(sb), S, autotune.dtype_name(dt)),
                   f"resplit {gshape_t} {sa}->{sb} {autotune.dtype_name(dt)} S={S}", dt, logical,
-                  lambda wm: _wire.payload_nbytes(nelem, n_scales, wm), exact, run)
+                  lambda wm: _wire.payload_nbytes(nelem, n_scales, wm), exact, run, comm, like.device)
 
 
 def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb: int, comm, *,
@@ -418,19 +515,20 @@ def tiled_resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int
     along ``sa``, each source shard's view of d's chunk of ``sb``.  The
     result's shards are new contiguous tensors; the sources are untouched.
     A floating payload may travel on a quantized wire (module docstring);
-    ``exact=True`` pins the f32 wire."""
-    comm.only_local("transport.tiled_resplit")
+    ``exact=True`` pins the f32 wire.  Across processes the blocks between
+    processes cross in one exchange."""
     if len(shards) != comm.size:
         raise ValueError(f"expected {comm.size} shards, got {len(shards)}")
-    sanitize.check_use(list(shards), "transport.tiled_resplit")
+    sanitize.check_use(comm.local_shards(shards), "transport.tiled_resplit")
     key = (tuple(int(d) for d in gshape), int(sa), int(sb))
+    like = _like(shards, comm)
 
     def run(wm, observer):
         wire = None
         if wm:
-            logical, n_scales = _resplit_wire_model(gshape, sa, sb, comm.size, shards[0].element_size(), tile_bytes)
+            logical, n_scales = _resplit_wire_model(gshape, sa, sb, comm.size, like.element_size(), tile_bytes)
             wire = (wm, logical, _wire.payload_nbytes(math.prod(key[0]), n_scales, wm))
-        return _engine("resplit", key, shards[0], comm, sb, lambda tb: _resplit(shards, gshape, sa, sb, comm, wm, tb),
+        return _engine("resplit", key, like, comm, sb, lambda tb: _resplit(shards, gshape, sa, sb, comm, wm, tb),
                        tile_bytes=tile_bytes, wire=wire, observer=observer)
 
     return _resplit_stage(shards, gshape, sa, sb, comm, exact, tile_bytes, run)
@@ -440,52 +538,128 @@ def _resplit(shards: Sequence[torch.Tensor], gshape: Sequence[int], sa: int, sb:
              tile_bytes=None) -> List[torch.Tensor]:
     """The shards of a ``gshape`` array split along ``sa``, moved to split
     ``sb``: destination shard d joins, along ``sa``, each source shard's
-    view of d's chunk of ``sb``, through the wire ``wm`` (``""`` exact)."""
-    bounds = _bounds(int(gshape[sb]), comm.size)
-    if not wm:
-        return [torch.cat([s.narrow(sb, lo, hi - lo) for s in shards], dim=sa) for lo, hi in bounds]
+    view of d's chunk of ``sb``, through the wire ``wm`` (``""`` exact).
+    Across processes a block whose source and destination lie in different
+    processes crosses in one exchange, encoded at the source and decoded at
+    the destination on a quantized wire."""
     S = comm.size
-    pa = -(-int(gshape[sa]) // S)
-    pb = -(-int(gshape[sb]) // S)
-    rest = math.prod(int(e) for d, e in enumerate(gshape) if d not in (sa, sb))
-    tile_cols, n_tiles = tile_plan(pb, pa * S * rest * shards[0].element_size(), _plan_tile_budget("resplit", tile_bytes))
-    return [torch.cat([_wire_block(s.narrow(sb, lo, hi - lo), sa, sb, tile_cols, n_tiles, wm) for s in shards], dim=sa)
-            for lo, hi in bounds]
+    bounds = _bounds(int(gshape[sb]), S)
+    like = _like(shards, comm)
+    tiles = None
+    if wm:
+        pa = -(-int(gshape[sa]) // S)
+        pb = -(-int(gshape[sb]) // S)
+        rest = math.prod(int(e) for d, e in enumerate(gshape) if d not in (sa, sb))
+        tiles = tile_plan(pb, pa * S * rest * like.element_size(), _plan_tile_budget("resplit", tile_bytes))
+
+    def block(s, lo, hi):
+        blk = shards[s].narrow(sb, lo, hi - lo)
+        return _wire_block(blk, sa, sb, *tiles, wm) if wm else blk
+
+    if not comm.spans_processes:
+        return [torch.cat([block(s, lo, hi) for s in range(S)], dim=sa) for lo, hi in bounds]
+    local = comm.local_positions
+    rows = _bounds(int(gshape[sa]), S)
+
+    def shape(s, d):
+        out = [int(e) for e in gshape]
+        out[sa] = rows[s][1] - rows[s][0]
+        out[sb] = bounds[d][1] - bounds[d][0]
+        return tuple(out)
+
+    sends, specs = {}, {}
+    for s in local:
+        for d, (lo, hi) in enumerate(bounds):
+            if _crosses(comm, s, d):
+                blk = shards[s].narrow(sb, lo, hi - lo)
+                if wm:
+                    sends[(s, d, 0)], sends[(s, d, 1)] = _wire_encode_block(blk, sa, sb, *tiles, wm)
+                else:
+                    sends[(s, d)] = blk
+    for d in local:
+        for s in range(S):
+            if _crosses(comm, s, d):
+                if wm:
+                    specs.update(_wire_block_specs(shape(s, d), sa, sb, *tiles, wm, (s, d)))
+                else:
+                    specs[(s, d)] = (shape(s, d), like.dtype)
+    got = collectives.exchange(sends, specs, comm, like.device)
+
+    def piece(s, d):
+        if not _crosses(comm, s, d):
+            return block(s, *bounds[d])
+        if wm:
+            return _wire_decode_block(got[(s, d, 0)], got[(s, d, 1)], shape(s, d), sa, sb, like.dtype)
+        return got[(s, d)]
+
+    out = {d: torch.cat([piece(s, d) for s in range(S)], dim=sa) for d in local}
+    return _placed(comm, out, lambda d: shape(0, d)[:sa] + (int(gshape[sa]),) + shape(0, d)[sa + 1:], like)
 
 
-def _wire_block(blk: torch.Tensor, sa: int, sb: int, tile_cols: int, n_tiles: int, wm: str) -> torch.Tensor:
-    """One (source, destination) block of a resplit through the quantized
-    wire (heat_tpu :506-526): each row along ``sa`` of each tile of
-    ``tile_cols`` columns along ``sb`` (counted from the destination's
-    first column) is encoded with one scale over the tile's columns and
-    every other axis, then decoded.  The zero columns that pad the last
-    tile change no absmax and are cut off again."""
-    if blk.numel() == 0:
-        return blk.clone()
+def _wire_encode_block(blk: torch.Tensor, sa: int, sb: int, tile_cols: int, n_tiles: int, wm: str):
+    """The ``(q, scale)`` of one (source, destination) block of a resplit on
+    the quantized wire (heat_tpu :506-526): each row along ``sa`` of each
+    tile of ``tile_cols`` columns along ``sb`` (counted from the
+    destination's first column) is encoded with one scale over the tile's
+    columns and every other axis.  The zero columns that pad the last tile
+    change no absmax."""
     v = blk.movedim((sa, sb), (0, 1))
     rows, cols = v.shape[0], v.shape[1]
     rest = tuple(v.shape[2:])
     padded = n_tiles * tile_cols
     if padded != cols:
         v = torch.cat([v, v.new_zeros((rows, padded - cols) + rest)], dim=1)
-    v = v.reshape((rows, n_tiles, tile_cols) + rest)
-    q, scale = _wire.absmax_encode(v, wm, (0, 1))
-    out = _wire.absmax_decode(q, scale, (0, 1), blk.dtype).reshape((rows, padded) + rest)[:, :cols]
+    return _wire.absmax_encode(v.reshape((rows, n_tiles, tile_cols) + rest), wm, (0, 1))
+
+
+def _wire_block_specs(shape, sa: int, sb: int, tile_cols: int, n_tiles: int, wm: str, pair) -> dict:
+    """The exchange's ``(shape, dtype)`` of a block's ``q`` and ``scale``."""
+    rows = shape[sa]
+    rest = tuple(e for d, e in enumerate(shape) if d not in (sa, sb))
+    return {pair + (0,): ((rows, n_tiles, tile_cols) + rest, _wire.qdtype(wm)),
+            pair + (1,): ((rows, n_tiles), torch.float32)}
+
+
+def _wire_decode_block(q: torch.Tensor, scale: torch.Tensor, shape, sa: int, sb: int, dtype) -> torch.Tensor:
+    """A block of ``shape`` back from its ``(q, scale)``: the pad columns of
+    the last tile are cut off again."""
+    rows, cols = shape[sa], shape[sb]
+    rest = tuple(q.shape[3:])
+    out = _wire.absmax_decode(q, scale, (0, 1), dtype).reshape((rows, q.shape[1] * q.shape[2]) + rest)[:, :cols]
     return out.movedim((0, 1), (sa, sb))
 
 
-def _wire_segment(src: torch.Tensor, off: int, length: int, ch: int, wm: str) -> torch.Tensor:
-    """One shifted segment of a rechunk through the quantized wire (heat_tpu
-    :1128-1137): cut into chunks of ``ch`` elements from its start, each
-    encoded with one scalar scale over the whole chunk (past the segment's
-    end the chunk reads the source's next elements, and zeros past the
-    source's end), then decoded; the segment's ``length`` elements."""
+def _wire_block(blk: torch.Tensor, sa: int, sb: int, tile_cols: int, n_tiles: int, wm: str) -> torch.Tensor:
+    """One (source, destination) block of a resplit through the quantized
+    wire: :func:`_wire_encode_block`, then :func:`_wire_decode_block`."""
+    if blk.numel() == 0:
+        return blk.clone()
+    q, scale = _wire_encode_block(blk, sa, sb, tile_cols, n_tiles, wm)
+    return _wire_decode_block(q, scale, tuple(blk.shape), sa, sb, blk.dtype)
+
+
+def _wire_segment_encode(src: torch.Tensor, off: int, length: int, ch: int, wm: str):
+    """The ``(q, scale)`` of one shifted segment of a rechunk on the
+    quantized wire (heat_tpu :1128-1137): cut into chunks of ``ch``
+    elements from its start, each encoded with one scalar scale over the
+    whole chunk (past the segment's end the chunk reads the source's next
+    elements, and zeros past the source's end)."""
     n_ch = -(-length // ch)
     blk = src[off : off + n_ch * ch]
     if blk.numel() < n_ch * ch:
         blk = torch.cat([blk, blk.new_zeros(n_ch * ch - blk.numel())])
-    q, scale = _wire.absmax_encode(blk.reshape(n_ch, ch), wm, (0,))
-    return _wire.absmax_decode(q, scale, (0,), src.dtype).reshape(-1)[:length]
+    return _wire.absmax_encode(blk.reshape(n_ch, ch), wm, (0,))
+
+
+def _wire_segment_decode(q: torch.Tensor, scale: torch.Tensor, length: int, dtype) -> torch.Tensor:
+    """A segment's ``length`` elements back from its ``(q, scale)``."""
+    return _wire.absmax_decode(q, scale, (0,), dtype).reshape(-1)[:length]
+
+
+def _wire_segment(src: torch.Tensor, off: int, length: int, ch: int, wm: str) -> torch.Tensor:
+    """One shifted segment of a rechunk through the quantized wire: encoded
+    at the source, decoded again."""
+    return _wire_segment_decode(*_wire_segment_encode(src, off, length, ch, wm), length, src.dtype)
 
 
 def _rechunk_wire_model(plan, S: int, itemsize: int):
@@ -514,20 +688,61 @@ def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, ds
     written in place of a new one.  A destination without rows gets an
     empty tensor, or ``None`` when ``out`` is given.  With a wire mode
     ``wm``, every shifted segment arrives through :func:`_wire_segment` in
-    chunks of ``min(chunk, the shift's longest segment)`` elements."""
+    chunks of ``min(chunk, the shift's longest segment)`` elements.
+
+    Across processes ``flat`` holds this process's positions' sources
+    (``None`` for the others'): a segment whose source lies in another
+    process arrives through one exchange (on the wire: its ``(q, scale)``,
+    decoded here), and K7 reads it at offset 0.  Only this process's
+    destinations are written; the others are :class:`RemoteShard` entries
+    (``None`` when ``out`` is given)."""
     S = comm.size
     res = []
     bounds = _bounds(gout[0], S) if dst_bounds is None else dst_bounds
+    like = next(f for f in flat if f is not None)
+    local = set(comm.local_positions)
+    got = {}
+    if comm.spans_processes:
+        sends, specs = {}, {}
+        for d, (lo, hi) in enumerate(bounds):
+            for s, src_off, dst_off, lens in plan:
+                r = (d - s) % S
+                if hi == lo or not lens[r] or not _crosses(comm, r, d):
+                    continue
+                wire = bool(wm) and s % S != 0
+                if r in local:
+                    if wire:
+                        ch = min(chunk, max(lens))
+                        sends[(r, d, 0)], sends[(r, d, 1)] = _wire_segment_encode(flat[r], src_off[r], lens[r], ch, wm)
+                    else:
+                        sends[(r, d)] = flat[r].narrow(0, src_off[r], lens[r])
+                elif d in local:
+                    if wire:
+                        ch = min(chunk, max(lens))
+                        n_ch = -(-lens[r] // ch)
+                        specs[(r, d, 0)] = ((n_ch, ch), _wire.qdtype(wm))
+                        specs[(r, d, 1)] = ((n_ch,), torch.float32)
+                    else:
+                        specs[(r, d)] = ((lens[r],), like.dtype)
+        got = collectives.exchange(sends, specs, comm, like.device)
     for d, (lo, hi) in enumerate(bounds):
         shape = (hi - lo,) + tuple(gout[1:])
+        if d not in local:
+            res.append(None if out is not None else RemoteShard(d, shape, like.dtype, like.device))
+            continue
         if hi == lo:
-            res.append(flat[0].new_empty(shape) if out is None else None)
+            res.append(like.new_empty(shape) if out is None else None)
             continue
         segs = []
         for s, src_off, dst_off, lens in plan:
             r = (d - s) % S
             if lens[r]:
-                if wm and s % S != 0:
+                wire = bool(wm) and s % S != 0
+                if _crosses(comm, r, d):
+                    seg = (_wire_segment_decode(got[(r, d, 0)], got[(r, d, 1)], lens[r], like.dtype) if wire
+                           else got[(r, d)])
+                    segs.append((dst_off[r], r, seg, 0, lens[r]))
+                elif wire:
                     seg = _wire_segment(flat[r], src_off[r], lens[r], min(chunk, max(lens)), wm)
                     segs.append((dst_off[r], r, seg, 0, lens[r]))
                 else:
@@ -545,7 +760,7 @@ def _rechunk(flat: Sequence[torch.Tensor], plan, gout: Tuple[int, ...], comm, ds
             res.append(_repack.repack_segments([(t, so, ln) for _, _, t, so, ln in segs], shape, out=dest))
             continue
         if dest is None:
-            dest = flat[0].new_empty(shape)
+            dest = like.new_empty(shape)
         whole = dest.view(-1)
         for i in range(0, len(segs), _repack.MAX_SEGMENTS):
             group = segs[i : i + _repack.MAX_SEGMENTS]
@@ -562,23 +777,26 @@ def rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> 
     written by K7 from the source chunks that cover it, into ``out[d]`` (a
     contiguous tensor of those rows' shape, such as a shard's row range)
     or into a new tensor; destinations without rows give ``None``.  Bit
-    for bit; no other copy of the array exists."""
-    comm.only_local("transport.rechunk_rows")
+    for bit; no other copy of the array exists.  Across processes every
+    process makes the call with every position's bounds, and gets its own
+    destinations (the others' are ``None``)."""
+    like = _like(shards, comm)
     m = sum(int(s.shape[0]) for s in shards)
-    nbytes = m * math.prod(shards[0].shape[1:]) * shards[0].element_size()
-    key = (m, tuple(shards[0].shape[1:]), tuple(dst_bounds))
-    return _engine("rechunk", key, shards[0], comm, 0, lambda tb: _rechunk_rows(shards, dst_bounds, comm, out),
+    nbytes = m * math.prod(like.shape[1:]) * like.element_size()
+    key = (m, tuple(like.shape[1:]), tuple(dst_bounds))
+    return _engine("rechunk", key, like, comm, 0, lambda tb: _rechunk_rows(shards, dst_bounds, comm, out),
                    kernel_bytes=2 * nbytes)
 
 
 def _rechunk_rows(shards: Sequence[torch.Tensor], dst_bounds, comm, out=None) -> List:
+    like = _like(shards, comm)
     m = sum(int(s.shape[0]) for s in shards)
-    tail = tuple(shards[0].shape[1:])
+    tail = tuple(like.shape[1:])
     rowsz = math.prod(tail)
     if m == 0 or rowsz == 0:
         return [None] * comm.size
     plan = rechunk_plan(m, rowsz, m, rowsz, comm.size, dst_bounds=dst_bounds, max_shifts=None)
-    flat = [s.view(-1) for s in shards]
+    flat = [s.view(-1) if r in comm.local_positions else None for r, s in enumerate(shards)]
     return _rechunk(flat, plan, (m,) + tail, comm, dst_bounds=dst_bounds, out=out if out is not None else [None] * comm.size)
 
 
@@ -592,13 +810,13 @@ def tiled_reshape(
     split-crossing reshape (resplit to split 0, rechunk, resplit to ``so``)
     takes its own wire decision; ``exact=True`` pins the f32 wire on every
     stage."""
-    comm.only_local("transport.tiled_reshape")
     gin = tuple(int(d) for d in gin)
     gout = tuple(int(d) for d in gout)
-    sanitize.check_use(list(shards), "transport.tiled_reshape")
+    sanitize.check_use(comm.local_shards(shards), "transport.tiled_reshape")
+    like = _like(shards, comm)
     crossing = not (_prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so])
-    nbytes = math.prod(gin) * shards[0].element_size()
-    return _engine("reshape", (gin, int(si), gout, int(so)), shards[0], comm, so,
+    nbytes = math.prod(gin) * like.element_size()
+    return _engine("reshape", (gin, int(si), gout, int(so)), like, comm, so,
                    lambda tb: _reshape(shards, gin, si, gout, so, comm, exact, tb), tile_bytes=tile_bytes,
                    kernel_bytes=2 * nbytes if crossing else None, chain=False)
 
@@ -607,15 +825,16 @@ def _resplit_inner(shards, gshape, sa: int, sb: int, comm, exact: bool, tile_byt
     """A resplit stage inside a reshape, under its own wire decision; a
     quantized arm is timed as heat_tpu's ``resplit_wire`` row."""
     gshape_t = tuple(int(d) for d in gshape)
+    like = _like(shards, comm)
 
     def run(wm, observer):
         _link("resplit")
         if not wm:
             return _resplit(shards, gshape_t, sa, sb, comm)
-        fp = _wire_row("resplit", (gshape_t, int(sa), int(sb)), shards[0], comm, wm,
-                       *_resplit_wire_model(gshape_t, sa, sb, comm.size, shards[0].element_size(), tile_bytes))
+        fp = _wire_row("resplit", (gshape_t, int(sa), int(sb)), like, comm, wm,
+                       *_resplit_wire_model(gshape_t, sa, sb, comm.size, like.element_size(), tile_bytes))
         return telemetry.timed_call(fp, _resplit, shards, gshape_t, sa, sb, comm, wm, tile_bytes, observer=observer,
-                                    device=shards[0].device)
+                                    device=like.device)
 
     return _resplit_stage(shards, gshape_t, sa, sb, comm, exact, tile_bytes, run)
 
@@ -638,15 +857,16 @@ def _wire_row(kind: str, key: tuple, like: torch.Tensor, comm, wm: str, logical:
 def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm, exact: bool = False,
              tile_bytes=None) -> List[torch.Tensor]:
     S = comm.size
+    local = comm.local_positions
     if _prefix_prod(gin, si) == _prefix_prod(gout, so) and gin[si] == gout[so]:
         # split-preserving: chunk boundaries never crossed, each position
         # reshapes its own block
-        out = []
-        for s in shards:
-            local = list(gout)
-            local[so] = s.shape[si]
-            out.append(s.reshape(local))
-        return out
+        def view(r):
+            shape = list(gout)
+            shape[so] = shards[r].shape[si]
+            return shards[r].reshape(shape)
+
+        return comm.per_position(view, gout, so)
     if si != 0:
         shards = _resplit_inner(shards, gin, si, 0, comm, exact, tile_bytes)
     rowsz_in = _prefix_prod(gin, len(gin)) // gin[0]
@@ -656,9 +876,9 @@ def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm, 
         raise ValueError(f"no rechunk plan within {_MAX_SHIFTS} shifts for {gin} -> {gout} over {S} positions")
     # the kernel reads contiguous flat sources: a strided split-0 shard
     # (a view a caller built) is copied here, explicitly
-    flat = [s.contiguous().view(-1) for s in shards]
+    flat = [s.contiguous().view(-1) if r in local else None for r, s in enumerate(shards)]
     del shards
-    like = flat[0]
+    like = flat[local[0]]
     itemsize = like.element_size()
     chunk = max(1, _plan_tile_budget("reshape", tile_bytes) // itemsize)
     elems, scales = _rechunk_wire_model(plan, S, itemsize)
@@ -683,7 +903,7 @@ def _reshape(shards: Sequence[torch.Tensor], gin, si: int, gout, so: int, comm, 
         return _rechunk(flat, plan, gout, comm)
 
     out = _wired("rechunk", (gin, gout, S, dt), f"rechunk {gin}->{gout} {dt} S={S}", like.dtype, elems * itemsize,
-                 lambda wm: _wire.payload_nbytes(elems, scales, wm), exact, run)
+                 lambda wm: _wire.payload_nbytes(elems, scales, wm), exact, run, comm, like.device)
     del flat
     if so != 0:
         out = _resplit_inner(out, gout, 0, so, comm, exact, tile_bytes)
@@ -701,18 +921,22 @@ def tiled_take(
     a destination chunk gathers from each owner only the rows it owns and
     copies them into place, so every output row moves once, at most
     ``_TAKE_BYTES`` of them at a time beside the output.  The host reads
-    one (destination, owner) table of row counts per call."""
-    comm.only_local("transport.tiled_take")
+    one (destination, owner) table of row counts per call.  Across
+    processes ``rows`` is the same on every process, so each knows the rows
+    it owes to each destination: they cross in one exchange, with no
+    request round."""
     _wire.decline("take")
-    key = (tuple(shards[0].shape), int(rows.numel()), int(n), int(split))
-    return _engine("take", key, shards[0], comm, split, lambda tb: _take(shards, rows, n, split, comm))
+    like = _like(shards, comm)
+    key = (tuple(like.shape), int(rows.numel()), int(n), int(split))
+    return _engine("take", key, like, comm, split, lambda tb: _take(shards, rows, n, split, comm))
 
 
 def _take(shards: Sequence[torch.Tensor], rows: torch.Tensor, n: int, split: int, comm) -> List[torch.Tensor]:
     S = comm.size
     src_b = _bounds(int(n), S)
     dst_b = _bounds(int(rows.numel()), S)
-    dev = shards[0].device
+    like = _like(shards, comm)
+    dev = like.device
     rows = rows.to(device=dev, dtype=torch.int64)
     # the first position whose chunk ends past a row owns it (empty chunks
     # end where their predecessor does, so they own nothing)
@@ -721,43 +945,79 @@ def _take(shards: Sequence[torch.Tensor], rows: torch.Tensor, n: int, split: int
     dest = torch.arange(rows.numel(), device=dev) // per
     # rows a gather moves at a time: what is in flight beside the output
     # stays under _TAKE_BYTES
-    row_bytes = shards[0].element_size() * max(1, math.prod(e for i, e in enumerate(shards[0].shape) if i != split))
+    row_bytes = like.element_size() * max(1, math.prod(e for i, e in enumerate(like.shape) if i != split))
     batch = max(1, _TAKE_BYTES // row_bytes)
     counts = torch.bincount(dest * S + owner, minlength=S * S).view(S, S).tolist()
-    out = []
-    for d, (lo, hi) in enumerate(dst_b):
-        idx = rows[lo:hi]
+    local = comm.local_positions
+
+    def shape(d, c):
+        out = list(like.shape)
+        out[split] = c
+        return tuple(out)
+
+    def owed(d):
+        """Each owner's rows of destination d: (positions in d's chunk,
+        their row indices), by a stable sort of d's owners."""
+        lo, hi = dst_b[d]
+        order = torch.argsort(owner[lo:hi], stable=True)
+        at, out = 0, {}
+        for r, c in enumerate(counts[d]):
+            pos = order[at: at + c]
+            out[r] = (pos, rows[lo:hi][pos])
+            at += c
+        return out
+
+    got = {}
+    if comm.spans_processes:
+        sends, specs = {}, {}
+        for d in range(S):
+            if d not in local and any(counts[d][r] and _crosses(comm, r, d) for r in local):
+                parts = owed(d)
+                for r in local:
+                    if counts[d][r] and _crosses(comm, r, d):
+                        sends[(r, d)] = shards[r].index_select(split, parts[r][1] - src_b[r][0])
+            elif d in local:
+                for r in range(S):
+                    if counts[d][r] and _crosses(comm, r, d):
+                        specs[(r, d)] = (shape(d, counts[d][r]), like.dtype)
+        got = collectives.exchange(sends, specs, comm, dev)
+    out = {}
+    for d in local:
+        lo, hi = dst_b[d]
         sole = [r for r in range(S) if hi > lo and counts[d][r] == hi - lo]
         if sole:
             r = sole[0]
-            out.append(shards[r].index_select(split, idx - src_b[r][0]))
+            out[d] = got[(r, d)] if (r, d) in got else shards[r].index_select(split, rows[lo:hi] - src_b[r][0])
             continue
-        shape = list(shards[0].shape)
-        shape[split] = hi - lo
-        block = shards[0].new_empty(shape)
-        order = torch.argsort(owner[lo:hi], stable=True)
-        at = 0
-        for r, c in enumerate(counts[d]):
-            for b in range(at, at + c, batch):
-                pos = order[b : min(b + batch, at + c)]
-                block.index_copy_(split, pos, shards[r].index_select(split, idx[pos] - src_b[r][0]))
-            at += c
-        out.append(block)
-    return out
+        block = like.new_empty(shape(d, hi - lo))
+        for r, (pos, idx) in owed(d).items():
+            if not counts[d][r]:
+                continue
+            if (r, d) in got:
+                block.index_copy_(split, pos, got[(r, d)])
+                continue
+            for b in range(0, counts[d][r], batch):
+                block.index_copy_(split, pos[b: b + batch], shards[r].index_select(split, idx[b: b + batch] - src_b[r][0]))
+        out[d] = block
+    return _placed(comm, out, lambda d: shape(d, dst_b[d][1] - dst_b[d][0]), like)
 
 
 class RowSource:
     """A value to assign, laid along dimension ``dim`` of the region it
     fills, whose extent there is ``n``: a tensor already broadcast to the
     region (``tensor``), or the shards of a split array cut along ``dim``
-    by the chunk rule (``shards``).  ``reverse`` reads the rows backwards
-    (the region's rows ascend where the key's slice steps down).
+    by the chunk rule (``shards``; across processes the other processes'
+    entries are :class:`RemoteShard` placeholders of their shape).
+    ``reverse`` reads the rows backwards (the region's rows ascend where
+    the key's slice steps down).
 
     A destination position takes the rows it receives with :meth:`range`
     (a mask's or a slice's contiguous run) or :meth:`take` (the rows of an
     integer key it owns, the reverse of :func:`tiled_take`).  From shards,
     each value row is read from the shard that holds it, once; the value
-    is never gathered."""
+    is never gathered.  Across processes every process calls
+    :meth:`fetch` with every destination's request instead: the rows that
+    change process cross in one exchange."""
 
     def __init__(self, dim: int, n: int, tensor: torch.Tensor = None, shards: Sequence[torch.Tensor] = None,
                  reverse: bool = False):
@@ -799,6 +1059,80 @@ class RowSource:
                 out.index_copy_(self.dim, pos, s.index_select(self.dim, idx[pos] - lo))
         return out
 
+    def fetch(self, comm, ranges=None, takes=None) -> dict:
+        """Every destination's rows at once, this process's returned by
+        destination: ``ranges`` maps each destination position (of every
+        process, as every process computes them) to its region rows
+        ``(a, b)``, ``takes`` to its region rows by index (a 1-D int64
+        tensor, the same on every process).  In one process this is
+        :meth:`range`/:meth:`take`; across processes the rows whose shard
+        lies in another process cross in one :func:`collectives.exchange`."""
+        local = comm.local_positions
+        if self.tensor is not None or not comm.spans_processes:
+            if ranges is not None:
+                return {d: self.range(a, b) for d, (a, b) in ranges.items() if d in local}
+            return {d: self.take(idx) for d, idx in takes.items() if d in local}
+        like = self.shards[local[0]]
+        dev, dim = like.device, self.dim
+        hi_t = torch.tensor([hi for _, hi in self.bounds], dtype=torch.int64, device=dev)
+        plan = {}  # destination -> [(source, rows in the source, (positions in the result | None))]
+        for d, req in (ranges or takes).items():
+            items = []
+            if ranges is not None:
+                a, b = req
+                if self.reverse:
+                    a, b = self.n - b, self.n - a
+                for q, (lo, hi) in enumerate(self.bounds):
+                    if max(a, lo) < min(b, hi):
+                        items.append((q, (max(a, lo) - lo, min(b, hi) - max(a, lo)), None))
+            else:
+                v = req.to(dev)
+                if self.reverse:
+                    v = self.n - 1 - v
+                owner = torch.searchsorted(hi_t, v, right=True)
+                counts = torch.bincount(owner, minlength=len(self.bounds)).tolist()  # ht: HT002 ok — the rows each shard owes size the exchange
+                for q, (lo, _) in enumerate(self.bounds):
+                    if counts[q]:
+                        pos = torch.nonzero(owner == q).reshape(-1)
+                        items.append((q, v[pos] - lo, pos))
+            plan[d] = items
+
+        def rows_of(q, sel):
+            s = self.shards[q]
+            return s.narrow(dim, *sel) if isinstance(sel, tuple) else s.index_select(dim, sel)
+
+        def extent(sel):
+            return sel[1] if isinstance(sel, tuple) else int(sel.numel())
+
+        sends, specs = {}, {}
+        for d, items in plan.items():
+            for q, sel, _ in items:
+                if comm.process_index(q) == comm.process_index(d):
+                    continue
+                if q in local:
+                    sends[(q, d)] = rows_of(q, sel)
+                elif d in local:
+                    shape = list(self.shards[q].shape)
+                    shape[dim] = extent(sel)
+                    specs[(q, d)] = (tuple(shape), like.dtype)
+        got = collectives.exchange(sends, specs, comm, dev)
+        out = {}
+        for d in local:
+            if d not in plan:
+                continue
+            parts = [(got[(q, d)] if (q, d) in got else rows_of(q, sel), pos) for q, sel, pos in plan[d]]
+            if ranges is not None:
+                block = torch.cat([p for p, _ in parts], dim=dim) if parts else like.narrow(dim, 0, 0)
+                out[d] = block.flip(dim) if self.reverse else block
+            else:
+                shape = list(like.shape)
+                shape[dim] = int(takes[d].numel())
+                block = like.new_empty(shape)
+                for p, pos in parts:
+                    block.index_copy_(dim, pos, p)
+                out[d] = block
+        return out
+
 
 # ------------------------------------------------- fused elementwise tail
 
@@ -838,7 +1172,7 @@ def _lower_split_tail(instrs, leaves, avals, out_slot, gshape, sa, sb, comm, til
     from .mesh import MeshComm
 
     gshape = tuple(int(d) for d in gshape)
-    if not resplit_applicable(gshape, sa, sb, comm) or instrs[out_slot][0] != "O":
+    if comm.spans_processes or not resplit_applicable(gshape, sa, sb, comm) or instrs[out_slot][0] != "O":
         return None
     kinds = []
     for lf in leaves:
@@ -950,9 +1284,13 @@ def ensure_fused_tail_registered() -> None:
 
 
 def stats() -> dict:
-    """The ``transport`` counter group."""
-    return telemetry.snapshot_group("transport")
+    """The ``transport`` counter group (heat_tpu's keys), with the
+    exchange's counters beside them (``exchanges``, ``sent_bytes`` to
+    other processes, ``staged_bytes`` through pinned host memory; the
+    port's own ``exchange`` group)."""
+    return {**telemetry.snapshot_group("transport"), **telemetry.snapshot_group("exchange")}
 
 
 def reset_stats() -> None:
     telemetry.reset_group("transport")
+    telemetry.reset_group("exchange")

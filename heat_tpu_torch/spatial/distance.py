@@ -164,9 +164,11 @@ def _whole(a: DNDarray) -> torch.Tensor:
 
 
 def _ring_eligible(x: DNDarray, y: DNDarray) -> bool:
-    """heat_tpu's ring layout (``_ring_eligible``), which stays eager; a
-    comm across processes gathers y instead (the ring's shifts are item
-    14b)."""
+    """heat_tpu's ring layout (``_ring_eligible``), which stays eager.  On
+    a comm across processes y is gathered instead, each of its shards
+    crossing to each other process once through the exchange
+    (``collectives.all_gather``); the ring's shifts across processes are
+    ROADMAP item 14b-ii."""
     n = x.comm.size
     return (x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
             and not x.comm.spans_processes)

@@ -10,8 +10,14 @@ with a NaN, ``argmin``, ``cumsum`` through ``exscan``; also with fewer
 rows than positions, so that one process owns only empty shards),
 ``array(is_split=)`` assembly and its raise, MLP ``DataParallel`` steps, a ResNet with the
 cross-process BatchNorm, DASO with the two processes as slices, KMeans from
-given centres, and the refusals of what moves shards between processes
-(item 14b).  Every process must return the same replicated values."""
+given centres; the moves of shards between processes through the one
+exchange (resplit, reshape, advanced ``__getitem__``/``__setitem__`` with a
+split value, ``shuffle_rows``, mask select, sort/topk/unique/median,
+cumprod, ``.larray``, ``lshards()``, the collectives, a forced-``int8``
+resplit, KMeans/KMedians/KMedoids seeded across processes), each also run
+in the process on ``MeshComm(4)`` to compare shards; the wire arm and the
+OOM back-off agreed across processes; and the refusals of what is still
+item 14b-ii.  Every process must return the same replicated values."""
 
 import json
 import os
@@ -33,6 +39,72 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PROCS, POSITIONS = 2, 4
 CHILD_LIMIT = 240  # seconds: a child that hangs fails the fixture
 TINY_OPS = ("sum", "mean", "var", "min", "max", "argmin", "cumsum")
+# what moves shards between processes, against heat_tpu on its mesh of 4
+MOVES = ("r01", "r010", "rNone", "reshape", "reshape_s1", "take", "pair", "flip", "mask", "mask_full", "set_slice",
+         "set_mask", "set_int", "set_step", "shuffle", "sort_v", "sort_i", "sortd_v", "sortd_i", "isort_v", "isort_i",
+         "csort_v", "topk_v", "topk_i", "unique", "unique_inv", "median", "cumprod", "larray", "tiny_r01", "tiny_sort",
+         "colsort_v", "colsort_i", "int8")
+KC_KEYS = ("km_random", "km_pp", "kmedians", "kmedoids", "kmedoids_pp")
+
+
+def _moves(ht, comm, data, psort=None, wire=None) -> dict:
+    """The moves' results (DNDarrays, or (values, indices) pairs) of either
+    package on ``comm``; ``psort`` is the port's ``parallel.sort`` (the
+    columnsort route), ``wire`` the package's wire module."""
+    a, m = data["red"], data["red"][:, 0] > 0
+    x = ht.array(a, split=0, comm=comm)
+    k = ht.array(data["km_x"], split=0, comm=comm)
+    v = np.ascontiguousarray(a[::-1] * 2 + 1)
+    out = {"r01": x.resplit(1), "r010": x.resplit(1).resplit(0), "rNone": x.resplit(None),
+           "reshape": ht.reshape(x, (5, 13), new_split=0), "reshape_s1": ht.reshape(k, (4, 101), new_split=1),
+           "take": x[np.array([12, 0, 5, 7, 3])], "pair": x[np.array([1, 5, 12, 0]), np.array([0, 4, 2, 3])],
+           "flip": x[::-1], "mask": x[m], "mask_full": x[a > 0]}
+    for key, sel, val in (("set_slice", slice(2, 11), v[:9]), ("set_mask", m, v[: int(m.sum())]),
+                          ("set_int", np.array([12, 0, 5, 6, 3]), v[:5]), ("set_step", (slice(1, 12, 3), slice(1, 4)),
+                                                                            v[:4, :3])):
+        y = ht.array(a, split=0, comm=comm)
+        y[sel] = ht.array(np.ascontiguousarray(val), split=0, comm=comm)
+        out[key] = y
+    ht.random.seed(5)
+    out["shuffle"] = ht.random.shuffle_rows([ht.array(a, split=0, comm=comm)])[0]
+    out["sort_v"], out["sort_i"] = ht.sort(x, axis=0)
+    out["sortd_v"], out["sortd_i"] = ht.sort(x, axis=0, descending=True)
+    ints = ht.array(data["ints"], split=0, comm=comm)
+    out["isort_v"], out["isort_i"] = ht.sort(ints)
+    out["csort_v"] = ht.sort(ht.array(data["cplx"], split=0, comm=comm))[0]
+    out["topk_v"], out["topk_i"] = ht.topk(x, 3, dim=0)
+    out["unique"], out["unique_inv"] = ht.unique(ints, return_inverse=True)
+    out["median"] = ht.median(x, axis=0)
+    out["cumprod"] = ht.cumprod(x, axis=0)
+    out["larray"] = x.larray
+    tiny = ht.array(data["tiny"], split=0, comm=comm)
+    out["tiny_r01"], out["tiny_sort"] = tiny.resplit(1), ht.sort(tiny, axis=0)[0]
+    if psort is None:
+        out["colsort_v"], out["colsort_i"] = ht.sort(k, axis=0)
+    else:
+        vals, idx, _ = psort.distributed_sort(k.shards, 0, method="columnsort", comm=comm)
+        out["colsort_v"] = ht.DNDarray(vals, k.shape, k.dtype, 0, k.device, comm)
+        out["colsort_i"] = ht.DNDarray(idx, k.shape, ht.int32, 0, k.device, comm)
+    old = wire.set_mode("int8")
+    try:
+        out["int8"] = k.resplit(1)
+    finally:
+        wire.set_mode(old)
+    return out
+
+
+def _kclusters(ht, comm, data) -> dict:
+    """KMeans from "random" and "kmeans++", KMedians and KMedoids, seeded."""
+    x = ht.array(data["km_x"], split=0, comm=comm)
+    return {"km_random": ht.cluster.KMeans(n_clusters=3, init="random", max_iter=5, tol=-1, random_state=7).fit(x),
+            "km_pp": ht.cluster.KMeans(n_clusters=3, init="kmeans++", max_iter=5, tol=-1, random_state=7).fit(x),
+            "kmedians": ht.cluster.KMedians(n_clusters=3, init="kmedians++", max_iter=5, random_state=7).fit(x),
+            "kmedoids": ht.cluster.KMedoids(n_clusters=3, init="random", max_iter=5, random_state=7).fit(x),
+            "kmedoids_pp": ht.cluster.KMedoids(n_clusters=3, init="kmedoids++", max_iter=5, random_state=7).fit(x)}
+
+
+def _host(v):
+    return np.asarray(v.numpy()) if hasattr(v, "numpy") else np.asarray(v)
 
 
 def _free_port() -> int:
@@ -110,13 +182,19 @@ def _child(rank: int, port: int, inputs: str, out: str) -> None:
     except ValueError:
         res["is_split_raises"] = np.array(True)
 
-    # refusals: what moves shards between processes is item 14b
+    _child_moves(rank, comm, data, res)
+
+    # refusals: what still refuses to move shards between processes is item 14b-ii
+    from heat_tpu_torch.parallel import expert, overlap, pipeline, sequence
+
+    q = torch.zeros(1, 1, 8, 4)
     refused = []
     for name, fn in (
-        ("resplit", lambda: x.resplit(1)),
-        ("larray", lambda: x.larray),
-        ("sort", lambda: htt.sort(x, axis=0)),
-        ("all_to_all", lambda: htt.parallel.collectives.all_to_all(comm.local_shards(x.shards), 0, 0, comm=comm)),
+        ("overlap.matmul", lambda: overlap.matmul(x, htt.array(np.ones((5, 3), np.float32), split=0, comm=comm))),
+        ("sequence_parallel_attention", lambda: sequence.sequence_parallel_attention(q, q, q, comm=comm)),
+        ("moe_ffn", lambda: expert.moe_ffn(torch.zeros(4, 4), torch.zeros(4, 2), torch.zeros(2, 4, 8),
+                                           torch.zeros(2, 8, 4), mesh=comm)),
+        ("pipeline_apply", lambda: pipeline.pipeline_apply(lambda p, h: h, {}, torch.zeros(4, 2), mesh=comm, n_micro=2)),
         ("remote shard", lambda: x.shards[2 - 2 * rank] + 1),
     ):
         try:
@@ -173,6 +251,99 @@ def _child(rank: int, port: int, inputs: str, out: str) -> None:
     np.savez(out, **res)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _child_moves(rank: int, comm, data, res) -> None:
+    """The moves across processes, each also on ``MeshComm(4)`` in this
+    process: global values, this process's shards of both, the K7 calls of
+    the reshape, the collectives, the seeded estimators, the wire arm's and
+    the OOM back-off's agreement, the exchange's counters."""
+    from heat_tpu_torch.core import wire as twire
+    from heat_tpu_torch.ops import repack as k7
+    from heat_tpu_torch.parallel import collectives, transport
+    from heat_tpu_torch.parallel import sort as psort
+    from heat_tpu_torch.utils import fault
+
+    one = htt.MeshComm(POSITIONS)
+    os.environ["HEAT_TPU_WIRE_MIN_BYTES"] = "1"
+    transport.reset_stats()
+    calls = {}
+    for tag, c in (("mv", comm), ("one", one)):
+        before = k7.calls
+        x = htt.array(data["red"], split=0, comm=c)
+        htt.reshape(x, (5, 13), new_split=0)
+        calls[tag] = k7.calls - before
+        for key, val in _moves(htt, c, data, psort, twire).items():
+            if tag == "mv":
+                res[f"mv/{key}"] = _host(val.larray if isinstance(val, htt.DNDarray) else val)
+            if isinstance(val, htt.DNDarray) and val.split is not None:
+                for r in comm.local_positions:
+                    res[f"{tag}s/{key}/{r}"] = val.shards[r].numpy()
+    res["k7_calls"], res["k7_calls_one"] = np.array(calls["mv"]), np.array(calls["one"])
+    x = htt.array(data["red"], split=0, comm=comm)
+    res["lshards"] = np.array([s.shape[0] for s in x.lshards()])
+    for i, sh in enumerate(x.lshards()):
+        res[f"lshard/{i}"] = sh
+    stats = transport.stats()
+    res["exchange"] = np.array([stats["exchanges"], stats["sent_bytes"], stats["staged_bytes"]])
+    res["repr"] = np.array(repr(comm))
+
+    # the collectives: the process route against the single controller's
+    blocks = np.arange(16 * 3, dtype=np.float32).reshape(16, 3)
+    parts = [torch.from_numpy(blocks[4 * r: 4 * r + 4]) for r in range(POSITIONS)]
+    mine = [parts[r] for r in comm.local_positions]
+    perm = [(0, 2), (2, 1), (1, 3)]
+    for key, got, want in (
+        ("all_to_all", collectives.all_to_all(mine, 0, 1, comm=comm), collectives.all_to_all(parts, 0, 1)),
+        ("ppermute", collectives.ppermute(mine, perm, comm=comm), collectives.ppermute(parts, perm)),
+        ("ring_shift", collectives.ring_shift(mine, 1, comm=comm), collectives.ring_shift(parts, 1)),
+        ("ring_shift3", collectives.ring_shift(mine, 3, comm=comm), collectives.ring_shift(parts, 3)),
+    ):
+        res[f"coll/{key}"] = np.stack([t.numpy() for t in got])
+        res[f"coll1/{key}"] = np.stack([want[r].numpy() for r in comm.local_positions])
+
+    # the estimators seeded across processes: the seeding centres and the fits
+    for tag, c in (("kc", comm), ("kc1", one)):
+        for key, est in _kclusters(htt, c, data).items():
+            res[f"{tag}/{key}/centres"] = est.cluster_centers_.numpy()
+            res[f"{tag}/{key}/labels"] = est.labels_.numpy()
+        for init in ("random", "kmeans++"):
+            est = htt.cluster.KMeans(n_clusters=3, init=init, random_state=7)
+            est._initialize_cluster_centers(htt.array(data["km_x"], split=0, comm=c))
+            res[f"{tag}/seed_{init}"] = est.cluster_centers_.numpy()
+
+    # the wire arm agreed: process 1's own table would pick int8 at once;
+    # process 0's explores, and both follow process 0
+    prev_auto, prev_mode = htt.core.autotune.set_enabled(True), twire.set_mode("on")
+    real = twire.choose
+    if rank == 1:
+        twire.choose = lambda *a, **kw: ("wire_int8", None)
+    try:
+        kx = htt.array(data["km_x"], split=0, comm=comm)
+        res["wire_agreed"] = np.stack([kx.resplit(1).numpy() for _ in range(5)])
+    finally:
+        twire.choose = real
+        htt.core.autotune.set_enabled(prev_auto)
+        twire.set_mode(prev_mode)
+        htt.core.autotune.reset()
+
+    # the OOM back-off in step: process 0 alone runs out of memory
+    x = htt.array(data["red"], split=0, comm=comm)
+    for tag, times in (("oom_once", 1), ("oom_exhausted", 100)):
+        transport.reset_stats()
+        inj = fault.FaultInjector().oom_in("transport.resplit", times=times)
+        try:
+            if rank == 0:
+                with fault.injected(inj):
+                    y = x.resplit(1).numpy()
+            else:
+                y = x.resplit(1).numpy()
+            res[f"{tag}/raised"] = np.array(False)
+            res[f"{tag}/value"] = y
+        except torch.OutOfMemoryError:
+            res[f"{tag}/raised"] = np.array(True)
+        st = transport.stats()
+        res[f"{tag}/stats"] = np.array([st["oom_retries"], st["oom_exhausted"]])
 
 
 def _start(inputs: str, outdir: str):
@@ -329,6 +500,21 @@ def _reference(ht, inputs, jm, jc, net, rn_vars, jd, jdm) -> dict:
         ht.array(inputs["km_x"], split=0, comm=jc))
     want["km_centers"], want["km_labels"] = np.asarray(jk.cluster_centers_.numpy()), np.asarray(jk.labels_.numpy())
     want["km_inertia"] = float(jk.inertia_)
+    from heat_tpu.core import wire as jwire
+
+    prev = os.environ.get("HEAT_TPU_WIRE_MIN_BYTES")
+    os.environ["HEAT_TPU_WIRE_MIN_BYTES"] = "1"
+    try:
+        for key, val in _moves(ht, jc, inputs, wire=jwire).items():
+            want[f"mv/{key}"] = _host(val)
+    finally:
+        if prev is None:
+            os.environ.pop("HEAT_TPU_WIRE_MIN_BYTES", None)
+        else:
+            os.environ["HEAT_TPU_WIRE_MIN_BYTES"] = prev
+    for key, est in _kclusters(ht, jc, inputs).items():
+        want[f"kc/{key}/centres"] = np.asarray(est.cluster_centers_.numpy())
+        want[f"kc/{key}/labels"] = np.asarray(est.labels_.numpy())
     return want
 
 
@@ -360,8 +546,104 @@ def test_is_split_assembles_process_chunks(run):
 
 
 def test_shard_moves_across_processes_raise(run):
+    """What still refuses a comm that spans processes (item 14b-ii): the
+    overlap rings, sequence and expert parallelism, the pipeline, and a
+    direct read of another process's shard."""
     for res in run[2]:
-        assert json.loads(str(res["refused"])) == ["resplit", "larray", "sort", "all_to_all", "remote shard"]
+        assert json.loads(str(res["refused"])) == ["overlap.matmul", "sequence_parallel_attention", "moe_ffn",
+                                                   "pipeline_apply", "remote shard"]
+
+
+@pytest.mark.parametrize("key", MOVES)
+def test_moves_across_processes_match_heat_tpu(run, key):
+    """Each move's global value and dtype against heat_tpu on its mesh of
+    4, on both processes; the value's shards on this process's positions
+    bit for bit the single controller's (``MeshComm(4)`` in the process)."""
+    _, want, got = run
+    for rank, res in enumerate(got):
+        a, b = res[f"mv/{key}"], want[f"mv/{key}"]
+        if key == "shuffle":  # the Feistel route: the port's own order, the same rows
+            np.testing.assert_array_equal(np.sort(a, axis=0), np.sort(b, axis=0))
+        elif key in ("int8", "cumprod"):  # the wire's quantization; XLA's order of the scan's products
+            _close(a, b)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        assert a.dtype == b.dtype, (key, a.dtype, b.dtype)
+        for r in (2 * rank, 2 * rank + 1):
+            if f"mvs/{key}/{r}" in res:
+                np.testing.assert_array_equal(res[f"mvs/{key}/{r}"], res[f"ones/{key}/{r}"], err_msg=f"{key} {r}")
+    np.testing.assert_array_equal(got[0][f"mv/{key}"], got[1][f"mv/{key}"])
+
+
+def test_k7_calls_per_process_follow_the_plan(run):
+    """The split-crossing reshape (13, 5) -> (5, 13) over 4 positions:
+    destinations with rows 0, 1, 2; each process calls K7 once for each of
+    its own, the single controller once for each."""
+    got = run[2]
+    assert [int(res["k7_calls"]) for res in got] == [2, 1]
+    assert all(int(res["k7_calls_one"]) == 3 for res in got)
+
+
+def test_lshards_are_this_process_s(run):
+    inputs, _, got = run
+    for rank, res in enumerate(got):
+        assert res["lshards"].tolist() == ([4, 4] if rank == 0 else [4, 1])
+        np.testing.assert_array_equal(res["lshard/0"], inputs["red"][8 * rank: 8 * rank + 4])
+
+
+def test_one_exchange_carries_the_moves(run):
+    """Bytes crossed through the exchange, none staged on the CPU, and the
+    comm names its backend and the route of CUDA tensors."""
+    for res in run[2]:
+        exchanges, sent, staged = res["exchange"].tolist()
+        assert exchanges > 0 and sent > 0 and staged == 0
+        assert "backend='gloo'" in str(res["repr"]) and "cuda_exchange='staged'" in str(res["repr"])
+
+
+@pytest.mark.parametrize("key", ["all_to_all", "ppermute", "ring_shift", "ring_shift3"])
+def test_collectives_across_processes(run, key):
+    for res in run[2]:
+        np.testing.assert_array_equal(res[f"coll/{key}"], res[f"coll1/{key}"])
+
+
+@pytest.mark.parametrize("key", KC_KEYS)
+def test_kclusters_seeded_across_processes(run, key):
+    """The fits against heat_tpu (centres within 1e-5, labels equal) and,
+    bit for bit, the single controller's labels; KMedians' and KMedoids'
+    centres bit for bit the single controller's too (exact selections)."""
+    _, want, got = run
+    for res in got:
+        _close(res[f"kc/{key}/centres"], want[f"kc/{key}/centres"])
+        np.testing.assert_array_equal(res[f"kc/{key}/labels"], want[f"kc/{key}/labels"])
+        np.testing.assert_array_equal(res[f"kc/{key}/labels"], res[f"kc1/{key}/labels"])
+        if key.startswith("kmed"):
+            np.testing.assert_array_equal(res[f"kc/{key}/centres"], res[f"kc1/{key}/centres"])
+
+
+@pytest.mark.parametrize("init", ["random", "kmeans++"])
+def test_seeding_bitwise_the_single_controller(run, init):
+    for res in run[2]:
+        np.testing.assert_array_equal(res[f"kc/seed_{init}"], res[f"kc1/seed_{init}"])
+
+
+def test_wire_arm_agreed_across_processes(run):
+    """Process 1's table is patched to pick int8 at once; both processes
+    follow process 0's explores (exact values) in step."""
+    inputs, _, got = run
+    np.testing.assert_array_equal(got[0]["wire_agreed"], got[1]["wire_agreed"])
+    for res in got:
+        for i in range(3):
+            np.testing.assert_array_equal(res["wire_agreed"][i], inputs["km_x"])
+
+
+def test_oom_backoff_in_step_across_processes(run):
+    """An OOM injected in process 0 alone: both processes retry once and
+    agree on the values; at the floor both raise."""
+    inputs, _, got = run
+    for res in got:
+        assert not bool(res["oom_once/raised"]) and res["oom_once/stats"].tolist() == [1, 0]
+        np.testing.assert_array_equal(res["oom_once/value"], inputs["red"])
+        assert bool(res["oom_exhausted/raised"]) and res["oom_exhausted/stats"][1] == 1
 
 
 def test_data_parallel_mlp_matches_global_batch_step(run):
