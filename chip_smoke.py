@@ -127,7 +127,13 @@ through K3 and a KMeans fit through K1 on the process comm against the
 single controller, NCCL's refusal of two ranks on one card, and two
 processes over gloo on the one card (TransformerLM steps, ResNet-18 with
 the cross-process BatchNorm, DASO with the processes as slices, KMeans
-from given centres) against one-process runs;
+from given centres) against one-process runs; in both of its legs the
+shard moves (K7, K1) and ``dnn_run``: the overlap rings at 8192² f32, a
+chain over one and the int8 ring, a KMeans fit and its update ring, the
+ring cdist and the KNN batch predict (K1), ring and Ulysses attention
+with and without the dp axis, sequence-parallel (K3) and MoE
+TransformerLM steps, the pipeline and ``run_elastic`` with a fault, each
+against one process's ``MeshComm(4)``;
 each with
 data made on the card from ``--seed``, and a small input of each on the card
 and on the CPU; (6) one JSON line per kernel.  The last line is
@@ -5723,7 +5729,7 @@ PROC_RESPLIT = (2_000_000, 64)  # f32 rows x columns (512 MB): resplit 0 -> 1 ->
 PROC_RESHAPE = ((999_999, 20), (1_999_998, 10))  # f32, 80 MB (benchmarks/cb/config.py:186-188)
 PROC_SORT = 10_000_000  # f32 keys sorted along the split (the odd-even network)
 PROC_KMEDOIDS = (200_000, 64, 8, 6)  # rows, features, k, at most this many iterations (kmedoids++)
-PROC_CHILD_LIMIT = 240  # seconds for each child process
+PROC_CHILD_LIMIT = 480  # seconds for each child process
 TOL_PROC = 1e-4  # a two-process step against the one-process global batch, relative to the scale
 
 
@@ -5906,6 +5912,326 @@ def proc_move_run(ht, comm, seed: int, dev, k1, k7) -> dict:
     return {"ops": out, "prints": prints, "centres": centres, "labels": labels}
 
 
+# the rings, the ring cdist, sequence, expert and pipeline parallelism and
+# the elastic loop on the process comm (dnn_run): the overlap rings at
+# overlap_paths' first shape, KMeans' update ring after a fit, the KNN
+# block, the LM's width for attention and training, the pipeline's config
+DNN_RING = OVERLAP_SHAPES[0]  # m, k, n f32
+DNN_KM = (2_000_000, 64, 8)  # rows, features, k: a fit from given centres, then the update ring
+DNN_KM_ITERS = 3
+DNN_LM_STEPS = 3
+DNN_ELASTIC = (10, 2, 5, 2)  # steps, checkpoint cadence, the faulty step, sequences of a batch
+TOL_DNN = 1e-5  # gradients and trained parameters against one process, relative to their scale
+
+
+def sgd_steps(model, tokens, targets, steps: int, aux: bool) -> list:
+    """``steps`` plain SGD steps (``PROC_LR``) of a TransformerLM on one
+    batch: the losses (the MoE routers' loss added with ``MOE_AUX``)."""
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+
+    losses = []
+    for _ in range(steps):
+        model.zero_grad()
+        loss = _default_loss(model(tokens), targets)
+        if aux:
+            loss = loss + MOE_AUX * sum(model.moe_aux_losses())
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p -= PROC_LR * p.grad
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def dnn_run(ht, comm, mesh2, seed: int, dev, k1, k3, ckpt_dir: str, fault_rank: int) -> dict:
+    """The rings, the ring cdist, sequence, expert and pipeline parallelism
+    and the elastic loop on ``comm`` (4 positions) and ``mesh2`` (dp x sp,
+    2 x 2).  Returns per scenario its ms (this process's wall,
+    card-synchronised, after a barrier across processes), the exchange's
+    counters and K1's and K3's launches; the fingerprints of this
+    process's results (shards, or the whole replicated or joined tensor);
+    the tensors held within a tolerance (gradients, trained parameters) on
+    the CPU, every process's whole; and the ring's hop counters."""
+    from torch.func import functional_call
+
+    from heat_tpu_torch.core import quantize
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+    from heat_tpu_torch.parallel import overlap, transport
+    from heat_tpu_torch.utils import fault
+
+    across = comm.spans_processes
+    local = comm.local_positions
+    ops, prints, held = {}, {}, {}
+
+    def timed(name, fn, results=None):
+        transport.reset_stats()
+        overlap.reset_stats()
+        k1.launches = k3.launches = 0
+        torch.cuda.synchronize()
+        if across:
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        st, hops = transport.stats(), overlap.hop_stats()
+        ops[name] = {"ms": ms, "sent": st["sent_bytes"], "staged": st["staged_bytes"], "exchanges": st["exchanges"],
+                     "k1": k1.launches, "k3": k3.launches, "hops": hops["hops"], "hop_wait_ms": 1e3 * hops["wait_s"]}
+        if results is not None:
+            prints[name] = {}
+            for i, t in enumerate(results(res)):
+                if isinstance(t, torch.Tensor):
+                    prints[name][str(i)] = fingerprint(t.detach())
+                elif t.split is None:  # a replicated DNDarray: its whole tensor
+                    prints[name][f"{i}/all"] = fingerprint(t.shards[local[0]])
+                else:  # a split DNDarray: this process's shards
+                    for r in local:
+                        prints[name][f"{i}/{r}"] = fingerprint(t.shards[r])
+        return res
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    m, k, n = DNN_RING
+    a = torch.randn(m, k, generator=gen, device=dev)
+    b = torch.randn(k, n, generator=gen, device=dev)
+    c = torch.randn(n, generator=gen, device=dev)
+    prev = overlap.set_mode("ring")
+    try:
+        for case, (sa, sb) in OVERLAP_CASES.items():
+            A, B = ht.array(a, split=sa, comm=comm), ht.array(b, split=sb, comm=comm)
+            ht.materialize(ht.matmul(A, B))  # warm-up: the ring's first allocations
+            # materialized inside the timing: in one process the product is a lazy node
+            timed(f"ring {case}", lambda: ht.materialize(ht.matmul(A, B)), lambda r: [r])
+            del A, B
+        A, B = ht.array(a, split=0, comm=comm), ht.array(b, split=0, comm=comm)
+        timed("ring chain abs(a @ b + c)",
+              lambda: ht.materialize(ht.abs(ht.matmul(A, B) + ht.array(c, comm=comm))), lambda r: [r])
+        qw = quantize.quantize_weights(B, "int8", axis=1)
+        quantize.matmul_quantized(A, qw, arm="int8")
+        timed("ring int8", lambda: quantize.matmul_quantized(A, qw, arm="int8"), lambda r: [r])
+        del A, B, qw
+    finally:
+        overlap.set_mode(prev)
+    del a, b, c
+
+    rows, f, kc = DNN_KM
+    g2 = torch.Generator(device=dev).manual_seed(seed + 61)
+    means = 4 * torch.randn(kc, f, generator=g2, device=dev)
+    xk = means[torch.randint(0, kc, (rows,), generator=g2, device=dev)] + torch.randn(rows, f, generator=g2, device=dev)
+    xd = ht.array(xk, split=0, comm=comm)
+    km = timed("kmeans fit", lambda: ht.cluster.KMeans(n_clusters=kc, init=ht.array(xk[:kc].clone(), comm=comm),
+                                                       max_iter=DNN_KM_ITERS, tol=-1).fit(xd),
+               lambda r: [r.cluster_centers_, r.labels_])
+    prev = overlap.set_mode("ring")  # the ring, not the tuning plane's pick of this process
+    try:
+        timed("kmeans update ring", lambda: km._update_centroids(xd, km.labels_), lambda r: [r])
+    finally:
+        overlap.set_mode(prev)
+    del xd, xk, km
+
+    nx, ny, fd = RING_CDIST
+    g3 = torch.Generator(device=dev).manual_seed(seed + 62)
+    xq = ht.array(torch.randn(nx, fd, generator=g3, device=dev), split=0, comm=comm)
+    yc = ht.array(torch.randn(ny, fd, generator=g3, device=dev), split=0, comm=comm)
+    ht.spatial.cdist(xq, yc)
+    timed("ring cdist", lambda: ht.spatial.cdist(xq, yc), lambda r: [r])
+    labels = ht.array(torch.randint(0, 10, (ny,), generator=g3, device=dev), split=0, comm=comm)
+    knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(yc, labels)
+    knn.predict(xq)  # warm-up: the first full-size call pays fresh device allocations
+    timed("knn batch predict", lambda: knn.predict(xq), lambda r: [r])
+    del xq, yc, labels, knn
+    torch.cuda.empty_cache()
+
+    b_, s_ = LM_BATCH, LM["max_seq_len"]
+    h_, d_ = LM["num_heads"], LM["head_dim"]
+    g4 = torch.Generator(device=dev).manual_seed(seed + 63)
+    q, kk, v, g_out = (torch.randn(b_, h_, s_, d_, generator=g4, device=dev) for _ in range(4))
+    for key in ("ring", "ulysses", "ring dp", "ulysses dp"):
+        strategy, where, axis = key.split()[0], (mesh2 if key.endswith("dp") else comm), "sp"
+        ts = [t.clone().requires_grad_(True) for t in (q, kk, v)]
+
+        def attend():
+            o = ht.parallel.sequence.sequence_parallel_attention(*ts, where, axis, causal=True, strategy=strategy)
+            (o * g_out).sum().backward()
+            return o.detach()
+
+        o = timed(f"attention {key}", attend, lambda r: [r])
+        held[f"attention {key}"] = {"out": o.cpu(), **{f"d{n}": t.grad.cpu() for n, t in zip("qkv", ts)}}
+        del ts, o
+    del q, kk, v, g_out
+    torch.cuda.empty_cache()
+
+    gen_t = torch.Generator(device=dev).manual_seed(seed + 64)
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM["max_seq_len"]), generator=gen_t, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    for name, config, aux in (("sp LM ulysses", dict(attention="ulysses", sp_mesh=comm), False),
+                              ("MoE LM", dict(ep_mesh=comm), True)):
+        if aux:
+            model = ht.models.TransformerLM(**LM, **MOE, **config, device="gpu",
+                                            generator=torch.Generator(device=dev).manual_seed(seed + 19))
+        else:
+            model = ht.models.transformer_from_flax(flax_layout_params(seed, **LM), device="gpu", **config)
+        losses = timed(f"{name} {DNN_LM_STEPS} SGD steps", lambda: sgd_steps(model, tokens, targets, DNN_LM_STEPS, aux),
+                       lambda r: [p for _, p in model.named_parameters()])
+        ops[f"{name} {DNN_LM_STEPS} SGD steps"]["losses"] = losses
+        held[name] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+
+    gen_p = torch.Generator(device=dev).manual_seed(seed + 21)
+    blocks = [ht.models.TransformerBlock(LM["num_heads"], LM["head_dim"], LM["mlp_ratio"], device="gpu",
+                                         generator=gen_p) for _ in range(comm.size)]  # one block a stage
+    dim = h_ * d_
+    xp = torch.randn(PIPE_MICRO, s_, dim, generator=gen_p, device=dev)
+    gp = torch.randn(PIPE_MICRO, s_, dim, generator=gen_p, device=dev)
+    stacked = {n: p.detach().clone().requires_grad_() for n, p in
+               ht.parallel.stack_stage_params([dict(bl.named_parameters()) for bl in blocks], comm).items()}
+
+    def pipe():
+        y = ht.parallel.pipeline_apply(lambda p, act: functional_call(blocks[0], p, (act,)), stacked, xp, mesh=comm,
+                                       n_micro=PIPE_MICRO)
+        (y * gp).sum().backward()
+        return y.detach()
+
+    y = timed("pipeline forward and backward", pipe, lambda r: [r])
+    held["pipeline"] = {"y": y.cpu(), **{n: t.grad.cpu() for n, t in stacked.items()}}
+    del blocks, stacked, xp, gp, y
+    torch.cuda.empty_cache()
+
+    # run_elastic: the sequence-parallel LM (Ulysses over comm), a fault on
+    # process fault_rank at one step, against a fault-free run
+    steps, every, bad, batch = DNN_ELASTIC
+    model = ht.models.transformer_from_flax(flax_layout_params(seed, **LM), device="gpu", attention="ulysses",
+                                            sp_mesh=comm)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def batch_fn(i):
+        g = torch.Generator(device=dev).manual_seed(seed + 1000 + i)
+        tok = torch.randint(0, LM["vocab_size"], (batch, LM["max_seq_len"]), generator=g, device=dev)
+        return i, tok, torch.roll(tok, -1, dims=1)
+
+    def step_fn(faults):
+        def step(state, bt):
+            i, tok, tgt = bt
+            params = {n: p.detach().requires_grad_(True) for n, p in state.items()}
+            loss = _default_loss(functional_call(model, params, (tok,)), tgt)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            new = {n: (p - ELASTIC_LR * g).detach() for (n, p), g in zip(params.items(), grads)}
+            return new, {"loss": faults.fire(i, loss.detach())}
+        return step
+
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    clean, _ = timed("elastic clean", lambda: fault.run_elastic(step_fn(fault.FaultInjector()), init, batch_fn, steps),
+                     lambda r: list(r[0].values()))
+    faults = fault.FaultInjector().raise_at(bad) if rank == fault_rank else fault.FaultInjector()
+    got, rep = timed("elastic fault", lambda: fault.run_elastic(
+        step_fn(faults), init, batch_fn, steps, checkpointer=ht.utils.Checkpointer(ckpt_dir, max_to_keep=2, comm=comm),
+        checkpoint_every=every), lambda r: list(r[0].values()))
+    ops["elastic fault"]["events"] = [e["kind"] for e in rep.events]
+    ops["elastic fault"]["bitwise_clean"] = all(torch.equal(got[n], clean[n]) for n in clean)
+    del model, init, clean, got
+    torch.cuda.empty_cache()
+    return {"ops": ops, "prints": prints, "held": held}
+
+
+def rel_max(got: dict, want: dict) -> tuple:
+    """(max |got - want| over the tensors of two dicts, max |want|), on the
+    CPU."""
+    return (max(float((got[n].float() - want[n].float()).abs().max()) for n in want),
+            max(float(want[n].float().abs().max()) for n in want))
+
+
+# scenarios whose results are held bit for bit against one process (the
+# others, gradients and trained parameters, within TOL_DNN)
+DNN_BITWISE = ("ring ag", "ring rs", "ring col", "ring chain abs(a @ b + c)", "ring int8", "kmeans fit", "kmeans update ring", "ring cdist", "knn batch predict",
+               "attention ring", "attention ulysses", "attention ring dp", "attention ulysses dp",
+               "pipeline forward and backward")
+
+
+def dnn_report(where: str, got: list, one: dict, card: str) -> dict:
+    """Print and check :func:`dnn_run`'s results of each process (``got``)
+    against one process's (``one``): per scenario each process's ms, the
+    exchanges, bytes sent and staged, K1's and K3's launches (summed over
+    the processes equal to one process's), the fingerprints (bit for bit
+    for :data:`DNN_BITWISE`, equal across the processes for every
+    scenario) and the held tensors within ``TOL_DNN``.  The MoE LM's
+    attention is replicated, so each process launches K3 as one process
+    does.  Returns the launches summed over the processes and scenarios."""
+    total = {"k1": 0, "k3": 0}
+    for name, want in one["ops"].items():
+        ops = [g["ops"][name] for g in got]
+        mine = {}
+        same_ranks = True
+        for g in got:
+            for key, fp in g["prints"].get(name, {}).items():
+                same_ranks = same_ranks and mine.get(key, fp) == fp
+                mine[key] = fp
+        bitwise = mine == one["prints"].get(name, {})
+        k1s, k3s = sum(o["k1"] for o in ops), sum(o["k3"] for o in ops)
+        extra = ""
+        if "hop_wait_ms" in want and any(o["hops"] for o in ops):
+            # a hop hid behind its GEMM when the host's wait for it after the
+            # GEMM was issued is a small share of the call
+            extra = (f"; hops across processes {[o['hops'] for o in ops]}, issued before the GEMM, host wait for them "
+                     f"after it {' / '.join(format(o['hop_wait_ms'], '.3f') for o in ops)} ms "
+                     f"({' / '.join(format(o['hop_wait_ms'] / o['ms'], '.1%') for o in ops)} of the call)")
+        if "losses" in want:
+            extra += f"; losses {[round(v, 6) for v in ops[0]['losses']]} (one process {[round(v, 6) for v in want['losses']]})"
+        if "events" in want:
+            extra += f"; events {ops[-1]['events']}, bitwise a fault-free run {[o['bitwise_clean'] for o in ops]}"
+        print(f"[process] {name} on {where}: {' / '.join(format(o['ms'], '.4f') for o in ops)} ms (one process "
+              f"{want['ms']:.4f} ms); exchanges {[o['exchanges'] for o in ops]}, sent {[o['sent'] for o in ops]} B, "
+              f"staged {[o['staged'] for o in ops]} B; K1 {[o['k1'] for o in ops]} (one process {want['k1']}), K3 "
+              f"{[o['k3'] for o in ops]} (one process {want['k3']}) launches; equal across processes {same_ranks}, "
+              f"bitwise one process {bitwise}{extra} on {card}")
+        check(same_ranks, f"process: {name}'s results differ between the processes on {where}")
+        if name.startswith("MoE LM"):
+            # the attention is replicated: every process runs the whole of it
+            check(all((o["k1"], o["k3"]) == (want["k1"], want["k3"]) for o in ops),
+                  f"process: {name}'s K3 launches on a process differ from one process's on {where}")
+        else:
+            check((k1s, k3s) == (want["k1"], want["k3"]),
+                  f"process: {name}'s K1/K3 launches over the processes differ from one process's on {where}")
+        if name in DNN_BITWISE:
+            check(bitwise, f"process: {name} on {where} differs from one process")
+        if "events" in want:
+            check(all(o["bitwise_clean"] for o in ops) and "restore" in ops[-1]["events"],
+                  f"process: run_elastic on {where} did not restore to the fault-free run")
+        total["k1"] += k1s
+        total["k3"] += k3s
+    for name, want in one["held"].items():
+        for r, g in enumerate(got):
+            err, scale = rel_max(g["held"][name], want)
+            print(f"[process] {name} on {where}, process {r}: max|Δ| {err:.3e} against one process (tolerance "
+                  f"{TOL_DNN:g} x {scale:.4e}) on {card}")
+            check(err <= TOL_DNN * scale,
+                  f"process: {name} on {where}, process {r}, differs from one process beyond the tolerance")
+    return total
+
+
+def elastic_restart(ht, ckpt_dir, got: list, seed: int, dev, card: str) -> None:
+    """The two processes' run_elastic checkpoint restored onto one
+    process's ``MeshComm(4)``: the parameters bit for bit the run's last,
+    and the sequence-parallel LM over MeshComm(4) evaluates them."""
+    from heat_tpu_torch.nn.data_parallel import _default_loss
+
+    model = ht.models.transformer_from_flax(flax_layout_params(seed, **LM), device="gpu", attention="ulysses",
+                                            sp_mesh=ht.MeshComm(4))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ck = ht.utils.Checkpointer(str(ckpt_dir))
+    state = ck.restore_latest(target={"state": init, "step": 0})
+    fps = [fingerprint(t) for t in state["state"].values()]
+    want = [got[0]["prints"]["elastic fault"][str(i)] for i in range(len(fps))]
+    with torch.no_grad():
+        tok = torch.randint(0, LM["vocab_size"], (1, LM["max_seq_len"]), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 65))
+        loss = float(_default_loss(torch.func.functional_call(model, state["state"], (tok,)), torch.roll(tok, -1, 1)))
+    print(f"[process] run_elastic's checkpoint of the 2 processes (step {state['step']}) restored onto one process's "
+          f"MeshComm(4): parameters bitwise the run's last {fps == want}; a forward of the restored LM over "
+          f"MeshComm(4): loss {loss:.6f} on {card}")
+    check(fps == want and state["step"] == DNN_ELASTIC[0] and math.isfinite(loss),
+          "process: the restart from the checkpoint onto MeshComm(4) differs")
+
+
 def process_child(args) -> int:
     """One process of ``process_paths``' second leg (``--process-child``):
     ``nccl`` asks NCCL for two ranks on the one card and records its
@@ -5968,6 +6294,14 @@ def process_child(args) -> int:
     res.update(moves_comm=repr(four), moves=moves["ops"], move_prints=moves["prints"])
     torch.save({"centres": {k: v.cpu() for k, v in moves["centres"].items()}, "labels": moves["labels"]},
                out_dir / f"moves{args.rank}.pt")
+    del moves
+    # the rings, sequence (dp across the processes, sp inside), expert and
+    # pipeline parallelism and run_elastic (a fault on process 1)
+    dnn = dnn_run(ht, four, ht.parallel.hybrid_mesh({"sp": 2}, {"dp": 2}), args.seed, dev, k1, k3,
+                  str(out_dir / "elastic"), 1)
+    res.update(dnn_ops=dnn["ops"], dnn_prints=dnn["prints"])
+    torch.save(dnn["held"], out_dir / f"dnn{args.rank}.pt")
+    del dnn
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     (out_dir / f"gloo{args.rank}.json").write_text(json.dumps(res))
@@ -6009,7 +6343,8 @@ def rel_err(got: dict, want: dict) -> tuple:
 
 
 def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
-    """The process layer on the card.  Leg 1: ``init_distributed`` through
+    """The process layer on the card (with :func:`dnn_run`'s scenarios in
+    both legs, held against one process's ``MeshComm(4)``).  Leg 1: ``init_distributed`` through
     a torchrun environment of world size 1 (NCCL), TransformerLM
     DataParallel steps through K3 and a KMeans fit through K1 on the process
     comm, against the same on ``MeshComm(1)`` (the single controller).  Leg
@@ -6090,6 +6425,23 @@ def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
             out["k1"] += got["k1"]
             out["k7"] += got["k7"]
         del mv_p
+        # the rings, sequence, expert and pipeline parallelism and run_elastic
+        # on the process comm of world 1 against the single controller's
+        # MeshComm(4), which is also leg 2's reference
+        tmp1 = tempfile.mkdtemp(prefix="heat_dnn_")
+        try:
+            grid = np.arange(4).reshape(2, 2)
+            dnn_p = dnn_run(ht, four, ht.parallel.Mesh(grid, ("dp", "sp"), per_process=4), seed, dev, k1, k3,
+                            os.path.join(tmp1, "p"), 0)
+            dnn_one = dnn_run(ht, ht.MeshComm(4), ht.parallel.Mesh(grid, ("dp", "sp")), seed, dev, k1, k3,
+                              os.path.join(tmp1, "one"), 0)
+        finally:
+            shutil.rmtree(tmp1, ignore_errors=True)
+        dnn_report(f"{four!r} (NCCL, world 1)", [dnn_p], dnn_one, card)
+        for got in dnn_p["ops"].values():
+            out["k1"] += got["k1"]
+            out["k3"] += got["k3"]
+        del dnn_p
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -6201,6 +6553,17 @@ def process_paths(ht, k1, k3, seed: int, dev, card: str) -> dict:
             out["k7"] += k7_sum
         out["moves"] = moves
         del moved, one
+        # the rings, sequence, expert and pipeline parallelism and run_elastic
+        # across the two processes against one process's MeshComm(4)
+        got = [{"ops": r["dnn_ops"], "prints": r["dnn_prints"], "held": torch.load(Path(tmp) / f"dnn{i}.pt")}
+               for i, r in enumerate(res)]
+        launches = dnn_report(f"{res[0]['moves_comm']} (2 gloo processes x 2 positions)", got, dnn_one, card)
+        out["k1"] += launches["k1"]
+        out["k3"] += launches["k3"]
+        out["dnn"] = {name: max(g["ops"][name]["ms"] for g in got) for name in dnn_one["ops"]}
+        out["dnn_one"] = {name: o["ms"] for name, o in dnn_one["ops"].items()}
+        elastic_restart(ht, Path(tmp) / "elastic", got, seed, dev, card)
+        del got, dnn_one
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("[process] not measured here: NVLink and NCCL between ranks on different cards (one card; NCCL refuses "

@@ -87,7 +87,9 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         if y.ndim == 1:
             classes = torch.unique(y.larray, sorted=True)
             self.classes_ = _wrap(classes, None, y.device, y.comm)
-            shards = [(s[:, None] == classes[None, :].to(s.device)).to(torch.float32) for s in y.shards]
+            shards = y.comm.per_position(
+                lambda r: (y.shards[r][:, None] == classes[None, :].to(y.shards[r].device)).to(torch.float32),
+                (y.shape[0], classes.numel()), y.split)
             self.y = DNDarray(shards, (y.shape[0], classes.numel()), types.float32, y.split, y.device, y.comm)
         else:
             self.y = y
@@ -193,7 +195,7 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         """Labels from the neighbours' indices: the most votes, the lower
         class on a tie."""
         winner = torch.argmax(onehot[idx].sum(dim=1), dim=1)
-        return winner if self.classes_ is None else self.classes_.shards[0].to(winner.device)[winner]
+        return winner if self.classes_ is None else self.classes_.larray.to(winner.device)[winner]
 
     def _nearest(self, d: torch.Tensor) -> torch.Tensor:
         k = self.n_neighbors
@@ -238,8 +240,11 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         onehot = self.y.larray
         k = self.n_neighbors
         if d.split == 0 and d.comm.size > 1:
-            shards = [self._vote(self._nearest(s), onehot.to(s.device)) for s in d.shards]
-            return DNDarray(shards, (x.shape[0],), types.canonical_heat_type(shards[0].dtype), 0, x.device, x.comm)
+            # on a comm that spans processes: this process's positions
+            shards = d.comm.per_position(lambda r: self._vote(self._nearest(d.shards[r]), onehot.to(d.shards[r].device)),
+                                         (x.shape[0],), 0)
+            return DNDarray(shards, (x.shape[0],), types.canonical_heat_type(d.comm.local_shards(shards)[0].dtype), 0,
+                            x.device, x.comm)
         if d.split == 1 and d.comm.size > 1:
             cand_v, cand_i, off = [], [], 0
             for s in d.shards:

@@ -35,7 +35,7 @@ from ..core.dndarray import DNDarray, _wrap
 from ..ops import cdist as _k1
 from ..parallel import collectives
 from ..spatial import distance
-from ._kcluster import _KCluster, _k1_input, _row_blocks
+from ._kcluster import _KCluster, _k1_input, _row_blocks, _rows_comm
 from .packing import PackedSamples
 
 __all__ = ["KMeans"]
@@ -204,36 +204,37 @@ class KMeans(_KCluster):
 
     def _update_centroids(self, x: DNDarray, matching_centroids: DNDarray) -> DNDarray:
         """Masked-mean centroid update from given labels
-        (heat_tpu/cluster/kmeans.py:452); ``fit`` uses the fused step."""
+        (heat_tpu/cluster/kmeans.py:452); ``fit`` uses the fused step.  On
+        a comm that spans processes the counts are summed in position order
+        and the sums ride the ``rs`` ring across the processes."""
         k = self.n_clusters
-        x.comm.only_local("KMeans._update_centroids")
-        blocks = _row_blocks(x)
-        labels = torch.split(
-            matching_centroids.larray.reshape(-1).to(blocks[0].device),
-            [b.shape[0] for b in blocks],
-        )
+        blocks, labels, _ = self._label_blocks(x, matching_centroids)
+        comm = _rows_comm(x)
         counts, onehots = [], []
         for xs, lab in zip(blocks, labels):
             onehot = (lab[:, None] == torch.arange(k, device=xs.device)[None, :]).to(xs.dtype)
             counts.append(torch.sum(onehot, dim=0))
             onehots.append(onehot)
-        counts = collectives.psum(counts)[0]
+        counts = collectives.psum_in_order(counts, comm=comm)[0]
         sums = None
         if x.split == 0 and x.comm.size > 1:
             # the sample axis is the contraction: the overlap engine's rs
             # ring lands the (k, f) sums replicated (heat_tpu :460-470)
             from ..parallel import overlap
 
-            ring = overlap.matmul_raw(x.comm, [oh.T for oh in onehots], blocks, (k, x.shape[0]), tuple(x.shape), 1, 0,
-                                      None)
-            sums = None if ring is None else ring[0]
+            ohs = dict(zip(x.comm.local_positions, onehots))
+            rows = dict(zip(x.comm.local_positions, blocks))
+            ring = overlap.matmul_raw(x.comm, x.comm.per_position(lambda r: ohs[r].T, (k, x.shape[0]), 1),
+                                      x.comm.per_position(lambda r: rows[r], tuple(x.shape), 0),
+                                      (k, x.shape[0]), tuple(x.shape), 1, 0, None)
+            sums = None if ring is None else ring[x.comm.local_positions[0]]
         if sums is None:
-            sums = collectives.psum([torch.matmul(oh.T, xs) for oh, xs in zip(onehots, blocks)])[0]
+            sums = collectives.psum_in_order([torch.matmul(oh.T, xs) for oh, xs in zip(onehots, blocks)], comm=comm)[0]
         old = self._cluster_centers.larray
         new = torch.where(counts[:, None] > 0, sums / torch.clamp(counts, min=1)[:, None], old)
         return DNDarray(
-            [new] * x.comm.size, tuple(new.shape), types.canonical_heat_type(new.dtype),
-            None, x.device, x.comm,
+            x.comm.per_position(lambda r: new, tuple(new.shape), None), tuple(new.shape),
+            types.canonical_heat_type(new.dtype), None, x.device, x.comm,
         )
 
     @telemetry.span("kmeans.fit")

@@ -73,36 +73,59 @@ def _replicated(t: torch.Tensor, like: DNDarray) -> DNDarray:
     )
 
 
-def _matmul_shards(a_sh, a_split, b_sh, b_split, m: int, k: int, n: int, n_pos: int, tt: torch.dtype):
+def _matmul_shards(a_sh, a_split, b_sh, b_split, m: int, k: int, n: int, n_pos: int, tt: torch.dtype, comm=None):
     """The eager 2-D product over the shard lists of a (m, k) array split
     along ``a_split`` and a (k, n) one split along ``b_split``: ``(shards,
     split)`` of the result (the module docstring's layouts).  The overlap
-    engine's explore calls time it against the ring."""
+    engine's explore calls time it against the ring.  On a ``comm`` that
+    spans processes a whole operand is all-gathered through the exchange,
+    the inner split's partial products are summed in position order, and
+    this process's positions are computed (``RemoteShard`` for the
+    others)."""
+    across = comm is not None and comm.spans_processes
+    positions = comm.local_positions if across else range(n_pos)
 
     def whole(shards, split) -> torch.Tensor:
         if split is None or n_pos == 1:
-            return shards[0].to(tt)
+            return shards[positions[0]].to(tt)
+        if across:
+            return collectives.all_gather(comm.local_shards(shards), dim=split, comm=comm)[0].to(tt)
         return torch.cat(list(shards), dim=split).to(tt)
+
+    def placed(blocks, split):
+        if not across:
+            return blocks
+        if split is None:
+            return [blocks[0]] * n_pos
+        got = dict(zip(positions, blocks))
+        return comm.per_position(lambda r: got[r], (m, n), split)
 
     if a_split == 0 and n_pos > 1:
         bw = whole(b_sh, b_split)
-        return [torch.matmul(s.to(tt), bw) for s in a_sh], 0
+        return placed([torch.matmul(a_sh[r].to(tt), bw) for r in positions], 0), 0
     if b_split == 1 and n_pos > 1:
         aw = whole(a_sh, a_split)
-        return [torch.matmul(aw, s.to(tt)) for s in b_sh], 1
+        return placed([torch.matmul(aw, b_sh[r].to(tt)) for r in positions], 1), 1
     if (a_split == 1 or b_split == 0) and n_pos > 1:
         # inner split: per-position partial products, summed over positions
         parts = []
-        for r in range(n_pos):
+        for r in positions:
             per = -(-k // n_pos)
             off = min(r * per, k)
             rows = min((r + 1) * per, k) - off
-            ar = a_sh[r] if a_split == 1 else a_sh[0].narrow(1, off, rows)
-            br = b_sh[r] if b_split == 0 else b_sh[0].narrow(0, off, rows)
+            ar = a_sh[r] if a_split == 1 else a_sh[r].narrow(1, off, rows)
+            br = b_sh[r] if b_split == 0 else b_sh[r].narrow(0, off, rows)
             parts.append(torch.matmul(ar.to(tt), br.to(tt)))
+        if across:
+            total = collectives.psum_in_order(parts, comm=comm)[0]
+            return placed([total] * len(parts), None), None
         return [collectives.psum(parts)[0]] * n_pos, None
     out = torch.matmul(whole(a_sh, a_split), whole(b_sh, b_split))
-    return [out] * n_pos, (0 if a_split == 0 else (1 if b_split == 1 else None))
+    split = 0 if a_split == 0 else (1 if b_split == 1 else None)
+    if across:
+        return placed([out[comm.chunk((m, n), split, rank=r)[2]] if split is not None else out for r in positions],
+                      split), split
+    return [out] * n_pos, split
 
 
 def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
@@ -110,8 +133,9 @@ def _matmul_2d(a: DNDarray, b: DNDarray, tt: torch.dtype) -> DNDarray:
     comm = a.comm
     m, k = a.shape
     n = b.shape[1]
-    shards, split = _matmul_shards(a.shards, a.split, b.shards, b.split, m, k, n, comm.size, tt)
-    return DNDarray(shards, (m, n), types.canonical_heat_type(shards[0].dtype), split, a.device, comm)
+    shards, split = _matmul_shards(a.shards, a.split, b.shards, b.split, m, k, n, comm.size, tt, comm)
+    return DNDarray(shards, (m, n), types.canonical_heat_type(shards[comm.local_positions[0]].dtype), split, a.device,
+                    comm)
 
 
 def _lazy_matmul(a: DNDarray, b: DNDarray, promoted, split):

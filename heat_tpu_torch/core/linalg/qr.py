@@ -45,17 +45,25 @@ def orthogonality_defect(q: DNDarray) -> DNDarray:
     partial Gram matrices all-reduced."""
     sanitation.sanitize_in(q)
     gram = None
-    if q.split == 0 and q.ndim == 2 and q.comm.size > 1:
+    comm = q.comm
+    if q.split == 0 and q.ndim == 2 and comm.size > 1:
         from ...parallel import overlap
 
         m, n = q.shape
-        ring = overlap.matmul_raw(q.comm, [s.T for s in q.shards], q.shards, (n, m), (m, n), 1, 0, None)
-        gram = ring[0] if ring is not None else collectives.psum([s.T @ s for s in q.shards])[0]
+        mine = dict(zip(comm.local_positions, comm.local_shards(q.shards)))
+        ring = overlap.matmul_raw(comm, comm.per_position(lambda r: mine[r].T, (n, m), 1), q.shards, (n, m), (m, n),
+                                  1, 0, None)
+        if ring is not None:
+            gram = ring[comm.local_positions[0]]
+        else:
+            parts = [s.T @ s for s in mine.values()]
+            gram = collectives.psum_in_order(parts, comm=comm if comm.spans_processes else None)[0]
     else:
         arr = q.larray
         gram = arr.T @ arr
     defect = torch.max(torch.abs(gram - torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)))
-    return DNDarray([defect] * q.comm.size, (), types.canonical_heat_type(defect.dtype), None, q.device, q.comm)
+    return DNDarray(comm.per_position(lambda r: defect, (), None), (), types.canonical_heat_type(defect.dtype), None,
+                    q.device, comm)
 
 
 def _sign_normalise(q, r):

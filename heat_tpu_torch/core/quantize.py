@@ -193,9 +193,15 @@ class QuantizedDNDarray:
 
     @property
     def q(self) -> torch.Tensor:
-        """The whole low-precision tensor (a gather for a split array)."""
+        """The whole low-precision tensor (a gather for a split array,
+        through the exchange on a comm that spans processes)."""
+        mine = self.comm.local_shards(self.qshards)
         if self.split is None or len(self.qshards) == 1:
-            return self.qshards[0]
+            return mine[0]
+        if self.comm.spans_processes:
+            from ..parallel import collectives
+
+            return collectives.all_gather(mine, dim=self.split, comm=self.comm)[0]
         return torch.cat(self.qshards, dim=self.split)
 
     @property
@@ -217,7 +223,8 @@ class QuantizedDNDarray:
 
     @property
     def nbytes(self) -> int:
-        q = sum(int(s.numel() * s.element_size()) for s in _distinct(self.qshards))
+        """This process's bytes: its positions' shards and the scale."""
+        q = sum(int(s.numel() * s.element_size()) for s in _distinct(self.comm.local_shards(self.qshards)))
         return q + int(self.scale.numel() * self.scale.element_size())
 
     def __repr__(self) -> str:
@@ -242,11 +249,14 @@ class QuantizedDNDarray:
         _STATS["dequantized"] += 1
         tt = self.orig_dtype.torch_type()
         done = {}
-        shards = []
-        for r, s in enumerate(self.qshards):
+
+        def one(r):
+            s = self.qshards[r]
             if id(s) not in done:
                 done[id(s)] = (s.to(torch.float32) * self._scale_for(r, s)).to(tt)
-            shards.append(done[id(s)])
+            return done[id(s)]
+
+        shards = self.comm.per_position(one, self.gshape, self.split)
         return DNDarray(shards, self.gshape, self.orig_dtype, self.split, self.device, self.comm)
 
     def transpose(self) -> "QuantizedDNDarray":
@@ -255,9 +265,10 @@ class QuantizedDNDarray:
         if self.ndim != 2:
             raise ValueError("QuantizedDNDarray.transpose is 2-D only")
         split = None if self.split is None else 1 - self.split
+        gshape = (self.gshape[1], self.gshape[0])
         return QuantizedDNDarray(
-            [s.T for s in self.qshards], self.scale, 1 - self.axis, self.orig_dtype,
-            (self.gshape[1], self.gshape[0]), split, self.device, self.comm,
+            self.comm.per_position(lambda r: self.qshards[r].T, gshape, split), self.scale, 1 - self.axis,
+            self.orig_dtype, gshape, split, self.device, self.comm,
         )
 
     @property
@@ -265,20 +276,32 @@ class QuantizedDNDarray:
         return self.transpose()
 
 
-def _global_scale(shards: List[torch.Tensor], split, axis: int, ndim: int, mode: str) -> torch.Tensor:
+def _global_scale(shards: List[torch.Tensor], split, axis: int, ndim: int, mode: str, comm=None) -> torch.Tensor:
     """The f32 per-channel scale of a split weight: each shard's absmax
     over every axis but ``axis``, joined along the channels when the split
     cuts them, else the maximum over the positions (max is exact, so the
-    scale is the whole array's bit for bit)."""
+    scale is the whole array's bit for bit).  On a ``comm`` that spans
+    processes ``shards`` are this process's positions' and the joined or
+    maximised table crosses to every process."""
+    from ..parallel import collectives
+
+    across = comm is not None and comm.spans_processes and split is not None
     reduce_axes = tuple(d for d in range(ndim) if d != axis)
-    parts = [torch.amax(s.to(torch.float32).abs(), dim=reduce_axes) if reduce_axes else s.to(torch.float32).abs()
-             for s in _distinct(shards) if s.numel() or split == axis]
+
+    def absmax_of(s):
+        return torch.amax(s.to(torch.float32).abs(), dim=reduce_axes) if reduce_axes else s.to(torch.float32).abs()
+
+    if across and split == axis:
+        return _wire.scale_of(collectives.all_gather([absmax_of(s) for s in shards], dim=0, comm=comm)[0], mode)
+    parts = [absmax_of(s) for s in _distinct(shards) if s.numel() or split == axis]
     if split == axis:
         absmax = torch.cat([p.to(parts[0].device) for p in parts])
     else:
         absmax = parts[0]
         for p in parts[1:]:
             absmax = torch.maximum(absmax, p.to(absmax.device))
+        if across:
+            absmax = collectives.pmax([absmax], comm=comm)[0]
     return _wire.scale_of(absmax, mode)
 
 
@@ -298,17 +321,20 @@ def quantize_weights(w: DNDarray, dtype: str = "int8", *, axis: int = 0, donate:
     sanitation.sanitize_in(w)
     _qdtype(dtype)
     axis = axis % w.ndim
-    master = w.shards
-    scale = _global_scale(master, w.split, axis, w.ndim, dtype)
+    master = w.comm.local_shards(w.shards)
+    scale = _global_scale(master, w.split, axis, w.ndim, dtype, w.comm)
     sharded = QuantizedDNDarray([], scale, axis, w.dtype, w.shape, w.split, w.device, w.comm)
     done = {}
-    qshards = []
-    for r, s in enumerate(master):
+
+    def one(r):
+        s = w.shards[r]
         if id(s) not in done:
             done[id(s)] = _wire.to_grid(s, sharded._scale_for(r, s), dtype)
-        qshards.append(done[id(s)])
+        return done[id(s)]
+
+    qshards = w.comm.per_position(one, w.shape, w.split)
     sharded.qshards = qshards
-    memtrack.register_shards(qshards, tag="leaf", split=w.split)
+    memtrack.register_shards(w.comm.local_shards(qshards), tag="leaf", split=w.split)
     memtrack.register_buffer(scale, tag="leaf")
     _STATS["quantized"] += 1
     if donate:
@@ -317,7 +343,7 @@ def quantize_weights(w: DNDarray, dtype: str = "int8", *, axis: int = 0, donate:
         for s in _distinct(master):
             sanitize.poison(s, donated_site="quantize.quantize_weights(donate=True)")
     telemetry.record_event(
-        "quantize", dtype=autotune.dtype_name(qshards[0].dtype), shape=tuple(w.shape), axis=axis, donate=bool(donate),
+        "quantize", dtype=autotune.dtype_name(qshards[w.comm.local_positions[0]].dtype), shape=tuple(w.shape), axis=axis, donate=bool(donate),
         master_nbytes=int(w.nbytes), quant_nbytes=int(sharded.nbytes),
     )
     return sharded
@@ -327,12 +353,14 @@ def quantize_weights(w: DNDarray, dtype: str = "int8", *, axis: int = 0, donate:
 
 
 def tuned_arm(site: str, geometry: tuple, bf16_fn: Callable[[], Any], int8_fn: Callable[[], Any], *,
-              desc: str = "", arm: Optional[str] = None):
+              desc: str = "", arm: Optional[str] = None, comm=None, device=None):
     """The quantized-arm dispatch: per (site, geometry, device kind) an
     explore call runs both arms under measurement and returns the bf16
     (reference) result; a resolved winner runs alone; the tuning plane off
     means bf16 with no table decision.  ``arm`` forces one arm.  An arm
-    that raises raises."""
+    that raises raises.  On a ``comm`` that spans processes the decision
+    is agreed across them (``transport.agreed_decision``): the arms move
+    different bytes."""
     if arm is not None:
         if arm not in autotune.QUANT_ARMS:
             raise ValueError(f"arm must be one of {autotune.QUANT_ARMS}")
@@ -342,8 +370,12 @@ def tuned_arm(site: str, geometry: tuple, bf16_fn: Callable[[], Any], int8_fn: C
         _STATS["declines"] += 1
         _STATS["by_arm"]["bf16"] += 1
         return bf16_fn()
+    from ..parallel import transport
+
     key = autotune.quant_key(site, *geometry)
-    decision = autotune.decide(key, "bf16", desc=desc or f"{site} {geometry}", arms=autotune.QUANT_ARMS)
+    decision = transport.agreed_decision(
+        key, lambda: autotune.decide(key, "bf16", desc=desc or f"{site} {geometry}", arms=autotune.QUANT_ARMS),
+        autotune.QUANT_ARMS, comm, device)
     if decision.explore:
         out, bf16_s = autotune.timed(bf16_fn)
         autotune.observe(key, "bf16", bf16_s)
@@ -405,22 +437,23 @@ def matmul_quantized(x: DNDarray, qw: QuantizedDNDarray, out_split="auto", *, ar
             return DNDarray(ring, (m, n), out_ht, out_split, x.device, comm)
         if out_split == 0 and x.split == 0:
             qf = qw.q
-            shards = [_quant_mm(xs, qf.to(xs.device), qw.scale, comp, out_dt) for xs in x.shards]
+            shards = comm.per_position(lambda r: _quant_mm(x.shards[r], qf.to(x.shards[r].device), qw.scale, comp,
+                                                           out_dt), (m, n), 0)
             return DNDarray(shards, (m, n), out_ht, 0, x.device, comm)
         if out_split == 1 and qw.split == 1 and x.split != 0:
             xf = x.larray
-            shards = [_quant_mm(xf, qs, qw._scale_for(r, qs).reshape(-1), comp, out_dt)
-                      for r, qs in enumerate(qw.qshards)]
+            shards = comm.per_position(lambda r: _quant_mm(xf, qw.qshards[r], qw._scale_for(r, qw.qshards[r]).reshape(-1),
+                                                           comp, out_dt), (m, n), 1)
             return DNDarray(shards, (m, n), out_ht, 1, x.device, comm)
         out = _quant_mm(x.larray, qw.q.to(x.larray.device), qw.scale, comp, out_dt)
         return _wrap(out, out_split, x.device, comm)
 
-    if arm is None and declines_to_reference(*x.shards):
+    if arm is None and declines_to_reference(*x.comm.local_shards(x.shards)):
         _STATS["declines"] += 1
         return _bf16()
     geometry = (m, k, n, x.comm.size, autotune.dtype_name(comp), x.split, qw.split, out_split, qw.qdtype)
     return tuned_arm("linear", geometry, _bf16, _int8, desc=f"linear {m}x{k}x{n} {qw.qdtype} S={x.comm.size}",
-                     arm=arm)
+                     arm=arm, comm=x.comm, device=x.comm.local_shards(x.shards)[0].device)
 
 
 def linear(x: DNDarray, qw: QuantizedDNDarray, bias=None) -> DNDarray:

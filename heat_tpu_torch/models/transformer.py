@@ -84,8 +84,10 @@ class MultiHeadAttention(nn.Module):
     sequence-parallel (heat_tpu/models/transformer.py:20).
 
     ``dim`` is the input width (flax infers it from the first call); it
-    defaults to ``num_heads * head_dim``.  ``sp_axis`` is kept for parity
-    with the JAX fields: a :class:`MeshComm` has one axis."""
+    defaults to ``num_heads * head_dim``.  ``sp_mesh`` is a
+    :class:`MeshComm` (the sequence over all its positions; ``sp_axis`` is
+    then unused) or a :class:`Mesh`, whose ``sp_axis`` cuts the sequence
+    and whose other axes cut the batch (heat_tpu's ``dp``)."""
 
     def __init__(
         self,
@@ -119,7 +121,7 @@ class MultiHeadAttention(nn.Module):
         if self.attention in ("ring", "ulysses"):
             if self.sp_mesh is None:
                 raise ValueError("sequence-parallel attention needs sp_mesh")
-            out = sequence_parallel_attention(q, k, v, self.sp_mesh, causal=True, strategy=self.attention)
+            out = sequence_parallel_attention(q, k, v, self.sp_mesh, self.sp_axis, causal=True, strategy=self.attention)
         else:
             out = flash_attention(q, k, v, causal=True)
         return out.transpose(1, 2).reshape(b, s, h * d) @ self.out

@@ -24,7 +24,8 @@ A pair of positions of one process moves no byte.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
+import contextlib
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,7 +34,8 @@ from ..core import telemetry
 if TYPE_CHECKING:  # pragma: no cover
     from .mesh import MeshComm
 
-__all__ = ["psum", "psum_in_order", "pmin", "pmax", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan", "exchange"]
+__all__ = ["psum", "psum_in_order", "pmin", "pmax", "all_gather", "all_to_all", "ppermute", "ring_shift", "bcast", "exscan",
+           "exchange", "grad_chain", "cut", "join"]
 
 # callables told the name of each collective as it runs (the program
 # auditor's watch, analysis/program_audit.py); empty in the steady state
@@ -245,13 +247,14 @@ def all_to_all(parts: Sequence[torch.Tensor], split_axis: int, concat_axis: int,
 
 
 def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
-             comm: Optional["MeshComm"] = None) -> List[torch.Tensor]:
+             comm: Optional["MeshComm"] = None, shape_of: Optional[Callable[[int], tuple]] = None) -> List[torch.Tensor]:
     """General permutation over the positions (``lax.ppermute``, under
     heat_tpu/parallel/collectives.py:132): for each ``(src, dst)`` pair
     position ``dst`` receives position ``src``'s block; a position that no
-    pair names receives zeros.  No position may receive twice.  On a
-    process comm ``parts`` are this process's positions' blocks, every
-    block of one shape, and the pairs that change process travel in one
+    pair names receives zeros (of its own block's shape).  No position may
+    receive twice.  On a process comm ``parts`` are this process's
+    positions' blocks, of one shape unless ``shape_of(position)`` gives
+    each position's, and the pairs that change process travel in one
     :func:`exchange`."""
     if _WATCHERS:
         _note("ppermute")
@@ -267,20 +270,51 @@ def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
     local = comm.local_positions
     like = parts[0]
     sends = {(src, dst): parts[local.index(src)] for src, dst in perm if src in local}
-    specs = {(src, dst): (tuple(like.shape), like.dtype) for src, dst in perm if dst in local}
+    specs = {(src, dst): (tuple(like.shape) if shape_of is None else tuple(shape_of(src)), like.dtype)
+             for src, dst in perm if dst in local}
     got = exchange(sends, specs, comm, like.device)
     by_dst = {dst: got[(src, dst)] for src, dst in specs}
     return [_to(by_dst[r], parts[k]) if r in by_dst else torch.zeros_like(parts[k]) for k, r in enumerate(local)]
 
 
-def ring_shift(parts: Sequence[torch.Tensor], shift: int = 1, comm: Optional["MeshComm"] = None) -> List[torch.Tensor]:
+def ring_shift(parts: Sequence[torch.Tensor], shift: int = 1, comm: Optional["MeshComm"] = None,
+               shape_of: Optional[Callable[[int], tuple]] = None) -> List[torch.Tensor]:
     """Pass each position's block ``shift`` positions up the ring
     (heat_tpu/parallel/collectives.py:132): position (i + shift) mod N
-    receives position i's block."""
+    receives position i's block (``shape_of`` as in :func:`ppermute`)."""
     if _WATCHERS:
         _note("ring_shift")
     n = comm.size if _process(comm) else len(parts)
-    return ppermute(parts, [(i, (i + shift) % n) for i in range(n)], comm=comm)
+    return ppermute(parts, [(i, (i + shift) % n) for i in range(n)], comm=comm, shape_of=shape_of)
+
+
+def ring_shift_start(parts: Sequence[torch.Tensor], shift: int = 1, comm: Optional["MeshComm"] = None,
+                     shape_of: Optional[Callable[[int], tuple]] = None) -> Callable[[], List[torch.Tensor]]:
+    """:func:`ring_shift` on a comm that spans processes, issued without
+    waiting (no autograd): the returned call waits and gives the blocks.
+    The overlap rings issue a hop before their step's GEMM with it."""
+    if _WATCHERS:
+        _note("ring_shift")
+    n = comm.size
+    local = comm.local_positions
+    like = parts[0]
+    perm = [(i, (i + shift) % n) for i in range(n)]
+    keep, sends, specs = {}, {}, {}
+    for src, dst in perm:
+        if src in local and dst in local:
+            keep[dst] = parts[local.index(src)]
+        elif src in local:
+            sends[(src, dst)] = parts[local.index(src)]
+        elif dst in local:
+            specs[(src, dst)] = (tuple(like.shape) if shape_of is None else tuple(shape_of(src)), like.dtype)
+    pending = _move_start(sends, specs, comm, like.device, True)
+
+    def finish() -> List[torch.Tensor]:
+        got = {dst: t for (src, dst), t in pending().items()}
+        got.update(keep)
+        return [got[r] for r in local]
+
+    return finish
 
 
 # ------------------------------------------------------------ the exchange
@@ -339,37 +373,73 @@ def exchange(sends: Dict[tuple, torch.Tensor], recv_specs: Dict[tuple, tuple], c
     the backend: NCCL and CPU tensors directly, CUDA tensors on gloo
     through pinned host buffers.  ``transport.stats()`` counts the bytes
     sent to other processes (``sent_bytes``), those staged through the host
-    (``staged_bytes``) and the calls (``exchanges``)."""
+    (``staged_bytes``) and the calls (``exchanges``).
+
+    Autograd crosses the exchange where gradients are recorded and a sent
+    block requires them, or inside :func:`grad_chain`: the backward is the
+    transposed exchange (each block's gradient goes back from its
+    destination to its source through the same route), a block with no
+    gradient sending zeros of its shape, so every process enters it."""
     if _WATCHERS:
         _note("exchange")
     local = set(comm.local_positions)
     me = comm.rank
     out: Dict[tuple, torch.Tensor] = {}
-    to_peer: Dict[int, list] = {}
-    from_peer: Dict[int, list] = {}
+    cross: Dict[tuple, torch.Tensor] = {}
+    specs: Dict[tuple, tuple] = {}
     for key in sends:
         if key[0] not in local:
             raise ValueError(f"exchange: source position {key[0]} of {key} is not this process's")
-        q = comm.process_index(key[1])
-        if q != me:
-            t = sends[key]
-            to_peer.setdefault(q, []).append((key, tuple(t.shape), t.dtype))
-    for key, (shape, dtype) in recv_specs.items():
+        if comm.process_index(key[1]) != me:
+            cross[key] = sends[key]
+    for key, spec in recv_specs.items():
         if key[1] not in local:
             raise ValueError(f"exchange: destination position {key[1]} of {key} is not this process's")
-        q = comm.process_index(key[0])
-        if q == me:
+        if comm.process_index(key[0]) == me:
             if key not in sends:
                 raise ValueError(f"exchange: block {key} is expected but not sent")
             out[key] = sends[key]
         else:
-            from_peer.setdefault(q, []).append((key, tuple(shape), dtype))
+            specs[key] = (tuple(spec[0]), spec[1])
     if not comm.spans_processes:
         return out
     if device is None:
         device = next(iter(sends.values())).device if sends else torch.device("cpu")
     device = torch.device(device)
+    if _records_grad(cross.values()):
+        keys = tuple(cross)
+        got = _ExchangeFn.apply((keys, specs, comm, device), _anchor(device), *(cross[k] for k in keys))
+        _advance(got[0])
+        out.update(zip(specs, got[1:]))
+    else:
+        out.update(_move(cross, specs, comm, device))
+    return out
+
+
+def _records_grad(tensors) -> bool:
+    """Whether a move of ``tensors`` across processes must carry autograd."""
+    return torch.is_grad_enabled() and (bool(_CHAIN) or any(t.requires_grad for t in tensors))
+
+
+def _move(sends: Dict[tuple, torch.Tensor], specs: Dict[tuple, tuple], comm: "MeshComm", device) -> Dict[tuple, torch.Tensor]:
+    """The bytes of :func:`exchange` between processes: ``sends`` and
+    ``specs`` hold only pairs whose positions belong to different
+    processes; one ``all_to_all_single`` carries them."""
+    return _move_start(sends, specs, comm, device, False)()
+
+
+def _move_start(sends: Dict[tuple, torch.Tensor], specs: Dict[tuple, tuple], comm: "MeshComm", device,
+                async_op: bool) -> Callable[[], Dict[tuple, torch.Tensor]]:
+    """:func:`_move` issued (``async_op``: ``all_to_all_single`` with
+    ``async_op=True``); the returned call waits for it and unpacks the
+    received blocks."""
     n = comm.nprocs
+    to_peer: Dict[int, list] = {}
+    from_peer: Dict[int, list] = {}
+    for key, t in sends.items():
+        to_peer.setdefault(comm.process_index(key[1]), []).append((key, tuple(t.shape), t.dtype))
+    for key, (shape, dtype) in specs.items():
+        from_peer.setdefault(comm.process_index(key[0]), []).append((key, tuple(shape), dtype))
     send_lay = [_layout(to_peer.get(q, [])) for q in range(n)]
     recv_lay = [_layout(from_peer.get(q, [])) for q in range(n)]
     in_sizes = [total for _, total in send_lay]
@@ -385,19 +455,198 @@ def exchange(sends: Dict[tuple, torch.Tensor], recv_specs: Dict[tuple, tuple], c
                 _block(send_buf, base + off, nb, shape, dtype).copy_(sends[key])
                 sent += nb
         base += total
-    torch.distributed.all_to_all_single(recv_buf, send_buf, out_sizes, in_sizes, group=comm.group)
-    if staged:
-        recv_buf = recv_buf.to(device)
-    base = 0
-    for (items, total) in recv_lay:
-        for key, off, nb, shape, dtype in items:
-            out[key] = _block(recv_buf, base + off, nb, shape, dtype)
-        base += total
+    work = torch.distributed.all_to_all_single(recv_buf, send_buf, out_sizes, in_sizes, group=comm.group,
+                                               async_op=async_op)
     _XSTATS["exchanges"] += 1
     _XSTATS["sent_bytes"] += sent
     if staged:
         _XSTATS["staged_bytes"] += sum(in_sizes) + sum(out_sizes)
-    return out
+
+    def finish() -> Dict[tuple, torch.Tensor]:
+        buf = recv_buf
+        if work is not None:
+            work.wait()
+        if staged:
+            buf = buf.to(device)
+        out: Dict[tuple, torch.Tensor] = {}
+        base = 0
+        for (items, total) in recv_lay:
+            for key, off, nb, shape, dtype in items:
+                out[key] = _block(buf, base + off, nb, shape, dtype)
+            base += total
+        return out
+
+    return finish
+
+
+def _swap(key: tuple) -> tuple:
+    return (key[1], key[0]) + tuple(key[2:])
+
+
+def _differentiable(dtype: torch.dtype) -> bool:
+    return dtype.is_floating_point or dtype.is_complex
+
+
+class _ExchangeFn(torch.autograd.Function):
+    """The blocks between processes with a gradient: forward one
+    :func:`_move`, backward the transposed one.  The first input and
+    output are the :func:`grad_chain` anchor."""
+
+    @staticmethod
+    def forward(ctx, plan, anchor, *tensors):
+        keys, specs, comm, device = plan
+        got = _move(dict(zip(keys, tensors)), specs, comm, device)
+        ctx.plan = plan
+        ctx.sent = [(tuple(t.shape), t.dtype) for t in tensors]
+        # own storage: the outputs are not views of one receive buffer
+        return (anchor.new_zeros(()),) + tuple(got[k].clone() for k in specs)
+
+    @staticmethod
+    def backward(ctx, g_anchor, *grads):
+        keys, specs, comm, device = ctx.plan
+        back = {}
+        for key, g in zip(specs, grads):
+            shape, dtype = specs[key]
+            back[_swap(key)] = g if g is not None and _differentiable(dtype) else torch.zeros(shape, dtype=dtype,
+                                                                                               device=device)
+        got = _move(back, {_swap(k): s for k, s in zip(keys, ctx.sent)}, comm, device)
+        return (None, g_anchor) + tuple(got[_swap(k)] if _differentiable(s[1]) else None
+                                        for k, s in zip(keys, ctx.sent))
+
+
+# ----------------------------------------------- replicated <-> positions
+# the open grad chains (innermost last): each a one-item list holding the
+# anchor that the chain's next collective takes and replaces
+_CHAIN: List[list] = []
+
+
+@contextlib.contextmanager
+def grad_chain(active: bool = True):
+    """Order the backward of the collectives across processes.  Inside the
+    block every :func:`exchange`, :func:`cut` and :func:`join` takes the
+    chain's anchor (a scalar) as an extra input and hands a new one on, and
+    :func:`join` ends the chain: autograd then runs their backwards (each a
+    collective every process must enter) in the reverse order of their
+    forwards on every process, also a collective whose outputs reach the
+    loss on no process.  The entry points that take replicated tensors
+    (sequence, expert and pipeline parallelism) open one per call; a no-op
+    where gradients are not recorded or ``active`` is false."""
+    if not active or not torch.is_grad_enabled():
+        yield
+        return
+    _CHAIN.append([None])
+    try:
+        yield
+    finally:
+        _CHAIN.pop()
+
+
+def _anchor(device) -> torch.Tensor:
+    """The innermost chain's anchor (a new leaf at its first use), or a
+    scalar outside any chain."""
+    if not _CHAIN:
+        return torch.zeros((), device=device)
+    cell = _CHAIN[-1]
+    if cell[0] is None:
+        cell[0] = torch.zeros((), device=device, requires_grad=True)
+    return cell[0]
+
+
+def _advance(anchor: torch.Tensor) -> None:
+    if _CHAIN:
+        _CHAIN[-1][0] = anchor
+
+
+def _block_shape(shape, index) -> Tuple[int, ...]:
+    return tuple(torch.empty(shape, device="meta")[index].shape)
+
+
+def _assemble(mine: Dict[int, torch.Tensor], blocks: Dict[int, tuple], shape, dtype, comm: "MeshComm",
+              device) -> torch.Tensor:
+    """The whole tensor of ``shape`` from every position's block
+    (``blocks`` maps each position to its index tuple): this process's
+    blocks ``mine`` cross to each other process once, and every process
+    writes every block into its place (copies only, so the result is the
+    same bits everywhere)."""
+    got = {}
+    if comm.spans_processes:
+        firsts = [comm.positions_of(q)[0] for q in range(comm.nprocs)]
+        me0 = firsts[comm.rank]
+        sends = {(r, firsts[q]): t for r, t in mine.items() for q in range(comm.nprocs) if q != comm.rank}
+        specs = {(r, me0): (_block_shape(shape, blocks[r]), dtype) for r in range(comm.size) if r not in mine}
+        got = {k[0]: v for k, v in _move(sends, specs, comm, device).items()}
+    full = torch.zeros(shape, dtype=dtype, device=device)
+    for r in range(comm.size):
+        full[blocks[r]] = mine[r] if r in mine else got[r]
+    return full
+
+
+class _CutFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, anchor, x):
+        comm, blocks = plan
+        ctx.plan, ctx.meta = plan, (tuple(x.shape), x.dtype, x.device)
+        return (anchor.new_zeros(()),) + tuple(x[blocks[r]].clone() for r in comm.local_positions)
+
+    @staticmethod
+    def backward(ctx, g_anchor, *grads):
+        comm, blocks = ctx.plan
+        shape, dtype, device = ctx.meta
+        mine = {r: (g if g is not None else torch.zeros(_block_shape(shape, blocks[r]), dtype=dtype, device=device))
+                for r, g in zip(comm.local_positions, grads)}
+        return None, g_anchor, _assemble(mine, blocks, shape, dtype, comm, device)
+
+
+class _JoinFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, anchor, *parts):
+        comm, blocks, shape = plan
+        ctx.plan = plan
+        like = parts[0]
+        return _assemble(dict(zip(comm.local_positions, parts)), blocks, shape, like.dtype, comm, like.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, blocks, _ = ctx.plan
+        return (None, torch.zeros((), device=g.device)) + tuple(g[blocks[r]] for r in comm.local_positions)
+
+
+def cut(x: torch.Tensor, blocks: Dict[int, tuple], comm: "MeshComm") -> List[torch.Tensor]:
+    """The blocks of a tensor that every process holds alike (replicated)
+    for this process's positions: ``x[blocks[r]]`` for each of
+    ``comm.local_positions``.  Its backward all-gathers every position's
+    gradient block, so every process holds the whole gradient of ``x``
+    (the blocks are disjoint; nothing is summed)."""
+    local = comm.local_positions
+    if comm.spans_processes and torch.is_grad_enabled() and x.requires_grad:
+        got = _CutFn.apply((comm, blocks), _anchor(x.device), x)
+        _advance(got[0])
+        return list(got[1:])
+    return [x[blocks[r]] for r in local]
+
+
+def join(parts: Sequence[torch.Tensor], blocks: Dict[int, tuple], shape, comm: "MeshComm") -> torch.Tensor:
+    """The whole tensor of ``shape``, on every process alike, from the
+    blocks of this process's positions (``parts``, in
+    ``comm.local_positions`` order) and the other processes'.  Its backward
+    keeps this process's positions' slices of the incoming gradient and
+    sums nothing: every process computes the same loss from the joined
+    tensor.  Inside a :func:`grad_chain` it ends the chain."""
+    parts = list(parts)
+    like = parts[0]
+    if not comm.spans_processes:
+        if len(parts) == 1 and comm.size == 1:
+            return parts[0]
+        full = like.new_zeros(shape)
+        for r, p in zip(comm.local_positions, parts):
+            full[blocks[r]] = p
+        return full
+    if torch.is_grad_enabled() and (_CHAIN or any(p.requires_grad for p in parts)):
+        out = _JoinFn.apply((comm, blocks, tuple(shape)), _anchor(like.device), *parts)
+        if _CHAIN:
+            _CHAIN[-1][0] = None
+        return out
+    return _assemble(dict(zip(comm.local_positions, parts)), blocks, tuple(shape), like.dtype, comm, like.device)
 
 
 def _small_device(comm: "MeshComm", device):

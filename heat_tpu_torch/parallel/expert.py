@@ -22,6 +22,11 @@ off, and the gather side reads zeros for it.
 ``mesh=None`` runs the same routing over all tokens at once.  Capacity is
 enforced per shard, so the two paths agree only while nothing is dropped
 (``fraction_dropped == 0``), as in heat_tpu.
+
+On a mesh whose positions belong to several processes each process routes
+and runs its own positions' tokens and experts; the slots cross through
+the exchange and the output is joined on every process
+(:func:`_moe_positions`).
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .collectives import all_to_all, psum
+from . import collectives
+from .collectives import all_to_all
 from .mesh import MeshComm
 from .sort import topk_select
 
@@ -177,8 +183,6 @@ def moe_ffn(
     channel) scales applied after each product, dispatched per geometry
     over the ``("bf16", "int8")`` autotune arms, an explore call returning
     the bf16 (dequantized) arm's result."""
-    if mesh is not None:
-        mesh.only_local("expert.moe_ffn")
     q_in, q_out = _is_quantized(w_in), _is_quantized(w_out)
     if q_in != q_out:
         raise ValueError(
@@ -223,7 +227,7 @@ def _moe_ffn_quantized(x, gate_w, qw_in, qw_out, *, k, capacity_factor, activati
     geometry = (tokens, d, qw_in.shape[2], gate_w.shape[1], n, k, autotune.dtype_name(qw_in.q.dtype))
     return _quantize.tuned_arm(
         "moe_ffn", geometry, _bf16, _int8,
-        desc=f"moe_ffn t={tokens} d={d} h={qw_in.shape[2]} E={gate_w.shape[1]} S={n}",
+        desc=f"moe_ffn t={tokens} d={d} h={qw_in.shape[2]} E={gate_w.shape[1]} S={n}", comm=mesh, device=x.device,
     )
 
 
@@ -248,18 +252,51 @@ def _moe_run(x, gate_w, w_in, w_out, s_in, s_out, *, k, capacity_factor, activat
     if num_experts % n:
         raise ValueError(f"num_experts {num_experts} not divisible by mesh axis {axis}={n}")
     cap = expert_capacity(tokens // n, num_experts, k, capacity_factor)
-    routed = [_dispatch(xs, gate_w, k, cap) for xs in x2.chunk(n)]
-    # (E, C, d) per position -> (E/N, N·C, d): every shard's tokens for the
-    # resident experts
-    inputs = all_to_all([r[0] for r in routed], split_axis=0, concat_axis=1)
-    # the scales shard with their experts, as the weights do
-    scales = zip(s_in.chunk(n), s_out.chunk(n)) if s_in is not None else [(None, None)] * n
-    outputs = [
-        _experts(inp, wi, wo, activation, si, so)
-        for inp, wi, wo, (si, so) in zip(inputs, w_in.chunk(n), w_out.chunk(n), scales)
-    ]
-    # inverse exchange: (E/N, N·C, d) -> (E, C, d), back token-resident
-    outputs = all_to_all(outputs, split_axis=1, concat_axis=0)
-    y = torch.cat([_combine(o, r[1], r[2], x.dtype) for o, r in zip(outputs, routed)])
-    aux = {key: psum([r[3][key] for r in routed])[0] / n for key in routed[0][3]}
+    y, aux = _moe_positions(x2, gate_w, w_in, w_out, s_in, s_out, k, cap, activation, mesh)
     return y.reshape(orig_shape), aux
+
+
+def _moe_positions(x2, gate_w, w_in, w_out, s_in, s_out, k: int, cap: int, activation, mesh: MeshComm):
+    """:func:`_moe_run`'s expert-parallel step for this process's
+    positions (every position in one process): the replicated tokens, the
+    router (one copy a position) and the experts (E/N a position) are cut
+    (across processes their gradients all-gathered, the router's then
+    summed over the copies), the slots cross in ``all_to_all`` both ways
+    ((E, C, d) per position -> (E/N, N·C, d): every shard's tokens for the
+    resident experts, and back), and the output and the per-position aux
+    values are joined on every process, the aux values folded in position
+    order.  One :func:`~heat_tpu_torch.parallel.collectives.grad_chain`
+    orders the backward's collectives."""
+    n = mesh.size
+    local = mesh.local_positions
+    tb = x2.shape[0] // n
+    eb = w_in.shape[0] // n
+    rows = {r: (slice(r * tb, (r + 1) * tb), slice(None)) for r in range(n)}
+    experts = {r: (slice(r * eb, (r + 1) * eb),) for r in range(n)}
+    copies = {r: (slice(r, r + 1),) for r in range(n)}
+    tensors = [x2, gate_w, w_in, w_out]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    with collectives.grad_chain(grad):
+        xs = collectives.cut(x2, rows, mesh)
+        gates = [g[0] for g in collectives.cut(gate_w[None].expand((n,) + tuple(gate_w.shape)), copies, mesh)]
+        wis, wos = collectives.cut(w_in, experts, mesh), collectives.cut(w_out, experts, mesh)
+        if s_in is not None:
+            scales = list(zip(collectives.cut(s_in, experts, mesh), collectives.cut(s_out, experts, mesh)))
+        else:
+            scales = [(None, None)] * len(local)
+        routed = [_dispatch(xs_, g, k, cap) for xs_, g in zip(xs, gates)]
+        inputs = all_to_all([r[0] for r in routed], split_axis=0, concat_axis=1, comm=mesh)
+        outputs = [_experts(inp, wi, wo, activation, si, so)
+                   for inp, wi, wo, (si, so) in zip(inputs, wis, wos, scales)]
+        outputs = all_to_all(outputs, split_axis=1, concat_axis=0, comm=mesh)
+        y = collectives.join([_combine(o, r[1], r[2], x2.dtype) for o, r in zip(outputs, routed)], rows,
+                             tuple(x2.shape), mesh)
+    aux = {}
+    for key in routed[0][3]:
+        with collectives.grad_chain(grad):
+            vals = collectives.join([r[3][key].reshape(1) for r in routed], copies, (n,), mesh)
+        total = vals[0]
+        for i in range(1, n):
+            total = total + vals[i]
+        aux[key] = total / n
+    return y, aux

@@ -16,15 +16,14 @@ only the tensors of this process's positions, and the collectives of
 :mod:`~heat_tpu_torch.parallel.collectives` combine the local parts first
 and then make one ``torch.distributed`` call on the comm's process group.
 The shard of a position that another process owns is a
-:class:`RemoteShard`: any use of it raises ``NotImplementedError``, so no
-code computes over the local shards as if they were the whole array.
+:class:`RemoteShard`: any direct use of it raises ``NotImplementedError``,
+so no code computes over the local shards as if they were the whole array.
 Shards move between processes only through one primitive,
 :func:`~heat_tpu_torch.parallel.collectives.exchange` (one
 ``all_to_all_single`` on the comm's group, entered by every process); the
-transport engine, select, sort, the DNDarray's members and the
-estimators' seeding ride on it.  What still refuses a comm that spans
-processes (the overlap rings, sequence and expert parallelism, the
-pipeline: ROADMAP item 14b-ii) calls :meth:`MeshComm.only_local`.
+transport engine, select, sort, the DNDarray's members, the estimators'
+seeding, the overlap rings, the ring ``cdist``, sequence, expert and
+pipeline parallelism ride on it, the last three with autograd across it.
 """
 
 from __future__ import annotations
@@ -54,9 +53,6 @@ __all__ = [
 
 #: canonical name of the mesh axis that backs the DNDarray ``split`` dimension
 SPLIT_AXIS = "split"
-
-#: what still refuses to move shards between processes: named by every refusal
-ITEM_14B = "ROADMAP item 14b-ii"
 
 
 class Communication:
@@ -94,7 +90,8 @@ class RemoteShard:
     """The shard of a position that another process owns.  It carries the
     chunk rule's metadata (``shape``, ``dtype``, ``device``, ``ndim``) and
     nothing else: any other use, a torch function included, raises
-    ``NotImplementedError`` naming ROADMAP item 14b-ii."""
+    ``NotImplementedError``; its bytes move only through
+    :func:`~heat_tpu_torch.parallel.collectives.exchange`."""
 
     __slots__ = ("position", "shape", "dtype", "device")
 
@@ -113,8 +110,8 @@ class RemoteShard:
 
     def _refuse(self, what: str = "reading it"):
         raise NotImplementedError(
-            f"position {self.position}'s shard lies in another process; {what} needs the shard "
-            f"transport across processes ({ITEM_14B})"
+            f"position {self.position}'s shard lies in another process; {what} reads it directly: move it "
+            f"through collectives.exchange (or the array's own moves) first"
         )
 
     def __getattr__(self, name):
@@ -129,7 +126,7 @@ class RemoteShard:
             for item in (a if isinstance(a, (list, tuple)) else (a,)):
                 if isinstance(item, RemoteShard):
                     item._refuse(getattr(func, "__name__", str(func)))
-        raise NotImplementedError(f"a shard of another process ({ITEM_14B})")
+        raise NotImplementedError("a shard of another process is read only through collectives.exchange")
 
     def __repr__(self) -> str:
         return f"RemoteShard(position={self.position}, shape={tuple(self.shape)})"
@@ -336,24 +333,17 @@ class MeshComm(Communication):
                 f"backend={self.backend!r}, cuda_exchange={cuda!r})")
 
     # ------------------------------------------------------------ locality
-    def only_local(self, what: str) -> None:
-        """Refuse ``what`` where it would read the shard of a position that
-        another process owns: ``NotImplementedError`` naming item 14b-ii.  Every
-        site that reads another position's shard calls this first, unless it
-        reads only :attr:`local_positions`."""
-        if self.spans_processes:
-            raise NotImplementedError(
-                f"{what} reads shards across processes; that needs the shard transport across "
-                f"processes ({ITEM_14B})"
-            )
-
     def per_position(self, fn: Callable[[int], torch.Tensor], gshape, split) -> List:
         """One entry per position: ``fn(r)`` for this process's positions,
-        a :class:`RemoteShard` of the chunk rule's shape for the others."""
+        a :class:`RemoteShard` of the chunk rule's shape for the others.  A
+        replicated result (``split`` None) is held whole by every process:
+        its first local tensor stands at every position."""
         if not self.spans_processes:
             return [fn(r) for r in range(self.__size)]
         if not self.__local:
             raise ValueError(f"this process holds no position of {self!r}")
+        if split is None:
+            return [fn(self.__local[0])] * self.__size
         out = [None] * self.__size
         for r in self.__local:
             out[r] = fn(r)

@@ -42,6 +42,17 @@ runs its own product.  :func:`stats` keeps heat_tpu's counters.
 On one card the positions share the H100: a ring hop is a rotation of the
 shard list and moves no bytes over a link, so the ring measures block-GEMM
 efficiency and host dispatch, never the overlap of a transfer with compute.
+
+On a comm that spans processes each process runs the ring over its own
+positions and each hop crosses through ``collectives.ring_shift``'s
+process route (the exchange), issued before the step's GEMM and waited
+for after it where no gradient is recorded (:func:`hop_stats`): the one
+place on one card where a transfer (through the host, on gloo) can
+overlap compute.
+The ring-against-eager entry, the staging check and the wire arm are
+agreed across the processes (``transport.agreed_decision``).  The fusion
+engine keeps process comms eager, so a chain over a matmul there rings
+through :func:`matmul` with the chain's ops after it.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import time
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -56,12 +68,13 @@ import torch
 from ..analysis import program_audit, sanitize
 from ..core import autotune, memtrack, telemetry
 from ..core import wire as _wire
-from . import collectives
+from . import collectives, transport
 
 __all__ = [
     "Epilogue",
     "matmul",
     "matmul_raw",
+    "hop_stats",
     "ring_sweep",
     "stats",
     "reset_stats",
@@ -195,8 +208,9 @@ def stats() -> dict:
 
 
 def reset_stats() -> None:
-    """Zero the counters and forget the schedules seen."""
+    """Zero the counters (the hops' too) and forget the schedules seen."""
     telemetry.reset_group("overlap")
+    telemetry.reset_group("overlap_hops")
 
 
 def _record(schedule, *, steps=0, bps=0, out_split=None, reason="", cache_hit=False):
@@ -222,26 +236,75 @@ def _record(schedule, *, steps=0, bps=0, out_split=None, reason="", cache_hit=Fa
 
 # ---------------------------------------------------------------- ring sweep
 
-def _shift(moving: list) -> list:
-    """One hop up the ring for a list of per-position items (a tensor, or a
-    tuple of tensors that hop together)."""
+# hops across processes: how many, and the host seconds spent waiting for
+# one after its step's compute was issued
+_HOPS = telemetry.register_group("overlap_hops", {"hops": 0, "async_hops": 0, "wait_s": 0.0})
+
+
+def hop_stats() -> dict:
+    """The ring's hops across processes: ``hops``, ``async_hops`` (issued
+    before the step's GEMM) and ``wait_s``, the host's wait for them after
+    the GEMM was issued (near zero when the transfer hid behind it)."""
+    return telemetry.snapshot_group("overlap_hops")
+
+
+def _shift_start(moving: list, comm=None, shape_of=None) -> Callable[[], list]:
+    """Start one hop up the ring for a list of per-position items (a
+    tensor, or a tuple of tensors that hop together); the returned call
+    finishes it.  On a comm that spans processes ``moving`` holds this
+    process's positions' items and ``shape_of(position)`` the shape (a
+    tuple of shapes for tuple items) of the item that position sends; the
+    hop crosses through ``collectives.ring_shift``'s process route, issued
+    asynchronously unless a gradient is recorded through it."""
+    across = comm is not None and comm.spans_processes
+    if not across:
+        comm = None
     if isinstance(moving[0], tuple):
-        cols = [collectives.ring_shift([item[i] for item in moving]) for i in range(len(moving[0]))]
-        return [tuple(c[me] for c in cols) for me in range(len(moving))]
-    return collectives.ring_shift(moving)
+        parts = [[item[i] for item in moving] for i in range(len(moving[0]))]
+        shapes = [None if shape_of is None else (lambda r, i=i: shape_of(r)[i]) for i in range(len(parts))]
+    else:
+        parts, shapes = [list(moving)], [shape_of]
+    if across and not collectives._records_grad(t for p in parts for t in p):
+        pending = [collectives.ring_shift_start(p, comm=comm, shape_of=sh) for p, sh in zip(parts, shapes)]
+        _HOPS["async_hops"] += 1
+    else:
+        done = [collectives.ring_shift(p, comm=comm, shape_of=sh) for p, sh in zip(parts, shapes)]
+        pending = [lambda d=d: d for d in done]
+    if across:
+        _HOPS["hops"] += 1
+
+    def finish() -> list:
+        t0 = time.perf_counter()
+        cols = [p() for p in pending]
+        if across:
+            _HOPS["wait_s"] += time.perf_counter() - t0
+        if isinstance(moving[0], tuple):
+            return [tuple(c[j] for c in cols) for j in range(len(moving))]
+        return cols[0]
+
+    return finish
 
 
-def ring_sweep(n_steps: int, moving: list, state: list, step: Callable) -> list:
+def ring_sweep(n_steps: int, moving: list, state: list, step: Callable, comm=None, block_shape=None) -> list:
     """The ring schedule over the shard list (heat_tpu :259): for each of
     ``n_steps`` steps every position ``me`` computes ``state[me] = step(t,
     me, moving[me], state[me])`` on the block it holds, and the blocks hop
     one position up the ring (``collectives.ring_shift``) before the next
     step; the final, useless hop is elided.  ``moving`` items may be tuples
-    whose tensors hop together (a quantized block and its scales)."""
+    whose tensors hop together (a quantized block and its scales).
+
+    On a comm that spans processes ``moving`` and ``state`` hold this
+    process's positions (``comm.local_positions``, whose global indices
+    ``step`` receives as ``me``) and ``block_shape(origin)`` gives the shape
+    of the block that started on position ``origin``; each hop is issued
+    before the step's compute and finished after it."""
+    positions = comm.local_positions if comm is not None and comm.spans_processes else range(len(state))
+    S = comm.size if comm is not None else len(state)
     for t in range(n_steps):
-        nxt = _shift(moving) if t + 1 < n_steps else None
-        state = [step(t, me, moving[me], state[me]) for me in range(len(state))]
-        moving = nxt
+        shape_of = None if block_shape is None else (lambda r, t=t: block_shape((r - t) % S))
+        finish = _shift_start(moving, comm, shape_of) if t + 1 < n_steps else None
+        state = [step(t, me, moving[i], state[i]) for i, me in enumerate(positions)]
+        moving = finish() if finish is not None else None
     return state
 
 
@@ -409,14 +472,20 @@ class _Spec(NamedTuple):
     wire: str = ""         # on-wire format of the moving block ("" | int8 | fp8)
 
 
-def _build_ring(spec: _Spec) -> Callable:
+def _build_ring(spec: _Spec, comm=None) -> Callable:
     """The ring program of one :class:`_Spec`: ``program(a_shards,
     b_shards, *extras) -> out_shards`` (one block a position; for a
-    replicated out-split the same tensor at every position)."""
+    replicated out-split the same tensor at every position).  On a ``comm``
+    that spans processes the program computes this process's positions and
+    places a ``RemoteShard`` for the others; each hop crosses through
+    ``collectives.ring_shift``'s process route."""
     case, out_split, S = spec.case, spec.out_split, spec.S
     m, k, n = spec.m, spec.k, spec.n
     comp, acc_dt = spec.comp_dt, spec.acc_dt
     kb = _ceil_mult(k, S) // S  # heat_tpu's k-block: position r's k-slice starts at r * kb
+    across = comm is not None and comm.spans_processes
+    positions = tuple(comm.local_positions) if across else tuple(range(S))
+    ring_comm = comm if across else None
 
     def _dot(x, y):
         if x.dtype == acc_dt:
@@ -441,40 +510,72 @@ def _build_ring(spec: _Spec) -> Callable:
             return _wire.absmax_decode(moving[0], moving[1], axes, comp)
         return moving
 
+    def _kb(r):
+        lo, hi = _bounds(k, S, r)
+        return hi - lo
+
+    def _moving_shape(shape):
+        # a quantized block hops with its scales, one an index of the k-block
+        return (shape, (shape[0] if case == "ag" else shape[1],)) if spec.wire else shape
+
+    def _placed(blocks, gshape, split):
+        if not across:
+            return blocks
+        got = dict(zip(positions, blocks))
+        return comm.per_position(lambda r: got[r], gshape, split)
+
+    def _moving(t):
+        # across processes a narrower block (an int8 weight) crosses as it
+        # is and is widened where it lands: the cast is exact either way
+        return t if across and not spec.wire and t.dtype.itemsize < comp.itemsize else t.to(comp)
+
+    def _landed(blk, axes):
+        blk = _decode(blk, axes)
+        return blk if blk.dtype == comp else blk.to(comp)
+
     if case == "ag":
         def program(a_sh, b_sh, *extras):
-            av = [s.to(comp) for s in a_sh]                       # (mb_me, k)
-            bv = [s.to(comp) for s in b_sh]                       # (kb_r, n)
+            av = [a_sh[r].to(comp) for r in positions]            # (mb_me, k)
+            bv = [_moving(b_sh[r]) for r in positions]            # (kb_r, n)
             moving = [_wire.absmax_encode(v, spec.wire, (0,)) for v in bv] if spec.wire else bv
             acc0 = [v.new_zeros((v.shape[0], n), dtype=acc_dt) for v in av]
+            local = dict(zip(positions, av))
 
             def step(t, me, blk, acc):
                 src = (me - t) % S
-                return acc + _dot(_k_slice(av[me], 1, src), _decode(blk, (0,)))
+                return acc + _dot(_k_slice(local[me], 1, src), _landed(blk, (0,)))
 
-            acc = ring_sweep(S, moving, acc0, step)
-            return [_finish(a, extras, me) for me, a in enumerate(acc)]
+            acc = ring_sweep(S, moving, acc0, step, ring_comm, lambda o: _moving_shape((_kb(o), n)))
+            return _placed([_finish(a, extras, me) for me, a in zip(positions, acc)], (m, n), out_split)
 
     elif case == "col":
         def program(a_sh, b_sh, *extras):
-            av = [s.to(comp) for s in a_sh]                       # (m, kb_r)
-            bv = [s.to(comp) for s in b_sh]                       # (k, nb_me)
+            av = [_moving(a_sh[r]) for r in positions]            # (m, kb_r)
+            bv = [b_sh[r].to(comp) for r in positions]            # (k, nb_me)
             moving = [_wire.absmax_encode(v, spec.wire, (1,)) for v in av] if spec.wire else av
             acc0 = [v.new_zeros((m, v.shape[1]), dtype=acc_dt) for v in bv]
+            local = dict(zip(positions, bv))
 
             def step(t, me, blk, acc):
                 src = (me - t) % S
-                return acc + _dot(_decode(blk, (1,)), _k_slice(bv[me], 0, src))
+                return acc + _dot(_landed(blk, (1,)), _k_slice(local[me], 0, src))
 
-            acc = ring_sweep(S, moving, acc0, step)
-            return [_finish(a, extras, me) for me, a in enumerate(acc)]
+            acc = ring_sweep(S, moving, acc0, step, ring_comm, lambda o: _moving_shape((m, _kb(o))))
+            return _placed([_finish(a, extras, me) for me, a in zip(positions, acc)], (m, n), out_split)
 
     else:  # rs: the inner dimension split; the accumulator travels
         eff = 1 if out_split == 1 else 0
 
+        def _rows(d):
+            lo, hi = _bounds(m if eff == 0 else n, S, d)
+            return hi - lo
+
+        def _acc_shape(d):
+            return (_rows(d), n) if eff == 0 else (m, _rows(d))
+
         def program(a_sh, b_sh, *extras):
-            av = [s.to(comp) for s in a_sh]                       # (m, kb_me)
-            bv = [s.to(comp) for s in b_sh]                       # (kb_me, n)
+            av = {r: a_sh[r].to(comp) for r in positions}         # (m, kb_me)
+            bv = {r: b_sh[r].to(comp) for r in positions}         # (kb_me, n)
 
             def partial_(me, d):
                 lo, hi = _bounds(m if eff == 0 else n, S, d)
@@ -485,14 +586,16 @@ def _build_ring(spec: _Spec) -> Callable:
             # position r starts the accumulator bound for r - 1 and passes it
             # one position up each step: after S - 1 hops every accumulator
             # has reached its destination with all S contributions
-            acc = [partial_(me, (me - 1) % S) for me in range(S)]
+            acc = [partial_(me, (me - 1) % S) for me in positions]
             for t in range(1, S):
-                sent = collectives.ring_shift(acc)
-                acc = [sent[me] + partial_(me, (me - t - 1) % S) for me in range(S)]
+                finish = _shift_start(acc, ring_comm, lambda r, t=t: _acc_shape((r - t) % S))
+                parts = [partial_(me, (me - t - 1) % S) for me in positions]
+                acc = [x + p for x, p in zip(finish(), parts)]
             if out_split is None:
-                full = _finish(collectives.all_gather(acc, dim=0)[0], extras, 0)
+                lengths = [_rows(d) for d in range(S)]
+                full = _finish(collectives.all_gather(acc, dim=0, comm=ring_comm, lengths=lengths)[0], extras, 0)
                 return [full] * S
-            return [_finish(a, extras, me) for me, a in enumerate(acc)]
+            return _placed([_finish(a, extras, me) for me, a in zip(positions, acc)], (m, n), out_split)
 
     return program
 
@@ -507,7 +610,7 @@ def _acc_itemsize(comp: torch.dtype) -> int:
     return 4 if (comp.is_floating_point and comp.itemsize < 4) else comp.itemsize
 
 
-def _gspmd_reference(spec: _Spec, a_split, b_split) -> Callable:
+def _gspmd_reference(spec: _Spec, a_split, b_split, comm=None) -> Callable:
     """The competing arm of an explore call: the port's eager layout code
     (``core/linalg/basics.py``, the counterpart of GSPMD's einsum) on the
     same shards, with the same epilogue applied to the whole result."""
@@ -515,9 +618,10 @@ def _gspmd_reference(spec: _Spec, a_split, b_split) -> Callable:
 
     def ref(a_sh, b_sh, *extras):
         shards, split = basics._matmul_shards(a_sh, a_split, b_sh, b_split, spec.m, spec.k, spec.n, spec.S,
-                                              spec.comp_dt)
+                                              spec.comp_dt, comm)
         axes = _extra_axes([tuple(v.shape) for v in extras], (spec.m, spec.n), split)
-        return [_tail(s, spec.steps, extras, axes, split, (spec.m, spec.n), spec.S, me) for me, s in enumerate(shards)]
+        positions = comm.local_positions if comm is not None else range(spec.S)
+        return [_tail(shards[me], spec.steps, extras, axes, split, (spec.m, spec.n), spec.S, me) for me in positions]
 
     return ref
 
@@ -537,17 +641,25 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
     ring-against-eager entry has stopped exploring; ``exact=True`` pins the
     f32 wire, and ``rs`` declines (its travelling partial sum cannot be
     re-quantized at every hop).  ``precision`` is accepted for parity:
-    products are IEEE float32."""
-    comm.only_local("overlap.matmul_raw")
+    products are IEEE float32.
+
+    On a comm that spans processes ``a`` and ``b`` hold ``RemoteShard``s
+    for the other processes' positions: the ring computes this process's
+    positions, each hop crossing through the exchange, and every choice
+    that sets what crosses (ring or eager, the staging check, the wire arm)
+    is agreed across the processes first."""
     a, b = list(a), list(b)
-    sanitize.check_use(a, "overlap.matmul_raw")
-    sanitize.check_use(b, "overlap.matmul_raw")
+    across = comm.spans_processes
+    mine_a, mine_b = comm.local_shards(a), comm.local_shards(b)
+    sanitize.check_use(mine_a, "overlap.matmul_raw")
+    sanitize.check_use(mine_b, "overlap.matmul_raw")
     m, k = lshape_a
     k2, n = lshape_b
     if k != k2:
         raise ValueError(f"inner dims disagree: {lshape_a} @ {lshape_b}")
     case = _classify(a_split, b_split)
-    comp = _torch_dtype(comp_dtype) if comp_dtype is not None else torch.promote_types(a[0].dtype, b[0].dtype)
+    comp = _torch_dtype(comp_dtype) if comp_dtype is not None else torch.promote_types(mine_a[0].dtype, mine_b[0].dtype)
+    device = mine_a[0].device
     steps, extras = epilogue.lower() if epilogue is not None else ((), ())
     if extras:
         _check_extras(extras, (m, n), out_split)
@@ -562,11 +674,18 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
         tune_key = autotune.matmul_key(case, out_split, m, k, n, S_, dt)
         per_dev = ((m * k + k * n) * comp.itemsize + m * n * acc_isz) // S_
         granted = memtrack.suggest_budget(per_dev, fraction=_STAGING_FRACTION)
-        if granted is not None and granted < per_dev:
-            autotune.note_staging_decline(tune_key, per_dev, granted)
+        short = granted is not None and granted < per_dev
+        if across:
+            # one process short of memory declines the ring on all of them
+            short = bool(collectives.agree_max([short], comm, device)[0])
+        if short:
+            autotune.note_staging_decline(tune_key, per_dev, per_dev if granted is None else granted)
             _record("gspmd", steps=0, bps=bps, out_split=out_split, reason="hbm-budget")
             return None
-        tune = autotune.decide(tune_key, "ring" if use else "gspmd", desc=f"{case} {m}x{k}x{n} {dt} S={S_}")
+        prior = "ring" if use else "gspmd"
+        tune = transport.agreed_decision(
+            tune_key, lambda: autotune.decide(tune_key, prior, desc=f"{case} {m}x{k}x{n} {dt} S={S_}"),
+            autotune.ARMS, comm, device)
         if tune.explore:
             use, reason = True, "autotune:explore"
         else:
@@ -583,9 +702,13 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
     if case == "rs":
         _wire.decline("ring_rs")
     elif not (tune is not None and tune.explore) and _wire.eligible(comp, bps * (S_ - 1), exact=exact):
-        wire_arm, wire_d = _wire.choose("ring_" + case, (m, k, n, S_, autotune.dtype_name(comp)),
-                                        desc=f"ring_{case} {m}x{k}x{n} {autotune.dtype_name(comp)} S={S_}",
-                                        links=_links(a, b))
+        geometry = (m, k, n, S_, autotune.dtype_name(comp))
+        desc = f"ring_{case} {m}x{k}x{n} {autotune.dtype_name(comp)} S={S_}"
+        if across:
+            # the hops cross processes: the arm is agreed across them
+            wire_arm, wire_d = transport._agreed_choice("ring_" + case, geometry, desc, comm, device)
+        else:
+            wire_arm, wire_d = _wire.choose("ring_" + case, geometry, desc=desc, links=_links(a, b))
         if wire_d is None or not wire_d.explore:
             wm = "" if wire_arm == "wire_f32" else wire_arm[len("wire_"):]
     wire_elems = (kb_ * n if case == "ag" else m * kb_) * (S_ - 1)
@@ -595,8 +718,8 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
 
     extra_axes = _extra_axes([tuple(v.shape) for v in extras], (m, n), out_split)
     spec = _spec_for(S_, case, out_split, m, k, n, comp, steps, extra_axes, wire=wm)
-    memtrack.register_shards(a, tag="staging")
-    memtrack.register_shards(b, tag="staging")
+    memtrack.register_shards(mine_a, tag="staging")
+    memtrack.register_shards(mine_b, tag="staging")
     hit = spec in _SEEN
     _SEEN.add(spec)
     dt = autotune.dtype_name(comp)
@@ -604,9 +727,8 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
     if wm:
         fp_parts = ("ring_wire",) + fp_parts[1:] + (wm,)
     ring_fp = telemetry.fingerprint(fp_parts) if telemetry.ledger_enabled() else None
-    device = a[0].device
     with telemetry.span("overlap.ring_" + case, m=m, k=k, n=n):
-        fn = _build_ring(spec)
+        fn = _build_ring(spec, comm)
         if program_audit.enabled():
             fn = program_audit.watched("ring_" + case, ring_fp, fn, expect="any")
         if tune is not None and tune.explore:
@@ -618,7 +740,7 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
             if hit:
                 telemetry.record_timing(ring_fp, ring_s)
             autotune.observe(tune.key, "ring", ring_s)
-            _, gspmd_s = autotune.timed(_gspmd_reference(spec, a_split, b_split), a, b, *extras)
+            _, gspmd_s = autotune.timed(_gspmd_reference(spec, a_split, b_split, comm), a, b, *extras)
             autotune.observe(tune.key, "gspmd", gspmd_s)
         elif wire_d is not None and wire_d.explore:
             # the f32 ring and both quantized rings under measurement; the
@@ -629,7 +751,7 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
             def run_for(wmx):
                 if not wmx:
                     return fn(a, b, *extras)
-                return _build_ring(spec._replace(wire=wmx))(a, b, *extras)
+                return _build_ring(spec._replace(wire=wmx), comm)(a, b, *extras)
 
             out = _wire.explore(wire_d, run_for)
         elif hit:
@@ -647,7 +769,7 @@ def matmul_raw(comm, a, b, lshape_a, lshape_b, a_split, b_split, out_split=None,
             out = fn(a, b, *extras)
     if wm:
         _wire.account("ring_" + case, wire_arm, bps * (S_ - 1), wire_total(wm))
-    memtrack.register_shards(out, tag="output", split=out_split)
+    memtrack.register_shards(comm.local_shards(out), tag="output", split=out_split)
     sanitize.collective_event("ring_" + case, site="overlap.matmul_raw")
     _record("ring_" + case, steps=S_, bps=bps, out_split=out_split, reason=reason, cache_hit=hit)
     # the program's work: the GEMM's operations and each operand read and
@@ -669,8 +791,8 @@ def matmul(a, b, out_split="auto", *, epilogue: Optional[Epilogue] = None, preci
     returning the result DNDarray, or ``None`` where the dispatcher takes
     the eager arm (the caller runs its own product).  ``out_split="auto"``
     follows the convention (row-split a -> 0, col-split b -> 1, an inner
-    split -> replicated); ``rs`` honours any explicit request."""
-    a.comm.only_local("overlap.matmul")
+    split -> replicated); ``rs`` honours any explicit request.  Across
+    processes as :func:`matmul_raw`."""
     from ..core import types
     from ..core.dndarray import DNDarray
 
@@ -848,7 +970,7 @@ def _lower_chain(instrs, leaves, out_slot, gshape, split, comm, with_guard):
     else:
         _wire.decline("ring_rs")
     spec = _spec_for(S, case, split, m, k, n, comp, (), (), wire=wire_m)
-    kern = _build_ring(spec)
+    kern = _build_ring(spec, comm)
     if wire_m:
         kb_ = _ceil_mult(k, S) // S
         elems = (kb_ * n if case == "ag" else m * kb_) * (S - 1)

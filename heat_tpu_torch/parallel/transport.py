@@ -456,15 +456,32 @@ def _agreed_choice(site: str, geometry: tuple, desc: str, comm, device):
     if comm is None or not comm.spans_processes or _wire.mode() in ("int8", "fp8") or not autotune.enabled():
         return _wire.choose(site, geometry, desc=desc)
     key = autotune.wire_key(site, *geometry)
+
+    def decide():
+        arm, d = _wire.choose(site, geometry, desc=desc)
+        return d if d is not None else autotune.Decision(arm, "cached", False, key)
+
+    d = agreed_decision(key, decide, autotune.WIRE_ARMS, comm, device)
+    return d.arm, d
+
+
+def agreed_decision(key, decide, arms, comm, device):
+    """``decide()`` (an :class:`~heat_tpu_torch.core.autotune.Decision`
+    over ``arms``), the same on every process of a comm that spans them, as
+    :func:`_agreed_choice` agrees the wire arm: process 0's arm and explore
+    flag are broadcast until it serves a resolved arm, which is kept for
+    the key.  The ring-against-eager entry of the overlap engine and the
+    quantized arms ride on it: two processes on different arms would hang
+    the exchange."""
+    if comm is None or not comm.spans_processes:
+        return decide()
     if key in _AGREED:
-        return _AGREED[key], autotune.Decision(_AGREED[key], "cached", False, key)
-    arm, d = _wire.choose(site, geometry, desc=desc)
-    arms = autotune.WIRE_ARMS
-    idx, explore = collectives.broadcast_ints([arms.index(arm), d is not None and d.explore], comm, device)
-    arm = arms[idx]
+        return autotune.Decision(_AGREED[key], "cached", False, key)
+    d = decide()
+    idx, explore = collectives.broadcast_ints([arms.index(d.arm), d.explore], comm, device)
     if not explore:
-        _AGREED[key] = arm
-    return arm, autotune.Decision(arm, "explored" if explore else "cached", bool(explore), key)
+        _AGREED[key] = arms[idx]
+    return autotune.Decision(arms[idx], "explored" if explore else "cached", bool(explore), key)
 
 
 def _resplit_wire_model(gshape, sa: int, sb: int, S: int, itemsize: int, tile_bytes=None):

@@ -165,35 +165,38 @@ def _whole(a: DNDarray) -> torch.Tensor:
 
 def _ring_eligible(x: DNDarray, y: DNDarray) -> bool:
     """heat_tpu's ring layout (``_ring_eligible``), which stays eager.  On
-    a comm across processes y is gathered instead, each of its shards
-    crossing to each other process once through the exchange
-    (``collectives.all_gather``); the ring's shifts across processes are
-    ROADMAP item 14b-ii."""
+    a comm across processes y's blocks pass the ring through
+    ``collectives.ring_shift``'s process route."""
     n = x.comm.size
-    return (x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
-            and not x.comm.spans_processes)
+    return x.split == 0 and y.split == 0 and n > 1 and x.shape[0] % n == 0 and y.shape[0] % n == 0
 
 
-def _ring_blocks(x_shards, moving, n_cols: int, promoted, sqrt: bool, block_of) -> list:
+def _ring_blocks(x_shards, moving, n_cols: int, promoted, sqrt: bool, block_of, comm) -> list:
     """The ring dataflow of heat_tpu's ``_build_ring_cdist``: each position
     keeps its x block while the ``moving`` blocks (one a position, ``mb``
     rows each) pass up the ring; at step t position ``me`` holds the block
     that started on position (me - t) mod S, whose distances K1 writes
     straight into that block's columns (no temporary, no copy).  ``block_of(item)`` gives the rows of y of a moving
-    item (a dequantization for a quantized corpus)."""
+    item (a dequantization for a quantized corpus).  ``x_shards`` and
+    ``moving`` are per position; on a comm that spans processes this
+    process's positions are computed and the others' entries are
+    ``RemoteShard``s."""
     from ..parallel.overlap import ring_sweep
 
-    S = len(x_shards)
+    S = comm.size
+    positions = comm.local_positions
     mb = n_cols // S
     tt = torch.float64 if promoted is types.float64 else torch.float32
+    xs_of = {r: x_shards[r] for r in positions}
 
     def step(t, me, item, out):
         src = (me - t) % S
-        _block(x_shards[me], block_of(item), promoted, sqrt, out=out[:, src * mb : (src + 1) * mb])
+        _block(xs_of[me], block_of(item), promoted, sqrt, out=out[:, src * mb : (src + 1) * mb])
         return out
 
-    state = [xs.new_empty((xs.shape[0], n_cols), dtype=tt) for xs in x_shards]
-    return ring_sweep(S, list(moving), state, step)
+    state = [xs_of[r].new_empty((xs_of[r].shape[0], n_cols), dtype=tt) for r in positions]
+    done = dict(zip(positions, ring_sweep(S, [moving[r] for r in positions], state, step, comm)))
+    return comm.per_position(lambda r: done[r], (sum(int(x_shards[r].shape[0]) for r in range(S)), n_cols), 0)
 
 
 def _ring_cdist(x: DNDarray, y: DNDarray, promoted, sqrt: bool, exact: bool = False) -> DNDarray:
@@ -210,22 +213,32 @@ def _ring_cdist(x: DNDarray, y: DNDarray, promoted, sqrt: bool, exact: bool = Fa
     moved = mb * d_feat * (n_dev - 1) * max(tt.itemsize, 1)
 
     def run_f32():
-        return _ring_blocks(x.shards, y.shards, y.shape[0], promoted, sqrt, lambda ys: ys)
+        return _ring_blocks(x.shards, y.shards, y.shape[0], promoted, sqrt, lambda ys: ys, comm)
 
     def run_q(wm):
         # per-feature scales over the WHOLE corpus: each position's absmax,
         # then their maximum, so every block dequantizes with one table
-        amax = collectives.pmax([torch.amax(ys.to(torch.float32).abs(), dim=0) for ys in y.shards])[0]
+        mine = comm.local_shards(y.shards)
+        amax = collectives.pmax([torch.amax(ys.to(torch.float32).abs(), dim=0) for ys in mine],
+                                comm=comm if comm.spans_processes else None)[0]
         scale = _wire.scale_of(amax, wm)
-        q = [_wire.to_grid(ys, scale.to(ys.device)[None, :], wm) for ys in y.shards]
-        return _ring_q(x.shards, q, scale, y.shape[0], promoted, sqrt)
+        q = comm.per_position(lambda r: _wire.to_grid(y.shards[r], scale.to(y.shards[r].device)[None, :], wm),
+                              tuple(y.shape), 0)
+        return _ring_q(x.shards, q, scale, y.shape[0], promoted, sqrt, comm)
 
     wire_arm, wire_d = "wire_f32", None
     dt = autotune.dtype_name(tt)
     if _wire.eligible(tt, moved, exact=exact):
-        wire_arm, wire_d = _wire.choose("cdist", (tuple(x.shape), tuple(y.shape), n_dev, dt),
-                                        desc=f"ring cdist {tuple(x.shape)}x{tuple(y.shape)} S={n_dev}",
-                                        links=len({t.device for t in (*x.shards, *y.shards)}) > 1)
+        geometry = (tuple(x.shape), tuple(y.shape), n_dev, dt)
+        desc = f"ring cdist {tuple(x.shape)}x{tuple(y.shape)} S={n_dev}"
+        if comm.spans_processes:
+            from ..parallel import transport
+
+            wire_arm, wire_d = transport._agreed_choice("cdist", geometry, desc, comm,
+                                                        comm.local_shards(x.shards)[0].device)
+        else:
+            wire_arm, wire_d = _wire.choose("cdist", geometry, desc=desc,
+                                            links=len({t.device for t in (*x.shards, *y.shards)}) > 1)
     if wire_d is not None and wire_d.explore:
         shards = _wire.explore(wire_d, lambda wm: run_q(wm) if wm else run_f32())
     elif wire_arm != "wire_f32":
@@ -234,18 +247,20 @@ def _ring_cdist(x: DNDarray, y: DNDarray, promoted, sqrt: bool, exact: bool = Fa
         shards = run_q(wm)
     else:
         shards = run_f32()
-    return DNDarray(shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[0].dtype), 0, x.device, comm)
+    return DNDarray(shards, (x.shape[0], y.shape[0]), types.canonical_heat_type(shards[comm.local_positions[0]].dtype),
+                    0, x.device, comm)
 
 
-def _ring_q(x_shards, q_shards, scale: torch.Tensor, n_cols: int, promoted, sqrt: bool) -> list:
+def _ring_q(x_shards, q_shards, scale: torch.Tensor, n_cols: int, promoted, sqrt: bool, comm) -> list:
     """The quantized-corpus ring (heat_tpu :245): the int8/fp8 blocks move,
     each dequantized with the global per-feature ``scale`` just before K1."""
     comp = promoted.torch_type()
-    dev = x_shards[0].device
+    dev = x_shards[comm.local_positions[0]].device
     sc = scale.to(dev)[None, :]
-    xs = [t.to(comp).contiguous() for t in x_shards]
+    xs = comm.per_position(lambda r: x_shards[r].to(comp).contiguous(), (sum(int(t.shape[0]) for t in x_shards),
+                                                                        int(x_shards[comm.local_positions[0]].shape[1])), 0)
     return _ring_blocks(xs, q_shards, n_cols, promoted, sqrt,
-                        lambda q: (q.to(dev).to(torch.float32) * sc).to(comp))
+                        lambda q: (q.to(dev).to(torch.float32) * sc).to(comp), comm)
 
 
 def cdist(x: DNDarray, y: Optional[DNDarray] = None, quadratic_expansion: bool = False, sqrt: bool = True) -> DNDarray:
@@ -310,8 +325,9 @@ def cdist_quantized(x: DNDarray, qy, sqrt: bool = True) -> Optional[DNDarray]:
     if not (x.split == 0 and qy.split == 0 and n_dev > 1 and x.shape[0] % n_dev == 0 and qy.shape[0] % n_dev == 0):
         return None
     comp = types.canonical_heat_type(torch.promote_types(x.dtype.torch_type(), torch.float32))
-    shards = _ring_q(x.shards, qy.qshards, qy.scale, qy.shape[0], comp, sqrt)
-    return DNDarray(shards, (x.shape[0], qy.shape[0]), types.canonical_heat_type(shards[0].dtype), 0, x.device, comm)
+    shards = _ring_q(x.shards, qy.qshards, qy.scale, qy.shape[0], comp, sqrt, comm)
+    return DNDarray(shards, (x.shape[0], qy.shape[0]), types.canonical_heat_type(shards[comm.local_positions[0]].dtype),
+                    0, x.device, comm)
 
 
 def rbf(x: DNDarray, y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False) -> DNDarray:

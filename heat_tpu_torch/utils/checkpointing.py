@@ -9,6 +9,19 @@ a resumed array lands with the distribution it was saved with.  The JAX
 package writes Orbax checkpoints, which need orbax and tensorstore; the
 port writes its own format and cannot read an Orbax checkpoint.
 ``Checkpointer`` keeps step-numbered checkpoints with retention.
+
+A save whose tree holds a DNDarray over a comm that spans processes, or
+that is given such a comm (``comm=``, e.g. for a replicated state of
+tensors), is made by every process of that comm alike (as every host of a
+JAX job makes it): all of them gather the leaves alike (a split
+DNDarray's ``larray`` crosses between processes), only the comm's process
+0 removes, creates and writes the directory, and a barrier over the
+comm's group follows, so no process returns before the files are whole.
+Any other save is this process's own, with a process group up or not
+(a save on process 0 alone, or into a directory of each process).  A load reads the same
+files in every process and cuts each DNDarray by the chunk rule of the
+comm it is given, which may have another number of processes or positions
+than the one saved from (heat_tpu's Orbax ``target`` shardings).
 """
 
 from __future__ import annotations
@@ -42,13 +55,17 @@ def _to_numpy(t: torch.Tensor):
     return t.numpy(), str(t.dtype).replace("torch.", "")
 
 
-def _save_tree(node, path, directory, meta, counter):
+def _save_tree(node, path, directory, meta, counter, write=True):
+    """The tree's structure for ``tree.json``; each array leaf is gathered
+    (a collective for a split DNDarray across processes) and, where
+    ``write``, saved."""
     if isinstance(node, dict):
         keys = list(node)
-        return {"dict": [[_encode_key(k), _save_tree(node[k], path + (k,), directory, meta, counter)] for k in keys]}
+        return {"dict": [[_encode_key(k), _save_tree(node[k], path + (k,), directory, meta, counter, write)]
+                         for k in keys]}
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return {kind: [_save_tree(v, path + (i,), directory, meta, counter) for i, v in enumerate(node)]}
+        return {kind: [_save_tree(v, path + (i,), directory, meta, counter, write) for i, v in enumerate(node)]}
     if isinstance(node, DNDarray):
         meta[_keystr(path)] = {"split": node.split, "dtype": node.dtype.__name__, "shape": list(node.shape)}
         node = node.larray
@@ -56,7 +73,8 @@ def _save_tree(node, path, directory, meta, counter):
         arr, dtype = _to_numpy(node) if isinstance(node, torch.Tensor) else (np.asarray(node), str(np.asarray(node).dtype))
         name = f"leaf_{counter[0]:06d}.npy"
         counter[0] += 1
-        np.save(os.path.join(directory, name), arr, allow_pickle=False)
+        if write:
+            np.save(os.path.join(directory, name), arr, allow_pickle=False)
         return {"array": name, "dtype": dtype, "torch": isinstance(node, torch.Tensor)}
     if node is None or isinstance(node, (bool, int, float, str)):
         return {"value": node}
@@ -112,26 +130,60 @@ def _child(target, key):
         return None
 
 
-def save_checkpoint(path: str, tree: Any) -> None:
+def _scope(tree, comm=None):
+    """The comm whose processes make a save of ``tree`` together:
+    ``comm`` where it spans processes, else the first DNDarray leaf's comm
+    that does; None for a save this process makes alone."""
+    if comm is not None and comm.spans_processes:
+        return comm
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for node in tree:
+            found = _scope(node)
+            if found is not None:
+                return found
+    if isinstance(tree, DNDarray) and tree.comm.spans_processes:
+        return tree.comm
+    return None
+
+
+def _barrier(scope) -> None:
+    if scope is not None:
+        torch.distributed.barrier(group=scope.group)
+
+
+def save_checkpoint(path: str, tree: Any, comm=None) -> None:
     """Save a tree of dicts, lists and tuples whose leaves are DNDarrays,
     torch tensors, numpy arrays or python scalars to the directory
-    ``path`` (replacing what is there)."""
-    path = os.path.abspath(path)
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
+    ``path`` (replacing what is there).  Where the tree's DNDarrays or
+    ``comm`` span processes every process of that comm calls this alike
+    and its process 0 writes (the module docstring)."""
+    _save(os.path.abspath(path), tree, _scope(tree, comm))
+
+
+def _save(path: str, tree: Any, scope) -> None:
+    write = scope is None or scope.rank == 0
+    if write:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
     meta: dict = {}
-    structure = _save_tree(tree, (), path, meta, [0])
-    with open(os.path.join(path, _TREE_NAME), "w") as f:
-        json.dump(structure, f)
-    with open(os.path.join(path, _META_NAME), "w") as f:
-        json.dump(meta, f)
+    structure = _save_tree(tree, (), path, meta, [0], write)
+    if write:
+        with open(os.path.join(path, _TREE_NAME), "w") as f:
+            json.dump(structure, f)
+        with open(os.path.join(path, _META_NAME), "w") as f:
+            json.dump(meta, f)
+    _barrier(scope)
 
 
 def load_checkpoint(path: str, target: Optional[Any] = None, comm=None, device=None) -> Any:
     """Restore a checkpoint of :func:`save_checkpoint`: tensors on
     ``device`` (the default device; a ``target`` tree's leaves give theirs),
-    DNDarrays with their saved split and dtype over ``comm``."""
+    DNDarrays with their saved split and dtype over ``comm`` (the target's
+    leaf's comm where one is given), each process holding its positions'
+    chunks."""
     path = os.path.abspath(path)
     dev = devices.sanitize_device(device)
     with open(os.path.join(path, _TREE_NAME)) as f:
@@ -151,11 +203,15 @@ class Checkpointer:
     >>> ckpt = Checkpointer(dir, max_to_keep=3)
     >>> ckpt.save(step, {"model": model.state_dict(), "step": step})
     >>> state = ckpt.restore_latest()        # None if no checkpoint yet
+
+    ``comm``: every save is made by that comm's processes together where
+    it spans processes (:func:`save_checkpoint`).
     """
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, comm=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
+        self.comm = comm
         os.makedirs(self.directory, exist_ok=True)
 
     def _step_dir(self, step: int) -> str:
@@ -176,9 +232,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, tree: Any) -> str:
+        """Save ``tree`` as ``step`` and drop the oldest beyond
+        ``max_to_keep``; a save across processes is made by all of them
+        alike, and its process 0 writes and removes."""
         path = self._step_dir(step)
-        save_checkpoint(path, tree)
-        self._retain()
+        scope = _scope(tree, self.comm)
+        _save(path, tree, scope)
+        if scope is None or scope.rank == 0:
+            self._retain()
+        _barrier(scope)
         return path
 
     def restore(self, step: int, target: Optional[Any] = None, comm=None, device=None) -> Any:

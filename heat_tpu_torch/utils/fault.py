@@ -491,6 +491,20 @@ def run_elastic(
     its (state, batch) pair: it is skipped in place (the pre-step state is
     intact, no restore, no budget charge) and listed in
     ``report.skipped_steps``.
+
+    With a ``torch.distributed`` process group up every process runs the
+    loop alike (SPMD): each attempted step's failure is agreed by one
+    ``all_reduce`` after it, so a step that failed on any process fails on
+    all of them and every process restores, skips or charges the budget in
+    step (a process that did not fail records ``RemoteStepFailure``).  A
+    restart of the job onto a re-formed mesh resumes from the checkpoint,
+    whose DNDarrays land on the comm of ``init_state``'s leaves.  Only a
+    failure after the step's last collective is recovered so (a check of
+    the loss, a non-finite metric): a process that raises between two of
+    the step's collectives (an out-of-memory error in the forward, an
+    exception before an exchange) leaves its peers waiting in the next
+    one, and that, like a fault inside a collective (a lost peer), is a
+    job restart, as in heat_tpu: it is not caught here.
     """
 
     def emit(report: ElasticReport, kind: str, **info) -> None:
@@ -515,13 +529,18 @@ def run_elastic(
         if step in report.skipped_steps:
             step += 1
             continue
+        exc = None
         try:
             new_state, metrics = step_fn(state, batch_fn(step))
             # the metrics read to the host: a non-finite value surfaces now,
             # while recovery is still possible
             if not health_check(metrics):  # ht: HT002 ok — the health check needs the metrics on the host while recovery is possible
                 raise _UnhealthyStep(f"health check failed at step {step}")
-        except Exception as exc:  # noqa: BLE001 — any step failure recovers
+        except Exception as err:  # noqa: BLE001 — any step failure recovers
+            exc = err
+        if _agree_failure(exc is not None) and exc is None:
+            exc = RemoteStepFailure(f"step {step} failed on another process")
+        if exc is not None:
             if step == last_failed_step:
                 report.skipped_steps.append(step)
                 emit(report, "skip", step=step, error=repr(exc))
@@ -560,3 +579,20 @@ def run_elastic(
 
 class _UnhealthyStep(RuntimeError):
     pass
+
+
+class RemoteStepFailure(RuntimeError):
+    """The step failed on another process of the group (:func:`run_elastic`)."""
+
+
+def _agree_failure(failed: bool) -> bool:
+    """Whether the attempted step failed on any process: one ``all_reduce``
+    (MAX) of this process's flag over the default group; the flag itself
+    without a group."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return failed
+    dev = torch.device("cpu") if dist.get_backend() == "gloo" else torch.device("cuda", torch.cuda.current_device())
+    flag = torch.tensor([int(failed)], dtype=torch.int64, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())  # ht: HT002 ok — the agreed failure steers every process's recovery

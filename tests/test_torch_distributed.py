@@ -16,8 +16,9 @@ split value, ``shuffle_rows``, mask select, sort/topk/unique/median,
 cumprod, ``.larray``, ``lshards()``, the collectives, a forced-``int8``
 resplit, KMeans/KMedians/KMedoids seeded across processes), each also run
 in the process on ``MeshComm(4)`` to compare shards; the wire arm and the
-OOM back-off agreed across processes; and the refusals of what is still
-item 14b-ii.  Every process must return the same replicated values."""
+OOM back-off agreed across processes; and the refusal of a direct read of
+another process's shard.  Every process must return the same replicated
+values."""
 
 import json
 import os
@@ -184,23 +185,15 @@ def _child(rank: int, port: int, inputs: str, out: str) -> None:
 
     _child_moves(rank, comm, data, res)
 
-    # refusals: what still refuses to move shards between processes is item 14b-ii
-    from heat_tpu_torch.parallel import expert, overlap, pipeline, sequence
-
-    q = torch.zeros(1, 1, 8, 4)
+    # refusals: what still refuses across processes is a direct read of
+    # another process's shard (its bytes move only through the exchange)
     refused = []
-    for name, fn in (
-        ("overlap.matmul", lambda: overlap.matmul(x, htt.array(np.ones((5, 3), np.float32), split=0, comm=comm))),
-        ("sequence_parallel_attention", lambda: sequence.sequence_parallel_attention(q, q, q, comm=comm)),
-        ("moe_ffn", lambda: expert.moe_ffn(torch.zeros(4, 4), torch.zeros(4, 2), torch.zeros(2, 4, 8),
-                                           torch.zeros(2, 8, 4), mesh=comm)),
-        ("pipeline_apply", lambda: pipeline.pipeline_apply(lambda p, h: h, {}, torch.zeros(4, 2), mesh=comm, n_micro=2)),
-        ("remote shard", lambda: x.shards[2 - 2 * rank] + 1),
-    ):
+    for name, fn in (("remote shard", lambda: x.shards[2 - 2 * rank] + 1),
+                     ("remote shard read", lambda: x.shards[2 - 2 * rank].sum())):
         try:
             fn()
         except NotImplementedError as err:
-            refused.append(name if "item 14b" in str(err) else f"{name}: {err}")
+            refused.append(name if "collectives.exchange" in str(err) else f"{name}: {err}")
     res["refused"] = np.array(json.dumps(refused))
 
     # MLP DataParallel: each process steps on its rows
@@ -546,12 +539,11 @@ def test_is_split_assembles_process_chunks(run):
 
 
 def test_shard_moves_across_processes_raise(run):
-    """What still refuses a comm that spans processes (item 14b-ii): the
-    overlap rings, sequence and expert parallelism, the pipeline, and a
-    direct read of another process's shard."""
+    """What still refuses a comm that spans processes: a direct read of
+    another process's shard, by an operator or a torch function, names the
+    exchange that moves it."""
     for res in run[2]:
-        assert json.loads(str(res["refused"])) == ["overlap.matmul", "sequence_parallel_attention", "moe_ffn",
-                                                   "pipeline_apply", "remote shard"]
+        assert json.loads(str(res["refused"])) == ["remote shard", "remote shard read"]
 
 
 @pytest.mark.parametrize("key", MOVES)
